@@ -1,0 +1,99 @@
+"""Wrapper of the paged-attention kernel in the model's layout (the port's
+``repro/kernels/paged_attention/ops.py``).
+
+``q`` stays (B, W, H, D) with the JAX package's GQA map, q head
+``h = kh * G + g`` reading kv head ``kh``; the kernel indexes that layout
+directly, so no transpose is paid.  CPU tensors go to the plain version in
+``ref.py``; CUDA tensors launch the kernel or raise: there is no fallback.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.paged_attention import kernel
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+# Kernel launches so far; a run resets it to show which path it took.
+LAUNCHES = 0
+
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ROWS_MAX = 64  # query rows (G heads x slab rows) one CTA holds
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention: {msg}")
+
+
+def paged_attention(
+    q: torch.Tensor,
+    entry: dict,
+    table: torch.Tensor,
+    lens: torch.Tensor,
+    q_lens: torch.Tensor,
+    *,
+    block_size: int,
+    window: int = 0,
+    rows_per_cta: int = 0,
+) -> torch.Tensor:
+    """q: (B, W, H, D); entry: paged pool entry ({"k","v"[,"k_scale",
+    "v_scale"]}, models/cache layout); table (B, MB); lens/q_lens (B,).
+    Returns (B, W, H, D); rows >= q_lens[b] are zeros.
+
+    ``rows_per_cta`` (slab rows per CUDA block, default ``64 // G``) changes
+    the kernel's schedule, never its numbers.  The model never passes it;
+    it exists for ``chip_smoke.py``'s sweep, which holds the outputs equal
+    across schedules."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(
+            q, entry, table, lens, q_lens, block_size=block_size, window=window
+        )
+    lib = kernel.library()
+    k, v = entry["k"], entry["v"]
+    ks, vs = entry.get("k_scale"), entry.get("v_scale")
+    B, W, H, D = q.shape
+    N, bs, KH, Dk = k.shape
+    _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    _require(q.dtype in _Q_CODES, f"q dtype {q.dtype} (f32 or bf16)")
+    _require(k.dtype in _KV_CODES and v.dtype == k.dtype, f"pages {k.dtype}/{v.dtype}")
+    _require(v.shape == k.shape and Dk == D and bs == block_size, "page shape")
+    _require(H % KH == 0 and H // KH <= _ROWS_MAX, f"heads H={H} KH={KH}")
+    _require(D in (32, 64, 128), f"head dim {D}")
+    quant = k.dtype == torch.int8
+    _require(
+        not quant
+        or (ks is not None and vs is not None and ks.dtype == torch.float32
+            and ks.shape == (N, bs, KH, 1) and vs.shape == ks.shape),
+        "int8 pages need (N, bs, KH, 1) f32 scales",
+    )
+    MB = table.shape[1]
+    _require(table.shape == (B, MB) and lens.shape == (B,) and q_lens.shape == (B,),
+             "table (B, MB), lens and q_lens (B,)")
+    table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    q_lens = q_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    tensors = [q, k, v] + ([ks, vs] if quant else [])
+    _require(all(t.is_contiguous() for t in tensors), "q and pages must be contiguous")
+    _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+             "pages must be 16-byte aligned (the kernel reads them in 16-byte vectors)")
+    _require(all(t.device == q.device for t in tensors), "all tensors on one device")
+    G = H // KH
+    rows = rows_per_cta or _ROWS_MAX // G
+    rows = max(1, min(rows, W, _ROWS_MAX // G))
+    out = torch.empty_like(q)
+    rc = lib.paged_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        table.data_ptr(), lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+        B, W, H, KH, D, bs, MB, int(window), rows, 1.0 / math.sqrt(D),
+        _Q_CODES[q.dtype], _KV_CODES[k.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,106 @@
+"""Parameter initialization (the port's ``repro/models/params.py``).
+
+The tree has the JAX package's shape: ``blocks.stack`` holds the n_full
+pattern-groups, each leaf stacked on a leading axis, ``blocks.tail`` the
+remainder layers, then ``embed`` and ``final_norm``.  Leaves and scales are
+the JAX ones for attention layers with a dense FFN (params.py:44-83); the
+numbers differ, because a ``torch.Generator`` is not a ``jax.random`` key.
+Parameters are a plain nested dict of tensors, not ``nn.Module``s, so the
+bridge and the tests compare like with like.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.plan import ExecutionPlan
+
+
+class _Init:
+    """Draws every leaf from one explicit generator, in f32, then casts."""
+
+    def __init__(self, generator: torch.Generator, dtype, device):
+        self.gen, self.dtype, self.device = generator, dtype, device
+
+    def normal(self, shape, scale=0.02):
+        x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return (x * scale).to(self.dtype)
+
+    def norm(self, cfg: ArchConfig, shape) -> dict:
+        z = dict(dtype=torch.float32, device=self.device)
+        if cfg.norm == "rmsnorm":
+            return {"scale": torch.zeros(shape, **z)}
+        return {"scale": torch.ones(shape, **z), "bias": torch.zeros(shape, **z)}
+
+
+def _attn_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, lead: tuple) -> dict:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p: dict = {"ln": init.norm(cfg, lead + (d,))}
+    if plan.fuse_qkv:
+        p["wqkv"] = init.normal(lead + (d, (H + 2 * KV) * Dh))
+    else:
+        p["wq"] = init.normal(lead + (d, H * Dh))
+        p["wk"] = init.normal(lead + (d, KV * Dh))
+        p["wv"] = init.normal(lead + (d, KV * Dh))
+    p["wo"] = init.normal(lead + (H * Dh, d), scale=0.02 / max(1, cfg.n_layers) ** 0.5)
+    if cfg.qk_norm:
+        z = dict(dtype=torch.float32, device=init.device)
+        p["q_norm"] = torch.zeros(lead + (Dh,), **z)
+        p["k_norm"] = torch.zeros(lead + (Dh,), **z)
+    return p
+
+
+def _ffn_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
+    d, F = cfg.d_model, cfg.d_ff
+    p: dict = {"ln": init.norm(cfg, lead + (d,))}
+    p["w1"] = init.normal(lead + (d, F))
+    if cfg.activation in ("swiglu", "geglu"):
+        p["w3"] = init.normal(lead + (d, F))
+    p["w2"] = init.normal(lead + (F, d))
+    return p
+
+
+def _layer_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, kind: str,
+                  lead: tuple = ()) -> dict:
+    if kind not in ("attn", "swa", "local"):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    return {"attn": _attn_params(init, cfg, plan, lead), "ffn": _ffn_params(init, cfg, lead)}
+
+
+def init_params(
+    cfg: ArchConfig,
+    plan: ExecutionPlan,
+    dtype=torch.bfloat16,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> dict:
+    """Random weights with the JAX tree and scales, drawn from ``generator``
+    (a fresh one seeded 0 on ``device`` when omitted)."""
+    dev = resolve_device(device)
+    if cfg.is_moe or cfg.enc_dec or cfg.frontend != "none" or cfg.n_classes:
+        raise NotImplementedError(f"{cfg.name}: only dense attention decoders are ported")
+    if cfg.activation not in ("swiglu", "geglu", "gelu"):
+        raise NotImplementedError(f"{cfg.name}: activation {cfg.activation!r}")
+    if cfg.pos_embedding not in ("rope", "none"):
+        raise NotImplementedError(f"{cfg.name}: pos_embedding {cfg.pos_embedding!r}")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    init = _Init(generator, dtype, dev)
+    pattern = cfg.layer_pattern
+    n_full, rem = divmod(cfg.n_layers, len(pattern))
+    # leaves of the stacked groups are drawn stacked (no per-group copies)
+    stack = (
+        tuple(_layer_params(init, cfg, plan, kind, (n_full,)) for kind in pattern)
+        if n_full
+        else None
+    )
+    tail = tuple(_layer_params(init, cfg, plan, pattern[i]) for i in range(rem))
+    params: dict = {"blocks": {"stack": stack, "tail": tail}}
+    params["embed"] = init.normal((cfg.vocab_size, cfg.d_model))
+    params["final_norm"] = init.norm(cfg, (cfg.d_model,))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init.normal((cfg.d_model, cfg.vocab_size))
+    return params

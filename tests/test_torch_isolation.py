@@ -1,0 +1,70 @@
+"""The port stands alone: no file of ``src/repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, importing it pulls in
+neither, and its entry points raise without CUDA unless the caller asks for
+the CPU."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)"),
+    re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)"),
+    re.compile(r"^\s*import\s+.*\bjax\b"),
+]
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10 and all(f.exists() for f in files)
+    return files
+
+
+def test_no_jax_or_repro_imports():
+    bad = []
+    for f in _sources():
+        for n, line in enumerate(f.read_text().splitlines(), 1):
+            if any(p.search(line) for p in FORBIDDEN):
+                bad.append(f"{f.relative_to(ROOT)}:{n}: {line.strip()}")
+    assert not bad, "\n".join(bad)
+
+
+def test_importing_the_port_pulls_in_neither():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.bridge, repro_torch.models.params\n"
+        "import repro_torch.kernels.paged_attention.ops\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.launch.serve import main
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("smollm-135m-reduced")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, derive_execution_plan(cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "smollm-135m-reduced", "--requests", "1"])
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,67 @@
+"""The port's serving planner (a copy of the JAX one) against
+``repro.core.plan.derive_serve_plan`` field for field, on a HardwareSpec
+carrying the JAX TPU_V5E numbers, and its H100 entry's derived plan."""
+import dataclasses
+
+import pytest
+
+from repro.configs import get_config as jax_get_config
+from repro.core.hardware import TPU_V5E
+from repro.core.plan import derive_plan
+from repro.core.plan import derive_serve_plan as jax_serve_plan
+from repro.core.plan import serve_feasible as jax_feasible
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.hardware import H100_SXM, HardwareSpec, get_hardware
+from repro_torch.core.plan import derive_execution_plan, derive_serve_plan, serve_feasible
+from torch_parity import MESH1
+
+V5E = HardwareSpec(
+    **{f.name: getattr(TPU_V5E, f.name) for f in dataclasses.fields(HardwareSpec)}
+)
+SERVABLE = ("qwen3-1.7b", "smollm-135m", "phi4-mini-3.8b", "mistral-large-123b",
+            "mixtral-8x7b")
+KNOBS = [
+    {},
+    {"max_seq_len": 4096, "decode_batch": 8},
+    {"max_seq_len": 32768, "fused_attention": False},
+    {"kv_dtype": "int8", "block_size": 8, "prefill_chunk": 64, "rolled_steps": 4},
+    {"slo_ttft_ms": 50.0, "typical_prompt_len": 512, "draft": "ngram"},
+]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_configs_are_copies(arch):
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+    assert dataclasses.asdict(get_config(arch + "-reduced")) == dataclasses.asdict(
+        jax_get_config(arch + "-reduced")
+    )
+    assert serve_feasible(get_config(arch)) == jax_feasible(jax_get_config(arch))
+
+
+@pytest.mark.parametrize("kw", KNOBS)
+@pytest.mark.parametrize("arch", SERVABLE)
+def test_serve_plan_matches_jax_field_for_field(arch, kw):
+    mine = derive_serve_plan(get_config(arch), MESH1, V5E, **kw)
+    theirs = jax_serve_plan(jax_get_config(arch), MESH1, TPU_V5E, **kw)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-135m-reduced", "rwkv6-1.6b"])
+def test_execution_plan_fuses_qkv_as_jax(arch):
+    jax_plan = derive_plan(jax_get_config(arch), MESH1, batch=4, seq_len=16, training=False)
+    assert derive_execution_plan(get_config(arch)).fuse_qkv == jax_plan.fuse_qkv
+
+
+def test_h100_plan_for_qwen3():
+    """The data-sheet H100 entry: machine balance ~295 FLOP/B -> 256 decode
+    slots; one MXU-sized 16-token block; 227 KB of shared memory fits one
+    bf16 page pair per tile; the 3.4 GB weight stream (~1 ms) leaves no
+    dispatch overhead worth rolling."""
+    assert get_hardware("h100") is H100_SXM
+    cfg = get_config("qwen3-1.7b")
+    sp = derive_serve_plan(cfg, MESH1, H100_SXM)
+    assert (sp.decode_batch, sp.block_size, sp.kv_dtype) == (256, 16, "bf16")
+    assert (sp.mixed_slab_width, sp.pages_per_tile, sp.rolled_steps) == (256, 1, 1)
+    assert derive_serve_plan(cfg, MESH1, H100_SXM, decode_batch=8).n_blocks == 1025
+    with pytest.raises(ValueError):
+        derive_serve_plan(get_config("rwkv6-1.6b"), MESH1, H100_SXM)
