@@ -4,23 +4,32 @@
 
 Needs one CUDA card and the repository around it (it imports ``src/
 repro_torch``); without either it exits non-zero and prints no result.  It
-builds the CUDA kernels from the checkout, holds each against its plain
-PyTorch version at the main path's shapes, serves qwen3-1.7b at full width
-and depth through the port's continuous-batching engine (random weights
-from a seed), checks the outputs, times the kernels, and prints:
+builds the three CUDA kernels from the checkout (one ``nvcc`` per source,
+in parallel), holds each against its plain PyTorch version at the main
+paths' shapes, drives both serving paths at full width and depth (random
+weights from a seed), checks the outputs, times the kernels, and prints:
 
 * the card's name and power limit (``nvidia-smi``);
-* one JSON line ``{"kernels": [...]}`` (times, launches on the main path,
+* one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
   byte/operation bound, plain-version and library times);
 * last, ``{"ok": true, "device": {...}}``.
 
-Phases: 1 setup + build, 2 kernel vs plain version, 3 full-depth f32
+Phases: 1 setup + build; the continuous-batching path of qwen3-1.7b over
+the paged-attention kernel: 2 kernel vs plain version, 3 full-depth f32
 serving with the kernel vs the gather path (identical tokens), 4 bf16
-serving on the derived H100 plan (the main path whose launches are
-counted), 5 rolled decode loop (K=4 vs K=1), 6 kernel vs plain version
-at the derived plan's decode and mixed shapes (256 slots x 256 rows), and
-kernel timing.  Planted controls (a dropped key tile, a window boundary
-one key off) show that the tolerances reject a wrong kernel.
+serving on the derived H100 plan (a main path whose launches are counted),
+5 rolled decode loop (K=4 vs K=1), 6 kernel vs plain version at the derived
+plan's decode and mixed shapes (256 slots x 256 rows), and kernel timing;
+the eager path (``greedy_generate``): 7 WKV kernel vs plain version (the
+JAX test's shapes, chunks, strong decay, state carry, the rwkv6-1.6b
+prefill shape) and its times, 8 flash-attention kernel vs plain version
+(the JAX test's cases, fused-QKV views, the qwen3-1.7b prefill shape) and
+its times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16 (main
+paths whose launches are counted), 11 kernel path vs plain path in f32
+(identical tokens), 12 the continuous engine vs ``greedy_generate``
+(identical tokens).  Planted controls (a dropped key tile, a window one key
+wider, the WKV's cross-chunk term dropped) show that the tolerances reject
+a wrong kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +50,10 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor, f32 CUDA-core
 SERVE_ARCH = "qwen3-1.7b"
+RWKV_ARCH = "rwkv6-1.6b"
 MESH1 = {"data": 1, "model": 1}
+# The eager main paths: B 8 prompts of 2048 tokens, 32 new tokens each.
+EAGER_B, EAGER_PROMPT, EAGER_GEN = 8, 2048, 32
 
 
 def log(msg: str) -> None:
@@ -254,13 +266,15 @@ def phase_kernels(cfg):
 
 # ---------------------------------------------------------------- serving
 def serve_once(cfg, plan, serve, params, reqs, *, fused):
-    from repro_torch.kernels.paged_attention import ops
     from repro_torch.serve import ServingEngine
 
     engine = ServingEngine(params, cfg, plan, serve, fused=fused, device="cuda")
-    ops.LAUNCHES = 0  # count this run's launches only
+    reset_counts()  # count this run's launches only
     out = engine.run(reqs)
-    launches = ops.LAUNCHES
+    counts = read_counts()
+    check(counts["wkv"] == 0 and counts["flash_attention"] == 0,
+          f"the continuous path launched an eager-path kernel: {counts}")
+    launches = counts["paged_attention"]
     summary = engine.summary()
     del engine
     torch.cuda.empty_cache()
@@ -460,6 +474,376 @@ def phase_times(cfg, name, B, n_prefill, seed):
                  "library_ms": lib_ms}
 
 
+# ---------------------------------------------------------------- WKV
+def kernel_ops() -> dict:
+    """Each kernel's wrapper module, which holds its LAUNCHES count."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.paged_attention import ops as paged
+    from repro_torch.kernels.rwkv6 import ops as wkv
+
+    return {"paged_attention": paged, "wkv": wkv, "flash_attention": flash}
+
+
+def reset_counts() -> None:
+    for m in kernel_ops().values():
+        m.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: m.LAUNCHES for name, m in kernel_ops().items()}
+
+
+def rel_err(got, want) -> float:
+    """The JAX WKV test's measure: max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max() / (want.float().abs().max() + 1e-9))
+
+
+def wkv_inputs(B, S, H, D, *, dtype=torch.float32, decay=(0.45, 0.95), seed=0):
+    """r/k/v (dtype), w in ``decay`` (f32), u (f32) as the JAX test draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype) for _ in range(3))
+    lo, hi = decay
+    w = torch.sigmoid(torch.randn((B, S, H, D), generator=g, device="cuda")) * (hi - lo) + lo
+    u = torch.randn((H, D), generator=g, device="cuda") * 0.1
+    return r, k, v, w, u
+
+
+# Tolerances of the JAX WKV test (relative to the largest output): 1e-5,
+# 1e-4 under strong decay.  Both sides compute in f32 from the same inputs.
+WKV_TOL, WKV_STRONG_TOL = 1e-5, 1e-4
+
+
+def wkv_check(name, args, tol, *, chunk=32, state=None, scan=False):
+    """Kernel vs plain version (``wkv_chunked`` at the same chunk, and for
+    small shapes the sequential ``wkv_scan_ref`` too), output and final
+    state.  Returns (kernel output, plain output, max abs error)."""
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.models.rwkv6 import wkv_chunked, wkv_scan_ref
+
+    got, s_got = ops.wkv(*args, chunk=chunk, state=state, return_state=True)
+    torch.cuda.synchronize()
+    want, s_want = wkv_chunked(*args, chunk=chunk, state=state, return_state=True)
+    errs = {"out": rel_err(got, want), "state": rel_err(s_got, s_want)}
+    if scan:
+        errs["vs scan"] = rel_err(got, wkv_scan_ref(*args))
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(s_got).all())
+    ok = finite and all(e < tol for e in errs.values())
+    abs_err = float((got - want).abs().max())
+    log(f"  {name}: rel err {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} "
+        f"(tol {tol}), max abs {abs_err:.3g}, finite={finite} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"WKV kernel disagrees with the plain version on {name}")
+    return got, want, abs_err
+
+
+def wkv_no_carry(r, k, v, w, u, c=32):
+    """The plain version with every chunk started from a zero state: what a
+    kernel that dropped the cross-chunk term (and the carry) would give."""
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    S = r.shape[1]
+    return torch.cat([wkv_chunked(r[:, i:i + c], k[:, i:i + c], v[:, i:i + c], w[:, i:i + c],
+                                  u, chunk=c) for i in range(0, S, c)], dim=1)
+
+
+def wkv_bound(r, H, D):
+    """Least time for the prefill's WKV on an H100 SXM: the recurrence's
+    ~6 D^2 flops per token and head at the f32 CUDA-core peak (the state is
+    f32), vs r/k/v (their type), w and the output (f32), u and the final
+    state (f32), each once, at 3.35 TB/s."""
+    B, S = r.shape[:2]
+    n = B * S * H * D
+    nbytes = 3 * n * r.element_size() + 4 * n + 4 * n + 4 * H * D + 4 * B * H * D * D
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 6 * D * D * B * S * H / PEAK_FLOPS["fp32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wkv(cfg):
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    log("phase 7: WKV kernel vs plain version on the card")
+    errs = []
+    # tests/test_kernels_rwkv6.py: shapes, chunks, strong decay
+    for n, shape in enumerate([(2, 128, 2, 32), (1, 96, 3, 64), (1, 256, 1, 64)]):
+        errs.append(wkv_check(f"shape {shape}", wkv_inputs(*shape, seed=n), WKV_TOL,
+                              scan=True)[2])
+    for c in ops.CHUNKS:
+        errs.append(wkv_check(f"chunk {c}", wkv_inputs(1, 128, 2, 32, seed=3), WKV_TOL,
+                              chunk=c, scan=True)[2])
+    errs.append(wkv_check("strong decay w in [0.001, 0.01]",
+                          wkv_inputs(1, 128, 2, 32, decay=(0.001, 0.01), seed=4),
+                          WKV_STRONG_TOL, scan=True)[2])
+    errs.append(wkv_check("ragged S=100 (last chunk padded)", wkv_inputs(2, 100, 2, 64, seed=5),
+                          WKV_TOL, scan=True)[2])
+    # the state carry: two halves with the state passed on equal the whole
+    r, k, v, w, u = wkv_inputs(1, 128, 2, 64, seed=6)
+    full, s_full = ops.wkv(r, k, v, w, u, return_state=True)
+    h1, st = ops.wkv(r[:, :64].contiguous(), k[:, :64].contiguous(), v[:, :64].contiguous(),
+                     w[:, :64].contiguous(), u, return_state=True)
+    h2, s2 = ops.wkv(r[:, 64:].contiguous(), k[:, 64:].contiguous(), v[:, 64:].contiguous(),
+                     w[:, 64:].contiguous(), u, state=st, return_state=True)
+    e = max(rel_err(torch.cat([h1, h2], dim=1), full), rel_err(s2, s_full))
+    log(f"  state carry: halves vs whole rel err {e:.3g}")
+    check(e < WKV_TOL, "the WKV state carry does not continue where it left off")
+    wkv_check("state passed in", (r[:, 64:].contiguous(), k[:, 64:].contiguous(),
+                                  v[:, 64:].contiguous(), w[:, 64:].contiguous(), u),
+              WKV_TOL, state=st)
+
+    # the main path's shape: the rwkv6-1.6b prefill, bf16 r/k/v
+    B, S, H, D = EAGER_B, EAGER_PROMPT, cfg.rnn_heads, cfg.d_head
+    args = wkv_inputs(B, S, H, D, dtype=torch.bfloat16, seed=7)
+    _, want, err = wkv_check(f"main B={B} S={S} H={H} D={D} bf16", args, WKV_TOL)
+    errs.append(err)
+    control = wkv_no_carry(*args)
+    e = rel_err(control, want)
+    log(f"  control cross-chunk term dropped: rel err {e:.3g}: "
+        f"{'rejected' if e >= WKV_TOL else 'ACCEPTED'}")
+    check(e >= WKV_TOL, "the tolerance accepts the planted WKV control")
+    del want, control
+    ms = time_ms(lambda: ops.wkv(*args, return_state=True))
+    plain_ms = time_ms(lambda: wkv_chunked(*args, return_state=True), reps=5, warmup=1)
+    b_ms, b_by = wkv_bound(args[0], H, D)
+    log(f"  times at the main shape: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, library: none")
+    del args
+    torch.cuda.empty_cache()
+    return max(errs), {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+
+
+# ---------------------------------------------------------------- flash
+# tests/test_kernels_flash_attention.py::CASES, then its bf16 case and a
+# ragged length (the kernel masks the ragged tile).
+FLASH_CASES = [
+    # (B, S, H, KH, D, causal, window, prefix, dtype)
+    (2, 256, 4, 2, 64, True, 0, 0, torch.float32),
+    (1, 128, 3, 1, 32, True, 0, 0, torch.float32),
+    (2, 256, 4, 4, 64, False, 0, 0, torch.float32),
+    (1, 256, 2, 1, 64, True, 64, 0, torch.float32),
+    (1, 128, 2, 2, 64, True, 0, 32, torch.float32),
+    (1, 512, 1, 1, 128, True, 128, 0, torch.float32),
+    (1, 128, 2, 1, 64, True, 0, 0, torch.bfloat16),
+    (2, 300, 4, 2, 128, True, 100, 0, torch.float32),
+]
+
+
+def flash_inputs(B, S, H, KH, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, KH, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, KH, D), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def flash_plain(q, k, v, *, causal=True, window=0, prefix=0):
+    from repro_torch.kernels.flash_attention.ops import PLAIN_CHUNK
+    from repro_torch.models.layers import blocked_attention
+
+    return blocked_attention(q, k, v, causal=causal, window=window, q_chunk=PLAIN_CHUNK,
+                             k_chunk=PLAIN_CHUNK, prefix_len=prefix)
+
+
+def flash_check(name, q, k, v, **kw):
+    """Kernel vs plain version (``blocked_attention``); returns (kernel
+    output, plain output, max abs error)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_plain(q, k, v, **kw)
+    tol = tolerance(q.dtype)
+    ok, err, _ = within(got, want, tol)
+    ok = ok and got.dtype == q.dtype
+    log(f"  {name}: max_abs_err={err:.3g} tol(atol, rtol)={tol} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"flash kernel disagrees with the plain version on {name}")
+    return got, want, err
+
+
+def flash_bound(q, k, causal=True):
+    """Least time for causal attention on an H100 SXM: 4 H D flops per
+    visible (query, key) pair at the bf16 tensor-core peak, vs q, k, v and
+    the output each once at 3.35 TB/s."""
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * H * D * pairs * B
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "fp32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash(cfg):
+    from repro_torch.kernels.flash_attention import ops
+
+    log("phase 8: flash-attention kernel vs plain version on the card")
+    errs = []
+    for n, (B, S, H, KH, D, causal, window, prefix, dt) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(B, S, H, KH, D, dt, seed=n)
+        kw = dict(causal=causal, window=window, prefix=prefix)
+        name = (f"case{n} B={B} S={S} H={H} KH={KH} D={D} {str(dt)[6:]} causal={causal} "
+                f"window={window} prefix={prefix}")
+        _, want, err = flash_check(name, q, k, v, **kw)
+        errs.append(err)
+        if window:  # the window one key wider must not pass
+            planted(f"window {window + 1} instead of {window}",
+                    flash_plain(q, k, v, causal=causal, window=window + 1, prefix=prefix),
+                    want, tolerance(dt))
+
+    # the main path's shape: the qwen3-1.7b prefill, bf16, as the model
+    # hands it over (q, k, v views of one fused QKV projection)
+    B, S, H, KH, D = EAGER_B, EAGER_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device="cuda").manual_seed(20)
+    qkv = torch.randn((B, S, (H + 2 * KH) * D), generator=g, device="cuda").to(torch.bfloat16)
+    qv, kv_, vv = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    views = (qv.reshape(B, S, H, D), kv_.reshape(B, S, KH, D), vv.reshape(B, S, KH, D))
+    errs.append(flash_check(f"main B={B} S={S} H={H} KH={KH} D={D} bf16, fused-QKV views",
+                            *views)[2])
+    q, k, v = (x.contiguous() for x in views)
+    del qkv, views
+    errs.append(flash_check("main, contiguous", q, k, v)[2])
+    ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: flash_plain(q, k, v), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True))
+    b_ms, b_by = flash_bound(q, k)
+    log(f"  times at the main shape: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return max(errs), {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------- eager path
+def eager_model(arch, dtype, *, untie=False, seed=0):
+    """(cfg, plan, random weights).  ``untie``: a separate random head.  With
+    random weights a tied head's greedy stream repeats the last token, so
+    the token comparisons untie it to make every token depend on the whole
+    model."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(arch)
+    if untie:
+        cfg = dataclasses.replace(cfg, tie_embeddings=False)
+    plan = derive_execution_plan(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, plan, init_params(cfg, plan, dtype, generator=gen, device="cuda")
+
+
+def prompts(cfg, B, S, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+
+def phase_eager(arch, kernel_name, tag):
+    """The eager main path: ``greedy_generate`` at full width and depth in
+    bf16, B 8 x 2048-token prompts, 32 new tokens.  Every launch count is
+    set to 0 just before and read just after; the prompt's one prefill
+    launches ``kernel_name`` once per layer."""
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    log(f"phase {tag} (main path): {arch} served by greedy_generate, bf16, B={EAGER_B}, "
+        f"prompt {EAGER_PROMPT}, {EAGER_GEN} new tokens")
+    cfg, plan, params = eager_model(arch, torch.bfloat16)
+    tokens = prompts(cfg, EAGER_B, EAGER_PROMPT, seed=1)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, plan, batch, n_steps=EAGER_GEN,
+                          cache_len=EAGER_PROMPT + EAGER_GEN, device="cuda")
+    out = out.cpu()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok_s = EAGER_B * EAGER_GEN / dt
+    log(f"  {tuple(out.shape)} tokens in {dt:.3f} s: {tok_s:.1f} output tok/s; peak device "
+        f"memory {peak:.2f} GiB; launches {counts}")
+    log(f"  request 0 tokens: {out[0].tolist()}")
+    check(out.shape == (EAGER_B, EAGER_GEN) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size, "tokens of the wrong shape or outside the vocab")
+    expect = {name: cfg.n_layers if name == kernel_name else 0 for name in counts}
+    check(counts == expect, f"launches {counts}, expected {expect} (one prefill)")
+    # the prefill's logits are finite (timed: the prompt's time to first token)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = make_prefill_step(cfg, plan)(params, batch)
+    finite = bool(torch.isfinite(logits).all())
+    prefill_s = time.perf_counter() - t0
+    log(f"  prefill alone {prefill_s * 1e3:.1f} ms; logits finite: {finite}")
+    check(finite, "non-finite prefill logits")
+    del params, logits
+    torch.cuda.empty_cache()
+    return counts[kernel_name], {"tok_per_s": tok_s, "seconds": dt, "peak_gib": peak,
+                                 "prefill_ms": prefill_s * 1e3}
+
+
+def phase_paths():
+    """f32, full depth: the kernel path and the plain path (``fused=False``:
+    ``blocked_attention`` / ``wkv_chunked`` on the card) give identical
+    greedy tokens and prefill logits within rounding."""
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    log("phase 11: f32 full depth, B=2, prompt 256, 16 new tokens: kernel path vs plain path")
+    for arch, name in ((RWKV_ARCH, "wkv"), (SERVE_ARCH, "flash_attention")):
+        cfg, plan, params = eager_model(arch, torch.float32, untie=True)
+        batch = {"tokens": prompts(cfg, 2, 256, seed=2)}
+        runs = {}
+        for fused in (True, False):
+            reset_counts()
+            toks = greedy_generate(params, cfg, plan, batch, n_steps=16, cache_len=272,
+                                   cache_dtype=torch.float32, device="cuda", fused=fused).cpu()
+            launches = read_counts()[name]
+            logits, _ = make_prefill_step(cfg, plan, fused=fused)(params, batch)
+            runs[fused] = (toks, launches, logits)
+        (tk, lk, xk), (tp, lp, xp) = runs[True], runs[False]
+        e = rel_err(xk, xp)
+        same = bool(torch.equal(tk, tp))
+        log(f"  {arch} (untied head): tokens identical {same}, distinct tokens in request 0: "
+            f"{len(set(tk[0].tolist()))}/16, prefill logits rel err {e:.3g}, "
+            f"{name} launches {lk} (kernel path) / {lp} (plain path)")
+        check(same, f"{arch}: kernel and plain paths disagree on greedy tokens")
+        check(e < 1e-3, f"{arch}: prefill logits differ beyond f32 rounding")
+        check(lk == cfg.n_layers and lp == 0, f"{arch}: launches {lk} / {lp}")
+        del params, runs, xk, xp
+        torch.cuda.empty_cache()
+
+
+def phase_engine_vs_eager():
+    """qwen3-1.7b f32: the continuous engine's tokens equal the eager path's,
+    one request at a time (tests/test_serve_engine.py:37-45 on the card)."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_serve_plan
+    from repro_torch.serve import ServingEngine, greedy_generate, random_stream
+
+    log("phase 12: qwen3-1.7b f32 (untied head): ServingEngine vs greedy_generate, 4 requests")
+    cfg, plan, params = eager_model(SERVE_ARCH, torch.float32, untie=True)
+    serve = derive_serve_plan(cfg, MESH1, H100_SXM, max_seq_len=1024, decode_batch=4,
+                              kv_dtype="fp32", rolled_steps=1)
+    reqs = random_stream(cfg, 4, (64, 300), 16, stagger=2, seed=5)
+    asked = {r.rid: list(r.prompt) for r in reqs}
+    engine = ServingEngine(params, cfg, plan, serve, device="cuda")
+    got = engine.run(reqs)
+    del engine
+    for rid, p in asked.items():
+        want = greedy_generate(params, cfg, plan, {"tokens": torch.tensor([p])}, n_steps=16,
+                               cache_len=len(p) + 16, cache_dtype=torch.float32,
+                               device="cuda")[0].tolist()
+        log(f"  {rid}: prompt {len(p)}, engine == greedy_generate: {got[rid] == want} "
+            f"({len(set(want))} distinct tokens)")
+        check(got[rid] == want, f"{rid}: engine tokens differ from greedy_generate")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -475,22 +859,30 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.plan import derive_execution_plan
     from repro_torch.kernels import _build
-    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 
     log(f"phase 1: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kernels = (paged_kernel, wkv_kernel, flash_kernel)
     t0 = time.time()
-    kernel.library()
-    log(f"  built + loaded {kernel.SOURCE.relative_to(ROOT)} in {time.time() - t0:.1f} s")
-    ptxas = _build.library_path(kernel.SOURCE).with_suffix(".log")
-    if ptxas.exists():
-        used = [ln.strip() for ln in ptxas.read_text().splitlines() if "Used" in ln]
-        spills = [ln.strip() for ln in ptxas.read_text().splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")
-                  and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
-        log(f"  ptxas: {len(used)} kernels; {used[:1]} ... ; spill lines: {spills[:4]}")
+    _build.build_all([k.SOURCE for k in kernels])  # one nvcc per source, in parallel
+    for k in kernels:
+        k.library()
+    log(f"  built + loaded {len(kernels)} kernel libraries in {time.time() - t0:.1f} s")
+    for k in kernels:
+        ptxas = _build.library_path(k.SOURCE).with_suffix(".log")
+        if ptxas.exists():
+            lines = ptxas.read_text().splitlines()
+            used = [ln.strip() for ln in lines if "Used" in ln]
+            spills = [ln.strip() for ln in lines
+                      if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+            log(f"  ptxas {k.SOURCE.name}: {len(used)} kernels; registers "
+                f"{sorted({ln.split('Used ')[1].split(' registers')[0] for ln in used})}; "
+                f"spill lines: {spills[:4]}")
 
     cfg = get_config(SERVE_ARCH)
     plan = derive_execution_plan(cfg)
@@ -504,18 +896,46 @@ def main() -> None:
     err_m, mixed = phase_times(cfg, "mixed", B=256, n_prefill=32, seed=41)
     max_err = max(max_err, err_d, err_m)
     log(f"  mixed shape: {json.dumps(mixed)}")
+
+    wkv_err, wkv_times = phase_wkv(get_config(RWKV_ARCH))
+    flash_err, flash_times = phase_flash(cfg)
+    wkv_launches, rwkv_run = phase_eager(RWKV_ARCH, "wkv", 9)
+    flash_launches, qwen_run = phase_eager(SERVE_ARCH, "flash_attention", 10)
+    phase_paths()
+    phase_engine_vs_eager()
+    log(f"  eager runs: {json.dumps({RWKV_ARCH: rwkv_run, SERVE_ARCH: qwen_run})}")
     log(f"total {time.time() - t_start:.1f} s")
-    record = {
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **decode,
-    }
+    records = [
+        {
+            "name": "paged_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
+            "launches": launches,
+            "max_abs_err": max_err,
+            **decode,
+        },
+        {
+            "name": "wkv",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:32",
+            "launches": wkv_launches,
+            "max_abs_err": wkv_err,
+            **wkv_times,
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "launches": flash_launches,
+            "max_abs_err": flash_err,
+            **flash_times,
+        },
+    ]
     print(card, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 def _leaf(x, device) -> torch.Tensor:
     a = np.asarray(x)
@@ -26,12 +28,17 @@ def _leaf(x, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax(tree: Any, device="cpu") -> Any:
-    """Convert every array leaf of ``tree`` to a torch tensor on ``device``."""
+def from_jax(tree: Any, device="cuda") -> Any:
+    """Convert every array leaf of ``tree`` to a torch tensor on ``device``
+    (the card by default; raises without one unless ``device="cpu"``)."""
+    return _convert(tree, resolve_device(device))
+
+
+def _convert(tree: Any, device: torch.device) -> Any:
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: from_jax(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(from_jax(v, device) for v in tree)
+        return type(tree)(_convert(v, device) for v in tree)
     return _leaf(tree, device)

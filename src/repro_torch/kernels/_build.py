@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-Each ``.cu`` file under a kernel's ``csrc/`` exports a plain C function and
-is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
+Each ``.cu`` file under a kernel's ``csrc/`` exports a plain C function
+(device helpers they share sit in ``kernels/csrc/common.cuh``) and is
+compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  Builds happen
 at first use, land in ``build/repro_torch_kernels/`` at the repository root
-and are cached by a hash of the source and the flags.
+and are cached by a hash of the source, the shared headers and the flags;
+``build_all`` runs one
+``nvcc`` per source in parallel.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+COMMON_DIR = Path(__file__).resolve().parent / "csrc"
 
 
 def _nvcc() -> str:
@@ -31,35 +35,58 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where ``source`` builds to: keyed by its content and the flags."""
-    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{h}.so"
+    """Where ``source`` builds to: keyed by its content, the shared headers'
+    (``kernels/csrc/*.cuh``, which every source may include) and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(COMMON_DIR.glob("*.cuh")))
+    h = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
     """Compile ``source`` unless its library is already built; returns the
     library's path.  The compiler's report (registers, spills) is kept
     beside it as ``.log``.  Raises with the compiler's output on failure."""
-    out = library_path(source)
-    if out.exists():
-        return out
+    return build_all([source])[0]
+
+
+def build_all(sources) -> list:
+    """``build`` for several sources, with one ``nvcc`` process per source
+    that is not built yet, all started together; returns the libraries'
+    paths in order.  Raises after every compiler has finished if any
+    failed, with the failures' output."""
+    sources = [Path(s) for s in sources]
+    outs = [library_path(s) for s in sources]
+    todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
+    if not todo:
+        return outs
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    running = []
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        for src, out in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running.append((src, out, tmp, proc))
+        errors = []
+        for src, out, tmp, proc in running:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}) on {src}:\n{stdout}\n{stderr}")
+                continue
+            out.with_suffix(".log").write_text(stdout + stderr)
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
 
 def load(source: Path) -> ctypes.CDLL:

@@ -38,13 +38,13 @@
 //        -Xcompiler -fPIC (repro_torch/kernels/_build.py).  Plain C entry
 // point, bound with ctypes by repro_torch/kernels/paged_attention/kernel.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
 
+#include "../../csrc/common.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -53,63 +53,6 @@ constexpr int kRowsMax = 64;     // query rows (G heads x slab rows) per CTA
 constexpr int kRowBlock = 4;     // rows a warp scores together
 constexpr int kChunks = kRowsMax / (kWarps * kRowBlock);
 constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// 16 bytes of pages -> 16 / sizeof(T) floats (little-endian: the element
-// at the lower address sits in the lower bits).
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* o) {
-    o[0] = __uint_as_float(r.x);
-    o[1] = __uint_as_float(r.y);
-    o[2] = __uint_as_float(r.z);
-    o[3] = __uint_as_float(r.w);
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* o) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-template <>
-struct Vec<int8_t> {
-  static constexpr int n = 16;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* o) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[4 * i + k] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * k)));
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
 
 // TQ: q / out element type.  TKV: page element type.  DL = D / 32: the
 // head-dim elements each lane owns in the accumulator.

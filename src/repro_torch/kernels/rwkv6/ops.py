@@ -1,0 +1,84 @@
+"""Wrapper of the WKV kernel in the model's layout (the port's
+``repro/kernels/rwkv6/ops.py``, with the model path's contract of
+``repro/models/rwkv6.py::wkv_chunked``: optional initial state, optional
+final state, f32 output).
+
+r/k/v/w stay (B, S, H, D); the kernel indexes that layout directly, so no
+transpose is paid.  CPU tensors go to the plain version
+(``repro_torch.models.rwkv6.wkv_chunked``); CUDA tensors launch the kernel
+or raise: there is no fallback.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.rwkv6 import kernel
+
+# Kernel launches so far; a run resets it to show which path it took.
+LAUNCHES = 0
+
+_IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNKS = (16, 32, 64)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"wkv: {msg}")
+
+
+def wkv(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    chunk: int = 32,
+    state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """r/k/v: (B, S, H, D); w: (B, S, H, D) f32 decay in (0, 1); u: (H, D)
+    f32 bonus; ``state`` (B, H, D, D) f32 before the first token (zero when
+    None).  Returns the (B, S, H, D) f32 output and, with ``return_state``,
+    the (B, H, D, D) f32 state after the last token.
+
+    ``chunk`` is the tokens per step of the recurrence: it changes the
+    schedule, not the function (outputs agree to rounding across chunks)."""
+    if r.device.type == "cpu":
+        # the plain version lives with the model (it imports this module)
+        from repro_torch.models.rwkv6 import wkv_chunked
+
+        return wkv_chunked(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
+    lib = kernel.library()
+    _require(r.is_cuda, f"r must be a CUDA or CPU tensor, got {r.device}")
+    _require(r.dim() == 4, f"r must be (B, S, H, D), got {tuple(r.shape)}")
+    B, S, H, D = r.shape
+    _require(r.dtype in _IN_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
+             f"r/k/v dtypes {r.dtype}/{k.dtype}/{v.dtype} (one of f32, bf16)")
+    _require(k.shape == r.shape and v.shape == r.shape and w.shape == r.shape,
+             "r, k, v and w must share one (B, S, H, D) shape")
+    _require(w.dtype == torch.float32 and u.dtype == torch.float32, "w and u must be f32")
+    _require(u.shape == (H, D), f"u must be (H, D) = {(H, D)}, got {tuple(u.shape)}")
+    _require(D in (32, 64), f"head dim {D} (32 or 64)")
+    _require(chunk in CHUNKS, f"chunk {chunk} (one of {CHUNKS})")
+    _require(state is None or (state.shape == (B, H, D, D) and state.dtype == torch.float32),
+             "state must be (B, H, D, D) f32")
+    tensors = [r, k, v, w, u] + ([state] if state is not None else [])
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _require(all(t.device == r.device for t in tensors), "all tensors on one device")
+    out = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
+    s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device) if return_state else None
+    rc = lib.wkv_forward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        state.data_ptr() if state is not None else None, out.data_ptr(),
+        s_out.data_ptr() if s_out is not None else None,
+        B, S, H, D, chunk, _IN_CODES[r.dtype],
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wkv kernel launch failed (code {rc})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return (out, s_out) if return_state else out

@@ -1,19 +1,26 @@
-"""Serving launcher of the port: continuous batching over the paged KV
-cache, on the card by default.
+"""Serving launcher of the port, on the card by default.
 
+    # continuous batching over the paged KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --requests 8 --prompt-len 128 --gen 16 --stagger 2
+    # the eager path: one prefill of the batch, then lockstep greedy decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --engine eager --batch 8 --prompt-len 2048 --gen 32
 
-The flags are the subset of ``repro.launch.serve.ServeArgs`` this slice
+The flags are the subset of ``repro.launch.serve.ServeArgs`` this port
 honours, plus ``--device`` and ``--dtype``; ``--pages-per-tile`` is left
-out because the CUDA kernel has no page-tile schedule.  The plan derives
-for the ``h100`` hardware entry.  Weights are random, drawn from ``--seed``.
-Prints the execution and serve plans, then the engine summary as JSON.
+out because the CUDA kernel has no page-tile schedule.  An arch that
+``serve_feasible`` refuses (RWKV-6) falls back to ``--engine eager``.  The
+plan derives for the ``h100`` hardware entry.  Weights are random, drawn
+from ``--seed``, and so are the eager path's prompts.  The batched engine
+prints the execution and serve plans, then its summary as JSON; the eager
+path prints the tokens' shape and tok/s.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Optional
 
 import torch
@@ -21,9 +28,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import get_hardware
-from repro_torch.core.plan import derive_execution_plan, derive_serve_plan
+from repro_torch.core.plan import derive_execution_plan, derive_serve_plan, serve_feasible
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.models.params import init_params
-from repro_torch.serve import ServingEngine, random_stream
+from repro_torch.serve import ServingEngine, greedy_generate, random_stream
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -31,8 +41,9 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--engine", default="batched", choices=["batched", "eager"])
     ap.add_argument("--batch", type=int, default=4,
-                    help="decode slots when --fix-batch is given")
+                    help="eager batch / batched decode slots (with --fix-batch)")
     ap.add_argument("--fix-batch", action="store_true",
                     help="pin decode_batch to --batch instead of deriving it")
     ap.add_argument("--requests", type=int, default=8)
@@ -84,8 +95,37 @@ def run(a: argparse.Namespace) -> dict:
     return summary
 
 
+def run_eager(a: argparse.Namespace) -> dict:
+    """``greedy_generate`` over a batch of random prompts: --batch x
+    --prompt-len tokens, --gen new tokens each."""
+    device = resolve_device(a.device)
+    cfg = get_config(a.arch)
+    plan = derive_execution_plan(cfg)
+    gen = torch.Generator(device=device).manual_seed(a.seed)
+    params = init_params(cfg, plan, _DTYPES[a.dtype], generator=gen, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (a.batch, a.prompt_len), generator=gen,
+                           device=device, dtype=torch.int32)
+    if device.type == "cuda":  # build the prefill's kernels now: tok/s excludes nvcc
+        _build.build_all([wkv_kernel.SOURCE, flash_kernel.SOURCE])
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, plan, {"tokens": tokens}, n_steps=a.gen,
+                          cache_len=a.prompt_len + a.gen, device=device)
+    out = out.cpu()  # waits for the device
+    dt = time.perf_counter() - t0
+    tok_s = a.batch * a.gen / dt
+    print(f"generated {tuple(out.shape)} tokens in {dt:.2f}s ({tok_s:.1f} tok/s)")
+    print(out[0].tolist())
+    return {"tok_per_s": tok_s, "tokens": out}
+
+
 def main(argv: Optional[list] = None) -> dict:
-    return run(build_parser().parse_args(argv))
+    a = build_parser().parse_args(argv)
+    cfg = get_config(a.arch)
+    ok, reason = serve_feasible(cfg)
+    if a.engine == "batched" and not ok:
+        print(f"{a.arch}: {reason}; falling back to --engine eager")
+        a.engine = "eager"
+    return run(a) if a.engine == "batched" else run_eager(a)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,30 @@
-"""Paged KV cache (the port's ``repro/models/cache.py``, paged subset).
+"""Decode caches (the port's ``repro/models/cache.py``): the dense cache of
+the eager path and the paged KV pool of continuous batching.
 
-One shared pool of fixed-size blocks per attention layer; a request owns a
-set of blocks through its block-table row (position p of slot b lives at
-flat pool slot ``table[b, p // bs] * bs + p % bs``).  Block 0 is the trash
-block: idle slots and the dead rows of a mixed slab write there, so every
-step keeps static shapes.  The int8 option stores pages on a per-(token,
-kv-head) grid with an f32 scale beside them.
+Dense cache, per layer kind (the JAX layout):
+  attn/swa/local : {"attn": {"k","v": (B, Sc, KV, Dh), "t"}}  Sc = window
+                   for windowed layers (a ring buffer at slot ``pos % Sc``;
+                   softmax does not care about key order), else cache_len.
+  rwkv6          : {"rwkv": {"S": (B, H, D, D) f32, "shift": (B, d) f32},
+                    "cmix": (B, d) f32}
+A layer's ``"t"`` (positions already cached) is an int32 tensor kept on the
+CPU, (n_groups,) in the stacked groups and 0-d in the tail, so reading it
+costs no device sync.  ``init_cache`` builds zero caches;
+``cache_from_prefill`` turns a ``collect_cache=True`` forward pass into a
+decode-ready cache.
 
-The pool tree mirrors the parameter tree (``{"stack": ..., "tail": ...}``,
-stacked leaves for the stacked groups).  Where JAX donated the pools to the
-jitted step, the port writes them in place: ``paged_update`` and
-``paged_copy_block`` mutate the tensors they are given.
+Paged KV pool: one shared pool of fixed-size blocks per attention layer; a
+request owns a set of blocks through its block-table row (position p of
+slot b lives at flat pool slot ``table[b, p // bs] * bs + p % bs``).  Block
+0 is the trash block: idle slots and the dead rows of a mixed slab write
+there, so every step keeps static shapes.  The int8 option stores pages on
+a per-(token, kv-head) grid with an f32 scale beside them.
+
+Both trees mirror the parameter tree (``{"stack": ..., "tail": ...}``,
+stacked leaves for the stacked groups).  Where JAX returned new caches (or
+took the pools donated), the port writes them in place: the decode step,
+``paged_update`` and ``paged_copy_block`` mutate the tensors they are
+given.
 """
 from __future__ import annotations
 
@@ -18,6 +32,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -55,11 +72,14 @@ def _paged_layer_entry(cfg, serve, lead: tuple, device) -> dict:
     }
 
 
-def init_paged_cache(cfg, plan, serve, device="cpu") -> dict:
+def init_paged_cache(cfg, plan, serve, device="cuda") -> dict:
     """Zero block pools mirroring the layer tree ({"stack": ..., "tail": ...}).
 
     ``serve`` is a :class:`repro_torch.core.plan.ServePlan`; only
-    attention-kind layers are supported (``serve_feasible`` gates the rest)."""
+    attention-kind layers are supported (``serve_feasible`` gates the rest).
+    ``device`` defaults to the card and raises without one unless it is
+    ``"cpu"``."""
+    device = resolve_device(device)
     pattern = cfg.layer_pattern
     n_full, rem = divmod(cfg.n_layers, len(pattern))
     stack = (
@@ -180,3 +200,116 @@ def paged_gather(
         k = k.float() * take(entry["k_scale"])
         v = v.float() * take(entry["v_scale"])
     return k, v
+
+
+# ---------------------------------------------------------------------------
+# Dense decode cache (the eager greedy_generate path)
+# ---------------------------------------------------------------------------
+def layer_window(cfg, kind: str) -> int:
+    """The attention window of a layer kind (0: full attention)."""
+    if kind == "swa":
+        return cfg.sliding_window
+    return cfg.local_window if kind == "local" else 0
+
+
+def _cache_slots(cfg, kind: str, cache_len: int) -> int:
+    window = layer_window(cfg, kind)
+    return min(window, cache_len) if window else cache_len
+
+
+def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, device) -> dict:
+    KV, Dh, d = cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind in ("attn", "swa", "local"):
+        Sc = _cache_slots(cfg, kind, cache_len)
+        shape = lead + (B, Sc, KV, Dh)
+        return {"attn": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "t": torch.zeros(lead, dtype=torch.int32),
+        }}
+    if kind == "rwkv6":
+        H = cfg.rnn_heads
+        return {
+            "rwkv": {"S": torch.zeros(lead + (B, H, Dh, Dh), **f32),
+                     "shift": torch.zeros(lead + (B, d), **f32)},
+            "cmix": torch.zeros(lead + (B, d), **f32),
+        }
+    raise NotImplementedError(f"{cfg.name}: no dense cache for layer kind {kind!r}")
+
+
+def init_cache(cfg, plan, batch_size: int, cache_len: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Zero dense caches mirroring the layer tree; ``"t"`` is the Python int
+    count of positions cached (0).  ``device`` defaults to the card."""
+    device = resolve_device(device)
+    pattern = cfg.layer_pattern
+    n_full, rem = divmod(cfg.n_layers, len(pattern))
+    stack = (
+        tuple(_layer_cache(cfg, kind, (n_full,), batch_size, cache_len, dtype, device)
+              for kind in pattern)
+        if n_full
+        else None
+    )
+    tail = tuple(
+        _layer_cache(cfg, pattern[i], (), batch_size, cache_len, dtype, device)
+        for i in range(rem)
+    )
+    return {"layers": {"stack": stack, "tail": tail}, "t": 0}
+
+
+def _kv_to_ring(k: torch.Tensor, v: torch.Tensor, Sc: int, dtype):
+    """Place a prefill's (..., S, KV, D) kv into an Sc-slot cache at slot
+    ``pos % Sc`` (any leading dims: the stacked groups convert at once)."""
+    S = k.shape[-3]
+    if S <= Sc:
+        pad = (0, 0, 0, 0, 0, Sc - S)
+        return F.pad(k, pad).to(dtype), F.pad(v, pad).to(dtype)
+    keep = torch.arange(S - Sc, S, device=k.device)
+    slots = keep % Sc
+
+    def ring(x):
+        out = x.new_zeros(x.shape[:-3] + (Sc,) + x.shape[-2:], dtype=dtype)
+        out[..., slots, :, :] = x[..., keep, :, :].to(dtype)
+        return out
+
+    return ring(k), ring(v)
+
+
+def _convert_entry(entry: dict, kind: str, cfg, cache_len: int, t: torch.Tensor, dtype) -> dict:
+    e = dict(entry)
+    if "kv_out" in e:
+        k, v = e.pop("kv_out")
+        kk, vv = _kv_to_ring(k, v, _cache_slots(cfg, kind, cache_len), dtype)
+        e["attn"] = {"k": kk, "v": vv, "t": t}
+    return e
+
+
+def _convert_stacked(stack, pattern, cfg, cache_len: int, S: int, dtype):
+    """The stacked groups' entries: kv_out (n_groups, B, S, KV, Dh) -> ring."""
+    out = []
+    for entry, kind in zip(stack, pattern):
+        n = entry["kv_out"][0].shape[0] if "kv_out" in entry else 0
+        t = torch.full((n,), S, dtype=torch.int32)
+        out.append(_convert_entry(entry, kind, cfg, cache_len, t, dtype))
+    return tuple(out)
+
+
+def cache_from_prefill(cfg, plan, prefill_cache: dict, cache_len: int,
+                       dtype=torch.bfloat16) -> dict:
+    """Convert the ``collect_cache=True`` output of ``forward`` into a
+    decode cache of ``cache_len`` positions (windowed layers: a ring of
+    ``min(window, cache_len)`` slots).  K/V are stored in ``dtype``; the
+    RWKV states stay f32."""
+    S = int(prefill_cache["t"])
+    pattern = cfg.layer_pattern
+    layers = prefill_cache["layers"]
+    stack = None
+    if layers["stack"] is not None:
+        stack = _convert_stacked(layers["stack"], pattern, cfg, cache_len, S, dtype)
+    tail = tuple(
+        _convert_entry(e, pattern[i % len(pattern)], cfg, cache_len,
+                       torch.tensor(S, dtype=torch.int32), dtype)
+        for i, e in enumerate(layers["tail"])
+    )
+    return {"layers": {"stack": stack, "tail": tail}, "t": S}

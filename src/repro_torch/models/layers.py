@@ -1,5 +1,7 @@
 """Model building blocks (the port's ``repro/models/layers.py``, serve-path
-subset): norms, RoPE, the MLPs and the gather-path paged attention.
+subset): norms, RoPE, the MLPs, the blocked online-softmax attention of the
+prefill (the plain version of the flash kernel), one-token attention over a
+dense cache, and the gather-path paged attention.
 
 Conventions carried over from the JAX package: norms compute in f32 and
 cast back, RoPE rotates split halves (not interleaved pairs), gelu is the
@@ -60,6 +62,112 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax attention: the plain version of the flash kernel
+# ---------------------------------------------------------------------------
+def _chunk_scores(qi: torch.Tensor, kj: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+    # qi: (B, qc, KH, G, D); kj: (B, kc, KH, D) -> (B, KH, G, qc, kc)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qi.float(), kj.float())
+    return s * softmax_scale
+
+
+def _chunk_mask(q_off: int, k_off: int, qc: int, kc: int, causal: bool, window: int,
+                prefix_len: int = 0, device=None) -> torch.Tensor:
+    iq = q_off + torch.arange(qc, device=device)[:, None]
+    ik = k_off + torch.arange(kc, device=device)[None, :]
+    m = torch.ones((qc, kc), dtype=torch.bool, device=device)
+    if causal:
+        c = iq >= ik
+        if prefix_len > 0:  # prefix-LM: the prefix attends bidirectionally
+            c |= ik < prefix_len
+        m &= c
+    if window > 0:
+        m &= (iq - ik) < window
+    return m
+
+
+def blocked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    q_chunk: int = 512,
+    k_chunk: int = 512,
+    softmax_scale: Optional[float] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, KH, D); GQA via H = KH * G.
+
+    Online softmax over k-chunks inside a loop over q-chunks (the JAX
+    version's two ``lax.scan``s): peak temp is O(qc * kc) per head.  Every
+    k-chunk is visited, masked ones included, exactly as in JAX; a row's
+    masked keys get weight 0 once any key of the row is visible."""
+    B, Sq, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    if H % KH:
+        raise ValueError(f"heads H={H} not a multiple of kv heads KH={KH}")
+    G = H // KH
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
+    while Sq % qc:
+        qc //= 2
+    while Sk % kc:
+        kc //= 2
+    dev = q.device
+    out = []
+    for q_off in range(0, Sq, qc):
+        qi = q[:, q_off:q_off + qc].reshape(B, qc, KH, G, D)
+        m = torch.full((B, KH, G, qc), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KH, G, qc), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, KH, G, qc, D), dtype=torch.float32, device=dev)
+        for k_off in range(0, Sk, kc):
+            s = _chunk_scores(qi, k[:, k_off:k_off + kc], scale)
+            mask = _chunk_mask(q_off, k_off, qc, kc, causal, window, prefix_len, dev)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, k_off:k_off + kc].float())
+            o = o * corr[..., None] + pv
+            m = m_new
+        o = o / torch.clamp(l[..., None], min=1e-30)
+        out.append(o.permute(0, 3, 1, 2, 4).reshape(B, qc, H, D))
+    return torch.cat(out, dim=1).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    *,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token attention against a dense cache.
+
+    q: (B, 1, H, D); caches: (B, S, KH, D); ``cur_len`` the filled length
+    (the new token sits at slot cur_len - 1)."""
+    B, _, H, D = q.shape
+    _, S, KH, _ = k_cache.shape
+    G = H // KH
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    qr = q.reshape(B, KH, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr.float(), k_cache.float()) * scale
+    idx = torch.arange(S, device=q.device)
+    valid = idx < cur_len
+    if window > 0:
+        valid &= idx >= (cur_len - window)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhgk,bkhd->bhgd", p / p.sum(dim=-1, keepdim=True), v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

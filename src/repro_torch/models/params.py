@@ -3,8 +3,9 @@
 The tree has the JAX package's shape: ``blocks.stack`` holds the n_full
 pattern-groups, each leaf stacked on a leading axis, ``blocks.tail`` the
 remainder layers, then ``embed`` and ``final_norm``.  Leaves and scales are
-the JAX ones for attention layers with a dense FFN (params.py:44-83); the
-numbers differ, because a ``torch.Generator`` is not a ``jax.random`` key.
+the JAX ones for attention layers with a dense FFN and for RWKV-6 layers
+(time-mix + channel-mix, params.py:44-124); the numbers differ, because a
+``torch.Generator`` is not a ``jax.random`` key.
 Parameters are a plain nested dict of tensors, not ``nn.Module``s, so the
 bridge and the tests compare like with like.
 """
@@ -28,6 +29,9 @@ class _Init:
     def normal(self, shape, scale=0.02):
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
         return (x * scale).to(self.dtype)
+
+    def zeros(self, shape):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     def norm(self, cfg: ArchConfig, shape) -> dict:
         z = dict(dtype=torch.float32, device=self.device)
@@ -56,6 +60,13 @@ def _attn_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, lead: tuple)
 def _ffn_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
     d, F = cfg.d_model, cfg.d_ff
     p: dict = {"ln": init.norm(cfg, lead + (d,))}
+    if cfg.activation == "rwkv":  # channel-mix
+        p["mix_k"] = init.zeros(lead + (d,))
+        p["mix_r"] = init.zeros(lead + (d,))
+        p["w1"] = init.normal(lead + (d, F))
+        p["w_r"] = init.normal(lead + (d, d))
+        p["w2"] = init.normal(lead + (F, d))
+        return p
     p["w1"] = init.normal(lead + (d, F))
     if cfg.activation in ("swiglu", "geglu"):
         p["w3"] = init.normal(lead + (d, F))
@@ -63,11 +74,39 @@ def _ffn_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
     return p
 
 
+def _rwkv6_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
+    d, H, Dh = cfg.d_model, cfg.rnn_heads, cfg.d_head
+    hd = H * Dh
+    lora = max(32, d // 32)
+    z = dict(dtype=torch.float32, device=init.device)
+    p = {
+        "ln": init.norm(cfg, lead + (d,)),
+        "w_r": init.normal(lead + (d, hd)),
+        "w_k": init.normal(lead + (d, hd)),
+        "w_v": init.normal(lead + (d, hd)),
+        "w_g": init.normal(lead + (d, hd)),
+        "w_o": init.normal(lead + (hd, d), scale=0.02 / max(1, cfg.n_layers) ** 0.5),
+        "lora_a": init.normal(lead + (d, lora)).float(),
+        "lora_b": init.normal(lead + (lora, hd)).float(),
+        "w0": torch.full(lead + (hd,), -0.6, **z),  # decay ~ exp(-exp(-0.6)) ~ .58
+        "u": init.normal(lead + (H, Dh)).float(),
+        "gn_scale": torch.ones(lead + (hd,), **z),
+        "gn_bias": torch.zeros(lead + (hd,), **z),
+    }
+    for name in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w"):
+        p[name] = init.zeros(lead + (d,))
+    return p
+
+
 def _layer_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, kind: str,
                   lead: tuple = ()) -> dict:
-    if kind not in ("attn", "swa", "local"):
+    if kind in ("attn", "swa", "local"):
+        core = _attn_params(init, cfg, plan, lead)
+    elif kind == "rwkv6":
+        core = _rwkv6_params(init, cfg, lead)
+    else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return {"attn": _attn_params(init, cfg, plan, lead), "ffn": _ffn_params(init, cfg, lead)}
+    return {"attn": core, "ffn": _ffn_params(init, cfg, lead)}
 
 
 def init_params(
@@ -81,8 +120,9 @@ def init_params(
     (a fresh one seeded 0 on ``device`` when omitted)."""
     dev = resolve_device(device)
     if cfg.is_moe or cfg.enc_dec or cfg.frontend != "none" or cfg.n_classes:
-        raise NotImplementedError(f"{cfg.name}: only dense attention decoders are ported")
-    if cfg.activation not in ("swiglu", "geglu", "gelu"):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense attention and RWKV-6 decoders are ported")
+    if cfg.activation not in ("swiglu", "geglu", "gelu", "rwkv"):
         raise NotImplementedError(f"{cfg.name}: activation {cfg.activation!r}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.name}: pos_embedding {cfg.pos_embedding!r}")

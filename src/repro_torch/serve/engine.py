@@ -1,6 +1,13 @@
-"""Continuous-batching engine over the paged KV cache (the port's
-``repro/serve/engine.py``: ``make_mixed_step``, ``make_rolled_step`` and
-``ServingEngine`` with ``submit`` / ``step`` / ``run`` / ``summary``).
+"""Serving (the port's ``repro/serve/engine.py``): the eager whole-batch
+path and the continuous-batching engine over the paged KV cache.
+
+* ``make_prefill_step`` / ``make_decode_step`` / ``greedy_generate``: one
+  prefill of the whole batch (flash-attention or WKV kernel, harvesting the
+  decode cache), then lockstep greedy decode over a dense cache.  Archs the
+  continuous engine cannot serve (RWKV-6) serve through it, and it is the
+  oracle the engine's tokens are held to.
+* ``make_mixed_step``, ``make_rolled_step`` and ``ServingEngine`` with
+  ``submit`` / ``step`` / ``run`` / ``summary``:
 
 Every slot owns ``mixed_slab_width`` query rows of a shared (B, W) token
 slab: a decode slot uses 1, a prefill slot up to W (its next prompt chunk),
@@ -27,9 +34,73 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan, ServePlan, serve_feasible
 from repro_torch.kernels.paged_attention import kernel as paged_attention_kernel
-from repro_torch.models.cache import init_paged_cache, live_blocks, paged_copy_block
+from repro_torch.models.cache import (
+    cache_from_prefill,
+    init_paged_cache,
+    live_blocks,
+    paged_copy_block,
+)
 from repro_torch.models.transformer import forward, logits_fn
 from repro_torch.serve.scheduler import Request, Scheduler
+
+
+def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
+    """``prefill(params, batch) -> (logits (B, 1, V) of the last position,
+    prefill cache)``: one pass over the whole prompt with
+    ``collect_cache=True``.  ``fused=False`` runs the kernels' plain
+    versions on any device (the oracle)."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        x, pc = forward(params, batch, cfg=cfg, plan=plan, collect_cache=True, fused=fused)
+        return logits_fn(params, x[:, -1:], cfg), pc
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan):
+    """``decode(params, token (B, 1), cache) -> (logits (B, 1, V), cache)``:
+    one token over the dense cache, which is updated in place."""
+
+    @torch.no_grad()
+    def decode_step(params, token, cache):
+        x, cache = forward(params, {"tokens": token}, cfg=cfg, plan=plan, cache=cache)
+        return logits_fn(params, x, cfg), cache
+
+    return decode_step
+
+
+def greedy_generate(
+    params: dict,
+    cfg: ArchConfig,
+    plan: ExecutionPlan,
+    batch: dict,
+    n_steps: int,
+    cache_len: int,
+    cache_dtype=torch.bfloat16,
+    *,
+    device="cuda",
+    fused: bool = True,
+) -> torch.Tensor:
+    """Prefill ``batch["tokens"]`` (B, S), then ``n_steps - 1`` lockstep
+    greedy decode steps over a dense cache of ``cache_len`` positions in
+    ``cache_dtype``.  Returns the (B, n_steps) int32 greedy tokens on
+    ``device`` (the card by default; raises without one unless ``"cpu"``),
+    where the parameters and the batch are moved first."""
+    dev = resolve_device(device)
+    params = _tree_to(params, dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    logits, pc = make_prefill_step(cfg, plan, fused=fused)(params, batch)
+    cache = cache_from_prefill(cfg, plan, pc, cache_len, dtype=cache_dtype)
+    del pc
+    decode = make_decode_step(cfg, plan)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tok]
+    for _ in range(n_steps - 1):
+        logits, cache = decode(params, tok, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1).to(torch.int32)
 
 
 def _page_state(serve: ServePlan, fused: bool, table: np.ndarray, device) -> dict:

@@ -64,7 +64,7 @@ def test_paged_update_and_gather_match(kv_dtype):
 
     jentry = JC.init_paged_cache(jcfg, None, jserve)["layers"]["stack"][0]["paged"]
     jentry = {key: x[0] for key, x in jentry.items()}  # layer 0 of the stack
-    tentry = TC.init_paged_cache(tcfg, None, serve)["layers"]["stack"][0]["paged"]
+    tentry = TC.init_paged_cache(tcfg, None, serve, device="cpu")["layers"]["stack"][0]["paged"]
     tentry = {key: x[0] for key, x in tentry.items()}
     before = {key: x.clone() for key, x in tentry.items()}
     for _ in range(2):  # a second write over the first: in-place semantics
@@ -96,7 +96,7 @@ def test_copy_block_forks_every_leaf():
     _, tcfg = configs("smollm-135m")
     serve = derive_serve_plan(tcfg, MESH1, max_seq_len=16, decode_batch=2, block_size=4,
                               kv_dtype="int8")
-    pools = TC.init_paged_cache(tcfg, None, serve)
+    pools = TC.init_paged_cache(tcfg, None, serve, device="cpu")
     for x in TC._leaves(pools):
         x[:, 3] = 7
     TC.paged_copy_block(pools, 3, 5)

@@ -41,7 +41,7 @@ def test_mixed_paged_steps_match_jax(arch, kv_dtype, fused):
               prefill_chunk=4)
     jserve, serve = jax_serve_plan(jcfg, MESH1, **kw), derive_serve_plan(tcfg, MESH1, **kw)
     jpools = jax_init_cache(jcfg, jplan, jserve)
-    tpools = init_paged_cache(tcfg, tplan, serve)
+    tpools = init_paged_cache(tcfg, tplan, serve, device="cpu")
     rng = np.random.default_rng(0)
     W, MB = serve.mixed_slab_width, serve.max_blocks_per_seq
     table = np.zeros((3, MB), np.int32)

@@ -1,0 +1,167 @@
+"""The port's eager path against the JAX package on bridged f32 weights:
+``greedy_generate`` gives JAX ``greedy_generate``'s tokens exactly on
+reduced rwkv6-1.6b and qwen3-1.7b (f32 cache); prefill -> decode over the
+dense cache equals the full pass (rel 2e-3, as tests/test_decode.py), the
+SWA ring cache included past its window; ``cache_from_prefill`` builds the
+JAX cache tree; the port's continuous engine gives the port's
+``greedy_generate`` tokens request by request (as tests/test_serve_engine.py
+holds the JAX engine to the JAX eager path); and the CLI falls back to the
+eager engine for an arch the continuous engine refuses."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import cache_from_prefill as jax_cache_from_prefill
+from repro.models.transformer import forward as jax_forward
+from repro.serve import greedy_generate as jax_greedy_generate
+from repro_torch.core.plan import derive_serve_plan
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models.cache import cache_from_prefill, init_cache
+from repro_torch.models.transformer import forward
+from repro_torch.serve import Request, ServingEngine, greedy_generate
+from torch_parity import MESH1, model_pair, t2n
+
+ARCHS = ["rwkv6-1.6b", "qwen3-1.7b"]
+# Reduced qwen3 ties its head to the embedding, and with random weights its
+# greedy stream just repeats the last prompt token; an untied head (rwkv6
+# has one) makes every token depend on the whole model.
+UNTIED = {"rwkv6-1.6b": {}, "qwen3-1.7b": {"tie_embeddings": False}}
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch,untie", [("rwkv6-1.6b", False), ("qwen3-1.7b", False),
+                                        ("qwen3-1.7b", True)])
+def test_greedy_generate_matches_jax(arch, untie):
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(
+        arch, **(UNTIED[arch] if untie else {}))
+    prompt = _tokens(tcfg, 2, 12)
+    want = jax_greedy_generate(jparams, jcfg, jplan, {"tokens": jnp.asarray(prompt)},
+                               n_steps=6, cache_len=20, cache_dtype=jnp.float32)
+    got = greedy_generate(tparams, tcfg, tplan, {"tokens": torch.from_numpy(prompt)},
+                          n_steps=6, cache_len=20, cache_dtype=torch.float32, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (2, 6)
+    if not tcfg.tie_embeddings:
+        assert len(set(got[0].tolist())) > 1  # not a constant stream
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _decode_vs_full(tcfg, tplan, tparams, tokens, S0, cache_len):
+    """Port hidden states of positions S0.. from prefill + one-token decode
+    steps over the dense cache, and from the full pass."""
+    T = torch.from_numpy(tokens)
+    x_full, none = forward(tparams, {"tokens": T}, cfg=tcfg, plan=tplan)
+    assert none is None
+    _, pc = forward(tparams, {"tokens": T[:, :S0]}, cfg=tcfg, plan=tplan, collect_cache=True)
+    cache = cache_from_prefill(tcfg, tplan, pc, cache_len=cache_len, dtype=torch.float32)
+    outs = []
+    for t in range(S0, tokens.shape[1]):
+        x1, cache = forward(tparams, {"tokens": T[:, t:t + 1]}, cfg=tcfg, plan=tplan,
+                            cache=cache)
+        outs.append(t2n(x1[:, 0]))
+    assert cache["t"] == tokens.shape[1]
+    return np.stack(outs, axis=1), t2n(x_full[:, S0:]), x_full
+
+
+def _rel(got, want):
+    return np.max(np.abs(want - got)) / (np.max(np.abs(want)) + 1e-9)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_full(arch):
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch)
+    tokens = _tokens(tcfg, 2, 11, seed=1)
+    got, want, x_full = _decode_vs_full(tcfg, tplan, tparams, tokens, 8, cache_len=13)
+    assert _rel(got, want) < 2e-3, f"{arch}: decode diverges from full pass"
+    jx, _, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan)
+    np.testing.assert_allclose(t2n(x_full), np.asarray(jx), rtol=1e-4, atol=1e-4)
+
+
+def test_windowed_ring_cache_wraps():
+    """Decode 16 tokens past an 8-slot window: the ring equals the full pass
+    (the port's and the JAX one)."""
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(
+        "qwen3-1.7b", layer_pattern=("swa",), sliding_window=8, n_layers=2)
+    tokens = _tokens(tcfg, 1, 20, seed=2)
+    got, want, x_full = _decode_vs_full(tcfg, tplan, tparams, tokens, 4,
+                                        cache_len=tcfg.sliding_window)
+    assert _rel(got, want) < 2e-3, f"ring cache wrap mismatch: {_rel(got, want):.1e}"
+    jx, _, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan)
+    np.testing.assert_allclose(t2n(x_full), np.asarray(jx), rtol=1e-4, atol=1e-4)
+
+
+def _shapes(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_shapes(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_shapes(v, prefix + (i,)))
+        return out
+    return {prefix: tuple(np.shape(tree))}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_trees_match_jax(arch):
+    """``cache_from_prefill`` and ``init_cache`` build the JAX tree (keys
+    and shapes) with the same values; the stacked groups carry ``t``."""
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch, n_layers=3)
+    tokens = _tokens(tcfg, 2, 6, seed=3)
+    _, jpc, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan,
+                            collect_cache=True)
+    jc = jax_cache_from_prefill(jcfg, jplan, jpc, cache_len=9, dtype=jnp.float32)
+    _, pc = forward(tparams, {"tokens": torch.from_numpy(tokens)}, cfg=tcfg, plan=tplan,
+                    collect_cache=True)
+    tc = cache_from_prefill(tcfg, tplan, pc, cache_len=9, dtype=torch.float32)
+    js, ts = _shapes(jc["layers"]), _shapes(tc["layers"])
+    assert js == ts
+    assert int(jc["t"]) == tc["t"] == 6
+    jl = dict(zip(js, jax.tree.leaves(jc["layers"])))
+    for path, leaf in zip(ts, _leaves(tc["layers"])):
+        np.testing.assert_allclose(t2n(leaf) if leaf.dtype != torch.int32 else leaf.numpy(),
+                                   np.asarray(jl[path]), rtol=1e-4, atol=1e-4, err_msg=str(path))
+    zero = init_cache(tcfg, tplan, 2, 9, dtype=torch.float32, device="cpu")
+    assert _shapes(zero["layers"]) == ts and zero["t"] == 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def test_engine_matches_greedy_generate():
+    """The port's continuous engine (paged cache, staggered arrivals) gives
+    the port's eager tokens for every request, one request at a time."""
+    _, _, _, tcfg, tplan, tparams = model_pair("qwen3-1.7b", **UNTIED["qwen3-1.7b"])
+    serve = derive_serve_plan(tcfg, MESH1, max_seq_len=64, decode_batch=4, block_size=8,
+                              kv_dtype="fp32", prefill_chunk=8, rolled_steps=1)
+    rng = np.random.default_rng(4)
+    prompts = [list(rng.integers(0, tcfg.vocab_size, n)) for n in (5, 12, 3, 9)]
+    engine = ServingEngine(tparams, tcfg, tplan, serve, device="cpu")
+    got = engine.run(Request(rid=f"r{i}", prompt=p, max_new_tokens=6, arrival=2 * i)
+                     for i, p in enumerate(prompts))
+    for i, p in enumerate(prompts):
+        want = greedy_generate(tparams, tcfg, tplan, {"tokens": torch.tensor([p])}, n_steps=6,
+                               cache_len=len(p) + 6, cache_dtype=torch.float32, device="cpu")
+        assert got[f"r{i}"] == want[0].tolist(), f"request r{i}"
+
+
+def test_cli_falls_back_to_eager(capsys):
+    out = serve_main(["--arch", "rwkv6-1.6b-reduced", "--device", "cpu", "--dtype", "fp32",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    text = capsys.readouterr().out
+    assert "falling back to --engine eager" in text
+    assert out["tokens"].shape == (2, 3) and out["tok_per_s"] > 0

@@ -40,6 +40,8 @@ def test_importing_the_port_pulls_in_neither():
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.bridge, repro_torch.models.params\n"
         "import repro_torch.kernels.paged_attention.ops\n"
+        "import repro_torch.kernels.rwkv6.ops, repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.models.rwkv6\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -68,3 +70,38 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "smollm-135m-reduced", "--requests", "1"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_device_defaults_raise_without_cuda():
+    """Every entry point that places tensors defaults to the card: without
+    one it raises unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    from repro_torch.bridge import from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import derive_execution_plan, derive_serve_plan
+    from repro_torch.models.cache import init_cache, init_paged_cache
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import greedy_generate
+
+    cfg = get_config("qwen3-1.7b-reduced")
+    plan = derive_execution_plan(cfg)
+    serve = derive_serve_plan(cfg, {"data": 1, "model": 1}, max_seq_len=32, decode_batch=2)
+    tree = {"w": np.ones((2, 2), np.float32)}
+    calls = {
+        "from_jax": lambda **kw: from_jax(tree, **kw),
+        "init_paged_cache": lambda **kw: init_paged_cache(cfg, plan, serve, **kw),
+        "init_cache": lambda **kw: init_cache(cfg, plan, 2, 8, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu") is not None, name
+    params = init_params(cfg, plan, torch.float32, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(params, cfg, plan, batch, n_steps=2, cache_len=6)
+    assert greedy_generate(params, cfg, plan, batch, n_steps=2, cache_len=6,
+                           device="cpu").shape == (1, 2)

@@ -53,4 +53,4 @@ def model_pair(arch: str = "smollm-135m", dtype=jnp.float32, seed: int = 0, **re
     jplan = derive_plan(jcfg, MESH1, batch=4, seq_len=16, training=False)
     tplan = derive_execution_plan(tcfg)
     jparams = jax_init_params(jax.random.PRNGKey(seed), jcfg, jplan, dtype=dtype)
-    return jcfg, jplan, jparams, tcfg, tplan, from_jax(to_numpy(jparams))
+    return jcfg, jplan, jparams, tcfg, tplan, from_jax(to_numpy(jparams), device="cpu")
