@@ -4,10 +4,11 @@
 
 Needs one CUDA card and the repository around it (it imports ``src/
 repro_torch``); without either it exits non-zero and prints no result.  It
-builds the three CUDA kernels from the checkout (one ``nvcc`` per source,
+builds the five CUDA kernels from the checkout (one ``nvcc`` per source,
 in parallel), holds each against its plain PyTorch version at the main
 paths' shapes, drives both serving paths at full width and depth (random
-weights from a seed), checks the outputs, times the kernels, and prints:
+weights from a seed) and the int8 FFN stage at full width, checks the
+outputs, times the kernels, and prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
@@ -27,9 +28,18 @@ prefill shape) and its times, 8 flash-attention kernel vs plain version
 its times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16 (main
 paths whose launches are counted), 11 kernel path vs plain path in f32
 (identical tokens), 12 the continuous engine vs ``greedy_generate``
-(identical tokens).  Planted controls (a dropped key tile, a window one key
-wider, the WKV's cross-chunk term dropped) show that the tolerances reject
-a wrong kernel.
+(identical tokens); 13 the RMSNorm kernel vs its plain version (the JAX
+test's cases, every model width, strided qk views, the main paths' rows)
+and its times; 14 the MM PU kernel vs its plain version (the JAX test's
+shapes, activations, int8 dequant, random shapes); 15 the int8 FFN stage
+at qwen3-1.7b width (three ``mm_pu`` launches) and its times.  Every main
+path (phases 3-5, 9-11) checks the exact launch count of every kernel:
+the paged or eager-prefill kernel once a layer, the RMSNorm kernel once a
+norm per forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no
+kernel at all on a plain path.  Planted controls (a dropped key tile, a
+window one key wider, the WKV's cross-chunk term dropped, the norm's
+``1 + scale`` or mean changed, a dropped K slice, a per-row scale) show
+that the tolerances reject a wrong kernel.
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ RWKV_ARCH = "rwkv6-1.6b"
 MESH1 = {"data": 1, "model": 1}
 # The eager main paths: B 8 prompts of 2048 tokens, 32 new tokens each.
 EAGER_B, EAGER_PROMPT, EAGER_GEN = 8, 2048, 32
+# The continuous main path's slab on the derived H100 plan: 256 slots x 256 rows.
+SLAB_ROWS = 256 * 256
 
 
 def log(msg: str) -> None:
@@ -266,19 +278,25 @@ def phase_kernels(cfg):
 
 # ---------------------------------------------------------------- serving
 def serve_once(cfg, plan, serve, params, reqs, *, fused):
+    """One engine run; every launch count is set to 0 just before and read
+    just after.  With the kernels, each device iteration launches the paged
+    kernel once a layer and the RMSNorm kernel once a norm; the gather path
+    (``fused=False``) launches none.  Returns (tokens, counts, summary)."""
     from repro_torch.serve import ServingEngine
 
     engine = ServingEngine(params, cfg, plan, serve, fused=fused, device="cuda")
     reset_counts()  # count this run's launches only
     out = engine.run(reqs)
     counts = read_counts()
-    check(counts["wkv"] == 0 and counts["flash_attention"] == 0,
-          f"the continuous path launched an eager-path kernel: {counts}")
-    launches = counts["paged_attention"]
     summary = engine.summary()
+    steps = summary["steps"]
+    want = (expect_counts(paged_attention=cfg.n_layers * steps,
+                          rmsnorm=norms_per_forward(cfg) * steps) if fused else expect_counts())
+    check(counts == want, f"launches {counts}, expected {want} ({steps} device iterations, "
+          f"fused={fused})")
     del engine
     torch.cuda.empty_cache()
-    return out, launches, summary
+    return out, counts, summary
 
 
 def describe(tag, s):
@@ -302,18 +320,17 @@ def phase_parity(cfg, plan):
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
     reqs = lambda: random_stream(cfg, 8, (100, 600), 16, stagger=2, seed=1)  # noqa: E731
-    fused, launches, s1 = serve_once(cfg, plan, serve, params, reqs(), fused=True)
+    fused, counts, s1 = serve_once(cfg, plan, serve, params, reqs(), fused=True)
     describe("kernel", s1)
-    gather, g_launches, s2 = serve_once(cfg, plan, serve, params, reqs(), fused=False)
+    gather, _, s2 = serve_once(cfg, plan, serve, params, reqs(), fused=False)
     describe("gather", s2)
     check(len(fused) == 8 and all(len(t) == 16 for t in fused.values()), "requests unfinished")
     same = fused == gather
     first_diff = next((r for r in fused if fused[r] != gather[r]), None)
     log(f"  greedy tokens identical: {same} (first differing request: {first_diff})")
     check(same, "kernel and gather paths disagree on greedy tokens")
-    check(launches == cfg.n_layers * s1["dispatches"] and g_launches == 0,
-          f"launches {launches} != {cfg.n_layers} x {s1['dispatches']} mixed steps")
-    log(f"  kernel launches {launches} = {cfg.n_layers} layers x {s1['dispatches']} steps")
+    log(f"  kernel path launches {counts} over {s1['steps']} steps "
+        f"({cfg.n_layers} paged, {norms_per_forward(cfg)} rmsnorm a step); gather path: none")
     del params
     torch.cuda.empty_cache()
 
@@ -331,7 +348,7 @@ def phase_served(cfg, plan):
     params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
     reqs = random_stream(cfg, 64, (100, 600), 16, stagger=1, seed=3)
     torch.cuda.reset_peak_memory_stats()
-    out, launches, s = serve_once(cfg, plan, serve, params, reqs, fused=True)
+    out, counts, s = serve_once(cfg, plan, serve, params, reqs, fused=True)
     describe("served", s)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(s["requests"]["finished"] == 64 and len(out) == 64, "not every request finished")
@@ -340,13 +357,13 @@ def phase_served(cfg, plan):
     check(s["requests"]["shed"] == 0, "requests were shed")
     # the engine quarantines (and replays) a slot whose logits are not finite
     check(s["quarantines"] == 0, "non-finite logits")
-    # one launch per layer per device iteration (mixed step or rolled one)
-    check(launches > 0 and launches == cfg.n_layers * s["steps"],
-          f"main path launched the kernel {launches} times for {s['steps']} iterations")
-    log(f"  kernel launches on the main path: {launches}")
+    # per device iteration (mixed step or rolled one): one paged launch a
+    # layer, one RMSNorm launch a norm (serve_once checked the counts)
+    check(s["steps"] > 0, "no device iteration ran")
+    log(f"  kernel launches on the main path: {counts} ({s['steps']} device iterations)")
     del params
     torch.cuda.empty_cache()
-    return launches, s
+    return counts, s
 
 
 def phase_rolled(cfg_full, plan):
@@ -478,10 +495,27 @@ def phase_times(cfg, name, B, n_prefill, seed):
 def kernel_ops() -> dict:
     """Each kernel's wrapper module, which holds its LAUNCHES count."""
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.mm_pu import ops as mm_pu
     from repro_torch.kernels.paged_attention import ops as paged
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm
     from repro_torch.kernels.rwkv6 import ops as wkv
 
-    return {"paged_attention": paged, "wkv": wkv, "flash_attention": flash}
+    return {"paged_attention": paged, "wkv": wkv, "flash_attention": flash, "rmsnorm": rmsnorm,
+            "mm_pu": mm_pu}
+
+
+def expect_counts(**launches) -> dict:
+    """Every kernel's expected launch count: those given, 0 for the rest."""
+    return {name: launches.get(name, 0) for name in kernel_ops()}
+
+
+def norms_per_forward(cfg) -> int:
+    """RMSNorm launches of one forward: each layer's two norms, qk-norm's
+    two, and the final norm (4 x 28 + 1 = 113 on qwen3-1.7b); none for a
+    LayerNorm arch."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    return (2 + 2 * int(cfg.qk_norm)) * cfg.n_layers + 1
 
 
 def reset_counts() -> None:
@@ -746,7 +780,8 @@ def phase_eager(arch, kernel_name, tag):
     """The eager main path: ``greedy_generate`` at full width and depth in
     bf16, B 8 x 2048-token prompts, 32 new tokens.  Every launch count is
     set to 0 just before and read just after; the prompt's one prefill
-    launches ``kernel_name`` once per layer."""
+    launches ``kernel_name`` once per layer, and each of the 32 forwards
+    (the prefill and 31 decode steps) the RMSNorm kernel once a norm."""
     from repro_torch.serve import greedy_generate, make_prefill_step
 
     log(f"phase {tag} (main path): {arch} served by greedy_generate, bf16, B={EAGER_B}, "
@@ -770,8 +805,10 @@ def phase_eager(arch, kernel_name, tag):
     log(f"  request 0 tokens: {out[0].tolist()}")
     check(out.shape == (EAGER_B, EAGER_GEN) and int(out.min()) >= 0
           and int(out.max()) < cfg.vocab_size, "tokens of the wrong shape or outside the vocab")
-    expect = {name: cfg.n_layers if name == kernel_name else 0 for name in counts}
-    check(counts == expect, f"launches {counts}, expected {expect} (one prefill)")
+    expect = expect_counts(**{kernel_name: cfg.n_layers,
+                              "rmsnorm": norms_per_forward(cfg) * EAGER_GEN})
+    check(counts == expect, f"launches {counts}, expected {expect} (one prefill, "
+          f"{EAGER_GEN} forwards)")
     # the prefill's logits are finite (timed: the prompt's time to first token)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -782,14 +819,14 @@ def phase_eager(arch, kernel_name, tag):
     check(finite, "non-finite prefill logits")
     del params, logits
     torch.cuda.empty_cache()
-    return counts[kernel_name], {"tok_per_s": tok_s, "seconds": dt, "peak_gib": peak,
-                                 "prefill_ms": prefill_s * 1e3}
+    return counts, {"tok_per_s": tok_s, "seconds": dt, "peak_gib": peak,
+                    "prefill_ms": prefill_s * 1e3}
 
 
 def phase_paths():
     """f32, full depth: the kernel path and the plain path (``fused=False``:
-    ``blocked_attention`` / ``wkv_chunked`` on the card) give identical
-    greedy tokens and prefill logits within rounding."""
+    ``blocked_attention`` / ``wkv_chunked`` and the plain norms on the card)
+    give identical greedy tokens and prefill logits within rounding."""
     from repro_torch.serve import greedy_generate, make_prefill_step
 
     log("phase 11: f32 full depth, B=2, prompt 256, 16 new tokens: kernel path vs plain path")
@@ -801,7 +838,7 @@ def phase_paths():
             reset_counts()
             toks = greedy_generate(params, cfg, plan, batch, n_steps=16, cache_len=272,
                                    cache_dtype=torch.float32, device="cuda", fused=fused).cpu()
-            launches = read_counts()[name]
+            launches = read_counts()
             logits, _ = make_prefill_step(cfg, plan, fused=fused)(params, batch)
             runs[fused] = (toks, launches, logits)
         (tk, lk, xk), (tp, lp, xp) = runs[True], runs[False]
@@ -809,10 +846,12 @@ def phase_paths():
         same = bool(torch.equal(tk, tp))
         log(f"  {arch} (untied head): tokens identical {same}, distinct tokens in request 0: "
             f"{len(set(tk[0].tolist()))}/16, prefill logits rel err {e:.3g}, "
-            f"{name} launches {lk} (kernel path) / {lp} (plain path)")
+            f"launches {lk} (kernel path) / {lp} (plain path)")
         check(same, f"{arch}: kernel and plain paths disagree on greedy tokens")
         check(e < 1e-3, f"{arch}: prefill logits differ beyond f32 rounding")
-        check(lk == cfg.n_layers and lp == 0, f"{arch}: launches {lk} / {lp}")
+        want = expect_counts(**{name: cfg.n_layers, "rmsnorm": norms_per_forward(cfg) * 16})
+        check(lk == want and lp == expect_counts(), f"{arch}: launches {lk} / {lp}, kernel "
+              f"path expected {want}")
         del params, runs, xk, xp
         torch.cuda.empty_cache()
 
@@ -844,6 +883,323 @@ def phase_engine_vs_eager():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- rmsnorm
+# f32 output: 1e-5 (the JAX kernel test's); bf16 output: one bf16 step, as
+# for the attention kernels (both sides compute in f32, round once).
+RMS_F32_TOL = (1e-5, 1e-5)
+
+
+def rms_inputs(shape, dtype, seed):
+    """x (dtype) and a (d,) f32 scale drawn as the JAX test draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return x, torch.randn(shape[-1], generator=g, device="cuda") * 0.1
+
+
+def qkv_views(B, S, H, KH, D, dtype, seed):
+    """q and k as the model hands them to qk-norm: views of one fused QKV
+    projection, tokens (H + 2 KH) D elements apart."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((B, S, (H + 2 * KH) * D), generator=g, device="cuda").to(dtype)
+    q, k, _ = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    return q.reshape(B, S, H, D), k.reshape(B, S, KH, D)
+
+
+def rms_check(name, x, s, residual=None):
+    """Kernel vs plain version (``rmsnorm_ref``); returns (kernel output,
+    plain output, max abs error)."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    got = ops.rmsnorm(x, s, residual)
+    torch.cuda.synchronize()
+    want = rmsnorm_ref(x, s, residual)
+    tol = BF16_TOL if x.dtype == torch.bfloat16 else RMS_F32_TOL
+    ok, err, _ = within(got, want, tol)
+    ok = ok and got.dtype == x.dtype and got.shape == x.shape and bool(torch.isfinite(got).all())
+    log(f"  {name}: max_abs_err={err:.3g} tol(atol, rtol)={tol} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"rmsnorm kernel disagrees with the plain version on {name}")
+    return got, want, err
+
+
+def rms_mean_over_d_minus_1(x, s, eps=1e-6):
+    """The plain version with the mean of squares taken over d - 1."""
+    xf = x.float()
+    ms = xf.square().sum(dim=-1, keepdim=True) / (x.shape[-1] - 1)
+    return (xf * torch.rsqrt(ms + eps) * (1.0 + s)).to(x.dtype)
+
+
+def rms_bound(x):
+    """Least time on an H100 SXM: x read and y written once, and the scale,
+    at 3.35 TB/s (about 4 flops an element, far below the f32 peak)."""
+    nbytes = 2 * x.numel() * x.element_size() + 4 * x.shape[-1]
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def rms_times(name, x, s):
+    """Kernel, plain version and the nearest library call
+    (``F.rms_norm`` with the weight 1 + scale in x's dtype, made outside
+    the timed region; the port never calls it)."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.models.layers import rmsnorm
+
+    d = x.shape[-1]
+    ms = time_ms(lambda: ops.rmsnorm(x, s))
+    plain_ms = time_ms(lambda: rmsnorm(x, s), reps=10, warmup=2)
+    weight = (1.0 + s).to(x.dtype)
+    lib_ms = time_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6))
+    b_ms, b_by = rms_bound(x)
+    log(f"  times {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
+        f"roofline), plain {plain_ms:.3f} ms, F.rms_norm {lib_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def phase_rmsnorm(cfg):
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    log("phase 13: rmsnorm kernel vs plain version on the card")
+    before = ops.LAUNCHES
+    errs = []
+    n = 0
+    # tests/test_kernels_rmsnorm.py: its shapes x dtypes, the fused residual
+    for shape in [(64, 128), (2, 100, 64), (7, 33)]:
+        for dt in (torch.float32, torch.bfloat16):
+            errs.append(rms_check(f"{shape} {str(dt)[6:]}", *rms_inputs(shape, dt, n))[2])
+            n += 1
+    for dt in (torch.float32, torch.bfloat16):
+        x, s = rms_inputs((32, 64), dt, n)
+        r = rms_inputs((32, 64), dt, n + 1)[0]
+        errs.append(rms_check(f"(32, 64) {str(dt)[6:]} + residual", x, s, r)[2])
+        n += 2
+    # every width of the port's rmsnorm configs, and d_head for qk-norm
+    for d in (576, 2048, 3072, 4096, 12288, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            x, s = rms_inputs((300, d), dt, n)
+            _, want, err = rms_check(f"width (300, {d}) {str(dt)[6:]}", x, s)
+            errs.append(err)
+            n += 1
+            if dt == torch.float32 and d in (128, 2048):
+                planted(f"mean over d - 1 = {d - 1}", rms_mean_over_d_minus_1(x, s), want,
+                        RMS_F32_TOL)
+    # qk-norm input: strided views of a fused QKV projection
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    for dt in (torch.float32, torch.bfloat16):
+        q, k = qkv_views(2, 37, H, KH, D, dt, n)
+        s = rms_inputs((D,), torch.float32, n + 1)[1]
+        n += 2
+        for nm, v in (("q", q), ("k", k)):
+            got, _, err = rms_check(f"{nm} view {tuple(v.shape)} {str(dt)[6:]}, token stride "
+                                    f"{v.stride(1)}", v, s)
+            errs.append(err)
+            check(torch.equal(got, ops.rmsnorm(v.contiguous(), s)),
+                  "the strided view and its contiguous copy disagree")
+
+    # the main paths' shapes: the qwen3-1.7b prefill rows (B 8 x 2048 tokens)
+    # and its q view, and the continuous slab (256 slots x 256 rows)
+    d = cfg.d_model
+    x, s = rms_inputs((EAGER_B * EAGER_PROMPT, d), torch.bfloat16, 50)
+    _, want, err = rms_check(f"main prefill rows ({x.shape[0]}, {d}) bf16", x, s)
+    errs.append(err)
+    planted("(1 + scale) replaced by scale", rmsnorm_ref(x, s - 1.0), want, BF16_TOL)
+    del want
+    prefill = rms_times(f"prefill rows ({x.shape[0]}, {d}) bf16", x, s)
+    del x
+    q, _ = qkv_views(EAGER_B, EAGER_PROMPT, H, KH, D, torch.bfloat16, 51)
+    sq = rms_inputs((D,), torch.float32, 52)[1]
+    errs.append(rms_check(f"main q view {tuple(q.shape)} bf16", q, sq)[2])
+    qview = rms_times(f"q view {tuple(q.shape)} bf16", q, sq)
+    del q
+    x, s = rms_inputs((SLAB_ROWS, d), torch.bfloat16, 53)
+    errs.append(rms_check(f"main slab ({x.shape[0]}, {d}) bf16", x, s)[2])
+    slab = rms_times(f"slab ({x.shape[0]}, {d}) bf16", x, s)
+    del x
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = before  # checking and timing launches are not main-path launches
+    return max(errs), {"prefill": prefill, "q_view": qview, "slab": slab}
+
+
+# ---------------------------------------------------------------- mm_pu
+# (atol, rtol).  f32 output: the JAX test's 1e-4 / 1e-5 (random shapes
+# 1e-3 / 1e-4); bf16 output: one bf16 step (JAX allows 2e-2): the kernel
+# and the plain version both accumulate in f32 and round once.
+MM_F32_TOL, MM_RANDOM_TOL = (1e-4, 1e-5), (1e-3, 1e-4)
+MM_SHAPES = [(128, 128, 128), (256, 512, 384), (197, 768, 768), (64, 100, 32), (300, 64, 513)]
+MM_K_TILE = 16  # the kernel's K slice
+
+
+def mm_inputs(m, k, n, dtype, seed):
+    """x (m, k) and w (k, n) * 0.05 as the JAX test draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=g, device="cuda") * 0.05).to(dtype)
+    return x, w
+
+
+def mm_check(name, x, w, tol=None, **kw):
+    """Kernel vs plain version (``mm_pu_ref``) on the same inputs; returns
+    (kernel output, plain output, max abs error)."""
+    from repro_torch.kernels.mm_pu import ops
+    from repro_torch.kernels.mm_pu.ref import mm_pu_ref
+
+    got = ops.mm_pu(x, w, **kw)
+    torch.cuda.synchronize()
+    want = mm_pu_ref(x, w, **kw)
+    if tol is None:
+        tol = BF16_TOL if want.dtype == torch.bfloat16 else MM_F32_TOL
+    ok, err, _ = within(got, want, tol)
+    ok = ok and got.dtype == want.dtype and got.shape == want.shape
+    log(f"  {name}: max_abs_err={err:.3g} tol(atol, rtol)={tol} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"mm_pu kernel disagrees with the plain version on {name}")
+    return got, want, err
+
+
+def mm_controls(x, q, s, want, tol):
+    """The planted controls of the int8 product x @ (q * s): the last K
+    slice dropped, and the scale applied per output row instead of per
+    column (row m scaled by s[m mod N])."""
+    from repro_torch.kernels.mm_pu.ref import mm_pu_ref
+
+    K, M, N = q.shape[0], x.shape[0], q.shape[1]
+    cut = (K - 1) // MM_K_TILE * MM_K_TILE
+    planted(f"last K slice dropped (K {K} -> {cut})",
+            mm_pu_ref(x[:, :cut], q[:cut], w_scale=s, out_dtype=want.dtype), want, tol)
+    rows = s.reshape(-1)[torch.arange(M, device=x.device) % N]
+    per_row = ((x.float() @ q.float()) * rows[:, None]).to(want.dtype)
+    planted("scale per row instead of per column", per_row, want, tol)
+
+
+def phase_mm_pu():
+    from repro_torch.kernels.mm_pu import ops
+    from repro_torch.kernels.mm_pu.ref import quantize_weights_int8
+
+    log("phase 14: mm_pu kernel vs plain version on the card")
+    before = ops.LAUNCHES
+    errs = []
+    # tests/test_kernels_mm_pu.py: SHAPES x dtypes, every activation with
+    # bias and residual, the int8 dequant, random shapes
+    for n, (m, k, nn) in enumerate(MM_SHAPES):
+        for dt in (torch.float32, torch.bfloat16):
+            errs.append(mm_check(f"({m}, {k}) @ ({k}, {nn}) {str(dt)[6:]}",
+                                 *mm_inputs(m, k, nn, dt, n))[2])
+    g = torch.Generator(device="cuda").manual_seed(10)
+    b = torch.randn((1, 256), generator=g, device="cuda")
+    r = torch.randn((256, 256), generator=g, device="cuda")
+    for act in ("gelu", "silu", "relu", "relu2", "none"):
+        x, w = mm_inputs(256, 256, 256, torch.float32, 11)
+        errs.append(mm_check(f"256^3 f32 {act} + bias + residual", x, w, bias=b, residual=r,
+                             activation=act)[2])
+    x, w = mm_inputs(256, 384, 512, torch.float32, 12)
+    q, s = quantize_weights_int8(w)
+    _, want, err = mm_check("int8 dequant (256, 384) @ (384, 512)", x, q, w_scale=s)
+    errs.append(err)
+    mm_controls(x, q, s, want, MM_F32_TOL)
+    rng = np.random.default_rng(13)
+    for i in range(10):
+        m, k, nn = (int(v) for v in rng.integers(8, 301, 3))
+        errs.append(mm_check(f"random ({m}, {k}) @ ({k}, {nn})",
+                             *mm_inputs(m, k, nn, torch.float32, 20 + i), tol=MM_RANDOM_TOL)[2])
+    ops.LAUNCHES = before
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def mm_bound(x, w, out_dtype):
+    """Least time on an H100 SXM: 2 M N K flops at the bf16 tensor-core rate
+    (bf16 x with int8 or bf16 w: every operand exact in bf16), or x, w, the
+    scale and the output once at 3.35 TB/s, whichever is larger."""
+    M, K = x.shape
+    N = w.shape[1]
+    out_size = torch.finfo(out_dtype).bits // 8
+    nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * N + M * N * out_size
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 2 * M * N * K / PEAK_FLOPS["bf16" if x.dtype == torch.bfloat16 else "fp32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_int8_ffn(cfg_full):
+    """tests/test_int8_serving.py's SwiGLU stage on the card at qwen3-1.7b's
+    FFN width: layer 0's w1/w3/w2 (2048 -> 6144 -> 2048) of bf16
+    ``init_params`` weights (depth cut to one layer), each quantized to
+    int8 per output channel, three ``mm_pu`` products over bf16 tokens."""
+    import dataclasses
+
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.kernels.mm_pu import ops
+    from repro_torch.kernels.mm_pu.ref import mm_pu_ref, quantize_weights_int8
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(cfg_full, n_layers=1)
+    log(f"phase 15: int8 FFN stage at {cfg.name} width (d {cfg.d_model}, d_ff {cfg.d_ff}), "
+        "bf16 tokens")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, derive_execution_plan(cfg), torch.bfloat16, generator=gen,
+                         device="cuda")
+    stack = params["blocks"]["stack"]  # one pattern-group: layer 0 is index 0 of each leaf
+    ffn = {k: stack[0]["ffn"][k][0] for k in ("w1", "w3", "w2")}
+    del params, stack
+    (q1, s1), (q3, s3), (q2, s2) = (quantize_weights_int8(ffn[k]) for k in ("w1", "w3", "w2"))
+    errs, out = [], {}
+    for T in (EAGER_PROMPT, 256):
+        x = torch.randn((T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_counts()
+        h = ops.mm_pu(x, q1, w_scale=s1, activation="silu")
+        g = ops.mm_pu(x, q3, w_scale=s3)
+        y = ops.mm_pu(h * g, q2, w_scale=s2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == expect_counts(mm_pu=3), f"T={T}: launches {counts}, expected 3 mm_pu")
+        # each product against its plain version on the same inputs
+        products = {"w1 silu": (x, q1, s1, "silu", h), "w3": (x, q3, s3, "none", g),
+                    "w2": (h * g, q2, s2, "none", y)}
+        for name, (xin, q, s, act, got) in products.items():
+            want = mm_pu_ref(xin, q, w_scale=s, activation=act)
+            ok, err, _ = within(got, want, BF16_TOL)
+            log(f"  T={T} {name} ({xin.shape[0]}, {q.shape[0]}) @ ({q.shape[0]}, {q.shape[1]}): "
+                f"max_abs_err={err:.3g} tol(atol, rtol)={BF16_TOL} {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"mm_pu kernel disagrees with the plain version on T={T} {name}")
+            errs.append(err)
+            if T == EAGER_PROMPT and name == "w1 silu":
+                mm_controls(x, q1, s1, mm_pu_ref(x, q1, w_scale=s1), BF16_TOL)
+        # the stage against the plain stage and against the bf16 FFN
+        hr = mm_pu_ref(x, q1, w_scale=s1, activation="silu")
+        yr = mm_pu_ref(hr * mm_pu_ref(x, q3, w_scale=s3), q2, w_scale=s2)
+        fp = mlp(ffn, x, "swiglu")
+        e_plain, e_fp = rel_err(y, yr), rel_err(y, fp)
+        finite = bool(torch.isfinite(y).all())
+        log(f"  T={T} stage: shape {tuple(y.shape)} {y.dtype}, finite {finite}, rel err vs the "
+            f"plain stage {e_plain:.3g} (tol 2e-2), vs the bf16 FFN {e_fp:.4f} (tol 0.05), "
+            f"launches {counts}")
+        check(finite and y.shape == (T, cfg.d_model), "int8 FFN output not finite or misshapen")
+        check(e_plain < 2e-2, f"T={T}: the int8 stage differs from its plain version")
+        check(e_fp < 0.05, f"T={T}: the int8 stage deviates {e_fp:.3f} from the bf16 FFN")
+        # times per product: kernel, bound, plain, and cuBLAS on the
+        # dequantized bf16 weight (made outside the timed region)
+        for name, (xin, q, s, act, _) in products.items():
+            wdq = (q.float() * s).to(torch.bfloat16)
+            ms = time_ms(lambda: ops.mm_pu(xin, q, w_scale=s, activation=act))
+            plain_ms = time_ms(lambda: mm_pu_ref(xin, q, w_scale=s, activation=act), reps=10,
+                               warmup=2)
+            lib_ms = time_ms(lambda: torch.matmul(xin, wdq))
+            b_ms, b_by = mm_bound(xin, q, torch.bfloat16)
+            flops = 2 * xin.shape[0] * q.shape[0] * q.shape[1]
+            log(f"  times T={T} {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of roofline), plain "
+                f"{plain_ms:.3f} ms, cuBLAS bf16 {lib_ms:.4f} ms")
+            out[f"T={T} {name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                    "bound_by": b_by, "library_ms": lib_ms}
+            del wdq
+        if T == EAGER_PROMPT:
+            launches = counts["mm_pu"]
+        del x, h, g, y, hr, yr, fp
+    del ffn, q1, q3, q2
+    torch.cuda.empty_cache()
+    return max(errs), launches, out
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -860,14 +1216,16 @@ def main() -> None:
     from repro_torch.core.plan import derive_execution_plan
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mm_pu import kernel as mm_pu_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rmsnorm_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 
     log(f"phase 1: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = (paged_kernel, wkv_kernel, flash_kernel)
+    kernels = (paged_kernel, wkv_kernel, flash_kernel, rmsnorm_kernel, mm_pu_kernel)
     t0 = time.time()
     _build.build_all([k.SOURCE for k in kernels])  # one nvcc per source, in parallel
     for k in kernels:
@@ -888,7 +1246,7 @@ def main() -> None:
     plan = derive_execution_plan(cfg)
     max_err = phase_kernels(cfg)
     phase_parity(cfg, plan)
-    launches, served = phase_served(cfg, plan)
+    served_counts, served = phase_served(cfg, plan)
     phase_rolled(cfg, plan)
     log("phase 6: kernel vs plain version and times at the main path's shapes "
         "(derived plan: 256 slots x 256 rows)")
@@ -899,11 +1257,16 @@ def main() -> None:
 
     wkv_err, wkv_times = phase_wkv(get_config(RWKV_ARCH))
     flash_err, flash_times = phase_flash(cfg)
-    wkv_launches, rwkv_run = phase_eager(RWKV_ARCH, "wkv", 9)
-    flash_launches, qwen_run = phase_eager(SERVE_ARCH, "flash_attention", 10)
+    rwkv_counts, rwkv_run = phase_eager(RWKV_ARCH, "wkv", 9)
+    qwen_counts, qwen_run = phase_eager(SERVE_ARCH, "flash_attention", 10)
     phase_paths()
     phase_engine_vs_eager()
     log(f"  eager runs: {json.dumps({RWKV_ARCH: rwkv_run, SERVE_ARCH: qwen_run})}")
+    rms_err, rms_times_ = phase_rmsnorm(cfg)
+    log(f"  rmsnorm times: {json.dumps(rms_times_)}")
+    mm_err = phase_mm_pu()
+    ffn_err, mm_launches, mm_times = phase_int8_ffn(cfg)
+    log(f"  int8 FFN times: {json.dumps(mm_times)}")
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
@@ -911,7 +1274,7 @@ def main() -> None:
             "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
-            "launches": launches,
+            "launches": served_counts["paged_attention"],
             "max_abs_err": max_err,
             **decode,
         },
@@ -920,7 +1283,7 @@ def main() -> None:
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:32",
-            "launches": wkv_launches,
+            "launches": rwkv_counts["wkv"],
             "max_abs_err": wkv_err,
             **wkv_times,
         },
@@ -929,9 +1292,27 @@ def main() -> None:
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-            "launches": flash_launches,
+            "launches": qwen_counts["flash_attention"],
             "max_abs_err": flash_err,
             **flash_times,
+        },
+        {
+            "name": "rmsnorm",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
+            "launches": served_counts["rmsnorm"],
+            "max_abs_err": rms_err,
+            **rms_times_["slab"],
+        },
+        {
+            "name": "mm_pu",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/mm_pu/csrc/mm_pu.cu",
+            "replaces": "src/repro/kernels/mm_pu/kernel.py:41",
+            "launches": mm_launches,
+            "max_abs_err": max(mm_err, ffn_err),
+            **mm_times[f"T={EAGER_PROMPT} w1 silu"],
         },
     ]
     print(card, flush=True)

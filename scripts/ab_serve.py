@@ -1,0 +1,96 @@
+"""A/B of two checkouts of the port on one CUDA card, in one call.
+
+    python3 scripts/ab_serve.py PARENT_DIR CHANGE_DIR
+
+Runs PARENT, CHANGE, CHANGE, PARENT, each in its own process that imports
+``DIR/src/repro_torch`` (``--one DIR`` is that process).  Each measures, on
+random bf16 qwen3-1.7b weights from a seed:
+
+* the eager path (``greedy_generate``, B 8 x 2048-token prompts, 32 new
+  tokens): five timed runs and five timed prefills after a warm-up; the
+  decode step is (median run - median prefill) / 31;
+* the continuous engine on the derived H100 plan: 16 requests of 100-600
+  prompt tokens, 16 new tokens each; its mean dispatch time and tok/s.
+
+Prints the card's name and power limit, then one JSON line per run.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+B, PROMPT, GEN = 8, 2048, 32
+
+
+def one(tree: str) -> dict:
+    sys.path.insert(0, tree + "/src")
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_execution_plan, derive_serve_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServingEngine, greedy_generate, make_prefill_step, random_stream
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b")
+    plan = derive_execution_plan(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    batch = {"tokens": tokens}
+    run = lambda n: greedy_generate(params, cfg, plan, batch, n_steps=n,  # noqa: E731
+                                    cache_len=PROMPT + GEN, device="cuda").cpu()
+    run(2)  # warm-up: builds the kernels, first cuBLAS calls
+    totals, prefills = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(GEN)
+        totals.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        logits, _ = make_prefill_step(cfg, plan)(params, batch)
+        torch.cuda.synchronize()
+        prefills.append(time.perf_counter() - t0)
+        del logits
+    total, prefill = statistics.median(totals), statistics.median(prefills)
+    res = {"eager_total_s": totals, "eager_prefill_s": prefills,
+           "decode_step_ms": (total - prefill) / (GEN - 1) * 1e3, "tok_per_s": B * GEN / total}
+    del params
+    torch.cuda.empty_cache()
+    serve = derive_serve_plan(cfg, {"data": 1, "model": 1}, H100_SXM, max_seq_len=2048)
+    params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
+    engine = ServingEngine(params, cfg, plan, serve, device="cuda")
+    engine.run(random_stream(cfg, 16, (100, 600), 16, stagger=1, seed=3))
+    s = engine.summary()
+    res.update(engine_mean_dispatch_ms=s["mean_dispatch_ms"], engine_tok_per_s=s["tok_per_s"],
+               engine_dispatches=s["dispatches"])
+    return res
+
+
+def main(argv: list) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one(argv[1])), flush=True)
+        return 0
+    parent, change = argv
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    for name, tree in (("parent", parent), ("change", change), ("change", change),
+                       ("parent", parent)):
+        p = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
+                           text=True, timeout=900)
+        lines = p.stdout.strip().splitlines()
+        print(name, p.returncode, lines[-1] if lines else "", flush=True)
+        if p.returncode:
+            print(p.stderr[-3000:], flush=True)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

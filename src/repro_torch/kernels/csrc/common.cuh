@@ -1,7 +1,7 @@
 // Device helpers shared by the port's CUDA kernels: f32 conversions,
-// 16-byte vector unpacking and warp reductions.  Included by path from each
-// kernel's csrc/; repro_torch/kernels/_build.py keys every library on this
-// header's content too.
+// 16-byte vector packing and unpacking, and warp reductions.  Included by
+// path from each kernel's csrc/; repro_torch/kernels/_build.py keys every
+// library on this header's content too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,12 +14,13 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// 16 bytes -> 16 / sizeof(T) floats (little-endian: the element at the
-// lower address sits in the lower bits).
+// 16 bytes <-> 16 / sizeof(T) floats (little-endian: the element at the
+// lower address sits in the lower bits); pack rounds to nearest even.
 template <typename T>
 struct Vec;
 template <>
@@ -30,6 +31,10 @@ struct Vec<float> {
     o[1] = __uint_as_float(r.y);
     o[2] = __uint_as_float(r.z);
     o[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
   }
 };
 template <>
@@ -42,6 +47,15 @@ struct Vec<__nv_bfloat16> {
       o[2 * i] = __uint_as_float(w[i] << 16);
       o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 template <>

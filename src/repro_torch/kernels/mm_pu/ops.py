@@ -1,0 +1,109 @@
+"""Public wrapper of the MM PU kernel (the port's
+``repro/kernels/mm_pu/ops.py``).
+
+The JAX wrapper picks a tile from the CAT solver (``core/pu.pick_pu``) and
+pads the operands to its multiples.  On the H100 entry that solver has no
+feasible tile (``core/pu.derive_pu_family`` raises: a 128-edge tile needs
+196,608 bytes against a budget of 116,224), and the result never depends on
+the tile.  So the port's ``mm_pu`` takes no ``spec``: its tile is the CUDA
+kernel's own (128 x 128 outputs, 16-deep K slices), and the kernel masks
+ragged M, N and K itself, so nothing is padded.  ``pad_overhead`` stays, to
+price a TPU-style tile on a shape.  CPU tensors go to the plain version
+(``ref.mm_pu_ref``); CUDA tensors launch the kernel or raise: there is no
+fallback.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.pu import MMTileSpec
+from repro_torch.kernels.mm_pu import kernel
+from repro_torch.kernels.mm_pu.ref import mm_pu_ref
+
+# Kernel launches so far; a run resets it to show which path it took.
+LAUNCHES = 0
+
+ACTIVATIONS = {"none": 0, "gelu": 1, "silu": 2, "relu": 3, "relu2": 4}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"mm_pu: {msg}")
+
+
+def pad_overhead(m: int, n: int, k: int, spec: MMTileSpec) -> float:
+    """Fraction of matrix-unit work spent on padding for this (mm, spec)
+    pairing."""
+    pm = -(-m // spec.block_m) * spec.block_m
+    pn = -(-n // spec.block_n) * spec.block_n
+    pk = -(-k // spec.block_k) * spec.block_k
+    return pm * pn * pk / (m * n * k) - 1.0
+
+
+def _row_vector(v: torch.Tensor, n: int, name: str) -> torch.Tensor:
+    """A (1, N) or (N,) epilogue operand as N contiguous f32 values."""
+    _require(v.numel() == n and v.shape[-1] == n, f"{name} must be (1, {n})")
+    return v.reshape(n).float().contiguous()
+
+
+def mm_pu(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    w_scale: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    out_dtype=None,
+) -> torch.Tensor:
+    """x: (M, K) @ w: (K, N) with the fused epilogue, in this order:
+    per-column dequant ``* w_scale (1, N)`` (w int8), ``+ bias (1, N)``,
+    ``activation`` (gelu-tanh, silu, relu, relu2 or none), ``+ residual
+    (M, N)``.  f32 accumulation; returns (M, N) in ``out_dtype`` (x's dtype
+    by default)."""
+    _require(activation in ACTIVATIONS, f"activation {activation!r} (one of {list(ACTIVATIONS)})")
+    if x.device.type == "cpu":
+        return mm_pu_ref(x, w, bias=bias, residual=residual, w_scale=w_scale,
+                         activation=activation, out_dtype=out_dtype)
+    lib = kernel.library()
+    _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+             f"x (M, K) and w (K, N), got {tuple(x.shape)} and {tuple(w.shape)}")
+    M, K = x.shape
+    N = w.shape[1]
+    _require(K > 0, "K must be positive")
+    out_dtype = out_dtype or x.dtype
+    _require(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype} (f32 or bf16)")
+    _require(out_dtype in (torch.float32, torch.bfloat16), f"out dtype {out_dtype}")
+    int8_w = w_scale is not None
+    _require(w.dtype == (torch.int8 if int8_w else x.dtype),
+             f"w dtype {w.dtype}: x's dtype, or int8 with w_scale")
+    _require(x.is_contiguous() and w.is_contiguous(), "x and w must be contiguous")
+    tensors = [x, w] + [t for t in (bias, residual, w_scale) if t is not None]
+    _require(all(t.device == x.device for t in tensors), "all tensors on one device")
+    if w_scale is not None:
+        w_scale = _row_vector(w_scale, N, "w_scale")
+    if bias is not None:
+        bias = _row_vector(bias, N, "bias")
+    if residual is not None:
+        _require(residual.shape == (M, N) and residual.dtype in (torch.float32, torch.bfloat16),
+                 f"residual must be ({M}, {N}) f32 or bf16")
+        residual = residual.contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.mm_pu_forward(
+        x.data_ptr(), w.data_ptr(), ptr(w_scale), ptr(bias), ptr(residual), out.data_ptr(),
+        M, N, K, _CODES[x.dtype], _CODES[w.dtype],
+        _CODES[residual.dtype] if residual is not None else 0, _CODES[out_dtype],
+        ACTIVATIONS[activation], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mm_pu kernel launch failed (code {rc})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

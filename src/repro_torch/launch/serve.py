@@ -31,6 +31,7 @@ from repro_torch.core.hardware import get_hardware
 from repro_torch.core.plan import derive_execution_plan, derive_serve_plan, serve_feasible
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.rmsnorm import kernel as rmsnorm_kernel
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.models.params import init_params
 from repro_torch.serve import ServingEngine, greedy_generate, random_stream
@@ -56,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slab-width", type=int, default=None,
                     help="mixed-slab query rows per slot (default: prefill chunk)")
     ap.add_argument("--no-fused", action="store_true",
-                    help="gather the pages instead of the CUDA paged-attention kernel")
+                    help="plain versions (gathered pages, plain norms) instead of the"
+                         " CUDA kernels")
     ap.add_argument("--kv-dtype", default=None, choices=[None, "bf16", "int8", "fp32"])
     ap.add_argument("--rolled-steps", type=int, default=None,
                     help="cap K of the rolled decode loop (1 disables)")
@@ -105,8 +107,8 @@ def run_eager(a: argparse.Namespace) -> dict:
     params = init_params(cfg, plan, _DTYPES[a.dtype], generator=gen, device=device)
     tokens = torch.randint(0, cfg.vocab_size, (a.batch, a.prompt_len), generator=gen,
                            device=device, dtype=torch.int32)
-    if device.type == "cuda":  # build the prefill's kernels now: tok/s excludes nvcc
-        _build.build_all([wkv_kernel.SOURCE, flash_kernel.SOURCE])
+    if device.type == "cuda":  # build the path's kernels now: tok/s excludes nvcc
+        _build.build_all([wkv_kernel.SOURCE, flash_kernel.SOURCE, rmsnorm_kernel.SOURCE])
     t0 = time.perf_counter()
     out = greedy_generate(params, cfg, plan, {"tokens": tokens}, n_steps=a.gen,
                           cache_len=a.prompt_len + a.gen, device=device)

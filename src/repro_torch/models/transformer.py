@@ -10,6 +10,11 @@ FFN (or channel-mix) stage.  Three cache modes, as in JAX:
 * a paged cache (``init_paged_cache`` + ``page_state``): one continuous-
   batching serve step over the block pools.
 
+Every RMSNorm (each layer's two, qk-norm, the final norm) goes through the
+RMSNorm kernel's wrapper, in all three modes; ``fused=False`` runs every
+kernel's plain version instead (the oracle).  LayerNorm archs keep the plain
+norm.
+
 The JAX package scans the stacked pattern-groups with ``lax.scan``; here
 that is a Python loop over their leading dimension, then the tail layers.
 Caches and pools are written in place (JAX returned new ones or took them
@@ -25,12 +30,26 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
 
 
-def _project_qkv(ap: dict, h: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan):
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, fused: bool) -> torch.Tensor:
+    return rmsnorm_ops.rmsnorm(x, scale) if fused else L.rmsnorm(x, scale)
+
+
+def _norm(p: dict, x: torch.Tensor, kind: str, fused: bool) -> torch.Tensor:
+    """The model's norm: RMSNorm through the kernel's wrapper (``fused``)
+    or the plain ``layers.rmsnorm``; LayerNorm always plain."""
+    if kind == "rmsnorm":
+        return _rmsnorm(x, p["scale"], fused)
+    return L.apply_norm(p, x, kind)
+
+
+def _project_qkv(ap: dict, h: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan,
+                 fused: bool):
     B, S, _ = h.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if plan.fuse_qkv and "wqkv" in ap:
@@ -42,8 +61,10 @@ def _project_qkv(ap: dict, h: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan
     k = k.reshape(B, S, KV, Dh)
     v = v.reshape(B, S, KV, Dh)
     if cfg.qk_norm:
-        q = L.rmsnorm(q, ap["q_norm"])
-        k = L.rmsnorm(k, ap["k_norm"])
+        # q and k are views of the fused projection: the kernel reads them
+        # in place, token stride and all
+        q = _rmsnorm(q, ap["q_norm"], fused)
+        k = _rmsnorm(k, ap["k_norm"], fused)
     return q, k, v
 
 
@@ -75,7 +96,7 @@ def attention_stage(
     B, S, _ = h.shape
     H, Dh = cfg.n_heads, cfg.d_head
     window = C.layer_window(cfg, kind)
-    q, k, v = _project_qkv(ap, h, cfg, plan)
+    q, k, v = _project_qkv(ap, h, cfg, plan, fused)
     if cfg.pos_embedding == "rope":
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
@@ -133,7 +154,7 @@ def edpu_layer(
     if cfg.is_moe or kind not in ("attn", "swa", "local", "rwkv6"):
         raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} / MoE not ported")
     new_cache: dict = {}
-    h = L.apply_norm(lp["attn"]["ln"], x, cfg.norm)
+    h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rwkv6":
         a, nc = R.rwkv6_time_mix(
             lp["attn"], h, n_heads=cfg.rnn_heads, d_head=cfg.d_head,
@@ -152,7 +173,7 @@ def edpu_layer(
         elif collect:
             new_cache["kv_out"] = kv_out  # harvested by cache_from_prefill
     x = x + a
-    h2 = L.apply_norm(lp["ffn"]["ln"], x, cfg.norm)
+    h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
     if kind == "rwkv6":
         f, nc = R.rwkv6_channel_mix(
             lp["ffn"], h2, cache=None if cache is None else cache["cmix"], collect=collect,
@@ -251,10 +272,13 @@ def forward(
     """The model over ``batch["tokens"]`` (B, S); the compute dtype is the
     embedding's (norms stay f32).  Returns ``(hidden (B, S, d), cache)``.
 
+    ``fused=False`` runs the plain versions of the kernels on any device
+    (the oracle): the norms and, with no cache, the flash and WKV kernels;
+    a paged step's attention follows ``page_state["fused"]``.
+
     * ``cache=None``: a pass from position 0; with ``collect_cache`` the
       returned cache is ``{"layers": per-layer harvest, "t": S}`` for
-      ``cache_from_prefill``, else None.  ``fused=False`` runs the plain
-      versions of the flash and WKV kernels on any device (the oracle).
+      ``cache_from_prefill``, else None.
     * a dense cache ``{"layers", "t": int}`` (S == 1): one decode step,
       written in place; returns the cache with ``t + 1``.
     * a paged cache ``{"layers": pools, "t": lens}`` with ``lens`` the
@@ -274,7 +298,7 @@ def forward(
 
     layers = None if cache is None else cache["layers"]
     x, new_layers = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    x = _norm(params["final_norm"], x, cfg.norm, fused)
     if cache is not None:
         return x, {**cache, "layers": new_layers, "t": cache["t"] + S}
     if collect_cache:

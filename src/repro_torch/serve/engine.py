@@ -12,9 +12,10 @@ path and the continuous-batching engine over the paged KV cache.
 Every slot owns ``mixed_slab_width`` query rows of a shared (B, W) token
 slab: a decode slot uses 1, a prefill slot up to W (its next prompt chunk),
 idle rows are dead and write to the trash block.  Attention goes through the
-CUDA paged-attention kernel, which reads the block table directly; the
-gather path (``fused=False``) is the fallback and the oracle.  Scheduling
-lives host-side in ``serve/scheduler.py``.
+CUDA paged-attention kernel, which reads the block table directly, and the
+norms through the RMSNorm kernel; ``fused=False`` (the gather path, with
+plain norms) is the fallback and the oracle.  Scheduling lives host-side in
+``serve/scheduler.py``.
 
 PyTorch runs eagerly, so there is no compile to count: the JAX engine's
 ``trace_counts`` has no counterpart.  The pools are updated in place where
@@ -33,7 +34,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan, ServePlan, serve_feasible
+from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import kernel as paged_attention_kernel
+from repro_torch.kernels.rmsnorm import kernel as rmsnorm_kernel
 from repro_torch.models.cache import (
     cache_from_prefill,
     init_paged_cache,
@@ -58,13 +61,15 @@ def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = Tru
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan):
+def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
     """``decode(params, token (B, 1), cache) -> (logits (B, 1, V), cache)``:
-    one token over the dense cache, which is updated in place."""
+    one token over the dense cache, which is updated in place.
+    ``fused=False`` runs the kernels' plain versions on any device."""
 
     @torch.no_grad()
     def decode_step(params, token, cache):
-        x, cache = forward(params, {"tokens": token}, cfg=cfg, plan=plan, cache=cache)
+        x, cache = forward(params, {"tokens": token}, cfg=cfg, plan=plan, cache=cache,
+                           fused=fused)
         return logits_fn(params, x, cfg), cache
 
     return decode_step
@@ -86,14 +91,16 @@ def greedy_generate(
     greedy decode steps over a dense cache of ``cache_len`` positions in
     ``cache_dtype``.  Returns the (B, n_steps) int32 greedy tokens on
     ``device`` (the card by default; raises without one unless ``"cpu"``),
-    where the parameters and the batch are moved first."""
+    where the parameters and the batch are moved first.  ``fused=False``
+    runs every kernel's plain version, in the prefill and in each decode
+    step."""
     dev = resolve_device(device)
     params = _tree_to(params, dev)
     batch = {k: v.to(dev) for k, v in batch.items()}
     logits, pc = make_prefill_step(cfg, plan, fused=fused)(params, batch)
     cache = cache_from_prefill(cfg, plan, pc, cache_len, dtype=cache_dtype)
     del pc
-    decode = make_decode_step(cfg, plan)
+    decode = make_decode_step(cfg, plan, fused=fused)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     out = [tok]
     for _ in range(n_steps - 1):
@@ -144,7 +151,7 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
         x, _ = forward(
             params, {"tokens": _upload(tokens, dev)}, cfg=cfg, plan=plan,
             cache={"layers": pools["layers"], "t": _upload(lens, dev)},
-            page_state=page_state,
+            page_state=page_state, fused=fused,
         )
         # per-slot row kinds-1: row 0 for decode slots, the final prompt
         # token on a last prefill chunk
@@ -189,7 +196,7 @@ def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, 
             x, _ = forward(
                 params, {"tokens": tok[:, None]}, cfg=cfg, plan=plan,
                 cache={"layers": pools["layers"], "t": lens},
-                page_state={**page_state, "q_lens": live.to(torch.int32)},
+                page_state={**page_state, "q_lens": live.to(torch.int32)}, fused=fused,
             )
             nxt, ok = _greedy(params, x[:, -1], cfg)
             good = live & ok
@@ -230,8 +237,8 @@ class ServingEngine:
     one unified mixed step (or, when the plan allows K > 1 and the
     scheduler's event horizon says no host event falls due, one rolled span
     of K decode iterations).  Greedy outputs match the JAX engine's token
-    for token on the same weights; ``fused=False`` swaps the CUDA kernel for
-    the gather path with the same tokens.
+    for token on the same weights; ``fused=False`` swaps the CUDA kernels for
+    the gather path and the plain norms, with the same tokens.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card; the
     parameters are moved there if they are not already."""
@@ -256,8 +263,12 @@ class ServingEngine:
         self.sched = Scheduler(serve)
         self.fused = serve.fused_attention if fused is None else bool(fused)
         if self.fused and self.device.type == "cuda":
-            # build (or load) the kernel now, so no step's time includes nvcc
-            paged_attention_kernel.library()
+            # build (or load) the kernels now, so no step's time includes nvcc
+            kernels = [paged_attention_kernel] + (
+                [rmsnorm_kernel] if cfg.norm == "rmsnorm" else [])
+            _build.build_all([k.SOURCE for k in kernels])
+            for k in kernels:
+                k.library()
         self._step = make_mixed_step(cfg, plan, serve, fused=self.fused)
         self.rolled_cap = int(serve.rolled_steps)
         self._rolled = (

@@ -84,3 +84,19 @@ def test_mixed_paged_steps_match_jax(arch, kv_dtype, fused):
                 assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
             else:
                 np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_bf16_compute_dtype_is_a_deliberate_divergence():
+    """JAX ``_weight_dtype`` returns the dtype of the first >= 2-D leaf,
+    which in a stacked tree is the f32 norm scale, so the JAX forward runs
+    bf16 params in f32 activations; the port computes in the embedding's
+    dtype (bf16), so that every projection stays a bf16 product."""
+    from repro.models.transformer import _weight_dtype
+
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair("qwen3-1.7b", dtype=jnp.bfloat16)
+    assert _weight_dtype(jparams) == jnp.float32
+    assert tparams["embed"].dtype == torch.bfloat16
+    tokens = np.random.default_rng(1).integers(0, tcfg.vocab_size, (1, 6)).astype(np.int32)
+    jx, _, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan)
+    tx, _ = forward(tparams, {"tokens": torch.from_numpy(tokens)}, cfg=tcfg, plan=tplan)
+    assert jx.dtype == jnp.float32 and tx.dtype == torch.bfloat16

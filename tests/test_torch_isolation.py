@@ -41,6 +41,8 @@ def test_importing_the_port_pulls_in_neither():
         "import repro_torch.bridge, repro_torch.models.params\n"
         "import repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.rwkv6.ops, repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.rmsnorm.ops, repro_torch.kernels.mm_pu.ops\n"
+        "import repro_torch.core.pu\n"
         "import repro_torch.models.rwkv6\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

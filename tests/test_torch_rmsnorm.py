@@ -1,0 +1,199 @@
+"""RMSNorm in the port against the JAX package, on the same numpy inputs:
+the port's wrapper (``ops.rmsnorm``, which runs the plain version for CPU
+tensors) and ``ref.rmsnorm_ref`` against the JAX Pallas kernel (interpret
+mode, as the JAX kernel test runs it) and the JAX oracle, over the JAX
+test's shapes and dtypes and the fused residual, at its tolerances (f32
+1e-5, bf16 2e-2); the row layout the CUDA kernel is given for strided qk
+views; the routed forward against the JAX ``forward``; and ``fused=False``
+through both serving entry points launching no kernel (a counting stub
+stands in for each kernel's launch on the CPU)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
+from repro.models.transformer import forward as jax_forward
+from repro_torch.core.plan import derive_serve_plan
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mm_pu import ops as mm_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.rmsnorm import ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.models import layers
+from repro_torch.models import transformer
+from repro_torch.models.transformer import forward
+from repro_torch.serve import Request, ServingEngine, greedy_generate
+from torch_parity import MESH1, model_pair, t2n
+
+_TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    return x, s
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (2, 100, 64), (7, 33)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_matches_jax(shape, dtype):
+    x, s = _inputs(shape)
+    jx = jnp.asarray(x, dtype)
+    want = {"pallas": np.asarray(jax_rmsnorm(jx, jnp.asarray(s)), np.float32),
+            "jax ref": np.asarray(jax_rmsnorm_ref(jx, jnp.asarray(s)), np.float32)}
+    tx, ts = torch.from_numpy(x).to(_TORCH[dtype]), torch.from_numpy(s)
+    got = {"ops.rmsnorm": ops.rmsnorm(tx, ts), "rmsnorm_ref": rmsnorm_ref(tx, ts)}
+    tol = 1e-5 if dtype == jnp.float32 else 2e-2
+    for name, g in got.items():
+        assert g.dtype == tx.dtype and g.shape == tx.shape, name
+        for ref, w in want.items():
+            np.testing.assert_allclose(t2n(g), w, rtol=tol, atol=tol, err_msg=f"{name} vs {ref}")
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fused_residual(dtype):
+    x, s = _inputs((32, 64), seed=1)
+    r = np.random.default_rng(2).standard_normal((32, 64)).astype(np.float32)
+    jx, jr = jnp.asarray(x, dtype), jnp.asarray(r, dtype)
+    want = np.asarray(jax_rmsnorm(jx, jnp.asarray(s), residual=jr), np.float32)
+    tx, tr = (torch.from_numpy(a).to(_TORCH[dtype]) for a in (x, r))
+    got = ops.rmsnorm(tx, torch.from_numpy(s), residual=tr)
+    assert got.dtype == tx.dtype
+    tol = 1e-5 if dtype == jnp.float32 else 2e-2
+    np.testing.assert_allclose(t2n(got), want, rtol=tol, atol=tol)
+    # the residual form is the norm of the f32 sum
+    np.testing.assert_allclose(
+        t2n(got), t2n(layers.rmsnorm(tx.float() + tr.float(), torch.from_numpy(s)).to(tx.dtype)),
+        rtol=tol, atol=tol)
+
+
+def _qkv_views(B=2, S=5, H=4, KV=2, D=32, seed=3):
+    """q and k as the model hands them to qk-norm: views of one fused QKV
+    projection, tokens (H + 2 KV) D elements apart."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, (H + 2 * KV) * D)).astype(np.float32))
+    q, k, _ = torch.split(qkv, [H * D, KV * D, KV * D], dim=-1)
+    return q.reshape(B, S, H, D), k.reshape(B, S, KV, D)
+
+
+def test_strided_qk_view_equals_contiguous():
+    q, k = _qkv_views()
+    s = torch.from_numpy(_inputs((32,), seed=4)[1])
+    for view in (q, k):
+        assert not view.is_contiguous()
+        got = ops.rmsnorm(view, s)
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(t2n(got), t2n(ops.rmsnorm(view.contiguous(), s)))
+        np.testing.assert_allclose(t2n(got), np.asarray(jax_rmsnorm(jnp.asarray(t2n(view)),
+                                                                    jnp.asarray(t2n(s)))),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _rows_of(x, layout):
+    """The rows the CUDA kernel reads for ``layout``, gathered on the CPU
+    from x's storage as the kernel indexes it."""
+    outer, inner, so, si = layout
+    d = x.shape[-1]
+    flat = torch.as_strided(x, (x.untyped_storage().nbytes() // x.element_size(),), (1,), 0)
+    base = x.storage_offset()
+    rows = [flat[base + o * so + i * si: base + o * so + i * si + d]
+            for o in range(outer) for i in range(inner)]
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "q view", "k view", "one row", "transposed"])
+def test_row_layout(case):
+    """``row_layout`` folds x's leading dimensions into the (outer, inner)
+    rows the kernel indexes, in order; a layout that does not fold gives
+    None (the wrapper copies it first)."""
+    q, k = _qkv_views()
+    x = {
+        "2d": torch.arange(7 * 33.0).reshape(7, 33),
+        "3d": torch.arange(2 * 10 * 8.0).reshape(2, 10, 8),
+        "q view": q,
+        "k view": k,
+        "one row": torch.arange(16.0).reshape(1, 1, 16),
+        "transposed": torch.arange(24.0).reshape(4, 6).T,
+    }[case]
+    layout = ops.row_layout(x)
+    if case == "transposed":
+        assert layout is None
+        return
+    assert layout[0] * layout[1] == x.numel() // x.shape[-1]
+    np.testing.assert_array_equal(_rows_of(x, layout).numpy(),
+                                  x.reshape(-1, x.shape[-1]).numpy())
+    if case == "q view":  # the token stride, heads D apart
+        assert layout == (2 * 5, 4, (4 + 2 * 2) * 32, 32)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-135m"])
+def test_routed_forward_matches_jax(arch, fused):
+    """The port's forward, with its norms routed through the wrapper (or
+    the plain norm), equals the JAX forward (jnp norms) on the same
+    weights: f32, the no-cache pass."""
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch)
+    tokens = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
+    jx, _, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan)
+    tx, _ = forward(tparams, {"tokens": torch.from_numpy(tokens)}, cfg=tcfg, plan=tplan,
+                    fused=fused)
+    np.testing.assert_allclose(t2n(tx), np.asarray(jx), rtol=1e-4, atol=1e-4)
+
+
+# Each kernel's wrapper, as the model paths reach it: (module holding the
+# LAUNCHES count, the module attribute the path calls through, its name).
+_WRAPPERS = [
+    (ops, ops, "rmsnorm"),
+    (flash_ops, flash_ops, "flash_attention"),
+    (wkv_ops, wkv_ops, "wkv"),
+    (paged_ops, transformer, "paged_attention"),
+    (mm_ops, mm_ops, "mm_pu"),
+]
+
+
+@pytest.fixture
+def counting(monkeypatch):
+    """Every kernel wrapper counts a launch on the CPU too (as it does on
+    the card), then runs the plain version; yields the counts."""
+    for counter, owner, name in _WRAPPERS:
+        monkeypatch.setattr(counter, "LAUNCHES", 0)
+        fn = getattr(owner, name)
+
+        def stub(*a, _fn=fn, _counter=counter, **kw):
+            _counter.LAUNCHES += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(owner, name, stub)
+    return lambda: {name: counter.LAUNCHES for counter, _, name in _WRAPPERS}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("entry", ["greedy_generate", "ServingEngine"])
+def test_fused_false_launches_no_kernel(counting, entry, fused):
+    """``fused=False`` runs every kernel's plain version on both entry
+    points; ``fused=True`` reaches the RMSNorm wrapper once per norm per
+    forward (4 a layer with qk-norm, plus the final norm)."""
+    _, _, _, tcfg, tplan, tparams = model_pair("qwen3-1.7b")
+    per_forward = 4 * tcfg.n_layers + 1
+    prompt = [3, 1, 4, 1, 5, 9]
+    if entry == "greedy_generate":
+        greedy_generate(tparams, tcfg, tplan, {"tokens": torch.tensor([prompt])}, n_steps=4,
+                        cache_len=10, cache_dtype=torch.float32, device="cpu", fused=fused)
+        forwards = 4  # the prefill + 3 decode steps
+        expect = {"rmsnorm": per_forward * forwards, "flash_attention": tcfg.n_layers}
+    else:
+        serve = derive_serve_plan(tcfg, MESH1, max_seq_len=32, decode_batch=2, block_size=4,
+                                  kv_dtype="fp32", prefill_chunk=4, rolled_steps=1)
+        engine = ServingEngine(tparams, tcfg, tplan, serve, fused=fused, device="cpu")
+        engine.run([Request(rid="r0", prompt=prompt, max_new_tokens=3)])
+        forwards = engine.summary()["steps"]
+        expect = {"rmsnorm": per_forward * forwards, "paged_attention": tcfg.n_layers * forwards}
+    counts = counting()
+    if fused:
+        assert counts == {name: expect.get(name, 0) for name in counts}
+    else:
+        assert counts == {name: 0 for name in counts}
