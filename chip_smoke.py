@@ -23,23 +23,27 @@ serving on the derived H100 plan (a main path whose launches are counted),
 plan's decode and mixed shapes (256 slots x 256 rows), and kernel timing;
 the eager path (``greedy_generate``): 7 WKV kernel vs plain version (the
 JAX test's shapes, chunks, strong decay, state carry, the rwkv6-1.6b
-prefill shape) and its times, 8 flash-attention kernel vs plain version
-(the JAX test's cases, fused-QKV views, the qwen3-1.7b prefill shape) and
-its times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16 (main
-paths whose launches are counted), 11 kernel path vs plain path in f32
-(identical tokens), 12 the continuous engine vs ``greedy_generate``
+prefill shape) and its times, 8 flash-attention kernels vs plain version
+(the JAX test's cases in f32, which runs on CUDA cores, and each in bf16,
+which runs on tensor cores; fused-QKV views, the qwen3-1.7b prefill shape)
+and their times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16
+(main paths whose launches are counted), 11 kernel path vs plain path in
+f32 (identical tokens), 12 the continuous engine vs ``greedy_generate``
 (identical tokens); 13 the RMSNorm kernel vs its plain version (the JAX
 test's cases, every model width, strided qk views, the main paths' rows)
-and its times; 14 the MM PU kernel vs its plain version (the JAX test's
-shapes, activations, int8 dequant, random shapes); 15 the int8 FFN stage
-at qwen3-1.7b width (three ``mm_pu`` launches) and its times.  Every main
-path (phases 3-5, 9-11) checks the exact launch count of every kernel:
-the paged or eager-prefill kernel once a layer, the RMSNorm kernel once a
-norm per forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no
-kernel at all on a plain path.  Planted controls (a dropped key tile, a
-window one key wider, the WKV's cross-chunk term dropped, the norm's
-``1 + scale`` or mean changed, a dropped K slice, a per-row scale) show
-that the tolerances reject a wrong kernel.
+and its times; 14 the MM PU kernels vs their plain version (the JAX test's
+shapes, activations, int8 dequant, random shapes; bf16 x with bf16 and
+int8 w at the same shapes, split K included, on tensor cores); 15 the int8
+FFN stage at qwen3-1.7b width (three ``mm_pu`` launches; its launch plans,
+T=256 ``w2`` split across K) and its times.  Every main path (phases 3-5,
+9-11) checks the exact launch count of every kernel: the paged or
+eager-prefill kernel once a layer, the RMSNorm kernel once a norm per
+forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no kernel at
+all on a plain path.  Planted controls (a dropped key tile, a window one
+key wider, P rounded once to bf16 instead of split into hi + lo, the WKV's
+cross-chunk term dropped, the norm's ``1 + scale`` or mean changed, a
+dropped K slice, a per-row scale) show that the tolerances reject a wrong
+kernel.
 """
 from __future__ import annotations
 
@@ -648,7 +652,9 @@ def phase_wkv(cfg):
 
 # ---------------------------------------------------------------- flash
 # tests/test_kernels_flash_attention.py::CASES, then its bf16 case and a
-# ragged length (the kernel masks the ragged tile).
+# ragged length (the kernels mask the ragged tile); then a bf16 twin of
+# every f32 case, so the tensor-core kernel sees non-causal, window,
+# prefix, D 32, G 3 and the ragged S 300 too.
 FLASH_CASES = [
     # (B, S, H, KH, D, causal, window, prefix, dtype)
     (2, 256, 4, 2, 64, True, 0, 0, torch.float32),
@@ -660,6 +666,7 @@ FLASH_CASES = [
     (1, 128, 2, 1, 64, True, 0, 0, torch.bfloat16),
     (2, 300, 4, 2, 128, True, 100, 0, torch.float32),
 ]
+FLASH_CASES += [c[:-1] + (torch.bfloat16,) for c in FLASH_CASES if c[-1] == torch.float32]
 
 
 def flash_inputs(B, S, H, KH, D, dtype, seed):
@@ -692,6 +699,20 @@ def flash_check(name, q, k, v, **kw):
     log(f"  {name}: max_abs_err={err:.3g} tol(atol, rtol)={tol} {'ok' if ok else 'MISMATCH'}")
     check(ok, f"flash kernel disagrees with the plain version on {name}")
     return got, want, err
+
+
+def flash_single_bf16_p(q, k, v):
+    """The bf16 kernel's scheme with P rounded once to bf16 instead of split
+    into hi + lo (``ref.flash_attention_mma_ref``, causal), model layout:
+    what a kernel without the split would give."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_mma_ref
+
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    kl = lambda x, n: x.permute(0, 2, 1, 3).reshape(B * n, S, D)  # noqa: E731
+    out = flash_attention_mma_ref(kl(q, H), kl(k, KH), kl(v, KH), n_q_per_kv=H // KH,
+                                  causal=True, p_split=False)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
 def flash_bound(q, k, causal=True):
@@ -735,15 +756,22 @@ def phase_flash(cfg):
                             *views)[2])
     q, k, v = (x.contiguous() for x in views)
     del qkv, views
-    errs.append(flash_check("main, contiguous", q, k, v)[2])
+    _, want, err = flash_check("main, contiguous", q, k, v)
+    errs.append(err)
+    planted("P rounded once to bf16 (no hi + lo split)", flash_single_bf16_p(q, k, v), want,
+            BF16_TOL)
+    del want
+    torch.cuda.empty_cache()
     ms = time_ms(lambda: ops.flash_attention(q, k, v))
     plain_ms = time_ms(lambda: flash_plain(q, k, v), reps=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                             enable_gqa=True))
     b_ms, b_by = flash_bound(q, k)
-    log(f"  times at the main shape: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms")
+    flops = 4 * H * D * B * S * (S + 1) // 2
+    log(f"  times at the main shape: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of "
+        f"least work), bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of roofline), plain "
+        f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return max(errs), {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1026,7 +1054,6 @@ def phase_rmsnorm(cfg):
 # and the plain version both accumulate in f32 and round once.
 MM_F32_TOL, MM_RANDOM_TOL = (1e-4, 1e-5), (1e-3, 1e-4)
 MM_SHAPES = [(128, 128, 128), (256, 512, 384), (197, 768, 768), (64, 100, 32), (300, 64, 513)]
-MM_K_TILE = 16  # the kernel's K slice
 
 
 def mm_inputs(m, k, n, dtype, seed):
@@ -1057,12 +1084,13 @@ def mm_check(name, x, w, tol=None, **kw):
 
 def mm_controls(x, q, s, want, tol):
     """The planted controls of the int8 product x @ (q * s): the last K
-    slice dropped, and the scale applied per output row instead of per
-    column (row m scaled by s[m mod N])."""
+    slice of x's kernel dropped, and the scale applied per output row
+    instead of per column (row m scaled by s[m mod N])."""
+    from repro_torch.kernels.mm_pu.ops import K_SLICE
     from repro_torch.kernels.mm_pu.ref import mm_pu_ref
 
     K, M, N = q.shape[0], x.shape[0], q.shape[1]
-    cut = (K - 1) // MM_K_TILE * MM_K_TILE
+    cut = (K - 1) // K_SLICE[x.dtype] * K_SLICE[x.dtype]
     planted(f"last K slice dropped (K {K} -> {cut})",
             mm_pu_ref(x[:, :cut], q[:cut], w_scale=s, out_dtype=want.dtype), want, tol)
     rows = s.reshape(-1)[torch.arange(M, device=x.device) % N]
@@ -1095,6 +1123,21 @@ def phase_mm_pu():
     _, want, err = mm_check("int8 dequant (256, 384) @ (384, 512)", x, q, w_scale=s)
     errs.append(err)
     mm_controls(x, q, s, want, MM_F32_TOL)
+    # the tensor-core kernel (bf16 x) at the same shapes, ragged and
+    # unaligned: bf16 w and int8 w, each with an activation, bias and a bf16
+    # residual (launch_plan splits K on the narrow grids)
+    acts = ("gelu", "silu", "relu", "relu2", "none")
+    for n, (m, k, nn) in enumerate(MM_SHAPES):
+        x, w = mm_inputs(m, k, nn, torch.bfloat16, 30 + n)
+        b = torch.randn((1, nn), generator=g, device="cuda")
+        r = torch.randn((m, nn), generator=g, device="cuda").to(torch.bfloat16)
+        q, s = quantize_weights_int8(w.float())
+        splits, kps = ops.launch_plan(m, nn, k)
+        for wname, ww, kw in (("bf16 w", w, {}), ("int8 w", q, {"w_scale": s})):
+            act = acts[(2 * n + len(kw)) % len(acts)]
+            errs.append(mm_check(f"bf16 x ({m}, {k}) @ ({k}, {nn}) {wname} {act} + bias + "
+                                 f"residual, {splits} K split(s) of {kps}", x, ww, bias=b,
+                                 residual=r, activation=act, **kw)[2])
     rng = np.random.default_rng(13)
     for i in range(10):
         m, k, nn = (int(v) for v in rng.integers(8, 301, 3))
@@ -1192,6 +1235,13 @@ def phase_int8_ffn(cfg_full):
             out[f"T={T} {name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                     "bound_by": b_by, "library_ms": lib_ms}
             del wdq
+        for name, (xin, q, _, _, _) in products.items():
+            splits, kps = ops.launch_plan(xin.shape[0], q.shape[1], q.shape[0])
+            tiles = -(-xin.shape[0] // ops.TILE) * -(-q.shape[1] // ops.TILE)
+            log(f"  T={T} {name}: launch plan {tiles} tiles x {splits} K split(s) of {kps} = "
+                f"{tiles * splits} CTAs")
+            if T == 256 and name == "w2":
+                check(splits > 1 and tiles * splits >= ops.N_SMS, "T=256 w2 does not split K")
         if T == EAGER_PROMPT:
             launches = counts["mm_pu"]
         del x, h, g, y, hr, yr, fp
@@ -1238,7 +1288,7 @@ def main() -> None:
             used = [ln.strip() for ln in lines if "Used" in ln]
             spills = [ln.strip() for ln in lines
                       if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
-            log(f"  ptxas {k.SOURCE.name}: {len(used)} kernels; registers "
+            log(f"  {lines[0]}; ptxas: {len(used)} kernels; registers "
                 f"{sorted({ln.split('Used ')[1].split(' registers')[0] for ln in used})}; "
                 f"spill lines: {spills[:4]}")
 

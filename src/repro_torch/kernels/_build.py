@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 NVCC_FLAGS = (
@@ -44,8 +45,9 @@ def library_path(source: Path) -> Path:
 
 def build(source: Path) -> Path:
     """Compile ``source`` unless its library is already built; returns the
-    library's path.  The compiler's report (registers, spills) is kept
-    beside it as ``.log``.  Raises with the compiler's output on failure."""
+    library's path.  The compiler's wall time and report (registers,
+    spills) are kept beside it as ``.log``.  Raises with the compiler's
+    output on failure."""
     return build_all([source])[0]
 
 
@@ -66,24 +68,33 @@ def build_all(sources) -> list:
         for src, out in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            running.append((src, out, tmp, proc))
+            log = tempfile.TemporaryFile("w+", dir=BUILD_DIR)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)], stdout=log,
+                                    stderr=subprocess.STDOUT, text=True)
+            running.append((src, out, tmp, proc, log))
+        t0, seconds = time.monotonic(), {}
+        while len(seconds) < len(running):  # each compiler's own wall time
+            for src, _, _, proc, _ in running:
+                if src not in seconds and proc.poll() is not None:
+                    seconds[src] = time.monotonic() - t0
+            time.sleep(0.05)
         errors = []
-        for src, out, tmp, proc in running:
-            stdout, stderr = proc.communicate()
+        for src, out, tmp, proc, log in running:
+            log.seek(0)
+            report = log.read()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed ({proc.returncode}) on {src}:\n{stdout}\n{stderr}")
+                errors.append(f"nvcc failed ({proc.returncode}) on {src}:\n{report}")
                 continue
-            out.with_suffix(".log").write_text(stdout + stderr)
+            out.with_suffix(".log").write_text(f"nvcc {src.name}: {seconds[src]:.1f} s\n{report}")
             os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
         if errors:
             raise RuntimeError("\n".join(errors))
     finally:
-        for _, _, tmp, proc in running:
+        for _, _, tmp, proc, log in running:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            log.close()
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return outs

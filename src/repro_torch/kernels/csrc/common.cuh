@@ -1,5 +1,7 @@
 // Device helpers shared by the port's CUDA kernels: f32 conversions,
-// 16-byte vector packing and unpacking, and warp reductions.  Included by
+// 16-byte vector packing and unpacking, warp reductions, and the Hopper
+// tensor-core primitives (inline PTX: cp.async copies into shared memory,
+// ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulate).  Included by
 // path from each kernel's csrc/; repro_torch/kernels/_build.py keys every
 // library on this header's content too.
 #pragma once
@@ -80,6 +82,60 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
+}
+
+// ---------------------------------------------------------------- tensor cores
+// cp.async.cg: 16 bytes from global to shared memory, bypassing L1.  With
+// `pred` false nothing is read (src-size 0) and the 16 bytes are zeroed, so
+// ragged edges land as zeros; `gmem` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ldmatrix .x4: four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, and r[i] receives, in lane l, row
+// l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i (.trans: column
+// l / 4, rows 2 (l % 4) and 2 (l % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a b on the tensor cores, one warp: a 16 x 16 bf16 (row-major
+// fragment), b 16 x 8 bf16 (column-major), c 16 x 8 f32.  With g = lane / 4
+// and t = lane % 4: a = {(g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}; b = {(2t..2t+1, g), (2t + 8.., g)}; c = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const unsigned a[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair in one register (lo in the lower half, the
+// element of the lower column), rounded to nearest even.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 }  // namespace repro_torch

@@ -14,27 +14,53 @@
 // Bound on an H100 SXM: at the prefill's shapes, operations.  The least
 // work is 4 * D flops per visible (query, key) pair and head, at the bf16
 // tensor-core rate of 989 TFLOP/s, against reading q, k, v and writing the
-// output once at 3.35 TB/s.  This first version runs on CUDA cores in f32
-// (67 TFLOP/s at most), so it stays well above that bound; tensor cores
-// (mma/wgmma on the 64-row tile) are later work.  Design:
-//   * one CTA per (block of query positions, kv head, batch row).  The CTA
-//     takes the G query heads of its kv head together (GQA, as the paged
-//     kernel does), 64 (position, head) rows in all, so every K/V tile it
-//     loads serves 64 rows;
-//   * the CTA walks only the key tiles its rows can see: from the window's
-//     lower edge to the causal (or prefix) upper edge, never the masked
-//     remainder of the sequence;
-//   * it reads the model's (B, S, H, D) layout directly, with a token
-//     stride per tensor, so q, k and v may be views of the fused QKV
-//     projection: the wrapper pays no transpose and no copy;
+// output once at 3.35 TB/s.  Two kernels, chosen by the wrapper from the
+// dtype alone (ops.flash_attention; never a fallback):
+//
+// bf16 (flash_attention_forward_mma, the model's path): tensor cores.
+//   * one CTA of 4 warps per (64 (position, head) rows of one kv head,
+//     batch row): the G query heads of a kv head go together (GQA), so every
+//     K/V tile serves 64 rows; each warp owns 16 rows;
+//   * q is copied once into shared memory (cp.async), then held in
+//     registers as mma A fragments (ldmatrix);
+//   * 64-key tiles of K and V stream through a 2-stage cp.async ring: tile
+//     j + 1 is in flight while tile j is computed.  S = Q K^T by
+//     mma.sync m16n8k16 (K fragments by ldmatrix), O += P V (V fragments by
+//     ldmatrix.trans), f32 accumulators throughout;
+//   * the online softmax runs in the accumulator layout: each thread holds
+//     2 rows, row max and sum are reduced over the 4 lanes of a quad; l is
+//     summed from the f32 p.  P enters P V as bf16 hi + lo (hi = bf16(p),
+//     lo = bf16(p - hi), two mma into the one f32 accumulator): a single
+//     bf16 rounding of p puts ~2% of the outputs more than one bf16 step
+//     from the f32-P reference; the split keeps them within it, for 1.5x
+//     the least tensor-core work;
+//   * only tiles a mask cuts (causal diagonal, window edge, ragged end) are
+//     masked element by element; the CTA visits only the key tiles its
+//     rows can see (window lower edge to causal or prefix upper edge);
+//   * causal grids launch the query blocks with the most key tiles first;
+//   * rows in shared memory are padded by 16 bytes, so the 8 rows an
+//     ldmatrix reads fall in distinct banks;
+//   * mma.sync, not wgmma/TMA: one warp per 16 rows keeps the softmax in
+//     the accumulator registers without a warpgroup's 64-row tiling of a
+//     G-interleaved row block; wgmma and warp specialisation are later work.
+//
+// f32 (flash_attention_forward): CUDA cores, exact f32 FMAs (the f32
+// tolerance, 2e-5, does not admit TF32):
+//   * one CTA per (block of query positions, kv head, batch row), 64
+//     (position, head) rows in all, so every K/V tile it loads serves 64
+//     rows; it walks only the key tiles its rows can see;
 //   * 32-key tiles are staged in shared memory as f32 with 16-byte vector
 //     loads (K rows padded to D + 1 floats so lane j reads key j without
 //     bank conflicts); m, l and the f32 accumulator stay in registers;
 //     ragged ends (Sq, Sk not multiples of a tile) are masked here.
 //
+// Both read the model's (B, S, H, D) layout directly, with a token stride
+// per tensor, so q, k and v may be views of the fused QKV projection: the
+// wrapper pays no transpose and no copy.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/_build.py).  Plain C entry
-// point, bound with ctypes by repro_torch/kernels/flash_attention/kernel.py.
+// points, bound with ctypes by repro_torch/kernels/flash_attention/kernel.py.
 
 #include "../../csrc/common.cuh"
 
@@ -223,20 +249,281 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
-             int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts,
-             int causal, int window, int prefix, int rows_per_cta, float scale,
-             cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16, tensor cores
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // (position, head) rows per CTA
+constexpr int kKeys = 64;           // keys per tile
+constexpr int kStages = 2;          // K/V ring depth
+static_assert(kRows <= 2 * kKeys, "q is staged in stage 1 (its K and V tiles are adjacent)");
+
+__device__ __forceinline__ float minus_inf() { return -__uint_as_float(0x7f800000u); }
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory: kStages x (K tile, V tile), rows of D + 8 elements; q is
+// staged in stage 1 before the ring starts.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * kStages * 2 * kKeys * (D + 8);
+}
+
+// (kThreads, 1): without the minimum of one CTA, ptxas held D 64 to 128
+// registers and spilled.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out, int B, int Sq,
+                           int Sk, int H, int KH, int64_t q_ts, int64_t k_ts, int64_t v_ts,
+                           int causal, int window, int prefix, int rows_per_cta, int n_qblocks,
+                           float scale_log2) {
+  constexpr int LD = D + 8;       // shared row stride (elements): +16 bytes
+  constexpr int KD = D / 16;      // mma k-steps over d
+  constexpr int CH = D / 8;       // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  auto k_tile = [&](int st) { return sm + (2 * st) * kKeys * LD; };
+  auto v_tile = [&](int st) { return sm + (2 * st + 1) * kKeys * LD; };
+
+  const int kh = blockIdx.x % KH;
+  const int b = blockIdx.x / KH;
+  const int qb = causal ? n_qblocks - 1 - (int)blockIdx.y : (int)blockIdx.y;  // longest first
+  const int i0 = qb * rows_per_cta;
+  const int G = H / KH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nq = min(rows_per_cta, Sq - i0);
+  const int nrows = G * nq;
+
+  // Keys any row of this CTA can see: [lo, hi].
+  int hi = Sk - 1;
+  if (causal) hi = min(hi, max(i0 + nq - 1, prefix - 1));
+  const int lo = window > 0 ? max(0, i0 - window + 1) : 0;
+  const int n_tiles = hi >= lo ? (hi - lo) / kKeys + 1 : 0;
+  const bf16* kb = k + (int64_t)b * Sk * k_ts + (int64_t)kh * D;
+  const bf16* vb = v + (int64_t)b * Sk * v_ts + (int64_t)kh * D;
+
+  auto load_tile = [&](int tile, int st) {
+    const int t0 = lo + tile * kKeys;
+    bf16* ks = k_tile(st);
+    bf16* vs = v_tile(st);
+#pragma unroll
+    for (int c = tid; c < kKeys * CH; c += kThreads) {
+      const int j = c / CH, d0 = (c % CH) * 8;
+      const int p = t0 + j;
+      const bool ok = p <= hi;
+      const int64_t pp = ok ? p : 0;
+      cp_async16(ks + j * LD + d0, kb + pp * k_ts + d0, ok);
+      cp_async16(vs + j * LD + d0, vb + pp * v_ts + d0, ok);
+    }
+  };
+
+  // q rows -> shared memory (stage 1), then tile 0; both awaited.
+  {
+    bf16* qs = k_tile(1);
+#pragma unroll
+    for (int c = tid; c < kRows * CH; c += kThreads) {
+      const int r = c / CH, d0 = (c % CH) * 8;
+      const bool ok = r < nrows;
+      const int i = ok ? i0 + r / G : 0, h = ok ? kh * G + r % G : 0;
+      cp_async16(qs + r * LD + d0, q + ((int64_t)b * Sq + i) * q_ts + (int64_t)h * D + d0, ok);
+    }
+  }
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned qf[KD][4];  // this warp's 16 rows as A fragments
+  {
+    const bf16* qs = k_tile(1) + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qs + kk * 16);
+  }
+  __syncthreads();  // stage 1 is free for the ring
+
+  // This thread's two rows: r0 = warp * 16 + g and r0 + 8.
+  const int r0 = warp * 16 + g;
+  const int pos[2] = {i0 + r0 / G, i0 + (r0 + 8) / G};
+  const bool live[2] = {r0 < nrows, r0 + 8 < nrows};
+  const int i_max = i0 + nq - 1;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {minus_inf(), minus_inf()};  // running max, in log2 units
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sum
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_tile(tile + 1, (tile + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile `tile` has landed (for this thread) ...
+    __syncthreads();     // ... and for every thread
+    const bf16* ks = k_tile(tile % kStages);
+    const bf16* vs = v_tile(tile % kStages);
+    const int t0 = lo + tile * kKeys;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-blocks of 8 keys.
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kKeys / 16; ++np) {
+        unsigned kf[4];  // keys np*16 + {0..7, 8..15} x d kk*16 + {0..7, 8..15}
+        ldmatrix_x4(kf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // Scores in log2 units; masked ones -inf, only in tiles a mask cuts.
+    const int t_end = t0 + kKeys - 1;
+    const bool cut = t_end > hi || (causal && t_end > i0 && t_end >= prefix) ||
+                     (window > 0 && i_max - t0 >= window);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (cut) {
+          const int p = t0 + 8 * j + 2 * t4 + (e & 1);
+          const int i = pos[e >> 1];
+          bool ok = live[e >> 1] && p <= hi;
+          if (causal) ok = ok && (p <= i || p < prefix);
+          if (window > 0) ok = ok && (i - p < window);
+          if (!ok) x = minus_inf();
+        }
+        s[j][e] = x;
+      }
+
+    // Online softmax in the accumulator layout (row max over the quad).
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float base = mx == minus_inf() ? 0.f : mx;  // a row with nothing seen yet
+      corr[h] = exp2f(m[h] - base);
+      m[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[j][2 * h] = exp2f(s[j][2 * h] - base);
+        s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - base);
+        sum += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      l[h] = l[h] * corr[h] + sum;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+
+    // O += P V with P = hi + lo in bf16: the C fragments of key n-blocks
+    // 2 kb and 2 kb + 1 are the A fragment of key step kb.
+#pragma unroll
+    for (int kb2 = 0; kb2 < kKeys / 16; ++kb2) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float* src = s[2 * kb2 + (a >> 1)] + 2 * (a & 1);
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(src[0], src[1]);
+        ph[a] = *reinterpret_cast<const unsigned*>(&h2);
+        pl[a] = pack_bf16(src[0] - __low2float(h2), src[1] - __high2float(h2));
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned vf[4];  // keys kb2*16 + {0..7, 8..15} x d dp*16 + {0..7, 8..15}, transposed
+        ldmatrix_x4_trans(vf, vs + (kb2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(o[2 * dp], ph, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp + 1], ph, vf[2], vf[3]);
+        mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load refills it
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(kFull, lt, 1);
+    lt += __shfl_xor_sync(kFull, lt, 2);
+    if (!live[h]) continue;
+    const int r = r0 + 8 * h;
+    const int hd = kh * G + r % G;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    bf16* orow = out + (((int64_t)b * Sq + pos[h]) * H + hd) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+           int KH, long long q_ts, long long k_ts, long long v_ts, int causal, int window,
+           int prefix, int rows_per_cta, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_attention_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qblocks = (Sq + rows_per_cta - 1) / rows_per_cta;
+  if (n_qblocks > 65535) return -3;
+  dim3 grid(B * KH, n_qblocks);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix,
+      rows_per_cta, n_qblocks, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+int launch_f32(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+               int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts,
+               int causal, int window, int prefix, int rows_per_cta, float scale,
+               cudaStream_t stream) {
 #define FA_ARGS \
   q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix, rows_per_cta, scale, stream
   switch (D) {
-    case 32: return launch<T, 1>(FA_ARGS);
-    case 64: return launch<T, 2>(FA_ARGS);
-    case 128: return launch<T, 4>(FA_ARGS);
+    case 32: return launch<float, 1>(FA_ARGS);
+    case 64: return launch<float, 2>(FA_ARGS);
+    case 128: return launch<float, 4>(FA_ARGS);
+  }
+  return -2;
+}
+
+int launch_bf16(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts,
+                int causal, int window, int prefix, int rows_per_cta, float scale,
+                cudaStream_t stream) {
+  switch (D) {
+    case 32: return tc::launch<32>(FA_ARGS);
+    case 64: return tc::launch<64>(FA_ARGS);
+    case 128: return tc::launch<128>(FA_ARGS);
   }
 #undef FA_ARGS
   return -2;
+}
+
+bool bad_grouping(int B, int Sq, int Sk, int H, int KH, int rows_per_cta) {
+  return B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || rows_per_cta <= 0 ||
+         (H / KH) * rows_per_cta > kRowsMax;
 }
 
 }  // namespace
@@ -244,25 +531,27 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out, int 
 // q: (B, Sq, H, D), k and v: (B, Sk, KH, D), each with unit stride over D,
 // D elements between heads and q_ts / k_ts / v_ts elements between tokens
 // (batch rows S * ts apart), 16-byte aligned rows; out: (B, Sq, H, D)
-// contiguous.  All f32 (dtype 0) or all bf16 (1).  G = H / KH query heads
-// per kv head; q head h = kh * G + g.  rows_per_cta query positions per
-// CTA, with G * rows_per_cta <= 64.  Returns 0 or a CUDA error code
-// (negative for an unsupported D, dtype or grouping); launches on `stream`
-// and does not synchronise.
+// contiguous.  G = H / KH query heads per kv head; q head h = kh * G + g.
+// rows_per_cta query positions per CTA, with G * rows_per_cta <= 64.
+// flash_attention_forward takes f32 (CUDA cores), flash_attention_forward_mma
+// bf16 (tensor cores).  Each returns 0 or a CUDA error code (negative for an
+// unsupported D or grouping); launches on `stream` and does not synchronise.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out,
                                        int B, int Sq, int Sk, int H, int KH, int D,
                                        long long q_ts, long long k_ts, long long v_ts,
                                        int causal, int window, int prefix, int rows_per_cta,
-                                       float scale, int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || rows_per_cta <= 0 ||
-      (H / KH) * rows_per_cta > kRowsMax)
-    return -3;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal,
-                           window, prefix, rows_per_cta, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts,
-                                   causal, window, prefix, rows_per_cta, scale, s);
-  return -1;
+                                       float scale, void* stream) {
+  if (bad_grouping(B, Sq, Sk, H, KH, rows_per_cta)) return -3;
+  return launch_f32(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
+                    prefix, rows_per_cta, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_forward_mma(const void* q, const void* k, const void* v,
+                                           void* out, int B, int Sq, int Sk, int H, int KH,
+                                           int D, long long q_ts, long long k_ts,
+                                           long long v_ts, int causal, int window, int prefix,
+                                           int rows_per_cta, float scale, void* stream) {
+  if (bad_grouping(B, Sq, Sk, H, KH, rows_per_cta)) return -3;
+  return launch_bf16(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
+                     prefix, rows_per_cta, scale, static_cast<cudaStream_t>(stream));
 }

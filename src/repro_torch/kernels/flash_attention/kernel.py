@@ -1,6 +1,8 @@
-"""Build and bind the CUDA flash-attention kernel
+"""Build and bind the CUDA flash-attention kernels
 (``csrc/flash_attention.cu``, which replaces
-``repro/kernels/flash_attention/kernel.py::_flash_kernel``).
+``repro/kernels/flash_attention/kernel.py::_flash_kernel``): two C entry
+points of one signature, ``flash_attention_forward`` (f32, CUDA cores) and
+``flash_attention_forward_mma`` (bf16, tensor cores).
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` and the token strides
@@ -17,7 +19,8 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I] * 4 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I] * 4 + [ctypes.c_float, _P]
+ENTRIES = ("flash_attention_forward", "flash_attention_forward_mma")
 
 _lib = None
 
@@ -28,7 +31,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
-        lib.flash_attention_forward.argtypes = _ARGTYPES
-        lib.flash_attention_forward.restype = ctypes.c_int
+        for name in ENTRIES:
+            getattr(lib, name).argtypes = _ARGTYPES
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,13 +1,15 @@
-"""Wrapper of the flash-attention kernel in the model's layout (the port's
+"""Wrapper of the flash-attention kernels in the model's layout (the port's
 ``repro/kernels/flash_attention/ops.py``, forward only).
 
 q stays (B, Sq, H, D) and k/v (B, Sk, KH, D), with the JAX GQA map (q head
-h reads kv head h // G); the kernel indexes that layout directly, with a
+h reads kv head h // G); the kernels index that layout directly, with a
 token stride per tensor, so views of the fused QKV projection need no copy.
-Ragged Sq/Sk are masked in the kernel (the JAX wrapper halves its block
-instead; the results agree).  CPU tensors go to the plain version
+Ragged Sq/Sk are masked in the kernels (the JAX wrapper halves its block
+instead; the results agree).  The dtype alone picks the kernel
+(``ENTRIES``): bf16 runs on tensor cores, f32 on CUDA cores (its 2e-5
+tolerance rules out TF32).  CPU tensors go to the plain version
 (``repro_torch.models.layers.blocked_attention``); CUDA tensors launch the
-kernel or raise: there is no fallback.
+kernel their dtype selects or raise: there is no fallback.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ LAUNCHES = 0
 # the port has no tile search, and the chunking changes no result.
 PLAIN_CHUNK = 128
 
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The C entry point (csrc/flash_attention.cu) each dtype launches.
+ENTRIES = {torch.float32: "flash_attention_forward", torch.bfloat16: "flash_attention_forward_mma"}
 _ROWS_MAX = 64  # query rows (G heads x positions) one CTA holds
 
 
@@ -61,12 +64,22 @@ def flash_attention(
     if q.device.type == "cpu":
         return blocked_attention(q, k, v, causal=causal, window=window, q_chunk=PLAIN_CHUNK,
                                  k_chunk=PLAIN_CHUNK, prefix_len=prefix)
-    lib = kernel.library()
     _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    out = launch(kernel.library(), q, k, v, causal=causal, window=window, prefix=prefix,
+                 stream=torch.cuda.current_stream(q.device).cuda_stream)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def launch(lib, q, k, v, *, causal: bool, window: int, prefix: int, stream) -> torch.Tensor:
+    """Check the operands, allocate the output and call ``lib``'s entry
+    point for q's dtype (``ENTRIES``) on ``stream``; raises on what the
+    kernels do not take or a failed launch."""
     _require(q.dim() == 4 and k.dim() == 4, "q (B, Sq, H, D) and k/v (B, Sk, KH, D)")
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
-    _require(q.dtype in _CODES and k.dtype == q.dtype and v.dtype == q.dtype,
+    _require(q.dtype in ENTRIES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (all f32 or all bf16)")
     _require(k.shape == (B, Sk, KH, D) and v.shape == k.shape, "k/v shape")
     _require(D in (32, 64, 128), f"head dim {D}")
@@ -75,13 +88,11 @@ def flash_attention(
     strides = [_token_stride(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"))]
     rows = _ROWS_MAX // (H // KH)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    rc = lib.flash_attention_forward(
+    rc = getattr(lib, ENTRIES[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, KH, D, *strides, int(causal), int(window), int(prefix), rows,
-        1.0 / math.sqrt(D), _CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(D), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
-    global LAUNCHES
-    LAUNCHES += 1
+        raise RuntimeError(f"flash_attention kernel launch failed ({ENTRIES[q.dtype]}, code {rc})")
     return out

@@ -37,3 +37,43 @@ def flash_attention_ref(q, k, v, *, n_q_per_kv: int, causal: bool, window: int =
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     return torch.einsum("bqk,bkd->bqd", p, vv.float()).to(q.dtype)
+
+
+def flash_attention_mma_ref(q, k, v, *, n_q_per_kv: int, causal: bool, window: int = 0,
+                            prefix: int = 0, p_split: bool = True, tile: int = 64):
+    """The bf16 tensor-core kernel's numeric scheme in plain PyTorch, kernel
+    layout as ``flash_attention_ref``: bf16 q k^T summed in f32, an f32
+    online softmax over ``tile``-key tiles, l summed from the f32 p, and P V
+    with P as bf16 hi + lo (hi = bf16(p), lo = bf16(p - hi)), or, with
+    ``p_split=False``, P rounded once to bf16.  Returns q's dtype."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    kk = torch.repeat_interleave(k, n_q_per_kv, dim=0).float()
+    vv = torch.repeat_interleave(v, n_q_per_kv, dim=0).float()
+    qf = q.float()
+    iq = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((BH, Sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((BH, Sq, 1), device=q.device)
+    acc = torch.zeros((BH, Sq, D), device=q.device)
+    for t0 in range(0, Sk, tile):
+        ik = torch.arange(t0, min(Sk, t0 + tile), device=q.device)[None, :]
+        mask = torch.ones((Sq, ik.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= (iq >= ik) | (ik < prefix)
+        if window > 0:
+            mask &= (iq - ik) < window
+        s = torch.einsum("bqd,bkd->bqk", qf, kk[:, t0:t0 + tile]) * scale
+        s = torch.where(mask[None], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(s - base)
+        corr = torch.exp(m - base)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vv[:, t0:t0 + tile]
+        if p_split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vv[:, t0:t0 + tile]
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

@@ -1,5 +1,6 @@
-"""Build and bind the CUDA MM PU kernel (``csrc/mm_pu.cu``, which replaces
-``repro/kernels/mm_pu/kernel.py::_mm_kernel``).
+"""Build and bind the CUDA MM PU kernels (``csrc/mm_pu.cu``, which replaces
+``repro/kernels/mm_pu/kernel.py::_mm_kernel``): ``mm_pu_forward`` (f32 x,
+CUDA cores) and ``mm_pu_forward_mma`` (bf16 x, tensor cores, with split-K).
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` so none is cut to 32
@@ -15,7 +16,10 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mm_pu.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_ARGTYPES = {
+    "mm_pu_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "mm_pu_forward_mma": [_P] * 7 + [_I] * 10 + [_P],
+}
 
 _lib = None
 
@@ -26,7 +30,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
-        lib.mm_pu_forward.argtypes = _ARGTYPES
-        lib.mm_pu_forward.restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

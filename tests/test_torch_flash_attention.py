@@ -5,7 +5,14 @@ on CPU tensors) against the JAX Pallas kernel (interpret mode, as the JAX
 kernel test runs it) and JAX ``blocked_attention``, on the JAX test's six
 CASES (GQA, causal, non-causal, sliding window, prefix-LM, D=128) at 1e-5
 (f32) and its bf16 case at its 3e-2; plus a ragged length against the JAX
-exact softmax."""
+exact softmax.  The bf16 tensor-core kernel's numeric scheme
+(``ref.flash_attention_mma_ref``: P V with P as bf16 hi + lo) against the
+Pallas kernel and the f32 plain version at the card's bf16 tolerance, and
+why P is split (rounded once, it breaks that tolerance); and, with the
+kernel library replaced by counting stubs, which C entry each dtype
+launches."""
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +22,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.models.layers import blocked_attention as jax_blocked
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_mma_ref, flash_attention_ref
 from repro_torch.models.layers import blocked_attention
 from torch_parity import t2n
 
@@ -94,3 +101,91 @@ def test_plain_flash_ragged_length():
     want = jax_ref(qr, kr, vr, n_q_per_kv=2, causal=True, window=40)
     want = np.asarray(want).reshape(1, 4, 100, 32).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(t2n(got), want, rtol=1e-5, atol=1e-5)
+
+
+# chip_smoke.py's bf16 tolerance (atol, rtol): one bf16 step of the output.
+BF16_TOL = (1e-4, 2.0**-7)
+MMA_CASE = dict(B=1, S=512, H=4, KH=2, D=128)
+
+
+def _outside(got, want, tol=BF16_TOL) -> float:
+    """Share of elements with |got - want| > atol + rtol |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) > tol[0] + tol[1] * np.abs(want)).mean())
+
+
+def _mma_scheme(q, k, v, *, p_split):
+    """The kernel's scheme on (B, S, heads, D) bf16 tensors, model layout."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    kl = lambda x, n: x.permute(0, 2, 1, 3).reshape(B * n, S, D)  # noqa: E731
+    out = flash_attention_mma_ref(kl(q, H), kl(k, KH), kl(v, KH), n_q_per_kv=H // KH,
+                                  causal=True, p_split=p_split)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
+
+
+def _mma_refs(seed):
+    """(bf16 q, k, v; the Pallas kernel's bf16 output; the f32 plain
+    version's output on the same bf16 values), causal."""
+    q, k, v = _mk(**MMA_CASE, seed=seed)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(t2n(t), jnp.bfloat16) for t in (tq, tk, tv))
+    pallas = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=128, block_k=128), np.float32)
+    f32 = t2n(blocked_attention(tq.float(), tk.float(), tv.float(), causal=True, window=0,
+                                q_chunk=128, k_chunk=128))
+    return (tq, tk, tv), {"pallas": pallas, "f32 plain": f32}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mma_scheme_within_bf16_tolerance(seed):
+    """bf16 q k^T with f32 sums, f32 online softmax, P as bf16 hi + lo:
+    every element within one bf16 step of the Pallas kernel (interpret
+    mode) and of the f32 plain version."""
+    (tq, tk, tv), refs = _mma_refs(seed)
+    got = _mma_scheme(tq, tk, tv, p_split=True)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    for name, want in refs.items():
+        assert _outside(t2n(got), want) == 0.0, name
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_single_bf16_p_breaks_the_tolerance(seed):
+    """Why the kernel splits P: the same scheme with P rounded once to bf16
+    puts a few percent of the elements outside one bf16 step."""
+    (tq, tk, tv), refs = _mma_refs(seed)
+    got = t2n(_mma_scheme(tq, tk, tv, p_split=False))
+    for name, want in refs.items():
+        assert _outside(got, want) > 0.01, name
+
+
+class _Library:
+    """Stands in for the kernel library: every C entry point counts its
+    calls and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = Counter(), rc
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] += 1
+            return self.rc
+        return entry
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_forward_mma"),
+                                         (torch.float32, "flash_attention_forward")])
+def test_dtype_selects_the_kernel(dtype, entry):
+    """bf16 launches the tensor-core entry, f32 the CUDA-core one, once;
+    a failed launch raises (no fallback), and fp16 is refused."""
+    q = torch.zeros((2, 40, 4, 64), dtype=dtype)
+    k = v = torch.zeros((2, 40, 2, 64), dtype=dtype)
+    lib = _Library()
+    out = ops.launch(lib, q, k, v, causal=True, window=0, prefix=0, stream=None)
+    assert lib.calls == Counter({entry: 1})
+    assert out.shape == q.shape and out.dtype == dtype
+    with pytest.raises(RuntimeError, match=entry):
+        ops.launch(_Library(rc=1), q, k, v, causal=True, window=0, prefix=0, stream=None)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.launch(lib, q.half(), k.half(), v.half(), causal=True, window=0, prefix=0,
+                   stream=None)
+    assert lib.calls == Counter({entry: 1})

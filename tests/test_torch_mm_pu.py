@@ -5,9 +5,14 @@ mode, as the JAX kernel test runs it) and the JAX oracle, over the JAX
 test's SHAPES and dtypes, every activation with bias and residual, the
 int8 dequant and random shapes, at its tolerances (f32 1e-5 / 1e-4, bf16
 2e-2, random 1e-4 / 1e-3); ``quantize_weights_int8`` bit for bit; the int8
-FFN stage of tests/test_int8_serving.py; and the copied tile solver
-(``core/pu.py``) and ``pad_overhead`` against JAX's."""
+FFN stage of tests/test_int8_serving.py; the copied tile solver
+(``core/pu.py``) and ``pad_overhead`` against JAX's.  For the tensor-core
+kernel: its launch plan (split-K on narrow grids), its split-K order
+emulated (fixed-order f32 partial sums, then the epilogue) against JAX
+``mm_pu``, the exact int8 -> bf16 widening, and, with the kernel library
+replaced by counting stubs, which C entry each x dtype launches."""
 import dataclasses
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +30,7 @@ from repro.kernels.mm_pu.ref import quantize_weights_int8 as jax_quantize
 from repro_torch.core import pu
 from repro_torch.core.hardware import H100_SXM, HardwareSpec
 from repro_torch.kernels.mm_pu import ops
-from repro_torch.kernels.mm_pu.ref import mm_pu_ref, quantize_weights_int8
+from repro_torch.kernels.mm_pu.ref import _act, mm_pu_ref, quantize_weights_int8
 from repro_torch.models.layers import mlp
 from torch_parity import t2n
 
@@ -195,3 +200,122 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="activation"):
         ops.mm_pu(x, torch.zeros((8, 2)), activation="tanh")
+
+
+@pytest.mark.parametrize("m,k,n,split", [(256, 6144, 2048, True), (2048, 2048, 6144, False),
+                                         (256, 512, 384, True), (64, 100, 32, False)])
+def test_launch_plan(m, k, n, split):
+    """Narrow grids split K until tiles x splits covers the H100's 132 SMs
+    (the int8 FFN stage's T=256 w2 product) or each split is down to its
+    least depth; wide ones do not split (its T=2048 w1 product).  Splits
+    are whole slices of the kernel's depth, none empty."""
+    splits, kps = ops.launch_plan(m, n, k)
+    tiles = -(-m // 128) * -(-n // 128)
+    depth = ops.K_SLICE[torch.bfloat16]
+    assert (splits > 1) == split
+    assert kps % depth == 0 and (splits - 1) * kps < k <= splits * kps
+    if split:
+        assert kps >= ops.MIN_SPLIT_SLICES * depth
+        assert tiles * splits >= ops.N_SMS or kps == ops.MIN_SPLIT_SLICES * depth
+    else:
+        assert kps >= k
+
+
+def _split_k_emulation(x, w, *, w_scale, bias, residual, activation):
+    """The tensor-core kernel's order: f32 partial products over
+    ``launch_plan``'s K splits, summed in split order, then the epilogue
+    (scale after the product, bias, activation, residual)."""
+    M, K = x.shape
+    splits, kps = ops.launch_plan(M, w.shape[1], K)
+    assert splits > 1
+    parts = [x[:, k0:k0 + kps].float() @ w[k0:k0 + kps].float() for k0 in range(0, K, kps)]
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    if w_scale is not None:
+        acc = acc * w_scale
+    return _act(acc + bias, activation) + residual
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_split_k_emulation_matches_jax(int8):
+    """bf16-valued x, int8 (with its scale) or bf16-valued w, silu, bias and
+    residual: the split-K order equals JAX ``mm_pu`` to f32 rounding."""
+    x, w = _mk(256, 512, 384, seed=6)
+    x = t2n(torch.from_numpy(x).to(torch.bfloat16).float())
+    rng = np.random.default_rng(7)
+    b = rng.standard_normal((1, 384)).astype(np.float32)
+    r = rng.standard_normal((256, 384)).astype(np.float32)
+    if int8:
+        q, s = (np.array(a) for a in jax_quantize(jnp.asarray(w)))
+        want = jax_mm_pu(jnp.asarray(x), jnp.asarray(q), w_scale=jnp.asarray(s),
+                         bias=jnp.asarray(b), residual=jnp.asarray(r), activation="silu")
+        tw, ts = torch.from_numpy(q), torch.from_numpy(s)
+    else:
+        w = t2n(torch.from_numpy(w).to(torch.bfloat16).float())
+        want = jax_mm_pu(jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(b),
+                         residual=jnp.asarray(r), activation="silu")
+        tw, ts = torch.from_numpy(w), None
+    got = _split_k_emulation(torch.from_numpy(x), tw, w_scale=ts, bias=torch.from_numpy(b),
+                             residual=torch.from_numpy(r), activation="silu")
+    np.testing.assert_allclose(t2n(got), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def test_int8_widens_to_bf16_exactly():
+    """Every int8 value is exact in bf16 (8 significant bits), so the
+    kernel's widened weight equals the reference's f32 upcast."""
+    v = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    assert torch.equal(v.float().to(torch.bfloat16).float(), v.float())
+
+
+class _Library:
+    """Stands in for the kernel library: every C entry point records its
+    arguments and returns 0."""
+
+    def __init__(self):
+        self.calls = Counter()
+        self.args = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] += 1
+            self.args[name] = args
+            return 0
+        return entry
+
+
+def _launch(lib, x, w, **kw):
+    kw = {"bias": None, "residual": None, "w_scale": None, "activation": "none",
+          "out_dtype": None, **kw}
+    return ops.launch(lib, x, w, stream=None, **kw)
+
+
+@pytest.mark.parametrize("m,k,n,int8", [(256, 6144, 2048, True), (128, 128, 128, False),
+                                        (64, 100, 32, True), (300, 64, 513, False)])
+def test_bf16_x_launches_the_tensor_core_entry(m, k, n, int8):
+    """bf16 x (bf16 or int8 w) launches ``mm_pu_forward_mma`` with
+    ``launch_plan``'s splits, a workspace when it splits, and 16-byte copies
+    only where every row is aligned (K 100 bf16 rows are 200 bytes; N 513)."""
+    x = torch.zeros((m, k), dtype=torch.bfloat16)
+    w = torch.zeros((k, n), dtype=torch.int8 if int8 else torch.bfloat16)
+    scale = torch.ones((1, n)) if int8 else None
+    lib = _Library()
+    out = _launch(lib, x, w, w_scale=scale, activation="silu")
+    assert lib.calls == Counter({"mm_pu_forward_mma": 1})
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    args = lib.args["mm_pu_forward_mma"]
+    splits, kps = ops.launch_plan(m, n, k)
+    assert args[7:10] == (m, n, k) and args[10] == (2 if int8 else 1)
+    assert args[14:16] == (splits, kps) and (args[6] is not None) == (splits > 1)
+    assert args[16] == int(k % 8 == 0 and n % (16 if int8 else 8) == 0)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_f32_x_launches_the_cuda_core_entry(int8):
+    """f32 x (f32 or int8 w) launches ``mm_pu_forward`` once."""
+    x = torch.zeros((64, 96))
+    w = torch.zeros((96, 40), dtype=torch.int8) if int8 else torch.zeros((96, 40))
+    lib = _Library()
+    out = _launch(lib, x, w, w_scale=torch.ones((1, 40)) if int8 else None)
+    assert lib.calls == Counter({"mm_pu_forward": 1})
+    assert out.shape == (64, 40) and out.dtype == torch.float32
