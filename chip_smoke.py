@@ -16,7 +16,10 @@ outputs, times the kernels, and prints:
 * last, ``{"ok": true, "device": {...}}``.
 
 Phases: 1 setup + build; the continuous-batching path of qwen3-1.7b over
-the paged-attention kernel: 2 kernel vs plain version, 3 full-depth f32
+the paged-attention kernels: 2 kernels vs plain version (the JAX test's
+cases on the CUDA-core entry and each with bf16 q and pages on the
+tensor-core entry, the rows-per-CTA sweep and the SWA dead-page check on
+both, decode contexts that span several key splits), 3 full-depth f32
 serving with the kernel vs the gather path (identical tokens), 4 bf16
 serving on the derived H100 plan (a main path whose launches are counted),
 5 rolled decode loop (K=4 vs K=1), 6 kernel vs plain version at the derived
@@ -30,8 +33,9 @@ and their times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16
 (main paths whose launches are counted), 11 kernel path vs plain path in
 f32 (identical tokens), 12 the continuous engine vs ``greedy_generate``
 (identical tokens); 13 the RMSNorm kernel vs its plain version (the JAX
-test's cases, every model width, strided qk views, the main paths' rows)
-and its times; 14 the MM PU kernels vs their plain version (the JAX test's
+test's cases, every model width, sub-warp rows at ragged row counts,
+strided qk views, the main paths' rows and the continuous slab's q and k
+views) and its times; 14 the MM PU kernels vs their plain version (the JAX test's
 shapes, activations, int8 dequant, random shapes; bf16 x with bf16 and
 int8 w at the same shapes, split K included, on tensor cores); 15 the int8
 FFN stage at qwen3-1.7b width (three ``mm_pu`` launches; its launch plans,
@@ -40,10 +44,12 @@ T=256 ``w2`` split across K) and its times.  Every main path (phases 3-5,
 eager-prefill kernel once a layer, the RMSNorm kernel once a norm per
 forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no kernel at
 all on a plain path.  Planted controls (a dropped key tile, a window one
-key wider, P rounded once to bf16 instead of split into hi + lo, the WKV's
-cross-chunk term dropped, the norm's ``1 + scale`` or mean changed, a
-dropped K slice, a per-row scale) show that the tolerances reject a wrong
-kernel.
+key wider, P rounded once to bf16 instead of split into hi + lo, in flash
+and in paged attention, a key split left out of paged attention's
+combine, the WKV's cross-chunk term dropped, the norm's ``1 + scale`` or
+mean changed, a dropped K slice, a per-row scale) show that the
+tolerances reject a wrong kernel.  Kernel times are medians over batches
+of back-to-back calls (``time_ms``).
 """
 from __future__ import annotations
 
@@ -229,34 +235,67 @@ def drop_last_tile(args, *, bs, tile=32):
     return masked_attention(q, k, v, valid).to(q.dtype)
 
 
+def split_controls(cfg):
+    """The tensor-core entry's two planted controls, on decode slots whose
+    contexts span several key splits: its scheme emulated
+    (``ref.paged_attention_split_ref``) with P rounded once to bf16, and
+    with one split left out of the combine, must both be rejected; the
+    scheme itself, P as hi + lo, must pass."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_split_ref
+
+    H, KH, D, bs, MB, B = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 128, 8
+    rng = np.random.default_rng(30)
+    lens, q_lens = rng.integers(1200, 2000, B), np.ones(B, np.int64)
+    args = make_inputs(B, 1, H, KH, D, bs, MB, "bfloat16", lens, q_lens,
+                       q_dtype=torch.bfloat16, seed=30)
+    _, want, _ = compare(f"decode B={B} contexts 1200-2000 bf16 ({ops.SPLIT}-key splits)", args,
+                         bs=bs, window=0)
+    scheme = lambda **kw: paged_attention_split_ref(*args, block_size=bs,  # noqa: E731
+                                                    split=ops.SPLIT, **kw)
+    ok, err, _ = within(scheme(), want, BF16_TOL)
+    log(f"  scheme emulated (P as hi + lo): max_abs_err={err:.3g} {'ok' if ok else 'MISMATCH'}")
+    check(ok, "the emulated split scheme disagrees with the plain version")
+    planted("P rounded once to bf16 (no hi + lo split)", scheme(p_split=False), want, BF16_TOL)
+    planted("split 2 (keys 1024-1535) left out of the combine", scheme(drop_split=2), want,
+            BF16_TOL)
+
+
 def phase_kernels(cfg):
-    log("phase 2: kernel vs plain version on the card")
+    log("phase 2: kernels vs plain version on the card")
     errs = []
+    # the JAX test's six cases as they are (f32 and int8 pages: the CUDA-core
+    # entry), then each with bf16 q and pages (the tensor-core entry)
     for n, (B, W, H, KH, D, bs, MB, kv, window) in enumerate(SMALL_CASES):
         lens, q_lens = small_case_lens(B, W, bs, MB, seed=n)
-        args = make_inputs(B, W, H, KH, D, bs, MB, kv, lens, q_lens, seed=n)
-        errs.append(compare(f"case{n} {kv} W={W} window={window}", args, bs=bs,
-                            window=window)[2])
+        for kv_, qdt in ((kv, torch.float32), ("bfloat16", torch.bfloat16)):
+            args = make_inputs(B, W, H, KH, D, bs, MB, kv_, lens, q_lens, q_dtype=qdt, seed=n)
+            errs.append(compare(f"case{n} {kv_} pages, {str(qdt)[6:]} q, W={W} window={window}",
+                                args, bs=bs, window=window)[2])
     # the schedule knob changes nothing: rows per CUDA block (the CUDA
-    # analogue of the TPU kernel's pages_per_tile sweep)
-    lens, q_lens = small_case_lens(2, 4, 4, 16, seed=7)
-    args = make_inputs(2, 4, 4, 2, 32, 4, 16, "float32", lens, q_lens, seed=7)
-    outs = [compare(f"sweep rows_per_cta={r}", args, bs=4, window=0, rows_per_cta=r)[0]
-            for r in (1, 2, 4, 32)]
-    spread = max(float((o - outs[0]).abs().max()) for o in outs)
-    log(f"  sweep spread={spread:.3g}")
-    check(spread <= 1e-6, "rows_per_cta changes the numbers")
+    # analogue of the TPU kernel's pages_per_tile sweep), on both entries
+    lens, q_lens = small_case_lens(2, 40, 4, 32, seed=7)
+    for kv, qdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = make_inputs(2, 40, 4, 2, 32, 4, 32, kv, lens, q_lens, q_dtype=qdt, seed=7)
+        outs = [compare(f"sweep {kv} rows_per_cta={r}", args, bs=4, window=0, rows_per_cta=r)[0]
+                for r in (1, 2, 4, 32)]
+        spread = max(float((o.float() - outs[0].float()).abs().max()) for o in outs)
+        log(f"  sweep {kv} spread={spread:.3g}")
+        check(spread <= 1e-6, "rows_per_cta changes the numbers")
     # pages wholly below the window are never read: corrupting them is inert
-    q, entry, _, _, _ = make_inputs(1, 1, 2, 1, 32, 4, 8, "float32", [0], [1], seed=8)
-    table = (torch.arange(8, dtype=torch.int32, device="cuda") + 1)[None]
-    lens = torch.tensor([28], dtype=torch.int32, device="cuda")
-    q_lens = torch.tensor([1], dtype=torch.int32, device="cuda")
-    base = compare("swa clean", (q, entry, table, lens, q_lens), bs=4, window=8)[0]
-    smashed = {"k": entry["k"].clone(), "v": entry["v"].clone()}
-    smashed["k"][1:4], smashed["v"][1:4] = 1e3, -1e3
-    got = compare("swa corrupted dead pages", (q, smashed, table, lens, q_lens), bs=4,
-                  window=8)[0]
-    check(float((got - base).abs().max()) <= 1e-6, "dead pages below the window leaked")
+    for kv, qdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q, entry, _, _, _ = make_inputs(1, 1, 2, 1, 32, 4, 8, kv, [0], [1], q_dtype=qdt, seed=8)
+        table = (torch.arange(8, dtype=torch.int32, device="cuda") + 1)[None]
+        lens = torch.tensor([28], dtype=torch.int32, device="cuda")
+        q_lens = torch.tensor([1], dtype=torch.int32, device="cuda")
+        base = compare(f"swa clean {kv}", (q, entry, table, lens, q_lens), bs=4, window=8)[0]
+        smashed = {"k": entry["k"].clone(), "v": entry["v"].clone()}
+        smashed["k"][1:4], smashed["v"][1:4] = 1e3, -1e3
+        got = compare(f"swa corrupted dead pages {kv}", (q, smashed, table, lens, q_lens), bs=4,
+                      window=8)[0]
+        check(float((got.float() - base.float()).abs().max()) <= 1e-6,
+              "dead pages below the window leaked")
+    split_controls(cfg)
 
     # the main path's shapes: qwen3-1.7b heads, 16-token blocks, a 256-row slab
     H, KH, D, bs, W, MB = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 256, 128
@@ -402,17 +441,26 @@ def phase_rolled(cfg_full, plan):
 
 # ---------------------------------------------------------------- timing
 def time_ms(fn, reps=25, warmup=3):
+    """Median ms of one call of ``fn``: ``reps`` batches of back-to-back
+    calls (as many as take about 1 ms, at least one) between two CUDA
+    events, so that the card does not idle between the calls it times."""
     for _ in range(warmup):
         fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    n = max(1, min(100, int(1.0 / max(a.elapsed_time(b), 1e-3))))
     ts = []
     for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / n)
     return float(np.median(ts))
 
 
@@ -964,10 +1012,11 @@ def rms_bound(x):
     return nbytes / PEAK_BYTES_S * 1e3, "bytes"
 
 
-def rms_times(name, x, s):
+def rms_times(name, x, s, *, library_on_copy=False):
     """Kernel, plain version and the nearest library call
     (``F.rms_norm`` with the weight 1 + scale in x's dtype, made outside
-    the timed region; the port never calls it)."""
+    the timed region, on x itself or, with ``library_on_copy``, on a
+    contiguous copy made outside it; the port never calls it)."""
     from repro_torch.kernels.rmsnorm import ops
     from repro_torch.models.layers import rmsnorm
 
@@ -975,10 +1024,14 @@ def rms_times(name, x, s):
     ms = time_ms(lambda: ops.rmsnorm(x, s))
     plain_ms = time_ms(lambda: rmsnorm(x, s), reps=10, warmup=2)
     weight = (1.0 + s).to(x.dtype)
-    lib_ms = time_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6))
+    xl = x.contiguous() if library_on_copy else x
+    lib_ms = time_ms(lambda: F.rms_norm(xl, (d,), weight, 1e-6))
+    del xl
     b_ms, b_by = rms_bound(x)
+    plan = ops.launch_plan(x.numel() // d, d, x.element_size(), True)
     log(f"  times {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of "
-        f"roofline), plain {plain_ms:.3f} ms, F.rms_norm {lib_ms:.4f} ms")
+        f"roofline), plain {plain_ms:.3f} ms, F.rms_norm{' (contiguous copy)' * library_on_copy} "
+        f"{lib_ms:.4f} ms; launch plan (lanes a row, vectors a lane, rows a group, CTAs) {plan}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
 
@@ -1011,6 +1064,15 @@ def phase_rmsnorm(cfg):
             if dt == torch.float32 and d in (128, 2048):
                 planted(f"mean over d - 1 = {d - 1}", rms_mean_over_d_minus_1(x, s), want,
                         RMS_F32_TOL)
+    # sub-warp rows (8 or 16 lanes a row, several rows a warp) at ragged
+    # row counts, so that the last warp's groups and the grid's last stride
+    # are partly empty
+    for rows in (1, 3, 37, 1001):
+        for d, dt in ((128, torch.bfloat16), (64, torch.float32), (64, torch.bfloat16),
+                      (32, torch.float32)):
+            x, s = rms_inputs((rows, d), dt, n)
+            errs.append(rms_check(f"ragged ({rows}, {d}) {str(dt)[6:]}", x, s)[2])
+            n += 1
     # qk-norm input: strided views of a fused QKV projection
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     for dt in (torch.float32, torch.bfloat16):
@@ -1044,8 +1106,20 @@ def phase_rmsnorm(cfg):
     slab = rms_times(f"slab ({x.shape[0]}, {d}) bf16", x, s)
     del x
     torch.cuda.empty_cache()
+    # qk-norm at the continuous slab: 256 slots x 256 rows of the fused QKV
+    # projection, q and k views read in place (token stride (H + 2 KH) D)
+    q, k = qkv_views(256, 256, H, KH, D, torch.bfloat16, 54)
+    slab_views = {}
+    for nm, v in (("q", q), ("k", k)):
+        sv = rms_inputs((D,), torch.float32, 55)[1]
+        errs.append(rms_check(f"slab {nm} view {tuple(v.shape)} bf16, token stride "
+                              f"{v.stride(1)}", v, sv)[2])
+        slab_views[f"slab_{nm}_view"] = rms_times(f"slab {nm} view {tuple(v.shape)} bf16", v, sv,
+                                                  library_on_copy=True)
+    del q, k
+    torch.cuda.empty_cache()
     ops.LAUNCHES = before  # checking and timing launches are not main-path launches
-    return max(errs), {"prefill": prefill, "q_view": qview, "slab": slab}
+    return max(errs), {"prefill": prefill, "q_view": qview, "slab": slab, **slab_views}
 
 
 # ---------------------------------------------------------------- mm_pu

@@ -10,7 +10,12 @@ random bf16 qwen3-1.7b weights from a seed:
   tokens): five timed runs and five timed prefills after a warm-up; the
   decode step is (median run - median prefill) / 31;
 * the continuous engine on the derived H100 plan: 16 requests of 100-600
-  prompt tokens, 16 new tokens each; its mean dispatch time and tok/s.
+  prompt tokens, 16 new tokens each; its mean dispatch time and tok/s;
+* the same engine stream once more under ``torch.profiler``: the device
+  time of each kernel name (the 12 largest, and every kernel of the port's
+  own, with their launch counts), the device time in all, and the wall
+  time of that run, whose ratio is the device's busy share (the
+  profiler's own cost included).
 
 Prints the card's name and power limit, then one JSON line per run.
 """
@@ -69,7 +74,42 @@ def one(tree: str) -> dict:
     s = engine.summary()
     res.update(engine_mean_dispatch_ms=s["mean_dispatch_ms"], engine_tok_per_s=s["tok_per_s"],
                engine_dispatches=s["dispatches"])
+    del engine  # its pools: the profiled engine makes its own
+    torch.cuda.empty_cache()
+    res["engine_profile"] = profile(lambda: ServingEngine(params, cfg, plan, serve, device="cuda")
+                                    .run(random_stream(cfg, 16, (100, 600), 16, stagger=1, seed=3)))
     return res
+
+
+def profile(fn) -> dict:
+    """Device time by kernel name over one call of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():  # the kernels themselves: device events
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key[:80]))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    own = [r for r in rows if r[2].startswith("void (anonymous namespace)::")]  # the port's
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "top": [[round(ms, 3), n, name] for ms, n, name in rows[:12]],
+            "port_kernels": [[round(ms, 3), n, name] for ms, n, name in own]}
 
 
 def main(argv: list) -> int:

@@ -78,9 +78,12 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Sum over aligned groups of W lanes (W a power of two up to 32): every
+// lane of a group gets its group's sum.  All 32 lanes must take part.
+template <int W = 32>
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  for (int o = W / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 

@@ -11,9 +11,41 @@
 // back exactly 0.
 //
 // Bound on an H100 SXM: bytes.  The least work is reading each live slot's
-// K and V pages once per kv head, sum_b ctx_b * KH * D * 2 * bytes, at
-// 3.35 TB/s; the arithmetic (4 * D flops per query row per key) is far below
-// the card's rate at these shapes.  Design against that bound:
+// K and V pages once per kv head, sum_b ctx_b * KH * D * 2 * bytes, and
+// writing the (B, W, H, D) output once, at 3.35 TB/s; the arithmetic (4 * D
+// flops per query row per key) is far below the card's rate at these
+// shapes.  Two kernels, chosen by the wrapper from the (q, page) dtypes
+// alone (ops.ENTRIES; never a fallback):
+//
+// bf16 q with bf16 pages (paged_attention_forward_mma, the served plan's):
+// tensor cores, three passes in one call.
+//   * a prologue builds a work list on the device from lens / q_lens (no
+//     host sync) and writes zeros into the dead rows: only (slot, row block)
+//     or (slot, key split) pairs with live rows become items, so no CTA is
+//     launched, or reserves shared memory, for a dead row block (the decode
+//     slab has one live row a slot);
+//   * the main pass is a persistent grid (SMs x resident CTAs) that takes
+//     (item, kv head) pairs off the list by an atomic counter, prefill row
+//     blocks first (the longest);
+//   * a slot whose G * q_len rows fit one 16-row mma block is a decode slot:
+//     its keys are cut at absolute multiples of `split` (flash-decoding),
+//     one item a split, and the four warps of the CTA all hold its rows and
+//     each takes a quarter of every 64-key tile, their (m, l, o) merged in
+//     warp order at the end; with one split the CTA writes the output, with
+//     several it writes f32 partials, which the combine pass merges in split
+//     order (deterministic);
+//   * other slots' row blocks hold 64 (slab row, head) rows of one kv head,
+//     16 a warp, over every tile they can see;
+//   * 64-key tiles of bf16 pages stream through a 2-stage cp.async ring
+//     (no widening in shared memory); each tile's page slots are resolved
+//     from the block table once, a tile ahead; keys outside the item's
+//     range land as zeros;
+//   * S = Q K^T and O += P V by mma.sync m16n8k16 (ldmatrix, ldmatrix.trans),
+//     the online softmax in the accumulator layout, P as bf16 hi + lo (a
+//     single rounding of P puts a few percent of the outputs outside one
+//     bf16 step), l from the f32 p; masks only on tiles a mask cuts.
+//
+// Every other dtype pair (paged_attention_forward): CUDA cores.
 //   * one CTA per (block of slab rows, kv head, slot).  The CTA takes the G
 //     query heads of its kv head together (GQA), so every page it loads
 //     serves G * rows queries;
@@ -21,22 +53,23 @@
 //     its live rows can see, max(0, lens - window + 1) .. lens + q_len - 1:
 //     the loop replaces the TPU's sequential table-tile grid axis, and work
 //     follows the live context, not the table width;
-//   * a CTA whose rows are all dead (decode slots own 1 live row of the
-//     slab, idle slots none) writes zeros and exits before touching a page;
+//   * a CTA whose rows are all dead writes zeros and exits before touching
+//     a page;
 //   * tiles of 32 keys are staged in shared memory as f32 (K rows padded to
 //     D + 1 floats so lane j reads key j without bank conflicts): the
 //     tile's page slots are resolved once, then every thread issues all of
 //     its 16-byte loads before using any; the online-softmax state m, l and
 //     the f32 accumulator stay in registers.
-// It is a simple CUDA-core kernel: no tensor cores, TMA or pipelining yet.
 //
 // Numerics follow the TPU kernel: scale 1/sqrt(D) (passed in), masked
-// scores -1e30, masked probabilities exactly 0 so fully masked rows stay 0,
-// l floored at 1e-30, and q rounded to bf16 before the dot for bf16 pages.
+// probabilities exactly 0 so fully masked rows stay 0, l floored at 1e-30,
+// and q rounded to bf16 before the dot for bf16 pages.  The tensor-core
+// kernel keeps P V's P at f32 accuracy (hi + lo), where the TPU kernel
+// rounds it once to bf16.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/_build.py).  Plain C entry
-// point, bound with ctypes by repro_torch/kernels/paged_attention/kernel.py.
+// points, bound with ctypes by repro_torch/kernels/paged_attention/kernel.py.
 
 #include <type_traits>
 
@@ -295,6 +328,504 @@ int launch_d(int D, int kv_dtype, const void* q, const void* k_pages, const void
   return -2;
 }
 
+// ---------------------------------------------------------------- bf16, tensor cores
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // (slab row, head) rows of a prefill item
+constexpr int kDecRows = 16;        // rows of a decode item: one mma row block
+constexpr int kKeys = 64;           // keys per tile
+constexpr int kStages = 2;          // K/V ring depth
+constexpr int kPlanThreads = 256;   // threads of the prologue's CTAs
+static_assert(kRows <= kKeys, "q is staged in one K tile of the ring");
+
+__device__ __forceinline__ float minus_inf() { return -__uint_as_float(0x7f800000u); }
+
+// Shared memory: kStages x (K tile, V tile) of kKeys rows of D + 8
+// elements (+16 bytes a row: the 8 rows an ldmatrix reads fall in distinct
+// banks); the decode merge reuses it.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * kStages * 2 * kKeys * (D + 8);
+}
+
+// What every pass derives from a slot's lens / q_lens alike.
+struct Slot {
+  int base;    // absolute position of slab row 0
+  int nq;      // live slab rows
+  int lo, hi;  // keys any live row sees (hi < lo: none)
+  bool dec;    // a decode item: all G * nq rows fit one mma row block
+};
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const int* table;
+  const int* lens;
+  const int* q_lens;
+  bf16* out;
+  float* part;     // (B, KH, n_splits, kDecRows, D + 2) f32: decode partials, o then (m, l)
+  int* work;       // [0] items, [1] next item, [2..] items as (slot, code)
+  int B, W, H, KH, block_size, max_blocks, window, rows_per_cta, split, n_splits;
+  float scale_log2;
+};
+
+// The first key a row at absolute position `pos` (or after it) can see.
+__device__ __forceinline__ int window_lo(const Args& a, int pos) {
+  return a.window > 0 ? max(0, pos - a.window + 1) : 0;
+}
+
+__device__ __forceinline__ Slot slot_of(const Args& a, int b) {
+  Slot s;
+  s.base = a.lens[b];
+  s.nq = a.q_lens[b];
+  s.hi = min(s.base + s.nq - 1, a.max_blocks * a.block_size - 1);
+  s.lo = window_lo(a, s.base);
+  s.dec = s.nq > 0 && (a.H / a.KH) * s.nq <= kDecRows;
+  return s;
+}
+
+// Items of a slot: prefill row blocks, or decode splits (those its keys
+// reach, in absolute multiples of `split`); none for an idle slot.
+__device__ __forceinline__ int prefill_items(const Args& a, const Slot& s) {
+  return s.nq > 0 && !s.dec && s.hi >= s.lo ? (s.nq + a.rows_per_cta - 1) / a.rows_per_cta : 0;
+}
+__device__ __forceinline__ int decode_items(const Args& a, const Slot& s) {
+  return s.dec && s.hi >= s.lo ? s.hi / a.split - s.lo / a.split + 1 : 0;
+}
+
+// Exclusive scan of x over the CTA (kPlanThreads threads); returns this
+// thread's offset, and the total in *total.
+__device__ int cta_scan(int x, int* buf, int* total) {
+  const int tid = threadIdx.x;
+  buf[tid] = x;
+  __syncthreads();
+  for (int o = 1; o < kPlanThreads; o <<= 1) {
+    const int y = tid >= o ? buf[tid - o] : 0;
+    __syncthreads();
+    buf[tid] += y;
+    __syncthreads();
+  }
+  const int incl = buf[tid];
+  *total = buf[kPlanThreads - 1];
+  __syncthreads();
+  return incl - x;
+}
+
+// The prologue.  CTA 0 builds the work list (prefill row blocks first, the
+// longest items, then decode splits, slot by slot) and resets the item
+// counter; every CTA writes zeros into the rows no item writes (dead rows,
+// and live rows of a slot whose keys lie outside the table).
+template <int D>
+__global__ void __launch_bounds__(kPlanThreads) plan_kernel(Args a) {
+  if (blockIdx.x == 0) {
+    __shared__ int buf[kPlanThreads];
+    int n_pre = 0, total;
+    for (int b0 = 0; b0 < a.B; b0 += kPlanThreads) {
+      const int b = b0 + threadIdx.x;
+      cta_scan(b < a.B ? prefill_items(a, slot_of(a, b)) : 0, buf, &total);
+      n_pre += total;
+    }
+    int pre = 0, dec = 0;  // items written so far of each kind
+    int2* items = reinterpret_cast<int2*>(a.work + 2);
+    for (int b0 = 0; b0 < a.B; b0 += kPlanThreads) {
+      const int b = b0 + threadIdx.x;
+      Slot s{};
+      int np = 0, nd = 0;
+      if (b < a.B) {
+        s = slot_of(a, b);
+        np = prefill_items(a, s);
+        nd = decode_items(a, s);
+      }
+      int tp, td;
+      const int op = pre + cta_scan(np, buf, &tp);
+      const int od = n_pre + dec + cta_scan(nd, buf, &td);
+      for (int r = 0; r < np; ++r) items[op + r] = make_int2(b, r);
+      for (int r = 0; r < nd; ++r) items[od + r] = make_int2(b, -(s.lo / a.split + r) - 1);
+      pre += tp;
+      dec += td;
+    }
+    if (threadIdx.x == 0) {
+      a.work[0] = pre + dec;
+      a.work[1] = 0;
+    }
+  }
+  // zeros: a warp a (slot, slab row) of H * D elements, 16 bytes a lane a step
+  const int vpr = a.H * D / 8;
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kPlanThreads / 32);
+  for (int row = blockIdx.x * (kPlanThreads / 32) + (threadIdx.x >> 5); row < a.B * a.W;
+       row += warps) {
+    const int b = row / a.W, i = row % a.W;
+    bool zero = i >= a.q_lens[b];
+    if (!zero) {
+      const Slot s = slot_of(a, b);
+      zero = s.hi < s.lo;
+    }
+    if (zero) {
+      uint4* o = reinterpret_cast<uint4*>(a.out) + (long long)row * vpr;
+      for (int v = lane; v < vpr; v += 32) o[v] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// One warp's share of a tile: rows roff..roff+15 of the item against keys
+// koff..koff+NK-1 of the tile (NK 64: a prefill warp's whole tile; 16: a
+// decode warp's quarter).  S = Q K^T and O += P V on the tensor cores, the
+// online softmax in the accumulator layout (m in log2 units), P as bf16
+// hi + lo, l from the f32 p.  Masks only where `cut`.
+template <int D, int NK>
+__device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, unsigned (*qf)[4],
+                                            int koff, int t0, bool cut, const int* pos,
+                                            const bool* live, int k_lo, int k_hi, int window,
+                                            float scale_log2, float (*o)[4], float* m, float* l) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  float s[NK / 8][4];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NK / 16; ++np) {
+      unsigned kf[4];  // keys np*16 + {0..7, 8..15} x d kk*16 + {0..7, 8..15}
+      ldmatrix_x4(kf, ks + (koff + np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
+      mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if (cut) {
+        const int p = t0 + 8 * j + 2 * t4 + (e & 1);
+        const int i = pos[e >> 1];
+        bool ok = live[e >> 1] && p >= k_lo && p <= k_hi && p <= i;
+        if (window > 0) ok = ok && (i - p < window);
+        if (!ok) x = minus_inf();
+      }
+      s[j][e] = x;
+    }
+  float corr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float base = mx == minus_inf() ? 0.f : mx;  // a row with nothing seen yet
+    corr[h] = exp2f(m[h] - base);
+    m[h] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      s[j][2 * h] = exp2f(s[j][2 * h] - base);
+      s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - base);
+      sum += s[j][2 * h] + s[j][2 * h + 1];
+    }
+    l[h] = l[h] * corr[h] + sum;
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[j][0] *= corr[0];
+    o[j][1] *= corr[0];
+    o[j][2] *= corr[1];
+    o[j][3] *= corr[1];
+  }
+  // O += P V, P = hi + lo in bf16: the C fragments of key n-blocks 2 kb and
+  // 2 kb + 1 are the A fragment of key step kb.
+#pragma unroll
+  for (int kb2 = 0; kb2 < NK / 16; ++kb2) {
+    unsigned ph[4], pl[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* src = s[2 * kb2 + (q >> 1)] + 2 * (q & 1);
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(src[0], src[1]);
+      ph[q] = *reinterpret_cast<const unsigned*>(&h2);
+      pl[q] = pack_bf16(src[0] - __low2float(h2), src[1] - __high2float(h2));
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      unsigned vf[4];  // keys kb2*16 + {0..7, 8..15} x d dp*16 + {0..7, 8..15}, transposed
+      ldmatrix_x4_trans(vf, vs + (koff + kb2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                dp * 16 + (lane >> 4) * 8);
+      mma_bf16_16816(o[2 * dp], ph, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp + 1], ph, vf[2], vf[3]);
+      mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+    }
+  }
+}
+
+// The main pass: a persistent grid whose CTAs take items off the work list
+// (one (item, kv head) pair at a time, by an atomic counter) until it is
+// empty.  Prefill items: 4 warps x 16 (slab row, head) rows over every key
+// tile.  Decode items: all 4 warps on the same 16 rows, each on a quarter
+// of every tile's keys, merged at the end; a slot whose keys span one split
+// writes its output here, one of several splits writes f32 partials.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  auto k_tile = [&](int st) { return sm + (2 * st) * kKeys * LD; };
+  auto v_tile = [&](int st) { return sm + (2 * st + 1) * kKeys * LD; };
+  __shared__ int tok_s[kStages][kKeys];  // each tile key's token row in the pool, or -1
+  __shared__ int item_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int G = a.H / a.KH;
+  const int n_work = a.work[0] * a.KH;
+  const int2* items = reinterpret_cast<const int2*>(a.work + 2);
+
+  for (;;) {
+    __syncthreads();  // the previous item is done with shared memory and item_s
+    if (tid == 0) item_s = atomicAdd(a.work + 1, 1);
+    __syncthreads();
+    const int t = item_s;
+    if (t >= n_work) break;
+    const int2 it = items[t / a.KH];
+    const int kh = t % a.KH;
+    const int b = it.x;
+    const Slot sl = slot_of(a, b);
+    const bool dec = it.y < 0;
+    const int split = dec ? -it.y - 1 : 0;
+    const int i0 = dec ? 0 : it.y * a.rows_per_cta;
+    const int nl = dec ? sl.nq : min(a.rows_per_cta, sl.nq - i0);
+    const int nrows = G * nl;
+    // keys of this item: [k_lo, k_hi], tiles aligned to absolute multiples of kKeys
+    int k_lo = window_lo(a, sl.base + i0), k_hi = min(sl.base + i0 + nl - 1, sl.hi);
+    if (dec) {
+      k_lo = max(k_lo, split * a.split);
+      k_hi = min(k_hi, (split + 1) * a.split - 1);
+    }
+    const int t_first = k_lo / kKeys * kKeys;
+    const int n_tiles = k_hi >= k_lo ? (k_hi - t_first) / kKeys + 1 : 0;
+    const int* trow = a.table + (long long)b * a.max_blocks;
+    const bf16* kb = a.k + (long long)kh * D;
+    const bf16* vb = a.v + (long long)kh * D;
+
+    auto resolve = [&](int tile, int st) {  // threads 0..kKeys-1
+      const int p = t_first + tile * kKeys + tid;
+      tok_s[st][tid] = p >= k_lo && p <= k_hi
+                           ? trow[p / a.block_size] * a.block_size + p % a.block_size
+                           : -1;
+    };
+    auto load_tile = [&](int st) {
+      bf16* ks = k_tile(st);
+      bf16* vs = v_tile(st);
+#pragma unroll
+      for (int c = tid; c < kKeys * CH; c += kThreads) {
+        const int j = c / CH, d0 = (c % CH) * 8;
+        const int tok = tok_s[st][j];
+        const long long off = (long long)(tok >= 0 ? tok : 0) * a.KH * D + d0;
+        cp_async16(ks + j * LD + d0, kb + off, tok >= 0);
+        cp_async16(vs + j * LD + d0, vb + off, tok >= 0);
+      }
+    };
+
+    // Prologue: page slots of the first kStages tiles; q rows into the last
+    // stage's K tile and the first kStages - 1 tiles into the ring.
+    if (tid < kKeys)
+      for (int st = 0; st < kStages; ++st)
+        if (st < n_tiles) resolve(st, st);
+    {
+      bf16* qs = k_tile(kStages - 1);
+      for (int c = tid; c < kRows * CH; c += kThreads) {
+        const int r = c / CH, d0 = (c % CH) * 8;
+        const bool ok = r < nrows;
+        const int i = ok ? i0 + r / G : 0, h = ok ? kh * G + r % G : 0;
+        cp_async16(qs + r * LD + d0, a.q + (((long long)b * a.W + i) * a.H + h) * D + d0, ok);
+      }
+    }
+    __syncthreads();  // tok_s is visible
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < n_tiles) load_tile(st);
+      cp_async_commit();
+    }
+    cp_async_wait<kStages - 2>();  // q (and tile 0) have landed
+    __syncthreads();
+    const int roff = dec ? 0 : warp * 16;
+    unsigned qf[KD][4];
+    {
+      const bf16* qs = k_tile(kStages - 1) + (roff + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qs + kk * 16);
+    }
+    __syncthreads();  // the last stage is free for the ring
+
+    const int r0 = roff + g;  // this thread's rows: r0 and r0 + 8
+    const int pos[2] = {sl.base + i0 + r0 / G, sl.base + i0 + (r0 + 8) / G};
+    const bool live[2] = {r0 < nrows, r0 + 8 < nrows};
+    const int pos_min = sl.base + i0, pos_max = sl.base + i0 + nl - 1;
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m[2] = {minus_inf(), minus_inf()};
+    float l[2] = {0.f, 0.f};
+    const bool warp_live = roff < nrows;  // prefill warps past the live rows idle
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int nt = tile + kStages - 1;
+      if (nt < n_tiles) load_tile(nt % kStages);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();  // tile `tile` has landed (for this thread) ...
+      __syncthreads();                // ... and for every thread
+      if (tid < kKeys && tile + kStages < n_tiles) resolve(tile + kStages, tile % kStages);
+      const int st = tile % kStages;
+      const int koff = dec ? warp * 16 : 0;
+      const int t0 = t_first + tile * kKeys + koff;
+      const int t_end = t0 + (dec ? 16 : kKeys) - 1;
+      const bool cut = t0 < k_lo || t_end > k_hi || t_end > pos_min ||
+                       (a.window > 0 && pos_max - t0 >= a.window);
+      if (dec)
+        attend_tile<D, 16>(k_tile(st), v_tile(st), qf, koff, t0, cut, pos, live, k_lo, k_hi,
+                           a.window, a.scale_log2, o, m, l);
+      else if (warp_live)
+        attend_tile<D, kKeys>(k_tile(st), v_tile(st), qf, 0, t0, cut, pos, live, k_lo, k_hi,
+                              a.window, a.scale_log2, o, m, l);
+      __syncthreads();  // this stage is consumed before the next load refills it
+    }
+    cp_async_wait<0>();  // no copy is left in flight into shared memory
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(kFull, l[h], 1);
+      l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    }
+    const int ns = dec ? decode_items(a, sl) : 1;
+    if (dec) {
+      // merge the four warps' (m, l, o), in warp order, through shared memory
+      float* ms = reinterpret_cast<float*>(smem_raw);  // [warp][row]
+      float* ls = ms + kWarps * kDecRows;               // [warp][row]
+      float* os = ls + kWarps * kDecRows;               // [warp][row][D]
+      if (t4 == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ms[warp * kDecRows + g + 8 * h] = m[h];
+          ls[warp * kDecRows + g + 8 * h] = l[h];
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(os + (warp * kDecRows + g + 8 * h) * D + 8 * j + 2 * t4) =
+              make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      __syncthreads();
+      const long long part = (((long long)b * a.KH + kh) * a.n_splits + split) * kDecRows;
+      for (int e = tid; e < nrows * D; e += kThreads) {
+        const int r = e / D, d = e % D;
+        float mx = minus_inf();
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kDecRows + r]);
+        const float base = mx == minus_inf() ? 0.f : mx;
+        float lt = 0.f, ot = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float c = exp2f(ms[w * kDecRows + r] - base);
+          lt += c * ls[w * kDecRows + r];
+          ot += c * os[(w * kDecRows + r) * D + d];
+        }
+        if (ns == 1) {
+          const int i = r / G, hd = kh * G + r % G;
+          a.out[(((long long)b * a.W + i) * a.H + hd) * D + d] =
+              __float2bfloat16(ot / fmaxf(lt, 1e-30f));
+        } else {
+          float* pr = a.part + (part + r) * (D + 2);
+          pr[d] = ot;
+          if (d == 0) {
+            pr[D] = mx;
+            pr[D + 1] = lt;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live[h]) continue;
+        const int r = r0 + 8 * h;
+        const int i = i0 + r / G, hd = kh * G + r % G;
+        const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        bf16* orow = a.out + (((long long)b * a.W + i) * a.H + hd) * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
+// The combine pass: for each (slot, kv head) whose decode keys span several
+// splits, the output from the f32 partials, merged in split order.
+template <int D>
+__global__ void __launch_bounds__(kThreads) combine_kernel(Args a) {
+  const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
+  const Slot sl = slot_of(a, b);
+  const int ns = decode_items(a, sl);
+  if (ns < 2) return;
+  const int G = a.H / a.KH;
+  const int s0 = sl.lo / a.split;
+  const long long part = ((long long)b * a.KH + kh) * a.n_splits * kDecRows;
+  for (int e = threadIdx.x; e < G * sl.nq * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    float mx = minus_inf();
+    for (int s = s0; s < s0 + ns; ++s) mx = fmaxf(mx, a.part[(part + s * kDecRows + r) * (D + 2) + D]);
+    const float base = mx == minus_inf() ? 0.f : mx;
+    float lt = 0.f, ot = 0.f;
+    for (int s = s0; s < s0 + ns; ++s) {  // in split order: deterministic
+      const float* pr = a.part + (part + s * kDecRows + r) * (D + 2);
+      const float c = exp2f(pr[D] - base);
+      lt += c * pr[D + 1];
+      ot += c * pr[d];
+    }
+    const int i = r / G, hd = kh * G + r % G;
+    a.out[(((long long)b * a.W + i) * a.H + hd) * D + d] = __float2bfloat16(ot / fmaxf(lt, 1e-30f));
+  }
+}
+
+template <int D>
+int launch(Args a, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = paged_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return -5;
+  // the prologue: a warp a slab row to zero, at most 8 CTAs an SM
+  const int rows_ctas = (a.B * a.W + kPlanThreads / 32 - 1) / (kPlanThreads / 32);
+  const int plan_grid = rows_ctas < sms * 8 ? rows_ctas : sms * 8;
+  plan_kernel<D><<<plan_grid, kPlanThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kernel<<<sms * per_sm, kThreads, smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  combine_kernel<D><<<a.B * a.KH, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, out: (B, W, H, D) contiguous, f32 (q_dtype 0) or bf16 (1).  Pages
@@ -324,4 +855,40 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
                                    lens, q_lens, out, B, W, H, KH, block_size, max_blocks,
                                    window, rows_per_cta, scale, s);
   return -1;
+}
+
+// bf16 q with bf16 pages, on the tensor cores.  q, out: (B, W, H, D)
+// contiguous bf16; k, v: (N, block_size, KH, D) bf16, 16-byte aligned;
+// table (B, max_blocks), lens and q_lens (B,) int32.  rows_per_cta slab
+// rows per prefill item (G * rows_per_cta <= 64); split keys per decode
+// split, a multiple of 64, and n_splits >= max_blocks * block_size / split.
+// Scratch the caller allocates: part (B, KH, n_splits, 16, D + 2) f32 and
+// work: 2 + 2 x (B x max(ceil(W / rows_per_cta), n_splits)) int32.  Three kernels on `stream` (the plan and
+// zeros, the persistent main pass, the combine); returns 0 or a CUDA error
+// code (negative for an unsupported D or arguments); does not synchronise.
+extern "C" int paged_attention_forward_mma(const void* q, const void* k_pages,
+                                           const void* v_pages, const void* table,
+                                           const void* lens, const void* q_lens, void* out,
+                                           void* part, void* work, int B, int W,
+                                           int H, int KH, int D, int block_size, int max_blocks,
+                                           int window, int rows_per_cta, int split, int n_splits,
+                                           float scale, void* stream) {
+  if (B <= 0 || W <= 0 || (long long)B * W > 0x7fffffff || KH <= 0 || H % KH != 0 ||
+      rows_per_cta <= 0 ||
+      (H / KH) * rows_per_cta > tc::kRows || split <= 0 || split % tc::kKeys != 0 ||
+      (long long)n_splits * split < (long long)max_blocks * block_size)
+    return -3;
+  tc::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
+             static_cast<const __nv_bfloat16*>(v_pages), static_cast<const int*>(table),
+             static_cast<const int*>(lens), static_cast<const int*>(q_lens),
+             static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+             static_cast<int*>(work), B, W, H, KH, block_size,
+             max_blocks, window, rows_per_cta, split, n_splits, scale * 1.4426950408889634f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return tc::launch<32>(a, s);
+    case 64: return tc::launch<64>(a, s);
+    case 128: return tc::launch<128>(a, s);
+  }
+  return -2;
 }

@@ -1,5 +1,5 @@
-"""Build and bind the CUDA paged-attention kernel (``csrc/paged_attention.cu``,
-which replaces ``repro/kernels/paged_attention/kernel.py::_paged_kernel``).
+"""Build and bind the CUDA paged-attention kernels (``csrc/paged_attention.cu``,
+which replace ``repro/kernels/paged_attention/kernel.py::_paged_kernel``).
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` so none is cut to 32
@@ -15,7 +15,10 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
+_ARGTYPES = {
+    "paged_attention_forward": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P],
+    "paged_attention_forward_mma": [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P],
+}
 
 _lib = None
 
@@ -26,7 +29,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
-        lib.paged_attention_forward.argtypes = _ARGTYPES
-        lib.paged_attention_forward.restype = ctypes.c_int
+        for name, types in _ARGTYPES.items():
+            getattr(lib, name).argtypes = types
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,10 +1,16 @@
-"""Wrapper of the paged-attention kernel in the model's layout (the port's
+"""Wrapper of the paged-attention kernels in the model's layout (the port's
 ``repro/kernels/paged_attention/ops.py``).
 
 ``q`` stays (B, W, H, D) with the JAX package's GQA map, q head
-``h = kh * G + g`` reading kv head ``kh``; the kernel indexes that layout
-directly, so no transpose is paid.  CPU tensors go to the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise: there is no fallback.
+``h = kh * G + g`` reading kv head ``kh``; the kernels index that layout
+directly, so no transpose is paid.  The (q, page) dtypes alone pick the C
+entry (``ENTRIES``): bf16 q with bf16 pages, the served plan's, runs on the
+tensor cores (``paged_attention_forward_mma``: a work list of live row
+blocks and key splits, a persistent grid, a combine pass); every other
+pair on CUDA cores (``paged_attention_forward``: f32's 2e-5 tolerance rules
+out TF32, and int8 pages on the tensor cores are a later step).  CPU
+tensors go to the plain version in ``ref.py``; CUDA tensors launch the
+kernel their dtypes select or raise: there is no fallback.
 """
 from __future__ import annotations
 
@@ -21,6 +27,11 @@ LAUNCHES = 0
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ROWS_MAX = 64  # query rows (G heads x slab rows) one CTA holds
+# The C entry point (csrc/paged_attention.cu) each (q dtype, page dtype) launches.
+ENTRIES = {(q, kv): "paged_attention_forward" for q in _Q_CODES for kv in _KV_CODES}
+ENTRIES[torch.bfloat16, torch.bfloat16] = "paged_attention_forward_mma"
+SPLIT = 512  # keys a decode split of the tensor-core kernel (a multiple of 64)
+DEC_ROWS = 16  # rows of a decode item: G x q_len at most this
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -52,11 +63,24 @@ def paged_attention(
             q, entry, table, lens, q_lens, block_size=block_size, window=window
         )
     lib = kernel.library()
+    _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    out = launch(lib, q, entry, table, lens, q_lens, block_size=block_size, window=window,
+                 rows_per_cta=rows_per_cta, stream=torch.cuda.current_stream(q.device).cuda_stream)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
+           rows_per_cta: int, stream, split: int = SPLIT) -> torch.Tensor:
+    """Check the operands, allocate the output (and the tensor-core entry's
+    work list and split partials) and call ``lib``'s entry point for the
+    (q, page) dtypes (``ENTRIES``) on ``stream``; raises on what the kernels
+    do not take or a failed launch."""
     k, v = entry["k"], entry["v"]
     ks, vs = entry.get("k_scale"), entry.get("v_scale")
     B, W, H, D = q.shape
     N, bs, KH, Dk = k.shape
-    _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
     _require(q.dtype in _Q_CODES, f"q dtype {q.dtype} (f32 or bf16)")
     _require(k.dtype in _KV_CODES and v.dtype == k.dtype, f"pages {k.dtype}/{v.dtype}")
     _require(v.shape == k.shape and Dk == D and bs == block_size, "page shape")
@@ -84,16 +108,28 @@ def paged_attention(
     rows = rows_per_cta or _ROWS_MAX // G
     rows = max(1, min(rows, W, _ROWS_MAX // G))
     out = torch.empty_like(q)
-    rc = lib.paged_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
-        table.data_ptr(), lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        B, W, H, KH, D, bs, MB, int(window), rows, 1.0 / math.sqrt(D),
-        _Q_CODES[q.dtype], _KV_CODES[k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    entry_name = ENTRIES[q.dtype, k.dtype]
+    scale = 1.0 / math.sqrt(D)
+    if entry_name == "paged_attention_forward_mma":
+        _require(split > 0 and split % 64 == 0, f"split {split} (a multiple of 64)")
+        n_splits = -(-MB * bs // split)
+        o_part = torch.empty((B, KH, n_splits, DEC_ROWS, D + 2), dtype=torch.float32,
+                             device=q.device)
+        work = torch.empty(2 + 2 * B * max(-(-W // rows), n_splits), dtype=torch.int32,
+                           device=q.device)
+        rc = getattr(lib, entry_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), lens.data_ptr(),
+            q_lens.data_ptr(), out.data_ptr(), o_part.data_ptr(), work.data_ptr(),
+            B, W, H, KH, D, bs, MB, int(window), rows, split, n_splits, scale, stream,
+        )
+    else:
+        rc = getattr(lib, entry_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+            table.data_ptr(), lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+            B, W, H, KH, D, bs, MB, int(window), rows, scale,
+            _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream,
+        )
     if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
-    global LAUNCHES
-    LAUNCHES += 1
+        raise RuntimeError(f"paged_attention kernel launch failed ({entry_name}, code {rc})")
     return out

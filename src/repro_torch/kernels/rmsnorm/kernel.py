@@ -16,7 +16,7 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_L, _I, _I, _L, _L, ctypes.c_float, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_L, _I, _I, _L, _L, ctypes.c_float] + [_I] * 6 + [_P]
 
 _lib = None
 

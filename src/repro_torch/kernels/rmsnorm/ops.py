@@ -5,9 +5,10 @@ x keeps its (..., d) shape.  The kernel indexes rows as (outer, inner) with
 an element stride each, so any view whose leading dimensions fold into two
 strided ones is read in place: the qk-norm input, a (B, S, H, D) view of the
 fused QKV projection, needs no copy.  A view that does not fold is copied
-first.  The output is a new dense tensor in x's dtype.  CPU tensors go to
-the plain version (``ref.rmsnorm_ref``); CUDA tensors launch the kernel or
-raise: there is no fallback.
+first.  The output is a new dense tensor in x's dtype.  ``launch_plan``
+gives the kernel its schedule (lanes a row, vectors a lane, CTAs).  CPU
+tensors go to the plain version (``ref.rmsnorm_ref``); CUDA tensors launch
+the kernel or raise: there is no fallback.
 """
 from __future__ import annotations
 
@@ -22,6 +23,44 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 LAUNCHES = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+WARPS = 8  # warps a CTA (csrc/rmsnorm.cu kWarps)
+N_SMS = 132  # H100 SXM
+MAX_NV = 16  # 16-byte vectors a lane holds of a row in registers
+IN_FLIGHT = 4  # 16-byte vectors a lane holds of its rows at once, at least
+SMEM_SCALE_MAX = 200 * 1024  # bytes of 1 + scale a CTA may stage (full-warp rows)
+
+
+def resident_ctas(nv: int, rows: int) -> int:
+    """CTAs an SM holds, as the kernel's ``__launch_bounds__`` promise
+    them: 1 when a lane holds 16 vectors or more, else 2."""
+    return 1 if nv * rows >= 16 else 2
+
+
+def launch_plan(rows: int, d: int, elem_size: int, vec: bool) -> tuple:
+    """``(group, nv, rows_a_group, grid)`` of the kernel for ``rows`` rows
+    of ``d`` elements of ``elem_size`` bytes.  16-byte rows (``vec``):
+    ``group`` lanes take a row (8 or 16 when the row is at most that many
+    16-byte vectors, else 32), each holding ``nv`` vectors of it in
+    registers (1 below 32 lanes; a power of two up to ``MAX_NV``, the rest
+    re-read) and ``rows_a_group`` rows at once (``IN_FLIGHT / nv``, at least
+    1), over ``grid`` CTAs of ``WARPS`` warps: for sub-warp rows one wave of
+    resident CTAs at most, which stride over the rows; for full-warp rows
+    one pass, a CTA for every ``WARPS x rows_a_group`` rows (on the H100
+    that was 5% faster than a resident wave at d 2048 and 15% slower at
+    d_head 128: ``scripts/kernel_variants.py``).  Other rows: a warp a row,
+    ``grid`` CTAs covering every row once, ``nv`` and ``rows_a_group`` 0."""
+    if not vec:
+        return 32, 0, 0, -(-rows // WARPS)
+    nvec = d * elem_size // 16
+    group = 8 if nvec <= 8 else 16 if nvec <= 16 else 32
+    nv = 1
+    while group == 32 and nv < MAX_NV and nv * 32 < nvec:
+        nv *= 2
+    r = max(1, IN_FLIGHT // nv)
+    grid = -(-rows // (WARPS * (32 // group) * r))
+    if group < 32:
+        grid = min(grid, N_SMS * resident_ctas(nv, r))
+    return group, nv, r, grid
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -66,8 +105,19 @@ def rmsnorm(
     dtype, computed in f32."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, residual, eps)
-    lib = kernel.library()
     _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    out = launch(kernel.library(), x, scale, residual, eps=eps,
+                 stream=torch.cuda.current_stream(x.device).cuda_stream)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def launch(lib, x, scale, residual=None, *, eps: float, stream, plan=None) -> torch.Tensor:
+    """Check the operands, allocate the output and call ``lib``'s
+    ``rmsnorm_forward`` on ``stream`` with ``launch_plan``'s schedule (or
+    ``plan``, a ``(group, nv, rows_a_group, grid)`` of one's own); raises on
+    what the kernel does not take or a failed launch."""
     _require(x.dtype in _CODES, f"dtype {x.dtype} (f32 or bf16)")
     d = x.shape[-1] if x.dim() else 0
     _require(d > 0, f"x must be (..., d) with d > 0, got {tuple(x.shape)}")
@@ -87,16 +137,15 @@ def rmsnorm(
         layout = row_layout(x)
     outer, inner, so, si = layout
     es = x.element_size()
-    vec = (d * es) % 16 == 0 and all(p % 16 == 0 for p in (
+    vec = (d * es) % 16 == 0 and d * 4 <= SMEM_SCALE_MAX and all(p % 16 == 0 for p in (
         x.data_ptr(), scale.data_ptr(), so * es, si * es,
         residual.data_ptr() if residual is not None else 0))
+    group, nv, r, grid = plan or launch_plan(outer * inner, d, es, vec)
     rc = lib.rmsnorm_forward(
         x.data_ptr(), scale.data_ptr(), residual.data_ptr() if residual is not None else None,
         out.data_ptr(), outer, inner, d, so, si, float(eps), int(vec), _CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        group, nv, r, grid, stream,
     )
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed (code {rc})")
-    global LAUNCHES
-    LAUNCHES += 1
     return out

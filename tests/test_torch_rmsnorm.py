@@ -4,9 +4,12 @@ tensors) and ``ref.rmsnorm_ref`` against the JAX Pallas kernel (interpret
 mode, as the JAX kernel test runs it) and the JAX oracle, over the JAX
 test's shapes and dtypes and the fused residual, at its tolerances (f32
 1e-5, bf16 2e-2); the row layout the CUDA kernel is given for strided qk
-views; the routed forward against the JAX ``forward``; and ``fused=False``
-through both serving entry points launching no kernel (a counting stub
-stands in for each kernel's launch on the CPU)."""
+views; the kernel's launch plan (whole groups of lanes that cover every
+row once, no idle lane at d_head 128 bf16) and the wrapper's arguments to
+it (a stand-in library records them); the routed forward against the JAX
+``forward``; and ``fused=False`` through both serving entry points
+launching no kernel (a counting stub stands in for each kernel's launch on
+the CPU)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,6 +131,100 @@ def test_row_layout(case):
                                   x.reshape(-1, x.shape[-1]).numpy())
     if case == "q view":  # the token stride, heads D apart
         assert layout == (2 * 5, 4, (4 + 2 * 2) * 32, 32)
+
+
+def _rows_visited(rows, plan):
+    """Each row's visits under ``plan`` as the CUDA kernel's grid-stride
+    loop makes them: warp w of CTA c, group g, row k of an iteration, pass
+    p takes row ((c * WARPS + w) * groups + p * grid * WARPS * groups) * R
+    + g + groups * k."""
+    group, nv, r, grid = plan
+    gpw = 32 // group
+    warps = np.arange(grid * ops.WARPS)
+    stride = grid * ops.WARPS * gpw * r
+    counts = np.zeros(rows, np.int64)
+    for p in range(-(-rows // stride)):
+        for g in range(gpw):
+            for k in range(r):
+                row = warps * gpw * r + p * stride + g + gpw * k
+                np.add.at(counts, row[row < rows], 1)
+    return counts
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 576, 2048, 4096, 12288])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_covers_every_row_once(d, dtype):
+    """At every model width (d_head 128 for qk-norm) and odd row counts,
+    the plan's groups are whole (8, 16 or 32 lanes), a sub-warp group holds
+    its row in one vector a lane, a full warp's registers hold the row up
+    to 16 vectors a lane, the grid is one wave of resident CTAs at most for
+    sub-warp rows and one pass for full-warp rows, and the grid-stride loop
+    visits each row exactly once."""
+    es = torch.finfo(dtype).bits // 8
+    nvec = d * es // 16
+    for rows in (1, 37, 4097):
+        group, nv, r, grid = plan = ops.launch_plan(rows, d, es, True)
+        assert group in (8, 16, 32) and grid >= 1 and r >= 1
+        if group < 32:
+            assert nvec <= group and nv == 1
+        else:
+            assert nvec > 16 and (group * nv >= nvec or nv == ops.MAX_NV)
+        per_cta = ops.WARPS * (32 // group) * r
+        if group < 32:
+            assert grid == min(-(-rows // per_cta), ops.N_SMS * ops.resident_ctas(nv, r))
+        else:
+            assert grid == -(-rows // per_cta)
+        assert (_rows_visited(rows, plan) == 1).all()
+
+
+def test_no_idle_lane_at_d_head_128_bf16():
+    """qk-norm's rows (d_head 128 bf16: 16 vectors of 16 bytes) take 16
+    lanes each, two rows a warp, one vector a lane; the slab's q view
+    (65,536 x 16 rows) fills one wave of resident CTAs."""
+    group, nv, r, grid = ops.launch_plan(65536 * 16, 128, 2, True)
+    assert (group, nv) == (16, 1) and 128 * 2 // 16 == group
+    assert grid == ops.N_SMS * ops.resident_ctas(nv, r)
+
+
+class _Library:
+    """Stands in for the kernel library: records ``rmsnorm_forward``'s
+    arguments and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.args, self.rc = [], rc
+
+    def rmsnorm_forward(self, *args):
+        self.args.append(args)
+        return self.rc
+
+
+@pytest.mark.parametrize("case", ["bf16 slab rows", "f32 d=33", "q view", "residual"])
+def test_launch_passes_the_plan(case):
+    """The wrapper hands the kernel its row layout and ``launch_plan``'s
+    schedule: 16-byte rows take the vector kernel, rows that are not
+    (d = 33 f32) the one-warp-a-row kernel with a grid covering them; a
+    failed launch raises."""
+    q, _ = _qkv_views(H=16, KV=8, D=128)
+    x, res = {
+        "bf16 slab rows": (torch.zeros((64, 2048), dtype=torch.bfloat16), None),
+        "f32 d=33": (torch.zeros((7, 33)), None),
+        "q view": (q, None),
+        "residual": (torch.zeros((5, 256)), torch.ones((5, 256))),
+    }[case]
+    d = x.shape[-1]
+    lib = _Library()
+    out = ops.launch(lib, x, torch.zeros(d), res, eps=1e-6, stream=None)
+    assert out.shape == x.shape and out.dtype == x.dtype and out.is_contiguous()
+    (args,) = lib.args
+    outer, inner, dd, so, si, _, vec, _, group, nv, r, grid = args[4:16]
+    rows = outer * inner
+    assert dd == d and (outer, inner, so, si) == ops.row_layout(x)
+    assert bool(vec) == (case != "f32 d=33")
+    assert (group, nv, r, grid) == ops.launch_plan(rows, d, x.element_size(), bool(vec))
+    if not vec:
+        assert grid * ops.WARPS >= rows
+    with pytest.raises(RuntimeError, match="code 1"):
+        ops.launch(_Library(rc=1), x, torch.zeros(d), res, eps=1e-6, stream=None)
 
 
 @pytest.mark.parametrize("fused", [True, False])
