@@ -24,9 +24,11 @@ serving with the kernel vs the gather path (identical tokens), 4 bf16
 serving on the derived H100 plan (a main path whose launches are counted),
 5 rolled decode loop (K=4 vs K=1), 6 kernel vs plain version at the derived
 plan's decode and mixed shapes (256 slots x 256 rows), and kernel timing;
-the eager path (``greedy_generate``): 7 WKV kernel vs plain version (the
-JAX test's shapes, chunks, strong decay, state carry, the rwkv6-1.6b
-prefill shape) and its times, 8 flash-attention kernels vs plain version
+the eager path (``greedy_generate``): 7 WKV kernels vs plain version (the
+JAX test's shapes, chunks, strong decay, a ragged S, the state carry and a
+state passed in, in f32 on the CUDA-core entry and each in bf16 on the
+tensor-core entry; the rwkv6-1.6b prefill shape) and its times, 8
+flash-attention kernels vs plain version
 (the JAX test's cases in f32, which runs on CUDA cores, and each in bf16,
 which runs on tensor cores; fused-QKV views, the qwen3-1.7b prefill shape)
 and their times, 9 rwkv6-1.6b and 10 qwen3-1.7b served eagerly in bf16
@@ -46,7 +48,9 @@ forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no kernel at
 all on a plain path.  Planted controls (a dropped key tile, a window one
 key wider, P rounded once to bf16 instead of split into hi + lo, in flash
 and in paged attention, a key split left out of paged attention's
-combine, the WKV's cross-chunk term dropped, the norm's ``1 + scale`` or
+combine, the WKV's cross-chunk term dropped, its diagonal halves'
+per-element weights dropped, or its operands rounded once to TF32 (logged
+if it passes), the norm's ``1 + scale`` or
 mean changed, a dropped K slice, a per-row scale) show that the
 tolerances reject a wrong kernel.  Kernel times are medians over batches
 of back-to-back calls (``time_ms``).
@@ -68,7 +72,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor, f32 CUDA-core
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}  # dense tensor, f32 CUDA-core
 SERVE_ARCH = "qwen3-1.7b"
 RWKV_ARCH = "rwkv6-1.6b"
 MESH1 = {"data": 1, "model": 1}
@@ -632,70 +636,104 @@ def wkv_no_carry(r, k, v, w, u, c=32):
 
 
 def wkv_bound(r, H, D):
-    """Least time for the prefill's WKV on an H100 SXM: the recurrence's
-    ~6 D^2 flops per token and head at the f32 CUDA-core peak (the state is
-    f32), vs r/k/v (their type), w and the output (f32), u and the final
-    state (f32), each once, at 3.35 TB/s."""
+    """Least time for the prefill's WKV on an H100 SXM: r/k/v (their type),
+    w and the output (f32), u and the final state (f32), each once, at 3.35
+    TB/s, vs the recurrence's ~6 D^2 flops per token and head at the rate of
+    the entry r's type selects: bf16 runs them on the tensor cores as 3xTF32
+    (three TF32 products each, so a third of the TF32 peak), f32 on the CUDA
+    cores.  Returns (bound ms, what bounds it, the byte bound ms, the
+    operation bound ms, the operation bound ms at the f32 CUDA-core peak)."""
     B, S = r.shape[:2]
     n = B * S * H * D
     nbytes = 3 * n * r.element_size() + 4 * n + 4 * n + 4 * H * D + 4 * B * H * D * D
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = 6 * D * D * B * S * H / PEAK_FLOPS["fp32"] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    flops = 6 * D * D * B * S * H
+    rate = PEAK_FLOPS["tf32"] / 3 if r.dtype == torch.bfloat16 else PEAK_FLOPS["fp32"]
+    t_ops, t_f32 = flops / rate * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound + (t_bytes, t_ops, t_f32)
 
 
-def phase_wkv(cfg):
+def wkv_cases(dtype, tag):
+    """The JAX WKV test's cases (tests/test_kernels_rwkv6.py: shapes, chunks,
+    strong decay), a ragged S, the state carry and a state passed in, with
+    r/k/v in ``dtype`` (the entry it selects: ``tag``).  Returns the max
+    abs errors."""
     from repro_torch.kernels.rwkv6 import ops
-    from repro_torch.models.rwkv6 import wkv_chunked
 
-    log("phase 7: WKV kernel vs plain version on the card")
     errs = []
-    # tests/test_kernels_rwkv6.py: shapes, chunks, strong decay
     for n, shape in enumerate([(2, 128, 2, 32), (1, 96, 3, 64), (1, 256, 1, 64)]):
-        errs.append(wkv_check(f"shape {shape}", wkv_inputs(*shape, seed=n), WKV_TOL,
-                              scan=True)[2])
+        errs.append(wkv_check(f"{tag} shape {shape}", wkv_inputs(*shape, dtype=dtype, seed=n),
+                              WKV_TOL, scan=True)[2])
     for c in ops.CHUNKS:
-        errs.append(wkv_check(f"chunk {c}", wkv_inputs(1, 128, 2, 32, seed=3), WKV_TOL,
-                              chunk=c, scan=True)[2])
-    errs.append(wkv_check("strong decay w in [0.001, 0.01]",
-                          wkv_inputs(1, 128, 2, 32, decay=(0.001, 0.01), seed=4),
+        errs.append(wkv_check(f"{tag} chunk {c}", wkv_inputs(1, 128, 2, 32, dtype=dtype, seed=3),
+                              WKV_TOL, chunk=c, scan=True)[2])
+    errs.append(wkv_check(f"{tag} strong decay w in [0.001, 0.01]",
+                          wkv_inputs(1, 128, 2, 32, dtype=dtype, decay=(0.001, 0.01), seed=4),
                           WKV_STRONG_TOL, scan=True)[2])
-    errs.append(wkv_check("ragged S=100 (last chunk padded)", wkv_inputs(2, 100, 2, 64, seed=5),
-                          WKV_TOL, scan=True)[2])
+    errs.append(wkv_check(f"{tag} ragged S=100 (last chunk padded)",
+                          wkv_inputs(2, 100, 2, 64, dtype=dtype, seed=5), WKV_TOL, scan=True)[2])
     # the state carry: two halves with the state passed on equal the whole
-    r, k, v, w, u = wkv_inputs(1, 128, 2, 64, seed=6)
+    r, k, v, w, u = wkv_inputs(1, 128, 2, 64, dtype=dtype, seed=6)
     full, s_full = ops.wkv(r, k, v, w, u, return_state=True)
     h1, st = ops.wkv(r[:, :64].contiguous(), k[:, :64].contiguous(), v[:, :64].contiguous(),
                      w[:, :64].contiguous(), u, return_state=True)
     h2, s2 = ops.wkv(r[:, 64:].contiguous(), k[:, 64:].contiguous(), v[:, 64:].contiguous(),
                      w[:, 64:].contiguous(), u, state=st, return_state=True)
     e = max(rel_err(torch.cat([h1, h2], dim=1), full), rel_err(s2, s_full))
-    log(f"  state carry: halves vs whole rel err {e:.3g}")
-    check(e < WKV_TOL, "the WKV state carry does not continue where it left off")
-    wkv_check("state passed in", (r[:, 64:].contiguous(), k[:, 64:].contiguous(),
-                                  v[:, 64:].contiguous(), w[:, 64:].contiguous(), u),
-              WKV_TOL, state=st)
+    log(f"  {tag} state carry: halves vs whole rel err {e:.3g}")
+    check(e < WKV_TOL, f"the WKV state carry ({tag}) does not continue where it left off")
+    errs.append(wkv_check(f"{tag} state passed in",
+                          (r[:, 64:].contiguous(), k[:, 64:].contiguous(), v[:, 64:].contiguous(),
+                           w[:, 64:].contiguous(), u), WKV_TOL, state=st)[2])
+    return errs
+
+
+def wkv_control(name, got, want, tol, *, may_pass=False):
+    """A planted control must fall outside ``tol``; with ``may_pass`` one
+    that passes is logged as such instead of failing the run."""
+    e = rel_err(got, want)
+    verdict = "rejected" if e >= tol else ("PASSES (logged)" if may_pass else "ACCEPTED")
+    log(f"  control {name}: rel err {e:.3g}: {verdict}")
+    check(e >= tol or may_pass, f"the tolerance accepts the planted WKV control ({name})")
+
+
+def phase_wkv(cfg):
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ref import wkv_split_ref
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    log("phase 7: WKV kernels vs plain version on the card (f32 r/k/v: the CUDA-core entry; "
+        "bf16: the tensor-core entry)")
+    errs = wkv_cases(torch.float32, "f32") + wkv_cases(torch.bfloat16, "bf16")
 
     # the main path's shape: the rwkv6-1.6b prefill, bf16 r/k/v
     B, S, H, D = EAGER_B, EAGER_PROMPT, cfg.rnn_heads, cfg.d_head
     args = wkv_inputs(B, S, H, D, dtype=torch.bfloat16, seed=7)
-    _, want, err = wkv_check(f"main B={B} S={S} H={H} D={D} bf16", args, WKV_TOL)
+    got, want, err = wkv_check(f"main B={B} S={S} H={H} D={D} bf16", args, WKV_TOL)
     errs.append(err)
-    control = wkv_no_carry(*args)
-    e = rel_err(control, want)
-    log(f"  control cross-chunk term dropped: rel err {e:.3g}: "
-        f"{'rejected' if e >= WKV_TOL else 'ACCEPTED'}")
-    check(e >= WKV_TOL, "the tolerance accepts the planted WKV control")
-    del want, control
+    log(f"  the emulation of the tensor-core entry (ref.wkv_split_ref) vs the kernel: rel err "
+        f"{rel_err(wkv_split_ref(*args), got):.3g}")
+    del got
+    wkv_control("cross-chunk term dropped", wkv_no_carry(*args), want, WKV_TOL)
+    wkv_control("diagonal halves' per-element weights dropped",
+                wkv_split_ref(*args, drop_diagonal=True), want, WKV_TOL)
+    wkv_control("operands rounded once to TF32 (no lo)", wkv_split_ref(*args, split=False), want,
+                WKV_TOL, may_pass=True)
+    del want
+    torch.cuda.empty_cache()
     ms = time_ms(lambda: ops.wkv(*args, return_state=True))
     plain_ms = time_ms(lambda: wkv_chunked(*args, return_state=True), reps=5, warmup=1)
-    b_ms, b_by = wkv_bound(args[0], H, D)
+    b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bound(args[0], H, D)
     log(f"  times at the main shape: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, library: none")
+        f"{b_ms / ms:.1%} of roofline; bytes {b_bytes:.4f} ms, 3xTF32 tensor-core operations "
+        f"{b_ops:.4f} ms, the same flops at the f32 CUDA-core peak {b_f32:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, library: none")
     del args
     torch.cuda.empty_cache()
     return max(errs), {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None}
+                       "bound_bytes_ms": b_bytes, "bound_operations_ms": b_ops,
+                       "bound_f32_cuda_core_ms": b_f32, "library_ms": None}
 
 
 # ---------------------------------------------------------------- flash

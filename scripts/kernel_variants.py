@@ -1,9 +1,9 @@
 """Time variants of the port's CUDA kernels on one CUDA card, against the
 committed sources, in one process.
 
-    python3 scripts/kernel_variants.py [flash] [mm_pu] [paged] [rmsnorm]
+    python3 scripts/kernel_variants.py [flash] [mm_pu] [paged] [rmsnorm] [wkv]
 
-(no argument: all four).  Each variant is the committed source with a few
+(no argument: all five).  Each variant is the committed source with a few
 lines replaced (``VARIANTS`` below: other tile constants, and diagnostics
 that leave a part out, whose results may be wrong by design), or the
 committed library launched with other runtime arguments (``RUNS``: the
@@ -18,7 +18,12 @@ decode and mixed shapes (256 slots x 256-row slab, bf16 pages), with the
 CUDA-core entry (``paged_attention_forward``) and, as a diagnostic, its grid
 cut to row block 0 (the gap is what its dead CTAs cost); RMSNorm at the
 continuous slab (65,536 x 2048 bf16), the prefill rows (16,384 x 2048) and
-the slab's q view (65,536 x 16 x 128, token stride 4096).  Each variant is
+the slab's q view (65,536 x 16 x 128, token stride 4096); WKV at the
+rwkv6-1.6b prefill (B 8, S 2048, H 32, D 64): the tensor-core entry on bf16
+r/k/v at chunk 16/32/64, diagnostics that leave one of its phases out, and
+the CUDA-core entry (``wkv_forward``) on the same values in f32 with its own
+diagnostics (the per-element weights, the outputs or the state carry left
+out, fast ``__expf``), which attribute its time.  Each variant is
 timed twice, the list in order and then reversed (A..Z..A), so that the
 order of the runs favours none.  Prints the card's name and power limit,
 each variant's registers and spills, and per shape and variant: whether it
@@ -49,6 +54,58 @@ RMS_AHEAD = "constexpr bool kAhead = GL < 32;"
 RMS_ROWS = "constexpr int kRows = NV >= 4 ? 1 : 4 / NV;"
 RMS_LOAD = "if (j < nvec) v[k][t] = *reinterpret_cast<const uint4*>(xr + j * VEC);"
 RMS_STORE = "  *reinterpret_cast<uint4*>(yr + j * VEC) = Vec<T>::pack(f);"
+WKV_SCAN = "    {\n      float lw[TOK], tot = 0.f;"
+WKV_FACTORS = "    for (int i0 = 0; i0 < C * G; i0 += kT) {\n      const int i = i0 + tid;\n      if (i >= C"
+WKV_TC = "      float c[3][4] = {};\n"
+WKV_HALVES = "      if (it >= kOff + NT) {\n"
+WKV_OUT_S = "    for (int j = 0; j < KS; ++j) {\n      unsigned sh[4], sl[4];"
+WKV_OUT_A = "        if (j > x0 + x) continue;"
+WKV_STATE = ("        mma_tf32(St[j], vf[x], KfL[i0], KfL[i0 + 4 * PK]);\n"
+             "        mma_tf32(St[j], vf[x], KfH[i0], KfH[i0 + 4 * PK]);")
+# The clock probe: per-phase clock64() sums of thread 0 (phases end at a
+# barrier, so they include the wait for the slowest warp; phase 4's parts
+# are warp 0's own), written over the first PROBES floats of each CTA's
+# final state.
+PROBE = "{{ const long long c_ = clock64(); ph_[{}] += c_ - tc_; tc_ = c_; }}\n"
+PROBES = ("1: cp.async issue", "1: log2 / cumsum", "1: w loads issue", "1: wait for r/k/v",
+          "1: barrier", "2: decayed operands", "3: weights (tensor cores, halves) + barrier",
+          "4: v fragments", "4a: S^T rdec^T", "4b: v^T A^T",
+          "4: output stores", "4d: state update", "end-of-chunk barrier")
+WKV_PROBE = [
+    ("  const int N = (S + C - 1) / C;\n",
+     "  const int N = (S + C - 1) / C;\n  long long ph_[13] = {}, tc_ = clock64();\n"),
+    ("    cp_async_commit();\n    const unsigned char* st = smem_mma",
+     "    cp_async_commit();\n" + PROBE.format(0) + "    const unsigned char* st = smem_mma"),
+    ("    if (n + 1 < N) load_w(n + 1);\n",
+     PROBE.format(1) + "    if (n + 1 < N) load_w(n + 1);\n" + PROBE.format(2)),
+    ("    cp_async_wait<1>();  // this chunk's r, k, v have landed (for this thread) ...\n",
+     "    cp_async_wait<1>();\n" + PROBE.format(3)),
+    ("    __syncthreads();     // ... and for every thread; L and Lq are written\n",
+     "    __syncthreads();\n" + PROBE.format(4)),
+    ("      if (lane < 8) Bonus[d0 / 32 * C + t] = bonus;\n    }\n    __syncthreads();\n",
+     "      if (lane < 8) Bonus[d0 / 32 * C + t] = bonus;\n    }\n    __syncthreads();\n"
+     + PROBE.format(5)),
+    ("        a[1] = c[0][1] + c[1][1] + c[2][1];\n      }\n    }\n    __syncthreads();\n",
+     "        a[1] = c[0][1] + c[1][1] + c[2][1];\n      }\n    }\n    __syncthreads();\n"
+     + PROBE.format(6)),
+    ("    // o^T for this warp's token blocks", PROBE.format(7) + "    // o^T for this warp's token blocks"),
+    ("    // ... + v^T A^T", PROBE.format(8) + "    // ... + v^T A^T"),
+    ("    // the live tokens' outputs", PROBE.format(9) + "    // the live tokens' outputs"),
+    ("    // S^T = S^T diag(2^Lc)", PROBE.format(10) + "    // S^T = S^T diag(2^Lc)"),
+    ("    __syncthreads();  // the stage and the chunk's arrays are free\n",
+     PROBE.format(11) + "    __syncthreads();\n" + PROBE.format(12)),
+    ("      s0[D + 8] = St[j][3];\n    }\n  }\n}",
+     "      s0[D + 8] = St[j][3];\n    }\n  }\n  __syncthreads();\n"
+     "  if ((tid == 0 || tid == 128) && state_out)\n"
+     "    for (int i = 0; i < 13; ++i) state_out[sbase + tid / 128 * 16 + i] = (float)ph_[i];\n}"),
+]
+WKV_STORE = "        if (t < nt) {\n          float* op = out"
+WKV_WLOAD = "      wr[i] = t < nt ? w[base + (int64_t)(t0 + t) * sD + dch] : 1.f;  // log w = 0 past S"
+WKV_COPY = "  auto load = [&](int chunk, int stage) {\n"
+OLD_INTRA = "      if (s < t) {"
+OLD_OUT = "    for (int i = tid; i < nt * D; i += kThreads) {"
+OLD_CARRY = "    for (int i = tid; i < D * D; i += kThreads) {\n      const int kk = i / D, e = i % D;"
+OLD_EXP = "expf(Lq[t * P + d] - Ls[s * P + d])"
 VARIANTS = {
     "flash": {
         "committed": [],
@@ -91,6 +148,29 @@ VARIANTS = {
                                         "__ldcs(reinterpret_cast<const uint4*>(xr + j * VEC))")),
             (RMS_STORE, "  __stcs(reinterpret_cast<uint4*>(yr + j * VEC), Vec<T>::pack(f));")],
     },
+    "wkv": {
+        "committed": [],
+        "diagnostic: no log2 / cumsum phase": [(WKV_SCAN, WKV_SCAN.replace("{", "if (n < 0) {", 1))],
+        "diagnostic: no decayed r / k phase": [(WKV_FACTORS,
+                                                WKV_FACTORS.replace("i0 < C * G", "i0 < 0"))],
+        "diagnostic: no tensor-core weights": [(WKV_TC, "      continue;\n" + WKV_TC)],
+        "diagnostic: no per-element halves": [(WKV_HALVES, WKV_HALVES + "        continue;\n")],
+        "diagnostic: no output products": [(WKV_OUT_S, WKV_OUT_S.replace("j < KS", "j < 0")),
+                                           (WKV_OUT_A, "        if (j >= 0) continue;")],
+        "diagnostic: no state update products": [(WKV_STATE, "")],
+        "diagnostic: lg2.approx for log2f": [("log2f(fmaxf(", "__log2f(fmaxf(")],
+        "diagnostic: clock probe": WKV_PROBE,
+        "diagnostic: no output stores (kept computed)": [(WKV_STORE, WKV_STORE.replace(
+            "if (t < nt) {", "if (t < nt && o[x][0][y] != o[x][0][y]) {"))],
+        "diagnostic: no w loads": [(WKV_WLOAD, "      wr[i] = t < nt ? 0.9f : 1.f;")],
+        "diagnostic: no r/k/v copies (stale shared memory)": [(WKV_COPY, WKV_COPY + "    return;\n")],
+        "CUDA-core entry: no per-element weights (diagnostic)": [(OLD_INTRA,
+                                                                  "      if (s < 0) {")],
+        "CUDA-core entry: no outputs (diagnostic)": [(OLD_OUT, OLD_OUT.replace("nt * D", "0"))],
+        "CUDA-core entry: no state carry (diagnostic)": [(OLD_CARRY,
+                                                          OLD_CARRY.replace("D * D;", "0;"))],
+        "CUDA-core entry: __expf in the weights": [(OLD_EXP, "__" + OLD_EXP)],
+    },
 }
 # Runs of a built variant with other runtime arguments: tag -> (variant, arguments).
 RUNS = {
@@ -113,6 +193,14 @@ RUNS = {
         "rows in flight ahead on every row": ("rows in flight ahead on every row", {}),
         "no rows in flight ahead": ("no rows in flight ahead", {}),
         "evict-first loads and stores (.cs)": ("evict-first loads and stores (.cs)", {}),
+    },
+    "wkv": {
+        **{tag: (tag, {}) for tag in VARIANTS["wkv"] if not tag.startswith("CUDA-core")},
+        "chunk 64": ("committed", {"chunk": 64}),
+        "chunk 16": ("committed", {"chunk": 16}),
+        "CUDA-core entry (wkv_forward), f32": ("committed", {"f32": True}),
+        "CUDA-core entry, f32, chunk 64": ("committed", {"f32": True, "chunk": 64}),
+        **{tag: (tag, {"f32": True}) for tag in VARIANTS["wkv"] if tag.startswith("CUDA-core")},
     },
 }
 
@@ -247,6 +335,48 @@ def run_rmsnorm(libs: dict) -> None:
               rmsnorm_ref(x, sc))
 
 
+def run_wkv(libs: dict) -> None:
+    """WKV at the rwkv6-1.6b prefill: every run against the plain version
+    (``wkv_chunked``) by the JAX test's measure, max |error| over max |output|;
+    diagnostics are wrong by design.  The CUDA-core entry takes f32 r/k/v
+    (``ops.ENTRIES``): it runs on the bf16 inputs' values widened to f32."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    stream = torch.cuda.current_stream().cuda_stream
+    args = cs.wkv_inputs(8, 2048, 32, 64, dtype=torch.bfloat16, seed=7)
+    args32 = tuple(a.float() for a in args[:3]) + args[3:]
+    want = wkv_chunked(*args)
+
+    def make_run(run):
+        lib, kw = run
+        a = args32 if kw.get("f32") else args
+        return lambda: wops.launch(lib, *a, chunk=kw.get("chunk", 32), state=None,
+                                   return_state=True, stream=stream)
+
+    runs = {tag: (libs[v], kw) for tag, (v, kw) in RUNS["wkv"].items()}
+    times = {tag: [] for tag in runs}
+    for order in (list(runs), list(reversed(runs))):
+        for tag in order:
+            times[tag].append(cs.time_ms(make_run(runs[tag])))
+    print("  wkv, B 8 S 2048 H 32 D 64 bf16 (ms: list order / reversed):", flush=True)
+    for tag, run in runs.items():
+        out, st = make_run(run)()
+        err = cs.rel_err(out, want)
+        print(f"    {tag}: rel err {err:.3g}, ms {times[tag][0]:.4f} / {times[tag][1]:.4f}",
+              flush=True)
+        if tag == "diagnostic: clock probe":  # cycles a chunk, mean over the CTAs
+            flat = st.reshape(st.shape[0] * st.shape[1], -1).double()
+            n_chunks = args[0].shape[1] // 32
+            for w, off in (("warp 0", 0), ("warp 4", 16)):
+                cyc = flat[:, off:off + len(PROBES)].mean(0) / n_chunks
+                print(f"      {w}, cycles a chunk: " + "; ".join(
+                    f"{name} {c:.0f}" for name, c in zip(PROBES, cyc.tolist())), flush=True)
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -259,6 +389,7 @@ def main(argv: list) -> int:
     from repro_torch.kernels.mm_pu.ref import mm_pu_ref, quantize_weights_int8
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rwkv6 import kernel as wk
 
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device visible", flush=True)
@@ -267,7 +398,8 @@ def main(argv: list) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    sources = {"flash": fk.SOURCE, "mm_pu": mk.SOURCE, "paged": pk.SOURCE, "rmsnorm": rk.SOURCE}
+    sources = {"flash": fk.SOURCE, "mm_pu": mk.SOURCE, "paged": pk.SOURCE, "rmsnorm": rk.SOURCE,
+               "wkv": wk.SOURCE}
     paths = {(k, tag): write_variant(sources[k], tag, subs)
              for k in which for tag, subs in VARIANTS[k].items()}
     t0 = time.time()
@@ -312,6 +444,9 @@ def main(argv: list) -> int:
         libs = {tag: bind(paths[("rmsnorm", tag)], {"rmsnorm_forward": rk._ARGTYPES})
                 for tag in VARIANTS["rmsnorm"]}
         run_rmsnorm({**libs, None: None})
+    if "wkv" in which:
+        run_wkv({tag: bind(paths[("wkv", tag)], {n: wk._ARGTYPES for n in wk.ENTRIES})
+                 for tag in VARIANTS["wkv"]})
     return 0
 
 

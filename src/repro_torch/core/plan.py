@@ -61,8 +61,9 @@ class ServePlan:
     mixed_slab_width: int = 1
     # KV pages streamed into one VMEM tile per kernel grid step (the fused
     # paged-attention kernel's tile height), from the VMEM budget.  Derived
-    # exactly as the JAX plan derives it; the port's CUDA kernel tiles by a
-    # fixed 32 keys and does not read it.
+    # exactly as the JAX plan derives it; the port's CUDA kernel does not
+    # read it: its CUDA-core entry (f32 and int8 pages) tiles by 32 keys, its
+    # bf16 tensor-core entry by 64.
     pages_per_tile: int = 1
     # Attention engine of the unified step: the fused paged-attention
     # kernel (True) vs the dense gather-then-attend fallback (False).  The

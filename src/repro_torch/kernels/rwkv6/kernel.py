@@ -1,5 +1,7 @@
-"""Build and bind the CUDA WKV kernel (``csrc/wkv.cu``, which replaces
-``repro/kernels/rwkv6/kernel.py::_wkv_kernel``).
+"""Build and bind the CUDA WKV kernels (``csrc/wkv.cu``, which replaces
+``repro/kernels/rwkv6/kernel.py::_wkv_kernel``): two C entry points of one
+signature, ``wkv_forward`` (f32 r/k/v, CUDA cores) and ``wkv_forward_mma``
+(bf16 r/k/v, tensor cores).
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` so none is cut to 32
@@ -16,6 +18,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
+ENTRIES = ("wkv_forward", "wkv_forward_mma")
 
 _lib = None
 
@@ -26,7 +29,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
-        lib.wkv_forward.argtypes = _ARGTYPES
-        lib.wkv_forward.restype = ctypes.c_int
+        for name in ENTRIES:
+            getattr(lib, name).argtypes = _ARGTYPES
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

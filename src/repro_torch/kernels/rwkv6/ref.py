@@ -1,10 +1,22 @@
-"""Sequential plain version of the WKV kernel in the kernel layout (the
-port's ``repro/kernels/rwkv6/ref.py``).  The model-layout plain version,
-which ``ops.wkv`` runs for CPU tensors, is ``repro_torch.models.rwkv6.
-wkv_chunked``."""
+"""Plain versions of the WKV kernels (the port's ``repro/kernels/rwkv6/
+ref.py``).
+
+``wkv_ref`` is the sequential recurrence in the kernel layout.  The
+model-layout plain version, which ``ops.wkv`` runs for CPU tensors, is
+``repro_torch.models.rwkv6.wkv_chunked``.  ``wkv_split_ref`` emulates the
+tensor-core entry's arithmetic (``csrc/wkv.cu`` ``wkv_forward_mma``) for the
+tests and the planted controls: 16-token tiles factored at their edges,
+8-token diagonal halves in per-element form, log2-domain decays, and every
+tensor-core operand rounded to TF32 as hi + lo.
+"""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+TILE = 16  # tokens of a tensor-core row tile of the intra-chunk weights
+HALF = 8   # tokens of a diagonal half, the only per-element block
 
 
 def wkv_ref(r, k, v, logw, u, *, n_heads: int):
@@ -22,3 +34,110 @@ def wkv_ref(r, k, v, logw, u, *, n_heads: int):
         outs.append(torch.einsum("bk,bkd->bd", r32[:, t], state + uu[:, :, None] * kv))
         state = w[:, t, :, None] * state + kv
     return torch.stack(outs, dim=1).to(r.dtype)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32`` on a finite x): the low 13 bits cleared
+    after adding half of their range."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """x as the kernel's TF32 hi + lo: hi rounded (``tf32``), lo = x - hi
+    (exact in f32) truncated to TF32; hi + lo is within 2^-21 of x."""
+    hi = tf32(x)
+    lo = ((x - hi).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _mm(eq: str, x, y, split: bool):
+    """One tensor-core product: x and y as TF32 hi + lo, the three terms
+    hi.hi + hi.lo + lo.hi (``split=False``: hi.hi alone, one rounding).
+    An operand exact in TF32 (bf16 r/k/v) has lo = 0."""
+    (xh, xl), (yh, yl) = tf32_split(x), tf32_split(y)
+    out = torch.einsum(eq, xh, yh)
+    if split:
+        out = out + torch.einsum(eq, xh, yl) + torch.einsum(eq, xl, yh)
+    return out
+
+
+def wkv_split_ref(r, k, v, w, u, *, chunk: int = 32, state: Optional[torch.Tensor] = None,
+                  return_state: bool = False, split: bool = True, drop_diagonal: bool = False):
+    """The tensor-core WKV entry's arithmetic in plain PyTorch, with the
+    contract of ``wkv_chunked`` (model layout (B, S, H, D), f32 out,
+    optional state in and out).  Per chunk of ``chunk`` tokens (a multiple
+    of 16; a ragged last chunk is padded with r = k = v = 0, log w = 0),
+    with L the inclusive cumsum of log2 w and Lq = L - log2 w:
+
+    * tile T (tokens 16T..16T+15) against an earlier tile: r_t 2^(Lq_t - P)
+      times k_s 2^(E_s - L_s) 2^(P - E_s), P = Lq at the tile's first token,
+      E_s = L at the end of s's tile;
+    * inside a tile, its second half against its first: r_t 2^(Lq_t - Q) and
+      k_s 2^(Q - L_s), Q = L at the first half's last token;
+    * inside a half: sum_d r k 2^(Lq_t - L_s) per element, and the bonus
+      sum_d r u k on the diagonal;
+    every exponent <= 0.  Then o = A v + rdec S and S = 2^Lc S + kfut^T v
+    (rdec = rhat 2^P and kfut = kbar 2^(Lc - E), by multiplication),
+    each product on TF32 hi + lo operands (``_mm``).  Controls:
+    ``split=False`` rounds each operand once; ``drop_diagonal`` leaves out
+    the halves' per-element weights."""
+    B, S, H, D = r.shape
+    C = chunk
+    assert C % TILE == 0, C
+    NT, N = C // TILE, -(-S // C)
+    pad = N * C - S
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    lw = torch.log2(torch.clamp(w, min=1e-12))
+    if pad:
+        r, k, v, lw = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
+    # (B, H, N, C, D)
+    rr, kk, vv, lw = (t.reshape(B, N, C, H, D).permute(0, 3, 1, 2, 4) for t in (r, k, v, lw))
+    u = u.float()[None, :, None, :]  # (1, H, 1, D)
+    L = torch.cumsum(lw, dim=3)
+    Lq = L - lw
+    tiles = torch.arange(C, device=r.device) // TILE
+    first, last = tiles * TILE, tiles * TILE + TILE - 1
+    mid = tiles * TILE + HALF - 1
+    ex2 = torch.exp2
+    S_state = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+               if state is None else state.float().clone())
+    tri = torch.tril(torch.ones((HALF, HALF), dtype=torch.bool, device=r.device), -1)
+    outs = []
+    for n in range(N):
+        ri, ki, vi, Li, Lqi = (t[:, :, n] for t in (rr, kk, vv, L, Lq))  # (B, H, C, D)
+        P, E, Q = Lqi[:, :, first], Li[:, :, last], Li[:, :, mid]
+        Lc = Li[:, :, -1]
+        rhat = ri * ex2(Lqi - P)
+        kbar = ki * ex2(E - Li)
+        rdec = rhat * ex2(P)
+        kfut = kbar * ex2(Lc[:, :, None] - E)
+        A = torch.zeros((B, H, C, C), dtype=torch.float32, device=r.device)
+        for T in range(1, NT):
+            rows = slice(T * TILE, (T + 1) * TILE)
+            cols = slice(0, T * TILE)
+            cross = ex2(P[:, :, T * TILE, None] - E[:, :, cols])  # (B, H, s, D)
+            A[:, :, rows, cols] = _mm("bhtd,bhsd->bhts", rhat[:, :, rows], kbar[:, :, cols] * cross,
+                                      split)
+        for T in range(NT):
+            lo, hi = T * TILE, T * TILE + HALF
+            Qt = Q[:, :, lo, None]
+            rt = ri[:, :, hi:hi + HALF] * ex2(Lqi[:, :, hi:hi + HALF] - Qt)
+            kt = ki[:, :, lo:hi] * ex2(Qt - Li[:, :, lo:hi])
+            A[:, :, hi:hi + HALF, lo:hi] = _mm("bhtd,bhsd->bhts", rt, kt, split)
+        for h0 in range(0, C, HALF):
+            hs = slice(h0, h0 + HALF)
+            diag = torch.einsum("bhtd,bhtd->bht", ri[:, :, hs] * u, ki[:, :, hs])
+            blk = torch.diag_embed(diag)
+            if not drop_diagonal:
+                wgt = ex2((Lqi[:, :, hs, None] - Li[:, :, None, hs]).masked_fill(
+                    ~tri[None, None, :, :, None], -torch.inf))
+                blk = blk + torch.einsum("bhtd,bhsd,bhtsd->bhts", ri[:, :, hs], ki[:, :, hs], wgt)
+            A[:, :, hs, hs] = blk
+        outs.append(_mm("bhts,bhse->bhte", A, vi, split)
+                    + _mm("bhtk,bhke->bhte", rdec, S_state, split))
+        S_state = ex2(Lc)[..., None] * S_state + _mm("bhsk,bhse->bhke", kfut, vi, split)
+    out = torch.stack(outs, dim=2).reshape(B, H, N * C, D).permute(0, 2, 1, 3)[:, :S]
+    out = out.contiguous()
+    return (out, S_state) if return_state else out

@@ -18,7 +18,10 @@ plain norms) is the fallback and the oracle.  Scheduling lives host-side in
 ``serve/scheduler.py``.
 
 PyTorch runs eagerly, so there is no compile to count: the JAX engine's
-``trace_counts`` has no counterpart.  The pools are updated in place where
+``trace_counts`` has no counterpart.  ``dispatch_counts`` takes its place in
+the step-time calibration: the first dispatch of each step function pays
+one-off costs (kernel builds, cuBLAS set-up) where JAX's traces, and is
+left out of ``sched.step_ms`` as JAX leaves out a tracing dispatch.  The pools are updated in place where
 the JAX steps took them donated.  The fault injector, the degradation
 ladder, speculative decoding, snapshot/restore and ``repro.obs`` are not
 ported yet.
@@ -277,6 +280,9 @@ class ServingEngine:
             else None
         )
         self.iteration = 0
+        # dispatches of each step function: the first of each is left out of
+        # the step-time EMA (the JAX engine's calibration gate)
+        self.dispatch_counts = {"step": 0, "rolled_step": 0}
         self.stats = {
             "steps": 0, "dispatches": 0, "prefill_tokens": 0, "generated_tokens": 0,
             "fork_copies": 0, "occupancy_sum": 0.0, "rolled_dispatches": 0,
@@ -341,7 +347,12 @@ class ServingEngine:
             finite = finite.cpu().numpy()
             dt_ms = (time.perf_counter() - t0) * 1e3
             self.stats["device_s"] += dt_ms / 1e3
-            s.step_ms = dt_ms if s.step_ms is None else 0.8 * s.step_ms + 0.2 * dt_ms
+            if self.dispatch_counts["step"]:
+                # feed SLO chunk sizing a step time without the first call's
+                # one-off costs (kernel builds, cuBLAS set-up), as JAX leaves
+                # out its tracing dispatch
+                s.step_ms = dt_ms if s.step_ms is None else 0.8 * s.step_ms + 0.2 * dt_ms
+            self.dispatch_counts["step"] += 1
             c = s._slab_done(sampled, kinds, finite=finite)
             self.stats["steps"] += 1
             self.stats["dispatches"] += 1
@@ -366,9 +377,10 @@ class ServingEngine:
         dt_ms = (time.perf_counter() - t0) * 1e3
         self.stats["device_s"] += dt_ms / 1e3
         adv = int(steps.max())  # device iterations actually executed
-        if adv > 0:
-            per = dt_ms / adv
+        if self.dispatch_counts["rolled_step"] and adv > 0:
+            per = dt_ms / adv  # the per-iteration time feeds the same EMA
             s.step_ms = per if s.step_ms is None else 0.8 * s.step_ms + 0.2 * per
+        self.dispatch_counts["rolled_step"] += 1
         c = s._rolled_done(out, steps)
         self.stats["steps"] += adv
         self.stats["dispatches"] += 1

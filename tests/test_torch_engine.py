@@ -7,6 +7,7 @@ Pallas kernel in interpret mode, the port its plain version on CPU."""
 import dataclasses
 
 import numpy as np
+import pytest
 
 from repro.core.plan import derive_serve_plan as jax_serve_plan
 from repro.serve import Request as JaxRequest
@@ -105,3 +106,50 @@ def test_rolled_loop_k4():
     _, k1, _ = _both("smollm-135m", prompts, 8, rolled_steps=1)
     assert k1 == got
 
+
+
+def _calibration_trace(engine, requests, mixed_of):
+    """Step ``engine`` through ``requests``; after each dispatch, (mixed
+    dispatches so far, rolled dispatches so far, whether ``sched.step_ms``
+    is set)."""
+    for r in requests:
+        engine.submit(r)
+    trace, seen = [], (0, 0)
+    while not engine.sched.idle:
+        engine.step()
+        now = (mixed_of(engine.stats), engine.stats["rolled_dispatches"])
+        if now != seen:
+            trace.append((*now, engine.sched.step_ms is not None))
+            seen = now
+    return trace
+
+
+@pytest.mark.parametrize("rolled_steps", [1, 4])
+def test_step_time_calibration_skips_first_dispatch(rolled_steps):
+    """``sched.step_ms`` (the EMA behind SLO chunk sizing and retry_after)
+    leaves out the first dispatch of each step function in both engines:
+    it is None after the first mixed dispatch and set after the second;
+    with K=4 the first rolled span leaves it None too when no second mixed
+    dispatch came before it."""
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair("smollm-135m")
+    # one 5-token prompt fits one 8-token prefill chunk: one mixed dispatch,
+    # then decode (rolled spans with K=4)
+    streams = {"single": [[7, 3, 9, 1, 4]], "two": _prompts(9, [12, 5])}
+    for name, prompts in streams.items():
+        jserve, serve = _serve_pair(jcfg, tcfg, rolled_steps=rolled_steps)
+        reqs = [(f"r{i}", p) for i, p in enumerate(prompts)]
+        want = _calibration_trace(
+            JaxEngine(jparams, jcfg, jplan, jserve),
+            [JaxRequest(rid=i, prompt=p, max_new_tokens=9) for i, p in reqs],
+            lambda st: st["steps"] - st["rolled_steps"])
+        got = _calibration_trace(
+            ServingEngine(tparams, tcfg, tplan, serve, device="cpu"),
+            [Request(rid=i, prompt=p, max_new_tokens=9) for i, p in reqs],
+            lambda st: st["dispatches"] - st["rolled_dispatches"])
+        assert got == want, name
+        for mixed, rolled, calibrated in got:
+            assert calibrated == (mixed >= 2 or rolled >= 2), (name, got)
+        if rolled_steps == 1:
+            assert got[:2] == [(1, 0, False), (2, 0, True)], (name, got)
+        elif name == "single":
+            assert got[:3] == [(1, 0, False), (1, 1, False), (1, 2, True)], got

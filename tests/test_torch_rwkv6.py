@@ -15,7 +15,7 @@ import torch
 from repro.kernels.rwkv6.ops import wkv as jax_wkv
 from repro.models import rwkv6 as JR
 from repro_torch.kernels.rwkv6 import ops
-from repro_torch.kernels.rwkv6.ref import wkv_ref
+from repro_torch.kernels.rwkv6.ref import tf32, tf32_split, wkv_ref, wkv_split_ref
 from repro_torch.models import rwkv6 as R
 from torch_parity import model_pair, t2n
 
@@ -91,6 +91,123 @@ def test_wkv_state_carry_matches_jax():
                             return_state=True)
     np.testing.assert_allclose(t2n(full), np.asarray(jo), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(t2n(s_full), np.asarray(js), rtol=2e-5, atol=2e-5)
+
+
+def _jax_wants(r, k, v, w, u, chunk):
+    """The JAX Pallas kernel (interpret mode) and JAX ``wkv_chunked`` on the
+    same inputs; both halve ``chunk`` until it divides S, as the JAX
+    wrapper does."""
+    S = r.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    jargs = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    return {"pallas": np.asarray(jax_wkv(*jargs, chunk=c)),
+            "jax wkv_chunked": np.asarray(JR.wkv_chunked(*jargs, chunk=c))}
+
+
+# (shape, chunk, _mk options, tolerance): the JAX test's shapes, chunks and
+# strong decay, a ragged S (the last chunk padded) and a D 64 chunk 64.
+SPLIT_CASES = [
+    ((2, 128, 2, 32), 32, {}, 1e-5),
+    ((1, 96, 3, 64), 32, {}, 1e-5),
+    ((1, 256, 1, 64), 32, {}, 1e-5),
+    ((1, 128, 2, 32), 16, {}, 1e-5),
+    ((1, 128, 2, 32), 64, {}, 1e-5),
+    ((1, 128, 2, 32), 32, {"decay_lo": 0.001, "decay_hi": 0.01}, 1e-4),
+    ((2, 100, 2, 64), 32, {}, 1e-5),
+    ((1, 128, 2, 64), 64, {"seed": 2}, 1e-5),
+]
+
+
+@pytest.mark.parametrize("bf16_inputs", [False, True], ids=["f32", "bf16-rounded"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"{c[0]}-c{c[1]}-{len(c[2])}")
+def test_split_scheme_matches_jax(case, bf16_inputs):
+    """The tensor-core entry's arithmetic, emulated on the CPU, against the
+    JAX kernel and model path; with ``bf16_inputs`` r/k/v are rounded to
+    bf16 first (the main path's inputs, exact in TF32) for both sides."""
+    shape, chunk, kw, tol = case
+    r, k, v, w, u = _mk(*shape, **kw)
+    if bf16_inputs:
+        r, k, v = (t2n(torch.from_numpy(x).bfloat16()) for x in (r, k, v))
+    got = t2n(wkv_split_ref(*(torch.from_numpy(x) for x in (r, k, v, w, u)), chunk=chunk))
+    assert np.isfinite(got).all()
+    for ref, want in _jax_wants(r, k, v, w, u, chunk).items():
+        assert _rel(got, want) < tol, f"vs {ref}: {_rel(got, want):.2e}"
+
+
+def test_split_scheme_state_carry():
+    """The emulation continues from a state passed in: two halves equal the
+    whole, and the final state equals JAX ``wkv_chunked(return_state=True)``'s."""
+    B, S, H, D = 1, 96, 2, 64
+    r, k, v, w, u = _mk(B, S, H, D, seed=1)
+    T = [torch.from_numpy(x) for x in (r, k, v, w, u)]
+    full, s_full = wkv_split_ref(*T, chunk=32, return_state=True)
+    h1, st = wkv_split_ref(*(x[:, :48] for x in T[:4]), T[4], chunk=32, return_state=True)
+    h2, s2 = wkv_split_ref(*(x[:, 48:] for x in T[:4]), T[4], chunk=32, state=st,
+                           return_state=True)
+    jo, js = JR.wkv_chunked(*(jnp.asarray(x) for x in (r, k, v, w, u)), chunk=32,
+                            return_state=True)
+    for got, want in ((full, jo), (torch.cat([h1, h2], dim=1), jo), (s_full, js), (s2, js)):
+        assert _rel(t2n(got), np.asarray(want)) < 1e-5
+
+
+@pytest.mark.parametrize("control", ["split=False", "drop_diagonal"])
+def test_split_scheme_controls_rejected(control):
+    """The planted controls of the tensor-core scheme fall outside the
+    tolerance: operands rounded once to TF32 (no lo), and the diagonal
+    halves' per-element weights left out."""
+    r, k, v, w, u = _mk(1, 256, 1, 64)
+    opts = {"split": False} if control == "split=False" else {"drop_diagonal": True}
+    got = t2n(wkv_split_ref(*(torch.from_numpy(x) for x in (r, k, v, w, u)), chunk=32, **opts))
+    want = _jax_wants(r, k, v, w, u, 32)["jax wkv_chunked"]
+    assert _rel(got, want) >= 1e-5
+
+
+def test_tf32_rounding():
+    """``tf32`` rounds to 10 mantissa bits, to nearest with ties away from
+    zero; ``tf32_split``'s hi + lo (lo truncated) carries x to 2^-21."""
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-11, 3.0],
+                     dtype=torch.float32)
+    np.testing.assert_array_equal(t2n(tf32(x)), [1 + 2**-10, -(1 + 2**-10), 1.0,
+                                                1 + 2**-9, 3.0])
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi, lo = tf32_split(y)
+    assert torch.equal(hi, tf32(y)) and torch.equal(tf32(lo.abs()) >= lo.abs(),
+                                                    torch.ones_like(y, dtype=torch.bool))
+    assert float(((hi + lo - y).abs() / y.abs()).max()) < 2.0**-21
+
+
+class _StandIn:
+    """A stand-in for the kernel library: records each entry's call."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def __getattr__(self, name):
+        if not name.startswith("wkv_forward"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or self.rc
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrapper_routes_by_dtype(dtype):
+    """bf16 r/k/v go to the tensor-core entry, f32 to the CUDA-core one,
+    with the dtype code each takes; a nonzero return code raises."""
+    r, k, v, w, u = (torch.from_numpy(x) for x in _mk(1, 64, 2, 32))
+    r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+    lib = _StandIn()
+    out, st = ops.launch(lib, r, k, v, w, u, chunk=32, state=None, return_state=True, stream=0)
+    assert out.shape == r.shape and out.dtype == torch.float32 and st.shape == (1, 2, 32, 32)
+    (name, args), = lib.calls
+    want = "wkv_forward_mma" if dtype == torch.bfloat16 else "wkv_forward"
+    assert name == want == ops.ENTRIES[dtype]
+    assert args[8:14] == (1, 64, 2, 32, 32, 1 if dtype == torch.bfloat16 else 0)
+    with pytest.raises(RuntimeError, match=want):
+        ops.launch(_StandIn(rc=700), r, k, v, w, u, chunk=32, state=None, return_state=False,
+                   stream=0)
+    with pytest.raises(ValueError):
+        ops.launch(lib, r, k, v, w, u, chunk=48, state=None, return_state=False, stream=0)
 
 
 def test_wrappers_never_fall_back():
