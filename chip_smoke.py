@@ -7,8 +7,9 @@ repro_torch``); without either it exits non-zero and prints no result.  It
 builds the five CUDA kernels from the checkout (one ``nvcc`` per source,
 in parallel), holds each against its plain PyTorch version at the main
 paths' shapes, drives both serving paths at full width and depth (random
-weights from a seed) and the int8 FFN stage at full width, checks the
-outputs, times the kernels, and prints:
+weights from a seed) on a dense, a recurrent and an MoE arch, and the int8
+FFN stage at full width, checks the outputs, times the kernels, and
+prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
@@ -41,23 +42,43 @@ views) and its times; 14 the MM PU kernels vs their plain version (the JAX test'
 shapes, activations, int8 dequant, random shapes; bf16 x with bf16 and
 int8 w at the same shapes, split K included, on tensor cores); 15 the int8
 FFN stage at qwen3-1.7b width (three ``mm_pu`` launches; its launch plans,
-T=256 ``w2`` split across K) and its times.  Every main path (phases 3-5,
-9-11) checks the exact launch count of every kernel: the paged or
-eager-prefill kernel once a layer, the RMSNorm kernel once a norm per
-forward (113 on qwen3-1.7b, none on rwkv6's LayerNorm), and no kernel at
+T=256 ``w2`` split across K) and its times; then qwen3-moe-30b-a3b (48
+layers, 128 experts top-8, 60.4 GB of bf16 weights): 16 paged attention
+with int8 pages (the CUDA-core entry, G 8) vs its plain version at the
+derived plan's decode and mixed shapes (128 slots x 256 rows) and its
+times, and the flash and RMSNorm kernels vs their plain versions at its
+head shapes (H 32, KH 4: flash at phase 19's prefill on fused-QKV views
+and contiguous copies, qk-norm on the q and k views of phase 18's slab
+and phase 19's prefill); 17 the MoE functions at full width (gshard vs sort drop-free at T
+4096; gshard at the slab's T 32,768 and capacity 1.25 vs a float64
+recomputation of the same routing, the same choices kept; one layer's
+parts timed); 18 the MoE main path: the multi-tenant trace (8 classify, 4
+chat, 2 summarize, 2 tenants) served by ``ServingEngine`` at full width
+and depth on the derived plan, its first dispatch held kernel path vs
+plain path (one ``ServingEngine.step`` each, the plain path dispatching
+the kernel path's routing; every layer's router inputs and the final rows
+within the bf16 tolerance);
+19 the same weights through ``greedy_generate`` (B 4 x 1024,
+8 new tokens), then 4 layers in f32, drop-free, kernel vs gather path
+(identical tokens).  Every main path (phases 3-5, 9-11, 18-19) checks the
+exact launch count of every kernel: the paged or eager-prefill kernel once
+a layer, the RMSNorm kernel once a norm per forward (113 on qwen3-1.7b,
+193 on qwen3-moe-30b-a3b, none on rwkv6's LayerNorm), and no kernel at
 all on a plain path.  Planted controls (a dropped key tile, a window one
-key wider, P rounded once to bf16 instead of split into hi + lo, in flash
-and in paged attention, a key split left out of paged attention's
-combine, the WKV's cross-chunk term dropped, its diagonal halves'
-per-element weights dropped, or its operands rounded once to TF32 (logged
-if it passes), the norm's ``1 + scale`` or
-mean changed, a dropped K slice, a per-row scale) show that the
-tolerances reject a wrong kernel.  Kernel times are medians over batches
+key wider, int8 pages read without their scales, MoE queue ranks counted
+over the whole T instead of per group, P rounded once to bf16 instead of
+split into hi + lo, in flash and in paged attention, a key split left out
+of paged attention's combine, the WKV's cross-chunk term dropped, its
+diagonal halves' per-element weights dropped, or its operands rounded
+once to TF32 (logged if it passes), the norm's ``1 + scale`` or mean
+changed, a dropped K slice, a per-row scale) show that the tolerances
+reject a wrong kernel.  Kernel times are medians over batches
 of back-to-back calls (``time_ms``).
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,8 +86,13 @@ import traceback
 from pathlib import Path
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# qwen3-moe-30b-a3b's main path peaks within ~4.5 GiB of the card's 79 GiB;
+# expandable segments keep the caching allocator's split blocks from
+# taking that headroom (read when CUDA first allocates)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -328,7 +354,8 @@ def serve_once(cfg, plan, serve, params, reqs, *, fused):
     """One engine run; every launch count is set to 0 just before and read
     just after.  With the kernels, each device iteration launches the paged
     kernel once a layer and the RMSNorm kernel once a norm; the gather path
-    (``fused=False``) launches none.  Returns (tokens, counts, summary)."""
+    (``fused=False``) launches none.  Returns (tokens, counts, summary,
+    finished requests)."""
     from repro_torch.serve import ServingEngine
 
     engine = ServingEngine(params, cfg, plan, serve, fused=fused, device="cuda")
@@ -341,9 +368,10 @@ def serve_once(cfg, plan, serve, params, reqs, *, fused):
                           rmsnorm=norms_per_forward(cfg) * steps) if fused else expect_counts())
     check(counts == want, f"launches {counts}, expected {want} ({steps} device iterations, "
           f"fused={fused})")
+    finished = engine.sched.finished
     del engine
     torch.cuda.empty_cache()
-    return out, counts, summary
+    return out, counts, summary, finished
 
 
 def describe(tag, s):
@@ -367,9 +395,9 @@ def phase_parity(cfg, plan):
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
     reqs = lambda: random_stream(cfg, 8, (100, 600), 16, stagger=2, seed=1)  # noqa: E731
-    fused, counts, s1 = serve_once(cfg, plan, serve, params, reqs(), fused=True)
+    fused, counts, s1, _ = serve_once(cfg, plan, serve, params, reqs(), fused=True)
     describe("kernel", s1)
-    gather, _, s2 = serve_once(cfg, plan, serve, params, reqs(), fused=False)
+    gather, _, s2, _ = serve_once(cfg, plan, serve, params, reqs(), fused=False)
     describe("gather", s2)
     check(len(fused) == 8 and all(len(t) == 16 for t in fused.values()), "requests unfinished")
     same = fused == gather
@@ -395,7 +423,7 @@ def phase_served(cfg, plan):
     params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
     reqs = random_stream(cfg, 64, (100, 600), 16, stagger=1, seed=3)
     torch.cuda.reset_peak_memory_stats()
-    out, counts, s = serve_once(cfg, plan, serve, params, reqs, fused=True)
+    out, counts, s, _ = serve_once(cfg, plan, serve, params, reqs, fused=True)
     describe("served", s)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(s["requests"]["finished"] == 64 and len(out) == 64, "not every request finished")
@@ -431,7 +459,7 @@ def phase_rolled(cfg_full, plan):
     for k in (4, 1):
         serve = dataclasses.replace(base, rolled_steps=k)
         reqs = random_stream(cfg, 8, (100, 600), 16, stagger=2, seed=1)
-        runs[k], _, s = serve_once(cfg, plan, serve, params, reqs, fused=True)
+        runs[k], _, s, _ = serve_once(cfg, plan, serve, params, reqs, fused=True)
         describe(f"K={k}", s)
         if k == 4:
             check(s["rolled"]["dispatches"] >= 1 and
@@ -512,21 +540,37 @@ def library_call(q, entry, table, lens, q_lens, bs):
                                           enable_gqa=True)
 
 
-def phase_times(cfg, name, B, n_prefill, seed):
+def unscaled(args, *, bs):
+    """The plain version with int8 pages read without their per-token
+    scales: what a kernel that dropped the dequantization would give."""
+    q, entry, table, lens, q_lens = args
+    ones = {"k_scale": torch.ones_like(entry["k_scale"]),
+            "v_scale": torch.ones_like(entry["v_scale"])}
+    return plain((q, {**entry, **ones}, table, lens, q_lens), bs=bs)
+
+
+def phase_times(cfg, name, B, n_prefill, seed, kv="bfloat16"):
     """Kernel vs plain version at one of the main path's shapes (the derived
-    plan's B slots x 256-row slab over its 32,769-block pool), then times."""
+    plan's B slots x 256-row slab, B x 128 blocks of ``kv`` pages), then
+    times.  Planted controls: decode rows with a slot's last 32-key tile
+    dropped; int8 pages read without their scales."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     H, KH, D, bs, W, MB = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 256, 128
     lens, q_lens = main_path_lens(B, W, n_prefill, seed)
-    args = make_inputs(B, W, H, KH, D, bs, MB, "bfloat16", lens, q_lens,
+    args = make_inputs(B, W, H, KH, D, bs, MB, kv, lens, q_lens,
                        q_dtype=torch.bfloat16, seed=seed)
     q, entry, table, lens_t, q_lens_t = args
     before = ops.LAUNCHES
-    _, want, err = compare(f"{name} B={B} bf16 pages", args, bs=bs, window=0)
+    pages = {"bfloat16": "bf16", "int8": "int8"}[kv]
+    _, want, err = compare(f"{name} B={B} {pages} pages ({ops.ENTRIES[q.dtype, entry['k'].dtype]})",
+                           args, bs=bs, window=0)
     if n_prefill == 0:  # decode rows: skipping a slot's last 32-key tile must not pass
         planted("last 32-key tile dropped", drop_last_tile(args, bs=bs), want, BF16_TOL)
+    if kv == "int8":
+        planted("int8 pages without their per-token scales", unscaled(args, bs=bs), want,
+                BF16_TOL)
     del want
     torch.cuda.empty_cache()
     ms = time_ms(lambda: ops.paged_attention(q, entry, table, lens_t, q_lens_t, block_size=bs))
@@ -537,7 +581,7 @@ def phase_times(cfg, name, B, n_prefill, seed):
     lib_ms = time_ms(lambda: library_call(q, entry, table, lens_t, q_lens_t, bs), reps=10,
                      warmup=2)
     b_ms, b_by = bound(q, entry, lens_t, q_lens_t, 0)
-    log(f"  {name}: B={B} W={W} H={H} KH={KH} D={D} bf16 pages, {n_prefill} prefill "
+    log(f"  {name}: B={B} W={W} H={H} KH={KH} D={D} {pages} pages, {n_prefill} prefill "
         f"slots, live keys/slot mean {float((lens + q_lens).mean()):.0f}: kernel {ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, "
         f"gather+SDPA {lib_ms:.3f} ms")
@@ -1362,6 +1406,480 @@ def phase_int8_ffn(cfg_full):
     return max(errs), launches, out
 
 
+# ---------------------------------------------------------------- MoE
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# Phase 18's trace: every class, two tenants (shared system prompts, so
+# prefix sharing runs on int8 pages), summarize prompts past one 256-row chunk.
+MOE_MIX = {"classify": 8, "chat": 4, "summarize": 2}
+MOE_SLAB = 128 * 256  # the derived plan's rows a dispatch: 128 slots x 256
+# gshard in bf16 against float64 on the same routing, relative to the
+# largest output: four bf16 roundings on the way (h and g, silu(h) g, the
+# expert output, the layer output), each at most 2^-8 of its value.
+MOE_F64_TOL = 4 * 2.0**-8
+# Phase 19's eager run: B 4 prompts of 1024 tokens, 8 new tokens each.
+MOE_EAGER_B, MOE_EAGER_PROMPT, MOE_EAGER_GEN = 4, 1024, 8
+# Phase 18's first dispatch, kernel path vs plain path on the same routing,
+# per live row: |deviation| / |row| after l + 1 layers within
+# FIRST_DISPATCH_TOL sqrt(l + 1): each layer's own rounding (bf16 products,
+# int8 re-quantization of K and V) may move a row by one bf16 step, and
+# independent steps add as a random walk.  Element-wise, one bf16 step does
+# not hold past the first layer: rounding alone moves most elements by more
+# (the noise-floor run shows it).
+FIRST_DISPATCH_TOL = 2.0**-7
+
+
+def moe_weights(cfg, seed):
+    """One MoE layer's FFN leaves as ``init_params`` draws them (bf16,
+    scale 0.02): router (d, E), w1/w3 (E, d, F), w2 (E, F, d)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    draw = lambda *shape: (torch.randn(shape, generator=g, device="cuda") * 0.02).to(  # noqa: E731
+        torch.bfloat16)
+    return {"router": draw(d, E), "w1": draw(E, d, F_), "w3": draw(E, d, F_),
+            "w2": draw(E, F_, d)}
+
+
+def slab_rows(cfg, n_slots, width, n_live, seed):
+    """(n_slots x width, d) bf16 rows shaped like a slab's normed hidden
+    states: the first ``n_live[b]`` rows of slot b random, the rest one row
+    shared by every dead row (dead rows carry token 0 and a zeroed attention
+    output, so they route alike)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n_slots, width, cfg.d_model), generator=g, device="cuda")
+    dead = torch.randn((cfg.d_model,), generator=g, device="cuda")
+    for b in range(n_slots):
+        x[b, int(n_live[b]):] = dead
+    return x.reshape(n_slots * width, cfg.d_model).to(torch.bfloat16)
+
+
+def queue_ranks_np(e, cap):
+    """Plain host recomputation of gshard's capacity rule on (G, g K)
+    expert ids: a stable sort by expert, rank = position - the expert's
+    first position; kept iff rank < cap."""
+    rank = np.empty_like(e)
+    for gi in range(e.shape[0]):
+        order = np.argsort(e[gi], kind="stable")
+        se = e[gi][order]
+        rank[gi][order] = np.arange(se.size) - np.searchsorted(se, se, side="left")
+    return rank < cap
+
+
+def moe_ref64(p, x, gates, idx, st, *, whole_t=False):
+    """float64 recomputation of gshard's output on the card from the same
+    routing (gates, idx): the capacity rule recomputed on the host
+    (``queue_ranks_np``), each expert's FFN in float64 on its kept tokens,
+    gate-weighted sums.  ``whole_t``: ranks over the whole T instead of per
+    group (the planted control).  Returns (out (T, d) f64, kept (T, K))."""
+    from repro_torch.models import moe
+
+    T, d = x.shape
+    E, K = st.n_experts, st.top_k
+    g, G, cap = moe.gshard_groups(T, st)
+    e = idx.cpu().numpy()
+    kept = queue_ranks_np(e.reshape(1 if whole_t else G, -1), cap).reshape(T, K)
+    out = torch.zeros((T, d), dtype=torch.float64, device="cuda")
+    x64, gates64 = x.double(), gates.double()
+    for ex in range(E):
+        t, k = np.nonzero((e == ex) & kept)
+        if t.size == 0:
+            continue
+        t_d, k_d = torch.from_numpy(t).cuda(), torch.from_numpy(k).cuda()
+        xt = x64[t_d]
+        h = F.silu(xt @ p["w1"][ex].double()) * (xt @ p["w3"][ex].double())
+        out.index_add_(0, t_d, (h @ p["w2"][ex].double()) * gates64[t_d, k_d][:, None])
+    return out, kept
+
+
+def phase_moe_shapes(cfg):
+    """The flash and RMSNorm kernels against their plain versions at
+    qwen3-moe-30b-a3b's head shapes (H 32, KH 4, G 8): flash at phase 19's
+    prefill (fused-QKV views and contiguous copies, phase 8's control
+    planted), qk-norm on the q and k views of phase 18's slab and of phase
+    19's prefill (token stride (H + 2 KH) D, read in place).  Returns (flash
+    max abs error, RMSNorm max abs error)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, S = MOE_EAGER_B, MOE_EAGER_PROMPT
+    log(f"phase 16: flash and RMSNorm kernels vs plain versions at {cfg.name}'s head shapes "
+        f"(H {H}, KH {KH}, G {H // KH}, D {D})")
+    before = (flash_ops.LAUNCHES, rms_ops.LAUNCHES)
+    g = torch.Generator(device="cuda").manual_seed(62)
+    qkv = torch.randn((B, S, (H + 2 * KH) * D), generator=g, device="cuda").to(torch.bfloat16)
+    qv, kv_, vv = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    views = (qv.reshape(B, S, H, D), kv_.reshape(B, S, KH, D), vv.reshape(B, S, KH, D))
+    flash_errs = [flash_check(f"flash B={B} S={S} H={H} KH={KH} D={D} bf16, fused-QKV views",
+                              *views)[2]]
+    q, k, v = (x.contiguous() for x in views)
+    del qkv, views
+    _, want, err = flash_check("flash, contiguous", q, k, v)
+    flash_errs.append(err)
+    planted("P rounded once to bf16 (no hi + lo split)", flash_single_bf16_p(q, k, v), want,
+            BF16_TOL)
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    rms_errs = []
+    for n, (tag, b, w) in enumerate((("slab", 128, 256), ("prefill", B, S))):
+        q, k = qkv_views(b, w, H, KH, D, torch.bfloat16, 63 + 2 * n)
+        sv = rms_inputs((D,), torch.float32, 64 + 2 * n)[1]
+        for nm, v in (("q", q), ("k", k)):
+            got, want, err = rms_check(f"{tag} {nm} view {tuple(v.shape)} bf16, token stride "
+                                       f"{v.stride(1)}", v, sv)
+            rms_errs.append(err)
+            check(torch.equal(got, rms_ops.rmsnorm(v.contiguous(), sv)),
+                  "the strided view and its contiguous copy disagree")
+            if (tag, nm) == ("slab", "q"):
+                planted("(1 + scale) replaced by scale", rmsnorm_ref(v, sv - 1.0), want,
+                        BF16_TOL)
+            del got, want
+        del q, k
+    torch.cuda.empty_cache()
+    flash_ops.LAUNCHES, rms_ops.LAUNCHES = before  # checks are not main-path launches
+    return max(flash_errs), max(rms_errs)
+
+
+def phase_moe(cfg):
+    """The MoE functions at qwen3-moe-30b-a3b's width on the card (d 2048,
+    E 128, K 8, F 768, bf16 rows and weights): gshard and sort agree when
+    nothing drops; gshard at the slab's T with capacity 1.25 against a
+    float64 recomputation of the same routing (the same choices kept, a
+    planted control rejected); the layer's parts timed."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    E, K = cfg.n_experts, cfg.top_k
+    log(f"phase 17: MoE functions at {cfg.name} width (d {cfg.d_model}, E {E}, K {K}, "
+        f"F {cfg.moe_d_ff}), bf16")
+    p = moe_weights(cfg, seed=50)
+    # drop-free: capacity E / K gives gshard g slots an expert a group and
+    # sort T an expert, more than any expert can receive (a token's K
+    # choices are distinct); capacity E would ask 8x that (17 GB of xe at
+    # T 4096)
+    T = 4096
+    x = torch.randn((T, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(51),
+                    device="cuda").to(torch.bfloat16)
+    st = moe.MoESettings(E, K, capacity_factor=float(E // K))
+    combine, _ = moe.gshard_route(x, p["router"], st)
+    kept = int((combine > 0).sum())
+    del combine
+    y_g, aux_g = moe.moe_gshard(p, x, st, "swiglu")
+    y_s, aux_s = moe.moe_sort(p, x, dataclasses.replace(st, dispatch="sort"), "swiglu")
+    e_gs, e_aux = rel_err(y_g, y_s), abs(float(aux_g) - float(aux_s))
+    log(f"  T={T} capacity {E // K} (drop-free): gshard vs sort rel err {e_gs:.3g} (tol 2^-7 "
+        f"of the largest output: one bf16 step), aux {float(aux_g):.6f} vs {float(aux_s):.6f}, "
+        f"choices kept {kept} of {T * K}")
+    check(kept == T * K, "a drop-free gshard dispatch dropped a choice")
+    check(e_gs < 2.0**-7 and e_aux < 1e-5, "gshard and sort disagree drop-free")
+    del x, y_g, y_s
+    torch.cuda.empty_cache()
+
+    # the slab at capacity 1.25: 128 slots x 256 rows, 16 slots prefilling,
+    # 112 decoding one row, every other row dead
+    st = moe.MoESettings(E, K, capacity_factor=1.25)
+    g, G, cap = moe.gshard_groups(MOE_SLAB, st)
+    rng = np.random.default_rng(52)
+    n_live = np.ones(128, np.int64)
+    n_live[:16] = rng.integers(1, 257, 16)
+    x = slab_rows(cfg, 128, 256, n_live, seed=53)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y, _ = moe.moe_gshard(p, x, st, "swiglu")
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    gates, idx, _ = moe.router_topk(x, p["router"], K)
+    want, kept = moe_ref64(p, x, gates, idx, st)
+    combine, _ = moe.gshard_route(x, p["router"], st)
+    t_idx, e_idx = torch.nonzero(combine.reshape(MOE_SLAB, E, cap).amax(-1) > 0, as_tuple=True)
+    del combine
+    mine = set(zip(t_idx.tolist(), e_idx.tolist()))
+    t_k = np.nonzero(kept)
+    theirs = set(zip(t_k[0].tolist(), idx.cpu().numpy()[t_k].tolist()))
+    live = int(n_live.sum())
+    e64 = rel_err(y, want)
+    log(f"  T={MOE_SLAB} (g {g}, G {G}, cap {cap}), {live} live rows: choices kept "
+        f"{len(mine)} of {MOE_SLAB * K} (host rule: {len(theirs)}, identical: {mine == theirs}); "
+        f"vs float64 rel err {e64:.3g} (tol {MOE_F64_TOL:.3g}); extra device memory at peak "
+        f"{peak:.2f} GiB")
+    check(mine == theirs, "gshard keeps other choices than the capacity rule")
+    check(e64 < MOE_F64_TOL, "gshard disagrees with its float64 recomputation")
+    bad, _ = moe_ref64(p, x, gates, idx, st, whole_t=True)
+    e_bad = rel_err(y, bad)
+    log(f"  control ranks over the whole T: rel err {e_bad:.3g}: "
+        f"{'rejected' if e_bad >= MOE_F64_TOL else 'ACCEPTED'}")
+    check(e_bad >= MOE_F64_TOL, "the tolerance accepts ranks counted over the whole T")
+    del want, bad, y
+
+    # one layer's parts at the slab's T
+    combine, _ = moe.gshard_route(x, p["router"], st)
+    xe = moe.gshard_dispatch(combine, x)
+    ye = moe._expert_ffn(p, xe, "swiglu")
+    parts = {
+        "router": time_ms(lambda: moe.router_topk(x, p["router"], K), reps=5),
+        "route (router, ranks, combine weights)": time_ms(
+            lambda: moe.gshard_route(x, p["router"], st), reps=5),
+        "dispatch product": time_ms(lambda: moe.gshard_dispatch(combine, x), reps=5),
+        "experts": time_ms(lambda: moe._expert_ffn(p, xe, "swiglu"), reps=5),
+        "combine product (f32)": time_ms(lambda: moe.gshard_combine(combine, ye), reps=5),
+    }
+    del xe, ye, combine
+    torch.cuda.empty_cache()
+    parts["layer (moe_gshard)"] = time_ms(lambda: moe.moe_gshard(p, x, st, "swiglu"), reps=5)
+    flops = {"dispatch product": 2 * MOE_SLAB * E * cap * cfg.d_model,
+             "experts": 3 * 2 * E * G * cap * cfg.d_model * cfg.moe_d_ff,
+             "combine product (f32)": 2 * MOE_SLAB * E * cap * cfg.d_model}
+    for name, ms in parts.items():
+        rate = f", {flops[name] / ms / 1e9:.1f} TFLOP/s" if name in flops else ""
+        log(f"  time T={MOE_SLAB} {name}: {ms:.3f} ms{rate}")
+    del p, x, gates, idx
+    torch.cuda.empty_cache()
+    return parts
+
+
+def first_dispatch(params, cfg, plan, serve, reqs, *, fused, routing=None):
+    """The trace's first mixed dispatch: one ``ServingEngine.step`` of a
+    fresh engine, with the engine's ``forward`` and the MoE router wrapped.
+    With ``routing`` (another run's ``handed``), each layer's router hands
+    on that run's (gates, idx, aux) in place of its own, so both runs
+    dispatch the same choices to the same capacity slots.  Returns (live
+    rows' final hidden states (n, d), each MoE layer's router inputs on the
+    live rows (layers, n, d), the router's own top-k there (layers, n, K),
+    handed: the (gates, idx, aux) each layer dispatched)."""
+    from repro_torch.models import moe
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve import engine as engine_mod
+
+    engine = ServingEngine(params, cfg, plan, serve, fused=fused, device="cuda")
+    for r in reqs:
+        engine.submit(r)
+    forward, router = engine_mod.forward, moe.router_topk
+    live, rows, seen, handed = [], [], [], []
+
+    def recording_forward(p, batch, **kw):
+        W = batch["tokens"].shape[1]
+        kinds = kw["page_state"]["q_lens"]
+        live.append((torch.arange(W, device=kinds.device)[None] < kinds[:, None]).reshape(-1))
+        x, cache = forward(p, batch, **kw)
+        rows.append(x.reshape(-1, x.shape[-1])[live[-1]])
+        return x, cache
+
+    def recording_router(x, w, k):
+        own = router(x, w, k)
+        out = own if routing is None else routing[len(handed)]
+        seen.append((x[live[-1]], own[1][live[-1]]))
+        handed.append(out)
+        return out
+
+    engine_mod.forward, moe.router_topk = recording_forward, recording_router
+    try:
+        engine.step()
+    finally:
+        engine_mod.forward, moe.router_topk = forward, router
+    check(engine.stats["steps"] == 1 and len(rows) == 1 and len(seen) == cfg.n_layers,
+          f"the first step ran {len(rows)} forwards and {len(seen)} routers, expected one "
+          f"mixed dispatch through {cfg.n_layers} MoE layers")
+    del engine
+    torch.cuda.empty_cache()
+    return (rows[0], torch.stack([h for h, _ in seen]), torch.stack([i for _, i in seen]),
+            handed)
+
+
+def row_dev(got, want):
+    """Per row: the deviation's norm over the row's norm."""
+    return (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+
+
+def one_step_up(params, share, seed):
+    """Raise ``share`` of the embedding's elements by one bf16 step (the bit
+    pattern plus one) in place; returns the saved table."""
+    e = params["embed"]
+    saved = e.clone()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bits = e.view(torch.int16)
+    bits[torch.rand(e.shape, generator=g, device="cuda") < share] += 1
+    return saved
+
+
+def compare_first_dispatch(kernel, plain_, noise):
+    """Kernel path vs plain path on the first dispatch (``first_dispatch``'s
+    results, the plain path dispatching the kernel path's routing): every
+    MoE layer's router inputs and the final rows on the live rows, within
+    FIRST_DISPATCH_TOL sqrt(layers passed) of each row's norm.  ``noise``:
+    the plain path again with one bf16 step added to 1% of the embedding's
+    elements, the deviation rounding alone makes (reported).  The routing
+    choices the plain path's own router would have made differently are
+    counted, not held."""
+    rows_k, h_k, own_k, _ = kernel
+    rows_p, h_p, own_p, _ = plain_
+    n_layers, n_rows = h_k.shape[:2]
+    pairs = [(h_k[i], h_p[i]) for i in range(n_layers)] + [(rows_k, rows_p)]
+    dev = [float(row_dev(a, b).max()) for a, b in pairs]
+    floor = [float(row_dev(a, b).max()) for a, b in
+             [(noise[1][i], h_p[i]) for i in range(n_layers)] + [(noise[0], rows_p)]]
+    tol = [FIRST_DISPATCH_TOL * (i + 1) ** 0.5 for i in range(n_layers + 1)]
+    outside = [within(a, b, BF16_TOL)[2] for a, b in (pairs[0], pairs[-1])]
+    flip = (own_k.sort(-1).values != own_p.sort(-1).values).any(-1)  # (layers, rows)
+    fmt = lambda xs: "[" + ", ".join(f"{x:.2g}" for x in xs) + "]"  # noqa: E731
+    log(f"  first dispatch, {n_rows} live rows x {n_layers} MoE layers, the plain path "
+        f"dispatching the kernel path's routing; largest |deviation| / |row| after each "
+        f"layer's router inputs, then the final rows: kernel vs plain {fmt(dev)}; noise floor "
+        f"(plain path, one bf16 step on 1% of the embedding) {fmt(floor)}; tol 2^-7 "
+        f"sqrt(layers) {tol[0]:.3g} .. {tol[-1]:.3g}")
+    log(f"  elements outside one bf16 step (atol, rtol)={BF16_TOL}: layer 0 {outside[0]:.3%}, "
+        f"final rows {outside[1]:.3%}; the plain path's own router would have chosen "
+        f"differently on {int(flip.sum())} row-layers ({int(flip.any(0).sum())} of {n_rows} "
+        f"rows)")
+    for i, (d, t) in enumerate(zip(dev, tol)):
+        where = "the final rows" if i == n_layers else f"layer {i}'s router inputs"
+        check(d <= t, f"{where} differ by {d:.3g} of a row between the kernel and plain paths "
+              f"(tol {t:.3g})")
+    check(bool(torch.isfinite(rows_k).all()), "non-finite hidden rows on the first dispatch")
+
+
+def tpot_ms(finished) -> list:
+    """Per request: (done - first token) over the tokens after the first."""
+    return [(r.t_done - r.t_first) * 1e3 / (len(r.out) - 1) for r in finished
+            if r.t_done and r.t_first and len(r.out) > 1]
+
+
+def pct(xs) -> str:
+    a = np.asarray(xs, np.float64)
+    return (f"p50 {np.percentile(a, 50):.1f} p90 {np.percentile(a, 90):.1f} "
+            f"p99 {np.percentile(a, 99):.1f} (n {a.size})")
+
+
+def phase_moe_served(cfg, plan):
+    """The MoE main path: qwen3-moe-30b-a3b at full width and depth, bf16
+    weights, on the derived H100 plan (128 slots x 256 rows, int8 pages),
+    serving the multi-tenant trace.  Returns (launch counts, summary,
+    params), the weights kept for phase 19's eager run."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_serve_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import make_trace, per_class_report
+
+    log(f"phase 18 (main path): {cfg.name} full width and depth ({cfg.n_layers} layers), bf16 "
+        f"weights, on the derived H100 plan, trace {MOE_MIX} x 2 tenants")
+    serve = derive_serve_plan(cfg, MESH1, H100_SXM, max_seq_len=2048)
+    log(f"  {serve.describe()}")
+    check((serve.decode_batch, serve.mixed_slab_width, serve.kv_dtype) == (128, 256, "int8"),
+          "the derived plan is not 128 slots x 256 rows of int8 pages")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_params: {cfg.param_count() / 1e9:.2f} B parameters in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    trace = lambda: make_trace(cfg, MOE_MIX, tenants=2, stagger=1, seed=1,  # noqa: E731
+                               max_tokens=512)
+    # the first mixed dispatch: kernel path vs plain path (gathered pages,
+    # plain norms), the plain path dispatching the kernel path's routing:
+    # near-tied top-8 choices would otherwise flip on the paths' rounding
+    # and change the rows' outputs
+    kernel = first_dispatch(params, cfg, plan, serve, trace(), fused=True)
+    plain_ = first_dispatch(params, cfg, plan, serve, trace(), fused=False, routing=kernel[3])
+    saved = one_step_up(params, 0.01, seed=70)
+    noise = first_dispatch(params, cfg, plan, serve, trace(), fused=False, routing=kernel[3])
+    params["embed"].copy_(saved)
+    del saved
+    compare_first_dispatch(kernel, plain_, noise)
+    del kernel, plain_, noise
+    torch.cuda.empty_cache()
+
+    reqs = trace()
+    want_len = {r.rid: r.max_new_tokens for r in reqs}
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, s, finished = serve_once(cfg, plan, serve, params, reqs, fused=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    describe("served", s)
+    log(f"  peak device memory {peak:.2f} GiB; prefix {s['prefix']}")
+    log(f"  TTFT ms {pct([(r.t_first - r.t_admit) * 1e3 for r in finished])}; TPOT ms "
+        f"{pct(tpot_ms(finished))}; latency s {s['latency_s']}")
+    classes = per_class_report(finished)
+    log(f"  tenants {json.dumps(s['tenants'])}")
+    log(f"  classes {json.dumps(classes)}")
+    check(len(out) == len(reqs) and s["requests"]["finished"] == len(reqs),
+          "not every request finished")
+    check(all(len(out[r]) == n and all(0 <= t < cfg.vocab_size for t in out[r])
+              for r, n in want_len.items()), "a request emitted too few tokens or one outside "
+          "the vocab")
+    check(s["quarantines"] == 0 and s["requests"]["shed"] == 0, "non-finite logits or shedding")
+    check(set(s["tenants"]) == {"tenant0", "tenant1"}, "the summary lacks a tenant")
+    check(set(classes) == set(MOE_MIX), "the per-class report lacks a class")
+    check(s["prefix"]["hits"] > 0, "no prefix hit on the shared system prompts")
+    log(f"  kernel launches on the main path: {counts} ({s['steps']} dispatches: "
+        f"{cfg.n_layers} paged, {norms_per_forward(cfg)} rmsnorm each)")
+    return counts, {**s, "peak_gib": peak}, params
+
+
+def phase_moe_eager(cfg_full, plan, params):
+    """qwen3-moe-30b-a3b eager at full width and depth (phase 18's bf16
+    weights): ``greedy_generate``, B 4 x 1024-token prompts, 8 new tokens,
+    exact flash and RMSNorm launch counts."""
+    from repro_torch.serve import greedy_generate
+
+    B, S, n = MOE_EAGER_B, MOE_EAGER_PROMPT, MOE_EAGER_GEN
+    log(f"phase 19: {cfg_full.name} served by greedy_generate, bf16, full depth, B={B}, "
+        f"prompt {S}, {n} new tokens")
+    tokens = prompts(cfg_full, B, S, seed=6)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg_full, plan, {"tokens": tokens}, n_steps=n,
+                          cache_len=S + n, device="cuda").cpu()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  {tuple(out.shape)} tokens in {dt:.3f} s ({B * n / dt:.1f} tok/s); launches {counts}")
+    check(out.shape == (B, n) and int(out.min()) >= 0 and int(out.max()) < cfg_full.vocab_size,
+          "tokens of the wrong shape or outside the vocab")
+    want = expect_counts(flash_attention=cfg_full.n_layers,
+                         rmsnorm=norms_per_forward(cfg_full) * n)
+    check(counts == want, f"launches {counts}, expected {want} (one prefill, {n} forwards)")
+    return counts
+
+
+def phase_moe_paths(cfg_full, plan):
+    """qwen3-moe-30b-a3b with depth cut to 4 layers, f32 weights and pages,
+    untied head: the continuous kernel path against the gather path,
+    identical greedy tokens (phase 3's check).  At capacity E / K, where
+    no choice can drop: at 1.25 the slab's dead rows compete for capacity,
+    and the kernel zeroes their attention output while the gather path
+    attends them to the trash block, so the two paths drop different live
+    choices (JAX's two paths do the same)."""
+    import dataclasses
+
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_serve_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import random_stream
+
+    cfg = dataclasses.replace(cfg_full, n_layers=4, tie_embeddings=False,
+                              moe_capacity_factor=float(cfg_full.n_experts // cfg_full.top_k))
+    log(f"phase 19: {cfg.n_layers} layers at full width, f32 weights + pages, untied head, "
+        f"capacity {cfg.moe_capacity_factor:g} (drop-free): kernel vs gather path")
+    serve = derive_serve_plan(cfg, MESH1, H100_SXM, max_seq_len=2048, decode_batch=8,
+                              kv_dtype="fp32", rolled_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
+    reqs = lambda: random_stream(cfg, 8, (100, 600), 16, stagger=2, seed=1)  # noqa: E731
+    fused, k_counts, s1, _ = serve_once(cfg, plan, serve, params, reqs(), fused=True)
+    describe("kernel", s1)
+    gather, _, s2, _ = serve_once(cfg, plan, serve, params, reqs(), fused=False)
+    describe("gather", s2)
+    check(len(fused) == 8 and all(len(t) == 16 for t in fused.values()), "requests unfinished")
+    first_diff = next((r for r in fused if fused[r] != gather[r]), None)
+    log(f"  greedy tokens identical: {fused == gather} (first differing request: "
+        f"{first_diff}); distinct tokens in req000: {len(set(fused['req000']))}/16; kernel "
+        f"path launches {k_counts}")
+    check(fused == gather, "kernel and gather paths disagree on greedy tokens")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1429,6 +1947,27 @@ def main() -> None:
     mm_err = phase_mm_pu()
     ffn_err, mm_launches, mm_times = phase_int8_ffn(cfg)
     log(f"  int8 FFN times: {json.dumps(mm_times)}")
+
+    moe_cfg = get_config(MOE_ARCH)
+    moe_plan = derive_execution_plan(moe_cfg)
+    log(f"phase 16: paged attention with int8 pages at {MOE_ARCH}'s plan shapes (128 slots x "
+        f"256 rows, H {moe_cfg.n_heads}, KH {moe_cfg.n_kv_heads}, G "
+        f"{moe_cfg.n_heads // moe_cfg.n_kv_heads}): the CUDA-core entry")
+    err_d8, decode8 = phase_times(moe_cfg, "int8 decode", B=128, n_prefill=0, seed=60,
+                                  kv="int8")
+    err_m8, mixed8 = phase_times(moe_cfg, "int8 mixed", B=128, n_prefill=16, seed=61,
+                                 kv="int8")
+    log(f"  int8 mixed shape: {json.dumps(mixed8)}")
+    flash_err8, rms_err8 = phase_moe_shapes(moe_cfg)
+    flash_err, rms_err = max(flash_err, flash_err8), max(rms_err, rms_err8)
+    moe_parts = phase_moe(moe_cfg)
+    moe_counts, moe_served, moe_params = phase_moe_served(moe_cfg, moe_plan)
+    phase_moe_eager(moe_cfg, moe_plan, moe_params)
+    del moe_params
+    torch.cuda.empty_cache()
+    phase_moe_paths(moe_cfg, moe_plan)
+    log(f"  MoE layer parts (ms): {json.dumps(moe_parts)}")
+    log(f"  MoE served: {json.dumps({k: moe_served[k] for k in ('mean_dispatch_ms', 'tok_per_s', 'peak_gib', 'slab', 'ttft_s', 'latency_s')})}")
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
@@ -1475,6 +2014,15 @@ def main() -> None:
             "launches": mm_launches,
             "max_abs_err": max(mm_err, ffn_err),
             **mm_times[f"T={EAGER_PROMPT} w1 silu"],
+        },
+        {
+            "name": "paged_attention_int8",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
+            "launches": moe_counts["paged_attention"],
+            "max_abs_err": max(err_d8, err_m8),
+            **decode8,
         },
     ]
     print(card, flush=True)

@@ -2,7 +2,7 @@
 
 The port carries ``ServePlan`` / ``serve_feasible`` / ``derive_serve_plan``
 unchanged (the parity tests hold them field for field against the JAX
-package) and a small ``ExecutionPlan`` with the one field the paged forward
+package) and a small ``ExecutionPlan`` with the two fields the forward
 reads.  ``derive_plan`` is not ported: its MM-tile search is sized for the
 TPU's VMEM and finds no feasible tile for a 227 KB shared-memory budget.
 """
@@ -16,19 +16,26 @@ from repro_torch.core.hardware import DEFAULT_HARDWARE, HardwareSpec
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """The model-side plan decisions the paged serve forward reads."""
+    """The model-side plan decisions the forward reads."""
 
     arch: str
     # C5 Independent-Linear: one fused (q | k | v) projection matrix.
     fuse_qkv: bool
+    # MoE dispatch algorithm: "gshard" grouped one-hot products | "sort".
+    moe_dispatch: str = "gshard"
 
 
-def derive_execution_plan(cfg, fuse_qkv: Optional[bool] = None) -> ExecutionPlan:
-    """``fuse_qkv`` as ``repro.core.plan.derive_plan`` sets it: fused
-    wherever the arch has attention, unless the caller decides."""
+def derive_execution_plan(cfg, fuse_qkv: Optional[bool] = None, *,
+                          moe_dispatch: str = "gshard") -> ExecutionPlan:
+    """``fuse_qkv`` and ``moe_dispatch`` as ``repro.core.plan.derive_plan``
+    sets them: QKV fused wherever the arch has attention, unless the caller
+    decides; the dispatch the caller names, "gshard" by default (the JAX
+    serving launcher never names another)."""
     if fuse_qkv is None:
         fuse_qkv = cfg.fused_qkv_ok()
-    return ExecutionPlan(arch=cfg.name, fuse_qkv=bool(fuse_qkv))
+    if moe_dispatch not in ("gshard", "sort"):
+        raise ValueError(f"moe_dispatch {moe_dispatch!r}: 'gshard' or 'sort'")
+    return ExecutionPlan(arch=cfg.name, fuse_qkv=bool(fuse_qkv), moe_dispatch=moe_dispatch)
 
 
 @dataclasses.dataclass(frozen=True)

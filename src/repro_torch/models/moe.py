@@ -1,0 +1,176 @@
+"""Mixture-of-Experts FFN stage (the port's ``repro/models/moe.py``).
+
+Two dispatch implementations, selected by ``ExecutionPlan.moe_dispatch``:
+
+* ``gshard``: grouped one-hot dispatch (GShard/Switch style), the serving
+  default.  Tokens dispatch in groups of ``group_size``; each (token, k)
+  takes the next free slot of its expert's queue in its group, up to the
+  capacity ``max(1, int(g K cf / E))``, and is dropped past it.  Dispatch
+  and combine are matrix products over one-hot (slot) operands, as JAX
+  computes them: the dispatch in the activations' dtype, the combine in
+  f32.
+* ``sort``: a stable argsort of the (token, k) assignments into (E, C, d)
+  buffers (MegaBlocks-style dropping, C over the whole T), the expert
+  outputs scattered back with their gates in f32.
+
+The module holds no Pallas kernel: its products are ``torch`` matmuls, as
+the JAX package leaves them to XLA.  JAX's three-operand combine einsum
+(moe.py:93) has one non-zero term per (token, expert, slot), since a
+token's top-k experts are distinct and a slot holds one (token, k); the
+port writes the gates into the (T, E, C) combine tensor directly, which
+gives the same values without the (G, g, K, E, C) product.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 1024  # gshard dispatch group (tokens)
+    dispatch: str = "gshard"  # gshard | sort
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
+    """x: (T, d) -> (gates (T, k) f32, idx (T, k) int64, aux load-balance
+    loss f32).  The top k in descending order, the lower expert first on a
+    tie (``lax.top_k``'s order; ``torch.topk`` leaves ties unspecified, a
+    stable descending sort does not)."""
+    logits = x.float() @ w_router.float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :top_k], idx[:, :top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance aux loss
+    E = w_router.shape[-1]
+    me = probs.mean(dim=0)
+    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    aux = E * torch.sum(me * ce)
+    return gates, idx, aux
+
+
+def _expert_ffn(params: dict, xe: torch.Tensor, activation: str) -> torch.Tensor:
+    """xe: (E, C, d) -> (E, C, d), batched over experts."""
+    h = torch.bmm(xe, params["w1"])
+    if activation in ("swiglu", "geglu"):
+        act = F.silu(h) if activation == "swiglu" else F.gelu(h, approximate="tanh")
+        del h
+        h = act * torch.bmm(xe, params["w3"])
+        del act
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, params["w2"])
+
+
+# ---------------------------------------------------------------------------
+# GShard grouped dispatch
+# ---------------------------------------------------------------------------
+def gshard_groups(T: int, st: MoESettings):
+    """(g, G, cap): tokens a group (``group_size`` halved until it divides
+    T), groups, and each expert's slots a group."""
+    g = min(st.group_size, T)
+    while T % g:
+        g //= 2
+    return g, T // g, max(1, int(g * st.top_k * st.capacity_factor / st.n_experts))
+
+
+def queue_ranks(idxg: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """idxg: (G, g, K) expert of each (token, k) -> (G, g, K) its rank in its
+    expert's queue within its group: the count of earlier entries with the
+    same expert in the token-major (g x K) order (an exclusive cumsum)."""
+    G, g, K = idxg.shape
+    flat = idxg.reshape(G, g * K)
+    onehot = F.one_hot(flat, n_experts).to(torch.int32)  # (G, g K, E)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    return pos.gather(-1, flat[..., None]).reshape(G, g, K)
+
+
+def gshard_route(x: torch.Tensor, w_router: torch.Tensor, st: MoESettings):
+    """Router and slot assignment: (combine (G, g, E, cap) f32, aux).
+    ``combine[G, s, e, c]`` is token s's gate if one of its k choices took
+    slot c of expert e, else 0 (a dropped choice takes none)."""
+    T = x.shape[0]
+    E, K = st.n_experts, st.top_k
+    g, G, cap = gshard_groups(T, st)
+    gates, idx, aux = router_topk(x, w_router, K)
+    idxg = idx.reshape(G, g, K)
+    pos = queue_ranks(idxg, E)
+    in_cap = pos < cap
+    dev = x.device
+    tok = torch.arange(G * g, device=dev).reshape(G, g, 1)
+    flat = (tok * E + idxg) * cap + pos  # (G, g, K) into the flattened combine
+    combine = torch.zeros(G * g * E * cap, dtype=torch.float32, device=dev)
+    combine[flat[in_cap]] = gates.reshape(G, g, K)[in_cap]
+    return combine.reshape(G, g, E, cap), aux
+
+
+def gshard_dispatch(combine: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One-hot dispatch product: (E, G cap, d) expert inputs in x's dtype."""
+    G, g, E, cap = combine.shape
+    dispatch = (combine > 0).to(x.dtype).reshape(G, g, E * cap)
+    xe = torch.bmm(dispatch.transpose(1, 2), x.reshape(G, g, -1))  # (G, E cap, d)
+    del dispatch
+    return xe.reshape(G, E, cap, -1).transpose(0, 1).reshape(E, G * cap, -1)
+
+
+def gshard_combine(combine: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
+    """f32 combine product: (T, d) f32 from the expert outputs (E, G cap, d)."""
+    G, g, E, cap = combine.shape
+    d = ye.shape[-1]
+    ye32 = torch.empty((G, E, cap, d), dtype=torch.float32, device=ye.device)
+    ye32.copy_(ye.reshape(E, G, cap, d).transpose(0, 1))  # one f32 copy, group-major
+    return torch.bmm(combine.reshape(G, g, E * cap), ye32.reshape(G, E * cap, d)).reshape(
+        G * g, d)
+
+
+def moe_gshard(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
+    """x: (T, d) -> ((T, d) in x's dtype, aux).  Groups of g tokens dispatch
+    independently (bounds the one-hot size and the products' flops)."""
+    combine, aux = gshard_route(x, params["router"], st)
+    ye = _expert_ffn(params, gshard_dispatch(combine, x), activation)
+    return gshard_combine(combine, ye).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Sort-based dispatch
+# ---------------------------------------------------------------------------
+def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
+    T, d = x.shape
+    E, K = st.n_experts, st.top_k
+    N = T * K
+    C = max(1, int(T * K * st.capacity_factor / E))
+
+    gates, idx, aux = router_topk(x, params["router"], K)
+    flat_e = idx.reshape(N)
+    flat_gate = gates.reshape(N)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    # rank within expert = position - first index of that expert value
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(N, device=x.device) - first
+    valid = rank < C
+    slot = torch.where(valid, sorted_e * C + rank, E * C)  # E*C = drop bin
+    token_of = order // K
+
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x[token_of]  # the drop bin's row is never read
+    ye = _expert_ffn(params, buf[:-1].reshape(E, C, d), activation)
+    y_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    contrib = y_flat[slot].float() * (flat_gate[order] * valid)[:, None]
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    out.index_add_(0, token_of, contrib)
+    return out.to(x.dtype), aux
+
+
+def moe_ffn(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
+    """x: (..., d) -> (..., d), plus the aux loss (f32 scalar)."""
+    shape = x.shape
+    fn = moe_sort if st.dispatch == "sort" else moe_gshard
+    y, aux = fn(params, x.reshape(-1, shape[-1]), st, activation)
+    return y.reshape(shape), aux

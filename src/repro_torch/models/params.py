@@ -3,14 +3,16 @@
 The tree has the JAX package's shape: ``blocks.stack`` holds the n_full
 pattern-groups, each leaf stacked on a leading axis, ``blocks.tail`` the
 remainder layers, then ``embed`` and ``final_norm``.  Leaves and scales are
-the JAX ones for attention layers with a dense FFN and for RWKV-6 layers
-(time-mix + channel-mix, params.py:44-124); the numbers differ, because a
+the JAX ones for attention layers with a dense or MoE FFN (``router``,
+``w1``/``w3`` (E, d, F), ``w2`` (E, F, d)) and for RWKV-6 layers (time-mix +
+channel-mix, params.py:44-124); the numbers differ, because a
 ``torch.Generator`` is not a ``jax.random`` key.
 Parameters are a plain nested dict of tensors, not ``nn.Module``s, so the
 bridge and the tests compare like with like.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -20,15 +22,33 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
 
 
+# A leaf of more elements than this is drawn one leading-axis slice at a
+# time into the target dtype: qwen3-moe-30b-a3b's stacked expert w1 (48 x
+# 128 x 2048 x 768) would take 38.7 GB in f32 whole, against 60.4 GB of bf16
+# weights on an 80 GB card; a slice takes 0.8 GB.  Only the full-size
+# mixtral-8x7b, qwen3-moe-30b-a3b and mistral-large-123b have leaves above
+# it: every other arch draws each leaf whole.
+SLICE_ABOVE = 2**30
+
+
 class _Init:
     """Draws every leaf from one explicit generator, in f32, then casts."""
 
     def __init__(self, generator: torch.Generator, dtype, device):
         self.gen, self.dtype, self.device = generator, dtype, device
 
-    def normal(self, shape, scale=0.02):
+    def _draw(self, shape, scale):
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-        return (x * scale).to(self.dtype)
+        return x.mul_(scale).to(self.dtype)
+
+    def normal(self, shape, scale=0.02):
+        shape = tuple(shape)
+        if len(shape) < 2 or math.prod(shape) <= SLICE_ABOVE:
+            return self._draw(shape, scale)
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for i in range(shape[0]):
+            out[i] = self._draw(shape[1:], scale)
+        return out
 
     def zeros(self, shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -60,6 +80,14 @@ def _attn_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, lead: tuple)
 def _ffn_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
     d, F = cfg.d_model, cfg.d_ff
     p: dict = {"ln": init.norm(cfg, lead + (d,))}
+    if cfg.is_moe:
+        E, F = cfg.n_experts, cfg.moe_d_ff
+        p["router"] = init.normal(lead + (d, E))
+        p["w1"] = init.normal(lead + (E, d, F))
+        if cfg.activation in ("swiglu", "geglu"):
+            p["w3"] = init.normal(lead + (E, d, F))
+        p["w2"] = init.normal(lead + (E, F, d))
+        return p
     if cfg.activation == "rwkv":  # channel-mix
         p["mix_k"] = init.zeros(lead + (d,))
         p["mix_r"] = init.zeros(lead + (d,))
@@ -119,9 +147,9 @@ def init_params(
     """Random weights with the JAX tree and scales, drawn from ``generator``
     (a fresh one seeded 0 on ``device`` when omitted)."""
     dev = resolve_device(device)
-    if cfg.is_moe or cfg.enc_dec or cfg.frontend != "none" or cfg.n_classes:
+    if cfg.enc_dec or cfg.frontend != "none" or cfg.n_classes:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention and RWKV-6 decoders are ported")
+            f"{cfg.name}: only attention (dense or MoE FFN) and RWKV-6 decoders are ported")
     if cfg.activation not in ("swiglu", "geglu", "gelu", "rwkv"):
         raise NotImplementedError(f"{cfg.name}: activation {cfg.activation!r}")
     if cfg.pos_embedding not in ("rope", "none"):

@@ -1,6 +1,6 @@
 """EDPU forward (the port's ``repro/models/transformer.py``): one
 ``edpu_layer`` = one decoder layer, MHA (or RWKV-6 time-mix) stage then the
-FFN (or channel-mix) stage.  Three cache modes, as in JAX:
+FFN (dense, MoE through ``models/moe.py``, or channel-mix) stage.  Three cache modes, as in JAX:
 
 * no cache: the whole prompt at once (prefill); attention goes through the
   flash-attention kernel wrapper, RWKV-6 through the WKV kernel wrapper,
@@ -33,6 +33,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rwkv6 as R
 
 
@@ -146,13 +147,13 @@ def edpu_layer(
     page_state: Optional[dict] = None,
     fused: bool = True,
 ):
-    """One decoder layer: MHA (or RWKV-6 time-mix) stage, then the FFN (or
-    channel-mix) stage.  Returns ``(x, cache)``: with a cache, the same
+    """One decoder layer: MHA (or RWKV-6 time-mix) stage, then the FFN (MoE
+    on an MoE arch, with the plan's dispatch, or channel-mix) stage.  Returns ``(x, cache)``: with a cache, the same
     cache updated in place; with ``collect`` (prefill), a new entry of what
     the decode cache needs (``kv_out`` for attention layers, the states for
     RWKV-6); else None."""
-    if cfg.is_moe or kind not in ("attn", "swa", "local", "rwkv6"):
-        raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} / MoE not ported")
+    if kind not in ("attn", "swa", "local", "rwkv6"):
+        raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} not ported")
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rwkv6":
@@ -174,7 +175,14 @@ def edpu_layer(
             new_cache["kv_out"] = kv_out  # harvested by cache_from_prefill
     x = x + a
     h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
-    if kind == "rwkv6":
+    if cfg.is_moe:
+        st = M.MoESettings(
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.moe_capacity_factor, dispatch=plan.moe_dispatch,
+        )
+        # the aux loss is for training; no serving path reads it
+        f, _ = M.moe_ffn(lp["ffn"], h2, st, cfg.activation)
+    elif kind == "rwkv6":
         f, nc = R.rwkv6_channel_mix(
             lp["ffn"], h2, cache=None if cache is None else cache["cmix"], collect=collect,
         )

@@ -220,6 +220,13 @@ def _tree_to(tree, device):
     return None if tree is None else tree.to(device)
 
 
+def _by_tenant(finished: list) -> dict:
+    groups: dict = {}
+    for r in finished:
+        groups.setdefault(r.tenant, []).append(r)
+    return groups
+
+
 def _percentiles(xs: list) -> Optional[dict]:
     if not xs:
         return None
@@ -411,10 +418,34 @@ class ServingEngine:
     def summary(self) -> dict:
         """Engine accounting.  ``tok_per_s`` counts emitted output tokens
         only; prompt rows are ``prefill_tokens``.  ``slab`` sums the slots of
-        every device iteration by what they did."""
+        every device iteration by what they did.  ``tenants`` holds, per
+        tenant, the requests that finished normally, their latency and TTFT
+        percentiles and the count of each other disposition (JAX
+        engine.py:1027-1046)."""
         st = self.stats
         fin = self.sched.finished
         wall = st.get("wall_s") or st["device_s"] or None
+
+        def _dispositions(rs: list) -> dict:
+            out = {"shed": 0, "expired": 0, "cancelled": 0, "poisoned": 0}
+            for r in rs:
+                if r.status in out:
+                    out[r.status] += 1
+            return out
+
+        tenants = {}
+        for t, rs in sorted(_by_tenant(fin + self.sched.shed).items()):
+            t_fin = [r for r in rs if r.status == "ok"]
+            tenants[t] = {
+                "finished": len(t_fin),
+                "latency_s": _percentiles(
+                    [r.t_done - r.t_admit for r in t_fin if r.t_done and r.t_admit]
+                ),
+                "ttft_s": _percentiles(
+                    [r.t_first - r.t_admit for r in t_fin if r.t_first and r.t_admit]
+                ),
+                **_dispositions(rs),
+            }
         return {
             "device": str(self.device),
             "iterations": self.iteration,
@@ -448,6 +479,7 @@ class ServingEngine:
             "ttft_s": _percentiles(
                 [r.t_first - r.t_admit for r in fin if r.t_first and r.t_admit]
             ),
+            "tenants": tenants,
             "requests": {"finished": len(fin), "shed": len(self.sched.shed)},
             "quarantines": st["quarantines"],
             "prefix": {

@@ -153,3 +153,56 @@ def test_step_time_calibration_skips_first_dispatch(rolled_steps):
             assert got[:2] == [(1, 0, False), (2, 0, True)], (name, got)
         elif name == "single":
             assert got[:3] == [(1, 0, False), (1, 1, False), (1, 2, True)], got
+
+
+# ------------------------------------------------------------------ MoE
+# Reduced MoE configs tie the head; an untied one makes every greedy token
+# depend on the whole model (with random weights a tied head repeats the
+# last prompt token).
+UNTIE = {"tie_embeddings": False}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_staggered_mixed_lengths(arch):
+    want, got, _ = _both(arch, _prompts(10, [5, 8, 12, 3, 9]), 6, stagger=2, replace=UNTIE)
+    assert got == want and len(got) == 5
+    assert any(len(set(t)) > 1 for t in got.values())
+
+
+@pytest.mark.parametrize("replace", [{}, UNTIE])
+def test_moe_sliding_window_past_its_width(replace):
+    """tests/test_serve_engine.py:68-82's stream (mixtral-8x7b reduced,
+    window 16, contexts past it), tied as there and untied."""
+    want, got, _ = _both("mixtral-8x7b", _prompts(5, [20, 7, 25]), 8, replace=replace)
+    assert got == want and len(got) == 3
+
+
+def test_moe_rolled_loop_k4():
+    prompts = _prompts(11, [5, 9, 12])
+    want, got, engine = _both("qwen3-moe-30b-a3b", prompts, 8, rolled_steps=4,
+                              replace=UNTIE)
+    assert got == want
+    r = engine.summary()["rolled"]
+    assert r["dispatches"] >= 1 and r["rolled_steps"] > r["dispatches"]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_capacity_125_slab_rows_compete(arch, monkeypatch):
+    """``moe_capacity_factor=1.25`` in both configs: the slab's rows (dead
+    ones included) compete for each group's expert slots and choices are
+    dropped; the port drops as JAX does, so the tokens stay identical."""
+    from repro_torch.models import moe
+
+    dropped = []
+    route = moe.gshard_route
+
+    def counting(x, w_router, st):
+        combine, aux = route(x, w_router, st)
+        dropped.append(x.shape[0] * st.top_k - int((combine > 0).sum()))
+        return combine, aux
+
+    monkeypatch.setattr(moe, "gshard_route", counting)
+    want, got, _ = _both(arch, _prompts(12, [14, 6, 11, 9]), 6, stagger=1,
+                         replace={**UNTIE, "moe_capacity_factor": 1.25})
+    assert got == want and len(got) == 4
+    assert sum(dropped) > 0

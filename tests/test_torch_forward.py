@@ -1,6 +1,7 @@
 """One model, two paged serve steps, both packages: the port's ``forward``
 + ``logits_fn`` against the JAX ``forward`` on the same bridged weights and
-the same slab (an idle slot, a prefilling slot, a decoding slot), through
+the same slab (an idle slot, a prefilling slot, a decoding slot), on dense
+and MoE archs (reduced mixtral-8x7b and qwen3-moe-30b-a3b), through
 the fused path (JAX: the Pallas kernel in interpret mode; port on CPU: the
 plain version) and the gather path.  f32: hidden states and logits within
 1e-4; the pools hold the same pages after each step (every block but the
@@ -34,9 +35,15 @@ def _pool_leaves(tree):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("arch,kv_dtype", [("qwen3-1.7b", "fp32"), ("smollm-135m", "int8")])
-def test_mixed_paged_steps_match_jax(arch, kv_dtype, fused):
-    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch)
+@pytest.mark.parametrize("arch,kv_dtype,replace", [
+    ("qwen3-1.7b", "fp32", {}), ("smollm-135m", "int8", {}),
+    # MoE FFNs over the slab (dead rows route too): drop-free at the reduced
+    # capacity factor, and at 1.25, where slab rows compete for capacity
+    ("mixtral-8x7b", "fp32", {}), ("qwen3-moe-30b-a3b", "int8", {}),
+    ("qwen3-moe-30b-a3b", "fp32", {"moe_capacity_factor": 1.25}),
+])
+def test_mixed_paged_steps_match_jax(arch, kv_dtype, replace, fused):
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch, **replace)
     kw = dict(max_seq_len=32, decode_batch=3, block_size=4, kv_dtype=kv_dtype,
               prefill_chunk=4)
     jserve, serve = jax_serve_plan(jcfg, MESH1, **kw), derive_serve_plan(tcfg, MESH1, **kw)

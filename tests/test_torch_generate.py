@@ -1,7 +1,8 @@
 """The port's eager path against the JAX package on bridged f32 weights:
 ``greedy_generate`` gives JAX ``greedy_generate``'s tokens exactly on
-reduced rwkv6-1.6b and qwen3-1.7b (f32 cache); prefill -> decode over the
-dense cache equals the full pass (rel 2e-3, as tests/test_decode.py), the
+reduced rwkv6-1.6b, qwen3-1.7b, mixtral-8x7b and qwen3-moe-30b-a3b (f32
+cache); prefill -> decode over the dense cache equals the full pass (rel
+2e-3, as tests/test_decode.py; the reduced MoE archs are drop-free), the
 SWA ring cache included past its window; ``cache_from_prefill`` builds the
 JAX cache tree; the port's continuous engine gives the port's
 ``greedy_generate`` tokens request by request (as tests/test_serve_engine.py
@@ -24,10 +25,13 @@ from repro_torch.serve import Request, ServingEngine, greedy_generate
 from torch_parity import MESH1, model_pair, t2n
 
 ARCHS = ["rwkv6-1.6b", "qwen3-1.7b"]
+MOE_ARCHS = ["mixtral-8x7b", "qwen3-moe-30b-a3b"]
 # Reduced qwen3 ties its head to the embedding, and with random weights its
 # greedy stream just repeats the last prompt token; an untied head (rwkv6
 # has one) makes every token depend on the whole model.
-UNTIED = {"rwkv6-1.6b": {}, "qwen3-1.7b": {"tie_embeddings": False}}
+UNTIED = {"rwkv6-1.6b": {}, "qwen3-1.7b": {"tie_embeddings": False},
+          "mixtral-8x7b": {"tie_embeddings": False},
+          "qwen3-moe-30b-a3b": {"tie_embeddings": False}}
 
 
 def _tokens(cfg, B, S, seed=0):
@@ -35,7 +39,9 @@ def _tokens(cfg, B, S, seed=0):
 
 
 @pytest.mark.parametrize("arch,untie", [("rwkv6-1.6b", False), ("qwen3-1.7b", False),
-                                        ("qwen3-1.7b", True)])
+                                        ("qwen3-1.7b", True), ("mixtral-8x7b", True),
+                                        ("qwen3-moe-30b-a3b", False),
+                                        ("qwen3-moe-30b-a3b", True)])
 def test_greedy_generate_matches_jax(arch, untie):
     jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(
         arch, **(UNTIED[arch] if untie else {}))
@@ -71,7 +77,7 @@ def _rel(got, want):
     return np.max(np.abs(want - got)) / (np.max(np.abs(want)) + 1e-9)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_prefill_decode_matches_full(arch):
     jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch)
     tokens = _tokens(tcfg, 2, 11, seed=1)
@@ -108,7 +114,7 @@ def _shapes(tree, prefix=()):
     return {prefix: tuple(np.shape(tree))}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_cache_trees_match_jax(arch):
     """``cache_from_prefill`` and ``init_cache`` build the JAX tree (keys
     and shapes) with the same values; the stacked groups carry ``t``."""

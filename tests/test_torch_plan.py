@@ -19,7 +19,7 @@ V5E = HardwareSpec(
     **{f.name: getattr(TPU_V5E, f.name) for f in dataclasses.fields(HardwareSpec)}
 )
 SERVABLE = ("qwen3-1.7b", "smollm-135m", "phi4-mini-3.8b", "mistral-large-123b",
-            "mixtral-8x7b")
+            "mixtral-8x7b", "qwen3-moe-30b-a3b")
 KNOBS = [
     {},
     {"max_seq_len": 4096, "decode_batch": 8},
@@ -50,6 +50,28 @@ def test_serve_plan_matches_jax_field_for_field(arch, kw):
 def test_execution_plan_fuses_qkv_as_jax(arch):
     jax_plan = derive_plan(jax_get_config(arch), MESH1, batch=4, seq_len=16, training=False)
     assert derive_execution_plan(get_config(arch)).fuse_qkv == jax_plan.fuse_qkv
+
+
+@pytest.mark.parametrize("kw", [{}, {"moe_dispatch": "sort"}])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_execution_plan_moe_dispatch_as_jax(arch, kw):
+    """``moe_dispatch``: "gshard" unless the caller names another, as JAX's
+    serving plan (the launcher never names another)."""
+    jax_plan = derive_plan(jax_get_config(arch), MESH1, batch=4, seq_len=16, training=False,
+                           **kw)
+    assert derive_execution_plan(get_config(arch), **kw).moe_dispatch == jax_plan.moe_dispatch
+    with pytest.raises(ValueError):
+        derive_execution_plan(get_config(arch), moe_dispatch="einsum")
+
+
+def test_h100_plan_for_qwen3_moe():
+    """qwen3-moe-30b-a3b on the H100 entry at 2048 positions: 60.4 GB of
+    bf16 weights leave a 19.6 GB KV budget, which the planner fills with
+    int8 pages: 128 slots x a 256-row slab, 16,385 16-token blocks."""
+    sp = derive_serve_plan(get_config("qwen3-moe-30b-a3b"), MESH1, H100_SXM, max_seq_len=2048)
+    assert (sp.decode_batch, sp.block_size, sp.n_blocks, sp.kv_dtype) == (128, 16, 16385, "int8")
+    assert (sp.mixed_slab_width, sp.rolled_steps, sp.prefix_sharing) == (256, 1, True)
+    assert serve_feasible(get_config("qwen3-moe-30b-a3b")) == (True, "")
 
 
 def test_h100_plan_for_qwen3():

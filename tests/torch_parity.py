@@ -46,11 +46,14 @@ def configs(arch: str = "smollm-135m", **replace):
     return jcfg, tcfg
 
 
-def model_pair(arch: str = "smollm-135m", dtype=jnp.float32, seed: int = 0, **replace):
+def model_pair(arch: str = "smollm-135m", dtype=jnp.float32, seed: int = 0,
+               moe_dispatch: str = "gshard", **replace):
     """(jcfg, jplan, jparams, tcfg, tplan, tparams): JAX weights from
-    ``repro.models.params.init_params`` and their bridged torch copy."""
+    ``repro.models.params.init_params`` and their bridged torch copy; both
+    plans take ``moe_dispatch``."""
     jcfg, tcfg = configs(arch, **replace)
-    jplan = derive_plan(jcfg, MESH1, batch=4, seq_len=16, training=False)
-    tplan = derive_execution_plan(tcfg)
+    jplan = derive_plan(jcfg, MESH1, batch=4, seq_len=16, training=False,
+                        moe_dispatch=moe_dispatch)
+    tplan = derive_execution_plan(tcfg, moe_dispatch=moe_dispatch)
     jparams = jax_init_params(jax.random.PRNGKey(seed), jcfg, jplan, dtype=dtype)
     return jcfg, jplan, jparams, tcfg, tplan, from_jax(to_numpy(jparams), device="cpu")
