@@ -60,18 +60,34 @@ the kernel path's routing; every layer's router inputs and the final rows
 within the bf16 tolerance);
 19 the same weights through ``greedy_generate`` (B 4 x 1024,
 8 new tokens), then 4 layers in f32, drop-free, kernel vs gather path
-(identical tokens).  Every main path (phases 3-5, 9-11, 18-19) checks the
+(identical tokens); then speculation and hardening on qwen3-1.7b: 20
+paged attention at speculative verify rows (q_len 2-8 on decode slots:
+the tensor-core entry's decode-item route at the derived plan's shape,
+causal edges on key-split boundaries, the split scheme emulated there; the
+CUDA-core entry with f32 and int8 pages at G 8) and its times at 256 slots
+x q_len 5; 21(a) f32 at full depth (untied head), a self-drafting
+``ModelDraft`` at gamma 4 against the non-speculative engine (identical
+tokens); 21(b) the speculative main path: bf16 on the derived plan, n-gram
+drafting at gamma 4 on a ``make_trace`` replay with tracing on (the Chrome
+trace validated, the Prometheus text round-tripped, the drift meter's
+measured/predicted ratio per phase) against the same stream without
+speculation; 22 a chaos run (transient bursts, NaN poison, pool pressure,
+latency spikes from one seed) that walks the ladder to the gather rung
+and back with the clean run's tokens, and a snapshot restored on a fresh
+engine.  Every main path (phases 3-5, 9-11, 18-19, 21-22) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once
 a layer, the RMSNorm kernel once a norm per forward (113 on qwen3-1.7b,
-193 on qwen3-moe-30b-a3b, none on rwkv6's LayerNorm), and no kernel at
-all on a plain path.  Planted controls (a dropped key tile, a window one
+193 on qwen3-moe-30b-a3b, none on rwkv6's LayerNorm; a draft model's
+forwards count too), and no kernel at all on a plain path (or the gather
+rung).  Planted controls (a dropped key tile, a window one
 key wider, int8 pages read without their scales, MoE queue ranks counted
 over the whole T instead of per group, P rounded once to bf16 instead of
 split into hi + lo, in flash and in paged attention, a key split left out
 of paged attention's combine, the WKV's cross-chunk term dropped, its
 diagonal halves' per-element weights dropped, or its operands rounded
 once to TF32 (logged if it passes), the norm's ``1 + scale`` or mean
-changed, a dropped K slice, a per-row scale) show that the tolerances
+changed, a dropped K slice, a per-row scale, the causal edge between
+verify rows dropped) show that the tolerances
 reject a wrong kernel.  Kernel times are medians over batches
 of back-to-back calls (``time_ms``).
 """
@@ -190,11 +206,11 @@ def small_case_lens(B, W, bs, MB, seed):
     return lens, q_lens
 
 
-def main_path_lens(B, W, n_prefill, seed, max_ctx=2048):
-    """Slots 0..n_prefill-1 prefill up to W rows, the rest decode one;
-    contexts up to max_ctx."""
+def main_path_lens(B, W, n_prefill, seed, max_ctx=2048, q_len=1):
+    """Slots 0..n_prefill-1 prefill up to W rows, the rest decode ``q_len``
+    (1, or gamma + 1 verify rows); contexts up to max_ctx."""
     rng = np.random.default_rng(seed)
-    q_lens = np.ones(B, np.int64)
+    q_lens = np.full(B, q_len, np.int64)
     q_lens[:n_prefill] = rng.integers(1, W + 1, n_prefill)
     lens = np.array([rng.integers(0, max_ctx - int(q)) for q in q_lens])
     return lens, q_lens
@@ -431,7 +447,7 @@ def phase_served(cfg, plan):
           "a request emitted a token outside the vocab or too few tokens")
     check(s["requests"]["shed"] == 0, "requests were shed")
     # the engine quarantines (and replays) a slot whose logits are not finite
-    check(s["quarantines"] == 0, "non-finite logits")
+    check(s["faults"]["quarantines"] == 0, "non-finite logits")
     # per device iteration (mixed step or rolled one): one paged launch a
     # layer, one RMSNorm launch a norm (serve_once checked the counts)
     check(s["steps"] > 0, "no device iteration ran")
@@ -549,16 +565,17 @@ def unscaled(args, *, bs):
     return plain((q, {**entry, **ones}, table, lens, q_lens), bs=bs)
 
 
-def phase_times(cfg, name, B, n_prefill, seed, kv="bfloat16"):
+def phase_times(cfg, name, B, n_prefill, seed, kv="bfloat16", q_len=1):
     """Kernel vs plain version at one of the main path's shapes (the derived
-    plan's B slots x 256-row slab, B x 128 blocks of ``kv`` pages), then
-    times.  Planted controls: decode rows with a slot's last 32-key tile
-    dropped; int8 pages read without their scales."""
+    plan's B slots x 256-row slab, B x 128 blocks of ``kv`` pages, decode
+    slots with ``q_len`` rows), then times.  Planted controls: decode rows
+    with a slot's last 32-key tile dropped; int8 pages read without their
+    scales."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     H, KH, D, bs, W, MB = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 256, 128
-    lens, q_lens = main_path_lens(B, W, n_prefill, seed)
+    lens, q_lens = main_path_lens(B, W, n_prefill, seed, q_len=q_len)
     args = make_inputs(B, W, H, KH, D, bs, MB, kv, lens, q_lens,
                        q_dtype=torch.bfloat16, seed=seed)
     q, entry, table, lens_t, q_lens_t = args
@@ -582,7 +599,8 @@ def phase_times(cfg, name, B, n_prefill, seed, kv="bfloat16"):
                      warmup=2)
     b_ms, b_by = bound(q, entry, lens_t, q_lens_t, 0)
     log(f"  {name}: B={B} W={W} H={H} KH={KH} D={D} {pages} pages, {n_prefill} prefill "
-        f"slots, live keys/slot mean {float((lens + q_lens).mean()):.0f}: kernel {ms:.4f} ms, "
+        f"slots, q_len {q_len} a decode slot, live keys/slot mean "
+        f"{float((lens + q_lens).mean()):.0f}: kernel {ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, "
         f"gather+SDPA {lib_ms:.3f} ms")
     del args, q, entry
@@ -1807,7 +1825,8 @@ def phase_moe_served(cfg, plan):
     check(all(len(out[r]) == n and all(0 <= t < cfg.vocab_size for t in out[r])
               for r, n in want_len.items()), "a request emitted too few tokens or one outside "
           "the vocab")
-    check(s["quarantines"] == 0 and s["requests"]["shed"] == 0, "non-finite logits or shedding")
+    check(s["faults"]["quarantines"] == 0 and s["requests"]["shed"] == 0,
+          "non-finite logits or shedding")
     check(set(s["tenants"]) == {"tenant0", "tenant1"}, "the summary lacks a tenant")
     check(set(classes) == set(MOE_MIX), "the per-class report lacks a class")
     check(s["prefix"]["hits"] > 0, "no prefix hit on the shared system prompts")
@@ -1877,6 +1896,339 @@ def phase_moe_paths(cfg_full, plan):
         f"path launches {k_counts}")
     check(fused == gather, "kernel and gather paths disagree on greedy tokens")
     del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- speculation
+# Speculative decoding's verify rows: a decode slot carries gamma + 1 query
+# rows at its length.  The tensor-core entry treats a slot as a decode item
+# while G x q_len rows fit one 16-row mma block (q_len <= 8 at qwen3-1.7b's
+# G 2), so those rows take the key-split route, with a causal edge between
+# them; phases 2 and 6 hold that route at q_len 1 only.
+VERIFY_QLENS = (2, 3, 5, 8)
+GAMMA = 4
+# Phase 21(b)'s trace: two tenants of chat and classify requests.
+SPEC_MIX = {"chat": 4, "classify": 4}
+
+
+def verify_lens(B, W, seed, *, qlens=VERIFY_QLENS, n_prefill=4, split=512, max_ctx=2048):
+    """Slots cycle through ``qlens`` and 1 (a plain decode row); the first
+    ``n_prefill`` prefill W/2..W rows; the last is idle.  Contexts are drawn
+    up to max_ctx (1-4 key splits), and every third slot after the prefill
+    ones has its last row's causal edge on a split boundary: the first key
+    of split s or the last key of split s - 1, s in 1..3."""
+    rng = np.random.default_rng(seed)
+    cycle = list(qlens) + [1]
+    q_lens = np.array([cycle[b % len(cycle)] for b in range(B)], np.int64)
+    q_lens[:n_prefill] = rng.integers(W // 2, W + 1, n_prefill)
+    lens = np.array([rng.integers(0, max_ctx - int(q)) for q in q_lens])
+    for n, b in enumerate(range(n_prefill, B - 1, 3)):
+        edge = (1 + n % 3) * split - (n // 3) % 2
+        lens[b] = edge - q_lens[b] + 1
+    q_lens[-1] = 0
+    return lens, q_lens
+
+
+def no_causal_edge(args, *, bs):
+    """A planted control: every live row of a slot sees all the slot's keys
+    up to its last row, as a kernel that dropped the causal edge between
+    verify rows would compute."""
+    from repro_torch.kernels.paged_attention.ref import masked_attention, paged_mask
+    from repro_torch.models.cache import paged_gather
+
+    q, entry, table, lens, q_lens = args
+    if q.dtype == torch.float32 and entry["k"].dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).float()
+    k, v = paged_gather(entry, table, bs)
+    valid = paged_mask(lens, q_lens, q.shape[1], k.shape[1])
+    last = (lens.long() + q_lens.long() - 1)[:, None, None]
+    valid = valid.any(dim=-1, keepdim=True) & (
+        torch.arange(k.shape[1], device=q.device)[None, None] <= last)
+    return masked_attention(q, k, v, valid).to(q.dtype)
+
+
+def phase_verify(cfg, moe_cfg):
+    """Paged attention at verify-row shapes, kernel vs plain version (one
+    bf16 step; f32 2e-5), each case with a planted control: the tensor-core
+    entry at qwen3-1.7b's derived shape, the split scheme at verify rows,
+    the CUDA-core entry with f32 and int8 pages at qwen3-moe-30b-a3b's G 8;
+    then the times with all 256 slots at q_len gamma + 1."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_split_ref
+
+    log(f"phase 20: paged attention at verify-row shapes (q_len 2-8 on decode slots)")
+    H, KH, D, bs, W, MB = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 256, 128
+    errs = []
+    lens, q_lens = verify_lens(256, W, seed=70)
+    args = make_inputs(256, W, H, KH, D, bs, MB, "bfloat16", lens, q_lens,
+                       q_dtype=torch.bfloat16, seed=70)
+    ent = ops.ENTRIES[torch.bfloat16, torch.bfloat16]
+    decode_items = int(((q_lens > 0) & (q_lens * (H // KH) <= ops.DEC_ROWS)).sum())
+    _, want, err = compare(f"verify G {H // KH} B=256 W={W} bf16 pages ({ent}; {decode_items} "
+                           f"decode items, q_lens {sorted(set(q_lens.tolist()))[:6]}...)",
+                           args, bs=bs, window=0)
+    errs.append(err)
+    planted("causal edge between verify rows dropped", no_causal_edge(args, bs=bs), want,
+            BF16_TOL)
+    del args, want
+    torch.cuda.empty_cache()
+    # the scheme (splits, f32 partials, P as hi + lo) at verify rows, on 10
+    # slots: its emulation loops over slots and warps
+    lens, q_lens = verify_lens(10, 8, seed=71, n_prefill=0)
+    args = make_inputs(10, 8, H, KH, D, bs, MB, "bfloat16", lens, q_lens,
+                       q_dtype=torch.bfloat16, seed=71)
+    _, want, err = compare("verify scheme slots (10 x 8 rows)", args, bs=bs, window=0)
+    errs.append(err)
+    scheme = lambda **kw: paged_attention_split_ref(*args, block_size=bs,  # noqa: E731
+                                                    split=ops.SPLIT, **kw)
+    ok, e, _ = within(scheme(), want, BF16_TOL)
+    log(f"  scheme emulated at verify rows: max_abs_err={e:.3g} {'ok' if ok else 'MISMATCH'}")
+    check(ok, "the emulated split scheme disagrees with the plain version at verify rows")
+    planted("split 1 (keys 512-1023) left out of the combine at verify rows",
+            scheme(drop_split=1), want, BF16_TOL)
+    planted("P rounded once to bf16 at verify rows", scheme(p_split=False), want, BF16_TOL)
+    del args, want
+    # the CUDA-core entry at qwen3-moe-30b-a3b's heads (G 8): 8 rows a slot row
+    H8, KH8 = moe_cfg.n_heads, moe_cfg.n_kv_heads
+    for kv, qdt in (("float32", torch.float32), ("int8", torch.bfloat16)):
+        lens, q_lens = verify_lens(128, W, seed=72, qlens=(2, 3, 4, 5))
+        args = make_inputs(128, W, H8, KH8, D, bs, MB, kv, lens, q_lens, q_dtype=qdt, seed=72)
+        _, want, err = compare(f"verify G {H8 // KH8} B=128 {kv} pages, {str(qdt)[6:]} q "
+                               f"({ops.ENTRIES[qdt, args[1]['k'].dtype]})", args, bs=bs,
+                               window=0)
+        errs.append(err)
+        planted(f"causal edge dropped ({kv} pages)", no_causal_edge(args, bs=bs), want,
+                tolerance(qdt))
+        if kv == "int8":
+            planted("int8 pages without their scales at verify rows", unscaled(args, bs=bs),
+                    want, BF16_TOL)
+        del args, want
+        torch.cuda.empty_cache()
+    err, times = phase_times(cfg, "verify", B=256, n_prefill=0, seed=73, q_len=GAMMA + 1)
+    errs.append(err)
+    return max(errs), times
+
+
+def spec_plans(cfg):
+    """Phase 21(a)'s and 22's plan: 32 slots x a 16-row slab, f32 pages,
+    1024 positions, K = 1; and its speculative twin (gamma 4)."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_serve_plan
+
+    kw = dict(max_seq_len=1024, decode_batch=32, prefill_chunk=16, mixed_slab_width=16,
+              kv_dtype="fp32", rolled_steps=1)
+    base = derive_serve_plan(cfg, MESH1, H100_SXM, **kw)
+    spec = derive_serve_plan(cfg, MESH1, H100_SXM, draft=cfg.name, spec_len=GAMMA, **kw)
+    return base, spec
+
+
+def spec_stream(cfg):
+    from repro_torch.serve import random_stream
+
+    return random_stream(cfg, 8, (100, 300), 16, stagger=2, seed=1)
+
+
+def phase_spec_self(cfg, plan, params):
+    """qwen3-1.7b full width and depth in f32 (untied head): a self-drafting
+    ModelDraft (the target's weights, its own paged pool and mixed step) at
+    gamma 4 against the non-speculative engine on the same stream:
+    identical tokens, and exact launch counts (both engines' forwards run
+    the paged kernel once a layer and the RMSNorm kernel once a norm).
+    Returns the non-speculative tokens (phase 22's clean run)."""
+    from repro_torch.serve import ModelDraft, ServingEngine
+
+    base, spec = spec_plans(cfg)
+    log(f"phase 21(a): {cfg.name} f32 full depth, untied head, 32 slots x 16 rows: a "
+        f"self-drafting ModelDraft at gamma {spec.spec_len} vs no speculation")
+    plain_out, _, s0, _ = serve_once(cfg, plan, base, params, spec_stream(cfg), fused=True)
+    describe("no speculation", s0)
+    draft = ModelDraft(params, cfg, plan, base, target_vocab=cfg.vocab_size, device="cuda")
+    engine = ServingEngine(params, cfg, plan, spec, draft=draft, device="cuda")
+    reset_counts()  # count this run's launches only
+    out = engine.run(spec_stream(cfg))
+    counts = read_counts()
+    s = engine.summary()
+    describe("speculative", s)
+    fwd = s["dispatches"] + draft.dispatch_counts["draft_step"]
+    want = expect_counts(paged_attention=cfg.n_layers * fwd, rmsnorm=norms_per_forward(cfg) * fwd)
+    log(f"  spec {json.dumps(s['spec'])}; launches {counts} over {s['dispatches']} target and "
+        f"{draft.dispatch_counts['draft_step']} draft dispatches")
+    check(counts == want, f"launches {counts}, expected {want}")
+    check(len(out) == 8 and all(len(t) == 16 for t in out.values()), "requests unfinished")
+    first_diff = next((r for r in out if out[r] != plain_out[r]), None)
+    log(f"  speculative tokens identical to the plain engine's: {out == plain_out} (first "
+        f"differing request: {first_diff}); distinct tokens in req000: "
+        f"{len(set(out['req000']))}/16")
+    check(out == plain_out, "speculative tokens differ from the non-speculative engine's")
+    check(s["spec"]["draft_rows"] > 0 and s["spec"]["acceptance_rate"] > 0.5,
+          "the self-drafting ModelDraft was not accepted")
+    del engine, draft
+    torch.cuda.empty_cache()
+    return plain_out
+
+
+def phase_spec_served(cfg, plan):
+    """This slice's main path: qwen3-1.7b bf16 on the derived plan (256 x
+    256, bf16 pages), n-gram drafting at gamma 4, a make_trace replay with
+    tracing on; the same stream without speculation for the dispatch time.
+    Returns (launch counts, summary)."""
+    import tempfile
+
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_serve_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.obs import Observability, prometheus_roundtrip_ok, validate_chrome_trace
+    from repro_torch.serve import NGramDraft, ServingEngine, make_trace
+
+    serve = derive_serve_plan(cfg, MESH1, H100_SXM, max_seq_len=2048)
+    spec = derive_serve_plan(cfg, MESH1, H100_SXM, max_seq_len=2048, draft="ngram",
+                             spec_len=GAMMA)
+    log(f"phase 21(b) (main path): {cfg.name} bf16 on the derived plan, n-gram drafting at "
+        f"gamma {spec.spec_len}, trace {SPEC_MIX} x 2 tenants, tracing on")
+    log(f"  {spec.describe()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
+    trace = lambda: make_trace(cfg, SPEC_MIX, tenants=2, stagger=1, seed=1,  # noqa: E731
+                               max_tokens=512)
+    plain_out, _, s0, _ = serve_once(cfg, plan, serve, params, trace(), fused=True)
+    describe("no speculation", s0)
+    obs = Observability(tracing=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(params, cfg, plan, spec, draft=NGramDraft(), obs=obs, device="cuda")
+    reqs = trace()
+    reset_counts()  # count this run's launches only
+    out = engine.run(reqs)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s = engine.summary()
+    describe("speculative", s)
+    log(f"  spec {json.dumps(s['spec'])}; peak device memory {peak:.2f} GiB")
+    log(f"  mean dispatch ms: speculative {s['mean_dispatch_ms']:.2f} over {s['dispatches']} "
+        f"dispatches vs {s0['mean_dispatch_ms']:.2f} over {s0['dispatches']} without; "
+        f"tok/s {s['tok_per_s']:.1f} vs {s0['tok_per_s']:.1f}; requests with the plain "
+        f"engine's tokens: {sum(out[r] == plain_out.get(r) for r in out)}/{len(out)}")
+    want = expect_counts(paged_attention=cfg.n_layers * s["steps"],
+                         rmsnorm=norms_per_forward(cfg) * s["steps"])
+    log(f"  kernel launches on the main path: {counts} ({s['steps']} dispatches)")
+    check(counts == want, f"launches {counts}, expected {want}")
+    check(len(out) == len(reqs) and s["requests"]["finished"] == len(reqs)
+          and all(len(out[r.rid]) == r.max_new_tokens for r in reqs),
+          "not every request finished with its tokens")
+    # random weights rarely repeat an n-gram, so the drafter may propose
+    # little here (phase 21(a) holds the verify path with drafts accepted)
+    check(s["spec"]["enabled"] and s["spec"]["spec_len"] == GAMMA, "speculation is off")
+    check(s["faults"]["quarantines"] == 0, "non-finite logits")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        n = obs.tracer.write(path)
+        with open(path) as f:
+            events = validate_chrome_trace(json.load(f))
+    names = {e["name"] for e in events}
+    log(f"  Chrome trace: {n} events, names {sorted(names)}, dropped "
+        f"{obs.tracer.dropped}; Prometheus text {len(obs.metrics.to_prometheus())} bytes")
+    check(len(events) == n > 0 and {"request", "first-token", "step"} <= names
+          and ("spec-verify" in names) == (s["spec"]["tokens_per_spec_step"] is not None),
+          "the Chrome trace lacks request lifecycles, dispatch or verify spans")
+    check(prometheus_roundtrip_ok(obs.metrics), "the Prometheus text does not round-trip")
+    cal = s["calibration"]
+    for ph, rep in cal["phases"].items():
+        roof = rep["predicted_ms_mean"] - H100_SXM.dispatch_overhead_s * 1e3
+        log(f"  drift {ph}: n {rep['n']}, measured {rep['measured_ms_mean']:.3f} ms vs "
+            f"predicted {rep['predicted_ms_mean']:.3f} ms a dispatch, ratio {rep['ratio']:.2f} "
+            f"(p50 {rep['ratio_p50']:.2f}, p90 {rep['ratio_p90']:.2f}); implied per-dispatch "
+            f"overhead beyond the roofline {rep['measured_ms_mean'] - roof:.3f} ms")
+    log(f"  calibration: {cal['note']}")
+    check(all(np.isfinite(rep["ratio"]) for rep in cal["phases"].values()) and cal["phases"],
+          "no calibrated dispatch")
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts, {**s, "peak_gib": peak, "plain_mean_dispatch_ms": s0["mean_dispatch_ms"]}
+
+
+def chaos_seed(rate, horizon, gap):
+    """The first injector seed whose transient schedule trips at least once
+    after the first two iterations, and never twice within ``gap``
+    iterations, inside the horizon (the injector's draw at each
+    iteration): with bursts longer than the retry limit each trip steps
+    the ladder down one rung, and the next one waits until it has climbed
+    back, so the ladder cannot run out."""
+    from repro_torch.serve import FaultInjector
+
+    for seed in range(10_000):
+        inj = FaultInjector(seed, transient_rate=rate)
+        trips = [t for t in range(horizon) if inj._rng(t, 1).random() < rate]
+        if trips and trips[0] >= 2 and all(b - a > gap for a, b in zip(trips, trips[1:])):
+            return seed
+    raise RuntimeError("no chaos seed fits")
+
+
+def phase_chaos(cfg, plan, params, clean):
+    """Hardening on the card at phase 21(a)'s plan (f32): one chaos run
+    (transient bursts past the retry limit, NaN poison, pool pressure,
+    latency spikes, from one seed): the ladder reaches rung 2 (the gather
+    step) and climbs back, every request that finishes has the clean run's
+    tokens, poisoned slots are quarantined, no block leaks; then a snapshot
+    taken mid-stream, restored on a fresh engine, finishes with the clean
+    tokens."""
+    import dataclasses
+
+    from repro_torch.serve import FaultInjector, ServingEngine
+
+    base, _ = spec_plans(cfg)
+    serve = dataclasses.replace(base, retry_limit=2, ladder_recovery=4)
+    rate, horizon = 0.1, 60
+    seed = chaos_seed(rate, horizon, gap=serve.ladder_recovery + 2)
+    inj = FaultInjector(seed, transient_rate=rate, transient_burst=serve.retry_limit + 2,
+                        nan_rate=0.02, pressure_rate=0.1, pressure_frac=0.3, pressure_steps=3,
+                        spike_rate=0.1, spike_ms=2.0, horizon=horizon)
+    log(f"phase 22: {cfg.name} f32 at phase 21(a)'s plan, chaos {inj.to_record()}")
+    engine = ServingEngine(params, cfg, plan, serve, injector=inj, device="cuda")
+    for r in spec_stream(cfg):
+        engine.submit(r)
+    reset_counts()
+    rungs = []
+    while not engine.sched.idle and engine.iteration < 10_000:
+        engine.step()
+        rungs.append(engine.rung)
+    counts = read_counts()
+    s = engine.summary()
+    out = {r.rid: list(r.out) for r in engine.sched.finished}
+    d = engine.dispatch_counts
+    log(f"  faults {json.dumps({k: v for k, v in s['faults'].items() if k != 'injector'})}; "
+        f"injected {inj.counts}; dispatches {d}")
+    log(f"  rungs by iteration: {''.join(str(r) for r in rungs)}")
+    log(f"  finished {len(out)}/8, {s['requests']}; launches {counts}")
+    want = expect_counts(paged_attention=cfg.n_layers * d["step"],
+                         rmsnorm=norms_per_forward(cfg) * d["step"])
+    check(counts == want, f"launches {counts}, expected {want} (the gather rung launches none)")
+    check(2 in rungs and d.get("fallback_step", 0) >= 1, "the ladder never reached rung 2")
+    check(rungs[-1] == 1 and s["faults"]["rung_recoveries"] >= 1,
+          "the ladder did not climb back to the mixed rung")
+    check(s["faults"]["quarantines"] >= 1 and inj.counts["nan"] >= 1,
+          "no poisoned slot was quarantined")
+    check(all(out[r] == clean[r] for r in out) and len(out) + s["requests"]["poisoned"] == 8,
+          "a request that finished ok differs from the clean run")
+    inj.release(engine.sched.alloc)
+    check(engine.sched.alloc.in_use == 0, "the chaos run leaked blocks")
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = ServingEngine(params, cfg, plan, base, device="cuda")
+    for r in spec_stream(cfg):
+        engine.submit(r)
+    while engine.stats["generated_tokens"] < 40 and not engine.sched.idle:
+        engine.step()
+    snap = json.dumps(engine.snapshot())
+    at = (engine.iteration, engine.stats["generated_tokens"], len(engine.sched.finished))
+    del engine
+    torch.cuda.empty_cache()
+    fresh = ServingEngine(params, cfg, plan, base, device="cuda")
+    fresh.restore(json.loads(snap))
+    restored = fresh.run()
+    log(f"  snapshot at iteration {at[0]} ({at[1]} tokens, {at[2]} finished; {len(snap)} bytes "
+        f"of JSON), restored on a fresh engine: clean tokens {restored == clean}")
+    check(restored == clean, "the restored engine's tokens differ from the clean run's")
+    del fresh
     torch.cuda.empty_cache()
 
 
@@ -1968,6 +2320,18 @@ def main() -> None:
     phase_moe_paths(moe_cfg, moe_plan)
     log(f"  MoE layer parts (ms): {json.dumps(moe_parts)}")
     log(f"  MoE served: {json.dumps({k: moe_served[k] for k in ('mean_dispatch_ms', 'tok_per_s', 'peak_gib', 'slab', 'ttft_s', 'latency_s')})}")
+
+    verify_err, verify_times = phase_verify(cfg, moe_cfg)
+    cfg32, plan32, params32 = eager_model(SERVE_ARCH, torch.float32, untie=True)
+    clean = phase_spec_self(cfg32, plan32, params32)
+    del params32
+    torch.cuda.empty_cache()
+    spec_counts, spec_served = phase_spec_served(cfg, plan)
+    cfg32, plan32, params32 = eager_model(SERVE_ARCH, torch.float32, untie=True)  # same seed
+    phase_chaos(cfg32, plan32, params32, clean)
+    del params32
+    torch.cuda.empty_cache()
+    log(f"  speculative served: {json.dumps({k: spec_served[k] for k in ('mean_dispatch_ms', 'plain_mean_dispatch_ms', 'tok_per_s', 'peak_gib', 'spec', 'ttft_s', 'latency_s')})}")
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
@@ -2023,6 +2387,15 @@ def main() -> None:
             "launches": moe_counts["paged_attention"],
             "max_abs_err": max(err_d8, err_m8),
             **decode8,
+        },
+        {
+            "name": "paged_attention_verify",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
+            "launches": spec_counts["paged_attention"],
+            "max_abs_err": verify_err,
+            **verify_times,
         },
     ]
     print(card, flush=True)

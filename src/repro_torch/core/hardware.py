@@ -24,7 +24,10 @@ class HardwareSpec:
     ici_bandwidth_per_link: float  # bytes/s per chip-to-chip link
     ici_links_per_chip: int
     mxu_dim: int = 128  # matrix-unit tile edge (sizes the KV block)
-    # Host cost of one device dispatch; sizes ServePlan.rolled_steps.
+    # Host cost of one device dispatch; sizes ServePlan.rolled_steps and is
+    # the overhead term of obs/calibrate.StepTimeModel.  An inherited planner
+    # constant (the JAX HardwareSpec's default, set for the TPU planner), not
+    # a measurement of any card.
     dispatch_overhead_s: float = 100e-6
     tdp_watts: float = 0.0
 
@@ -35,10 +38,18 @@ class HardwareSpec:
             return math.inf
         return self.peak_flops_bf16 / self.hbm_bandwidth
 
+    @property
+    def ici_bandwidth(self) -> float:
+        """Aggregate chip-to-chip bytes/s per chip (0 = single device)."""
+        return self.ici_bandwidth_per_link * self.ici_links_per_chip
+
 
 # NVIDIA H100 SXM data sheet: dense bf16 989 TFLOP/s, int8 1979 TOP/s,
 # 80 GB HBM3 at 3.35 TB/s, 227 KB of shared memory per thread block,
-# 700 W.  One card, so no chip-to-chip links in the plan.
+# 700 W.  One card, so no chip-to-chip links in the plan.  Its
+# dispatch_overhead_s is the dataclass default above: the H100 plan reads it
+# when it chooses rolled_steps, so it stays until a measured value replaces
+# it in both.
 H100_SXM = HardwareSpec(
     name="h100",
     peak_flops_bf16=989e12,

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler (host side): a copy of
-``repro/serve/scheduler.py``.  Until ``repro.obs`` is ported, the lifecycle
-hooks go to :class:`NullObserver`, which records nothing.
+``repro/serve/scheduler.py``.
 
 The device side of serving is ONE static-shape jitted step (the unified
 mixed prefill/decode slab — ``serve/engine.py``); everything dynamic lives
@@ -55,28 +54,6 @@ from repro_torch.core.plan import ServePlan
 from repro_torch.serve.prefix import PrefixIndex
 
 WAITING, PREFILL, RUNNING, DONE = "waiting", "prefill", "running", "done"
-
-
-class _NullTracer:
-    """Stand-in for ``repro.obs``'s request tracer: drops every event."""
-
-    def request_span(self, *args, **kwargs) -> None:
-        pass
-
-    def request_instant(self, *args, **kwargs) -> None:
-        pass
-
-
-class NullObserver:
-    """Stand-in for ``repro.obs.Observability`` until the port has its own:
-    every lifecycle hook the scheduler calls is a no-op."""
-
-    tracer = _NullTracer()
-
-    def _drop(self, *args, **kwargs) -> None:
-        pass
-
-    on_submit = on_admit = on_finish = on_cancel = on_evict = on_quarantine = _drop
 
 
 def random_stream(
@@ -277,7 +254,9 @@ class Scheduler:
         # somewhere to land.  Tracing stays disabled unless the bundle
         # enables it — every hook is host-side only.
         if obs is None:
-            obs = NullObserver()
+            from repro_torch.obs import Observability
+
+            obs = Observability()
         self.obs = obs
         self.alloc = BlockAllocator(serve.n_blocks)
         self.index = (

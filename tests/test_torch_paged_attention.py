@@ -268,3 +268,83 @@ def test_dtypes_select_the_kernel(q_dtype, kv_dtype, entry):
     with pytest.raises(RuntimeError, match=entry):
         ops.launch(_Library(rc=1), q, e, table, lens, q_lens, block_size=16, window=0,
                    rows_per_cta=0, stream=None)
+
+
+# Verify-row shapes (speculative decoding): decode slots carry gamma + 1
+# query rows at their current length.  (B, W, H, KH, D, bs, MB, kv_dtype,
+# q_lens, lens): G 2 (qwen3-1.7b's) with q_len 2, 3, 5 and 8 beside a
+# decode slot and a prefill chunk, the last verify row's causal edge on the
+# first and on the last key of a 64-key split; G 8 (qwen3-moe-30b-a3b's)
+# with q_len 2-5 on f32 and int8 pages.
+VERIFY_CASES = [
+    (6, 12, 4, 2, 32, 16, 72, kv, [2, 3, 5, 8, 1, 12], [510, 126, 60, 1017, 700, 300])
+    for kv in ("float32", "bfloat16", "int8")
+] + [
+    (5, 6, 8, 1, 32, 16, 40, kv, [2, 3, 4, 5, 6], [127, 62, 300, 520, 40])
+    for kv in ("float32", "int8")
+]
+
+
+def make_verify_case(case, seed=0):
+    B, W, H, KH, D, bs, MB, kv, q_lens, lens = case
+    q, entry, table, _, _ = make_case(B, W, H, KH, D, bs, MB, kv, seed=seed)
+    table[:] = 1 + np.arange(B)[:, None] * MB + np.arange(MB)[None]
+    return q, entry, table, np.array(lens, np.int32), np.array(q_lens, np.int32)
+
+
+def _no_causal_edge(q, entry, table, lens, q_lens, bs):
+    """A planted control: every live row of a slot sees all the slot's
+    keys up to its last row, as a kernel that dropped the causal edge
+    between verify rows would compute."""
+    from repro_torch.kernels.paged_attention.ref import masked_attention, paged_mask
+    from repro_torch.models.cache import paged_gather
+
+    k, v = paged_gather(entry, table, bs)
+    valid = paged_mask(lens, q_lens, q.shape[1], k.shape[1])
+    last = (lens.long() + q_lens.long() - 1)[:, None, None]
+    live = valid.any(dim=-1, keepdim=True)
+    valid = live & (torch.arange(k.shape[1])[None, None] <= last)
+    return masked_attention(q, k, v, valid)
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES, ids=lambda c: f"G{c[2] // c[3]}-{c[7]}")
+def test_verify_rows_match_jax(case):
+    """The plain version at verify-row shapes against the JAX oracle and
+    the Pallas kernel (interpret mode), at the JAX test's tolerances; the
+    causal edge between verify rows matters (its control fails)."""
+    bs, kv = case[5], case[7]
+    inputs = make_verify_case(case)
+    jin, tin = _jax_in(*inputs, kv), _torch_in(*inputs, kv)
+    mine = paged_attention_ref(*tin, block_size=bs).numpy()
+    np.testing.assert_array_equal(ops.paged_attention(*tin, block_size=bs).numpy(), mine)
+    want_ref = np.asarray(jax_ref(*jin, block_size=bs), np.float32)
+    want_kernel = np.asarray(jax_kernel(*jin, block_size=bs, pages_per_tile=8), np.float32)
+    np.testing.assert_allclose(mine, want_ref, rtol=2e-5, atol=2e-5)
+    tol = 3e-2 if kv == "bfloat16" else 2e-5
+    np.testing.assert_allclose(mine, want_kernel, rtol=tol, atol=tol)
+    bad = _no_causal_edge(*tin, bs).numpy()
+    assert not np.allclose(bad, want_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("split", [64, 512])
+def test_verify_rows_split_scheme_matches_jax(split):
+    """The tensor-core kernel's arithmetic at G 2 verify rows: slots whose
+    G x q_len rows fit one 16-row block (q_len 2-8) run as decode items cut
+    at absolute multiples of ``split``, the prefill chunk (24 rows) as a
+    row block; within one bf16 step of the JAX oracle and the Pallas kernel
+    on the same bf16 values, dead rows 0, and the dropped causal edge
+    rejected."""
+    case = VERIFY_CASES[1]
+    bs = case[5]
+    q, entry, table, lens, q_lens = make_verify_case(case)
+    tq = torch.from_numpy(q).bfloat16()
+    te = {k: torch.from_numpy(x).bfloat16() for k, x in entry.items()}
+    targs = (tq, te, torch.from_numpy(table), torch.from_numpy(lens), torch.from_numpy(q_lens))
+    got = paged_attention_split_ref(*targs, block_size=bs, split=split)
+    jin = (tq.float().numpy(), {k: x.float().numpy() for k, x in te.items()}, table, lens, q_lens)
+    for name, want in _jax_wants(case[:8] + (0, 8), jin).items():
+        assert _outside(got.float().numpy(), want) == 0.0, name
+    dead = np.arange(case[1])[None] >= q_lens[:, None]
+    assert not got.float().numpy()[dead].any()
+    bad = _no_causal_edge(tq.float(), {k: x.float() for k, x in te.items()}, *targs[2:], bs)
+    assert _outside(bad.numpy(), _jax_wants(case[:8] + (0, 8), jin)["jax oracle"]) > 0.0

@@ -57,3 +57,48 @@ def model_pair(arch: str = "smollm-135m", dtype=jnp.float32, seed: int = 0,
     tplan = derive_execution_plan(tcfg, moe_dispatch=moe_dispatch)
     jparams = jax_init_params(jax.random.PRNGKey(seed), jcfg, jplan, dtype=dtype)
     return jcfg, jplan, jparams, tcfg, tplan, from_jax(to_numpy(jparams), device="cpu")
+
+
+def serve_pair(jcfg, tcfg, **kw):
+    """The same serve plan in both packages: ``derive_serve_plan`` with the
+    small serving tests' geometry (f32 pages, 8-token blocks and chunks, no
+    retry backoff) unless ``kw`` overrides it; ``n_blocks`` replaces the
+    derived pool size."""
+    from repro.core.plan import derive_serve_plan as jax_serve_plan
+    from repro_torch.core.plan import derive_serve_plan
+
+    n_blocks = kw.pop("n_blocks", None)
+    kw = {"max_seq_len": 96, "decode_batch": 3, "block_size": 8, "kv_dtype": "fp32",
+          "prefill_chunk": 8, "retry_backoff_s": 0.0, **kw}
+    jserve, serve = jax_serve_plan(jcfg, MESH1, **kw), derive_serve_plan(tcfg, MESH1, **kw)
+    if n_blocks is not None:
+        jserve = dataclasses.replace(jserve, n_blocks=n_blocks)
+        serve = dataclasses.replace(serve, n_blocks=n_blocks)
+    return jserve, serve
+
+
+def drive(engine, requests=(), max_iterations: int = 10_000):
+    """Run ``engine`` (either package's) step by step; returns (tokens of
+    the finished requests, the ladder rung after every iteration)."""
+    for r in requests:
+        engine.submit(r)
+    rungs = []
+    while not engine.sched.idle and engine.iteration < max_iterations:
+        engine.step()
+        rungs.append(engine.rung)
+    assert engine.sched.idle
+    return {r.rid: list(r.out) for r in engine.sched.finished}, rungs
+
+
+# Counters both engines keep and hold to the same value on the same run
+# (not the wall-clock ones).
+SHARED_STATS = (
+    "steps", "prefill_tokens", "generated_tokens", "draft_rows", "accepted_drafts",
+    "spec_slots", "spec_generated", "fork_copies", "occupancy_sum", "rolled_dispatches",
+    "rolled_steps", "retries", "transient_faults", "rung_escalations", "rung_recoveries",
+    "quarantines", "poisoned", "expired", "shed", "cancelled", "injected_nans",
+)
+
+
+def shared_stats(engine) -> dict:
+    return {k: engine.stats[k] for k in SHARED_STATS}
