@@ -7,9 +7,10 @@ repro_torch``); without either it exits non-zero and prints no result.  It
 builds the five CUDA kernels from the checkout (one ``nvcc`` per source,
 in parallel), holds each against its plain PyTorch version at the main
 paths' shapes, drives both serving paths at full width and depth (random
-weights from a seed) on a dense, a recurrent and an MoE arch, and the int8
-FFN stage at full width, checks the outputs, times the kernels, and
-prints:
+weights from a seed) on a dense, a recurrent and an MoE arch, the eager
+path on the other archs (RG-LRU + local attention, prefix-LM,
+encoder-decoder, bidirectional encoders), and the int8 FFN stage at full
+width, checks the outputs, times the kernels, and prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
@@ -74,12 +75,30 @@ measured/predicted ratio per phase) against the same stream without
 speculation; 22 a chaos run (transient bursts, NaN poison, pool pressure,
 latency spikes from one seed) that walks the ladder to the gather rung
 and back with the clean run's tokens, and a snapshot restored on a fresh
-engine.  Every main path (phases 3-5, 9-11, 18-19, 21-22) checks the
-exact launch count of every kernel: the paged or eager-prefill kernel once
-a layer, the RMSNorm kernel once a norm per forward (113 on qwen3-1.7b,
-193 on qwen3-moe-30b-a3b, none on rwkv6's LayerNorm; a draft model's
-forwards count too), and no kernel at all on a plain path (or the gather
-rung).  Planted controls (a dropped key tile, a window one
+engine; then the eager path's other archs, each at full width and depth
+with random bf16 weights: 23 the flash kernels at d_head 256 (both
+entries: recurrentgemma-9b's local-layer prefill, B 8 x 2048, H 16, KH 1,
+window 2048, on fused-QKV views and contiguous copies in bf16 and at S 2100
+> window in f32; paligemma-3b's 256-embedding prefix-LM) and at
+whisper-small's cross-attention shapes (Sq 64 and 1 against Sk 1500,
+non-causal), with P-rounded-once, window-one-wider and prefix-one-shorter
+controls and times against SDPA; 24 recurrentgemma-9b (38 layers, 8.58 B
+parameters) through ``greedy_generate``, B 8 x 2048, 32 new tokens (the
+local layers' ring wraps on the first decode step), with the plain RG-LRU
+scan's share of the prefill; 25 paligemma-3b, B 8, 256 prefix embeddings
++ 256 tokens; 26 whisper-small, B 8, 1500 encoder frames, a 64-token
+prompt; 27 bert-base at L 256 (8 new tokens) and a vit-base forward +
+``logits_fn`` over 197 patches; 28 kernel path vs plain path in f32
+(untied heads, identical tokens) on each generating arch (recurrentgemma
+cut to 5 layers, its 2176-token prompt past the window).  Every main path
+(phases 3-5, 9-11, 18-19, 21-22, 24-28) checks the exact launch count of
+every kernel: the paged or eager-prefill kernel once a layer (only the
+local layers on recurrentgemma-9b; whisper-small's cross-attention in
+every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
+per forward (113 on qwen3-1.7b, 193 on qwen3-moe-30b-a3b, 77 on
+recurrentgemma-9b, 37 on paligemma-3b, none on a LayerNorm arch; a draft
+model's forwards count too), and no kernel at all on a plain path (or the
+gather rung).  Planted controls (a dropped key tile, a window one
 key wider, int8 pages read without their scales, MoE queue ranks counted
 over the whole T instead of per group, P rounded once to bf16 instead of
 split into hi + lo, in flash and in paged attention, a key split left out
@@ -817,20 +836,23 @@ FLASH_CASES = [
 FLASH_CASES += [c[:-1] + (torch.bfloat16,) for c in FLASH_CASES if c[-1] == torch.float32]
 
 
-def flash_inputs(B, S, H, KH, D, dtype, seed):
+def flash_inputs(B, S, H, KH, D, dtype, seed, Sk=None):
+    """q (B, S, H, D) and k, v (B, Sk, KH, D) (Sk = S by default)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    Sk = S if Sk is None else Sk
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
-    k = torch.randn((B, S, KH, D), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, S, KH, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KH, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KH, D), generator=g, device="cuda").to(dtype)
     return q, k, v
 
 
 def flash_plain(q, k, v, *, causal=True, window=0, prefix=0):
-    from repro_torch.kernels.flash_attention.ops import PLAIN_CHUNK
+    from repro_torch.kernels.flash_attention.ops import plain_chunk
     from repro_torch.models.layers import blocked_attention
 
-    return blocked_attention(q, k, v, causal=causal, window=window, q_chunk=PLAIN_CHUNK,
-                             k_chunk=PLAIN_CHUNK, prefix_len=prefix)
+    return blocked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=plain_chunk(q.shape[1]), k_chunk=plain_chunk(k.shape[1]),
+                             prefix_len=prefix)
 
 
 def flash_check(name, q, k, v, **kw):
@@ -849,26 +871,37 @@ def flash_check(name, q, k, v, **kw):
     return got, want, err
 
 
-def flash_single_bf16_p(q, k, v):
+def flash_single_bf16_p(q, k, v, *, causal=True, window=0, prefix=0):
     """The bf16 kernel's scheme with P rounded once to bf16 instead of split
-    into hi + lo (``ref.flash_attention_mma_ref``, causal), model layout:
-    what a kernel without the split would give."""
+    into hi + lo (``ref.flash_attention_mma_ref``), model layout: what a
+    kernel without the split would give."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_mma_ref
 
     B, S, H, D = q.shape
     KH = k.shape[2]
-    kl = lambda x, n: x.permute(0, 2, 1, 3).reshape(B * n, S, D)  # noqa: E731
+    kl = lambda x, n: x.permute(0, 2, 1, 3).reshape(B * n, x.shape[1], D)  # noqa: E731
     out = flash_attention_mma_ref(kl(q, H), kl(k, KH), kl(v, KH), n_q_per_kv=H // KH,
-                                  causal=True, p_split=False)
+                                  causal=causal, window=window, prefix=prefix, p_split=False)
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
-def flash_bound(q, k, causal=True):
-    """Least time for causal attention on an H100 SXM: 4 H D flops per
-    visible (query, key) pair at the bf16 tensor-core peak, vs q, k, v and
-    the output each once at 3.35 TB/s."""
+def visible_pairs(Sq, Sk, causal=True, window=0, prefix=0) -> int:
+    """(query, key) pairs the masks leave visible (query i sits at key i)."""
+    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    m = np.ones((Sq, Sk), bool)
+    if causal:
+        m &= (j <= i) | (j < prefix)
+    if window:
+        m &= (i - j) < window
+    return int(m.sum())
+
+
+def flash_bound(q, k, causal=True, window=0, prefix=0):
+    """Least time for the attention on an H100 SXM: 4 H D flops per visible
+    (query, key) pair at the bf16 tensor-core peak (f32: the CUDA-core
+    peak), vs q, k, v and the output each once at 3.35 TB/s."""
     B, S, H, D = q.shape
-    pairs = S * (S + 1) // 2 if causal else S * S
+    pairs = visible_pairs(S, k.shape[1], causal, window, prefix)
     flops = 4 * H * D * pairs * B
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -927,11 +960,11 @@ def phase_flash(cfg):
 
 
 # ---------------------------------------------------------------- eager path
-def eager_model(arch, dtype, *, untie=False, seed=0):
+def eager_model(arch, dtype, *, untie=False, seed=0, **replace):
     """(cfg, plan, random weights).  ``untie``: a separate random head.  With
     random weights a tied head's greedy stream repeats the last token, so
     the token comparisons untie it to make every token depend on the whole
-    model."""
+    model.  ``replace``: config fields to change (a depth cut)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -940,7 +973,9 @@ def eager_model(arch, dtype, *, untie=False, seed=0):
 
     cfg = get_config(arch)
     if untie:
-        cfg = dataclasses.replace(cfg, tie_embeddings=False)
+        replace["tie_embeddings"] = False
+    if replace:
+        cfg = dataclasses.replace(cfg, **replace)
     plan = derive_execution_plan(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return cfg, plan, init_params(cfg, plan, dtype, generator=gen, device="cuda")
@@ -952,83 +987,126 @@ def prompts(cfg, B, S, seed):
                          dtype=torch.int32)
 
 
-def phase_eager(arch, kernel_name, tag):
-    """The eager main path: ``greedy_generate`` at full width and depth in
-    bf16, B 8 x 2048-token prompts, 32 new tokens.  Every launch count is
-    set to 0 just before and read just after; the prompt's one prefill
-    launches ``kernel_name`` once per layer, and each of the 32 forwards
-    (the prefill and 31 decode steps) the RMSNorm kernel once a norm."""
+def eager_batch(cfg, B, S, seed):
+    """(B, S) prompt tokens and the arch's frontend inputs, drawn as the
+    launcher draws them: ``n_prefix_embeds`` prefix embeddings when it has
+    a frontend (whisper's audio frontend: none), ``enc_seq`` encoder frames
+    for an encoder-decoder."""
+    batch = {"tokens": prompts(cfg, B, S, seed)}
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if cfg.frontend != "none":
+        batch["prefix_embeds"] = torch.randn((B, cfg.n_prefix_embeds, cfg.d_model), generator=g,
+                                             device="cuda")
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g,
+                                          device="cuda")
+    return batch
+
+
+def flash_launches(cfg, n_forwards: int) -> int:
+    """Flash-kernel launches of a ``greedy_generate`` run of ``n_forwards``
+    forwards: each self-attention layer once in the prefill (only the
+    local layers on recurrentgemma-9b); an encoder-decoder adds its encoder
+    layers once and each decoder layer's cross-attention in every forward
+    (12 + 12 + 12 x 32 = 408 on whisper-small at 32 new tokens)."""
+    n = sum(cfg.layer_kind(i) in ("attn", "swa", "local") for i in range(cfg.n_layers))
+    if cfg.enc_dec:
+        n += cfg.n_enc_layers + cfg.n_layers * n_forwards
+    return n
+
+
+def eager_launches(cfg, n_forwards: int) -> dict:
+    """Every kernel's launches in a ``greedy_generate`` run of
+    ``n_forwards`` forwards: the WKV kernel once an RWKV-6 layer and the
+    flash kernel as ``flash_launches`` says, in the prefill; the RMSNorm
+    kernel once a norm in every forward."""
+    wkv = sum(cfg.layer_kind(i) == "rwkv6" for i in range(cfg.n_layers))
+    return expect_counts(wkv=wkv, flash_attention=flash_launches(cfg, n_forwards),
+                         rmsnorm=norms_per_forward(cfg) * n_forwards)
+
+
+def phase_eager(arch, tag, B=EAGER_B, S=EAGER_PROMPT, gen=EAGER_GEN):
+    """An eager main path: ``greedy_generate`` at full width and depth in
+    bf16, B x S-token prompts (after the arch's prefix), gen new tokens.
+    Every launch count is set to 0 just before and read just after, and
+    must be ``eager_launches``'s (none for RMSNorm on a LayerNorm arch)."""
     from repro_torch.serve import greedy_generate, make_prefill_step
 
-    log(f"phase {tag} (main path): {arch} served by greedy_generate, bf16, B={EAGER_B}, "
-        f"prompt {EAGER_PROMPT}, {EAGER_GEN} new tokens")
     cfg, plan, params = eager_model(arch, torch.bfloat16)
-    tokens = prompts(cfg, EAGER_B, EAGER_PROMPT, seed=1)
-    batch = {"tokens": tokens}
+    batch = eager_batch(cfg, B, S, seed=1)
+    P = cfg.n_prefix_embeds
+    log(f"phase {tag} (main path): {arch} ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters) "
+        f"served by greedy_generate, bf16, B={B}, "
+        + (f"{P} prefix embeddings + " if P else "")
+        + (f"{cfg.enc_seq} encoder frames, " if cfg.enc_dec else "")
+        + f"prompt {S}, {gen} new tokens")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, plan, batch, n_steps=EAGER_GEN,
-                          cache_len=EAGER_PROMPT + EAGER_GEN, device="cuda")
-    out = out.cpu()
+    out = greedy_generate(params, cfg, plan, batch, n_steps=gen, cache_len=P + S + gen,
+                          device="cuda").cpu()
     dt = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    tok_s = EAGER_B * EAGER_GEN / dt
+    tok_s = B * gen / dt
     log(f"  {tuple(out.shape)} tokens in {dt:.3f} s: {tok_s:.1f} output tok/s; peak device "
         f"memory {peak:.2f} GiB; launches {counts}")
     log(f"  request 0 tokens: {out[0].tolist()}")
-    check(out.shape == (EAGER_B, EAGER_GEN) and int(out.min()) >= 0
-          and int(out.max()) < cfg.vocab_size, "tokens of the wrong shape or outside the vocab")
-    expect = expect_counts(**{kernel_name: cfg.n_layers,
-                              "rmsnorm": norms_per_forward(cfg) * EAGER_GEN})
-    check(counts == expect, f"launches {counts}, expected {expect} (one prefill, "
-          f"{EAGER_GEN} forwards)")
-    # the prefill's logits are finite (timed: the prompt's time to first token)
+    check(out.shape == (B, gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          "tokens of the wrong shape or outside the vocab")
+    expect = eager_launches(cfg, gen)
+    check(counts == expect, f"launches {counts}, expected {expect} (one prefill, {gen} forwards)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, _ = make_prefill_step(cfg, plan)(params, batch)
     finite = bool(torch.isfinite(logits).all())
-    prefill_s = time.perf_counter() - t0
-    log(f"  prefill alone {prefill_s * 1e3:.1f} ms; logits finite: {finite}")
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  prefill alone {prefill_ms:.1f} ms; logits finite: {finite}")
     check(finite, "non-finite prefill logits")
+    run = {"tok_per_s": tok_s, "seconds": dt, "peak_gib": peak, "prefill_ms": prefill_ms}
+    if "rglru" in cfg.layer_pattern:
+        run.update(rglru_share(cfg, params, prefill_ms, B, S))
     del params, logits
     torch.cuda.empty_cache()
-    return counts, {"tok_per_s": tok_s, "seconds": dt, "peak_gib": peak,
-                    "prefill_ms": prefill_s * 1e3}
+    return counts, run
 
 
-def phase_paths():
-    """f32, full depth: the kernel path and the plain path (``fused=False``:
-    ``blocked_attention`` / ``wkv_chunked`` and the plain norms on the card)
-    give identical greedy tokens and prefill logits within rounding."""
+def phase_paths(title, runs):
+    """f32, untied heads, B 2, 16 new tokens, each of ``runs`` (arch, config
+    fields to change, prompt length): the kernel path and the plain path
+    (``fused=False``: ``blocked_attention`` / ``wkv_chunked`` and the plain
+    norms on the card) give identical greedy tokens and prefill logits
+    within rounding; the kernel path launches ``eager_launches``'s, the
+    plain path nothing."""
     from repro_torch.serve import greedy_generate, make_prefill_step
 
-    log("phase 11: f32 full depth, B=2, prompt 256, 16 new tokens: kernel path vs plain path")
-    for arch, name in ((RWKV_ARCH, "wkv"), (SERVE_ARCH, "flash_attention")):
-        cfg, plan, params = eager_model(arch, torch.float32, untie=True)
-        batch = {"tokens": prompts(cfg, 2, 256, seed=2)}
-        runs = {}
+    log(f"{title}, B=2, 16 new tokens: kernel path vs plain path")
+    for arch, replace, S in runs:
+        cfg, plan, params = eager_model(arch, torch.float32, untie=True, **replace)
+        batch = eager_batch(cfg, 2, S, seed=2)
+        out = {}
         for fused in (True, False):
             reset_counts()
-            toks = greedy_generate(params, cfg, plan, batch, n_steps=16, cache_len=272,
+            toks = greedy_generate(params, cfg, plan, batch, n_steps=16,
+                                   cache_len=cfg.n_prefix_embeds + S + 16,
                                    cache_dtype=torch.float32, device="cuda", fused=fused).cpu()
             launches = read_counts()
             logits, _ = make_prefill_step(cfg, plan, fused=fused)(params, batch)
-            runs[fused] = (toks, launches, logits)
-        (tk, lk, xk), (tp, lp, xp) = runs[True], runs[False]
+            out[fused] = (toks, launches, logits)
+        (tk, lk, xk), (tp, lp, xp) = out[True], out[False]
         e = rel_err(xk, xp)
         same = bool(torch.equal(tk, tp))
-        log(f"  {arch} (untied head): tokens identical {same}, distinct tokens in request 0: "
-            f"{len(set(tk[0].tolist()))}/16, prefill logits rel err {e:.3g}, "
-            f"launches {lk} (kernel path) / {lp} (plain path)")
+        log(f"  {arch} ({cfg.n_layers} layers, prompt {S}): tokens identical {same}, distinct "
+            f"tokens in request 0: {len(set(tk[0].tolist()))}/16, prefill logits rel err "
+            f"{e:.3g}, launches {lk} (kernel path) / {lp} (plain path)")
         check(same, f"{arch}: kernel and plain paths disagree on greedy tokens")
         check(e < 1e-3, f"{arch}: prefill logits differ beyond f32 rounding")
-        want = expect_counts(**{name: cfg.n_layers, "rmsnorm": norms_per_forward(cfg) * 16})
+        want = eager_launches(cfg, 16)
         check(lk == want and lp == expect_counts(), f"{arch}: launches {lk} / {lp}, kernel "
               f"path expected {want}")
-        del params, runs, xk, xp
+        del params, out, xk, xp
         torch.cuda.empty_cache()
 
 
@@ -2232,6 +2310,182 @@ def phase_chaos(cfg, plan, params, clean):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- other archs
+# The eager path's other archs, at full width: recurrentgemma-9b (RG-LRU +
+# local attention, d_head 256, H 16, KH 1) and paligemma-3b (prefix-LM,
+# d_head 256, H 8, KH 1) run the flash kernel's d_head-256 entries;
+# whisper-small (encoder-decoder) its cross-attention (Sq != Sk, Sq 1 in
+# decode); bert-base and vit-base bidirectional encoders.
+RG_ARCH, PALI_ARCH, WHISPER_ARCH = "recurrentgemma-9b", "paligemma-3b", "whisper-small"
+BERT_ARCH, VIT_ARCH = "bert-base", "vit-base"
+# whisper-small's decoder prompt; bert-base at the paper's L = 256 with 8
+# new tokens (as JAX's eager path serves it); vit-base's 197 patches.
+WHISPER_PROMPT, BERT_L, BERT_GEN = 64, 256, 8
+
+
+def flash_times(q, k, v, sdpa, **kw):
+    """Kernel, plain version and one SDPA call (``sdpa``: the call on
+    head-major copies made here) at one shape, with the bound."""
+    from repro_torch.kernels.flash_attention import ops
+
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_plain(q, k, v, **kw), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt))
+    b_ms, b_by = flash_bound(q, k, **kw)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_flash_d256(rg, pg, wh):
+    """(a) The flash kernels at d_head 256 and at whisper-small's cross
+    shapes against the plain version: recurrentgemma-9b's local-layer
+    prefill (B 8, S 2048, window 2048) on fused-QKV views and contiguous
+    copies in bf16 (the tensor-core entry) and at S 2100 > window in f32
+    (the CUDA-core entry, the window biting); paligemma-3b's prefix-LM
+    (256 prefix + 256 tokens) in both; whisper-small's cross-attention (Sq
+    64 and 1 against Sk 1500, non-causal) in both.  Planted controls: P
+    rounded once, a window one key wider, the prefix one shorter.  Times
+    against SDPA (an explicit mask where ``is_causal`` cannot say it) and
+    the bound.  Returns (max error, the local-layer shape's times)."""
+    log("phase 23 (a): flash-attention kernels at d_head 256 and at whisper-small's cross "
+        "shapes vs plain version")
+    errs, times = [], {}
+    B, S, H, KH, D, W = EAGER_B, EAGER_PROMPT, rg.n_heads, rg.n_kv_heads, rg.d_head, rg.local_window
+    g = torch.Generator(device="cuda").manual_seed(70)
+    qkv = torch.randn((B, S, (H + 2 * KH) * D), generator=g, device="cuda").to(torch.bfloat16)
+    qv, kv_, vv = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    views = (qv.reshape(B, S, H, D), kv_.reshape(B, S, KH, D), vv.reshape(B, S, KH, D))
+    name = f"{rg.name} local B={B} S={S} H={H} KH={KH} D={D} window={W} bf16"
+    errs.append(flash_check(f"{name}, fused-QKV views", *views, window=W)[2])
+    q, k, v = (x.contiguous() for x in views)
+    del qkv, views
+    _, want, err = flash_check(f"{name}, contiguous", q, k, v, window=W)
+    errs.append(err)
+    planted("P rounded once to bf16 (no hi + lo split)",
+            flash_single_bf16_p(q, k, v, window=W), want, BF16_TOL)
+    del want
+    # S <= window here, so is_causal says the same mask
+    times["local"] = flash_times(q, k, v, lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True), window=W)
+    del q, k, v
+    q, k, v = flash_inputs(2, 2100, H, KH, D, torch.float32, seed=71)
+    _, want, err = flash_check(f"{rg.name} local B=2 S=2100 f32 window={W} (the window bites)",
+                               q, k, v, window=W)
+    errs.append(err)
+    planted(f"window {W + 1} instead of {W}", flash_plain(q, k, v, window=W + 1), want, F32_TOL)
+    del q, k, v, want
+    torch.cuda.empty_cache()
+
+    P, H, KH, D = pg.n_prefix_embeds, pg.n_heads, pg.n_kv_heads, pg.d_head
+    Sp = P + 256
+    mask = torch.ones((Sp, Sp), dtype=torch.bool, device="cuda").tril()
+    mask[:, :P] = True
+    for n, dt in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v = flash_inputs(B, Sp, H, KH, D, dt, seed=72 + n)
+        _, want, err = flash_check(f"{pg.name} prefix-LM B={B} S={Sp} prefix={P} H={H} KH={KH} "
+                                   f"D={D} {str(dt)[6:]}", q, k, v, prefix=P)
+        errs.append(err)
+        planted(f"prefix {P - 1} instead of {P}", flash_plain(q, k, v, prefix=P - 1), want,
+                tolerance(dt))
+        if dt == torch.bfloat16:
+            planted("P rounded once to bf16 (no hi + lo split)",
+                    flash_single_bf16_p(q, k, v, prefix=P), want, BF16_TOL)
+            times["prefix"] = flash_times(q, k, v, lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=mask, enable_gqa=True), prefix=P)
+        del q, k, v, want
+
+    H, KH, D, Se = wh.n_heads, wh.n_kv_heads, wh.d_head, wh.enc_seq
+    for Sq in (WHISPER_PROMPT, 1):
+        for n, dt in enumerate((torch.bfloat16, torch.float32)):
+            q, k, v = flash_inputs(B, Sq, H, KH, D, dt, seed=74 + n, Sk=Se)
+            _, want, err = flash_check(f"{wh.name} cross B={B} Sq={Sq} Sk={Se} H={H} D={D} "
+                                       f"{str(dt)[6:]}, non-causal", q, k, v, causal=False)
+            errs.append(err)
+            if dt == torch.bfloat16:
+                times[f"cross Sq={Sq}"] = flash_times(
+                    q, k, v, lambda a, b, c: F.scaled_dot_product_attention(a, b, c),
+                    causal=False)
+            del q, k, v, want
+    for name, t in times.items():
+        log(f"  times, {name}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of roofline), plain "
+            f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return max(errs), times
+
+
+def rglru_share(cfg, params, prefill_ms, B, S):
+    """The plain RG-LRU (gates and the log-depth scan) at the prefill's
+    shape, timed alone, times the rglru layers: its share of the prefill."""
+    from repro_torch.models.rglru import rglru
+
+    lp = {k: v[0] for k, v in params["blocks"]["stack"][0]["attn"].items() if k != "ln"}
+    W, n_heads = cfg.lru_width or cfg.d_model, max(cfg.rnn_heads, 1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    u = torch.randn((B, S, W), generator=g, device="cuda").to(torch.bfloat16)
+    ms = time_ms(lambda: rglru(lp, u, n_heads), reps=5, warmup=1)
+    n = sum(cfg.layer_kind(i) == "rglru" for i in range(cfg.n_layers))
+    log(f"  plain RG-LRU at B={B} S={S} W={W}: {ms:.3f} ms a layer x {n} layers = "
+        f"{ms * n:.1f} ms, {ms * n / prefill_ms:.1%} of the {prefill_ms:.1f} ms prefill")
+    return {"rglru_ms": ms, "rglru_layers": n, "rglru_share": ms * n / prefill_ms}
+
+
+def phase_vit(B):
+    """(e) vit-base: ``forward`` + ``logits_fn`` over 197 patch embeddings
+    (a classifier: no tokens to generate); the flash kernel once a layer."""
+    from repro_torch.models.transformer import forward, logits_fn
+
+    cfg, plan, params = eager_model(VIT_ARCH, torch.bfloat16)
+    log(f"phase 27 (e): {VIT_ARCH} forward + logits_fn, bf16, B={B}, {cfg.n_prefix_embeds} "
+        "patch embeddings")
+    batch = eager_batch(cfg, B, 0, seed=1)
+    del batch["tokens"]  # no token embedding: the patches are the input
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x, _ = forward(params, batch, cfg=cfg, plan=plan)
+        logits = logits_fn(params, x, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    finite = bool(torch.isfinite(logits).all())
+    log(f"  logits {tuple(logits.shape)} in {ms:.1f} ms, finite: {finite}; launches {counts}")
+    check(tuple(logits.shape) == (B, cfg.n_classes) and finite, "vit-base logits")
+    expect = expect_counts(flash_attention=flash_launches(cfg, 1))
+    check(counts == expect, f"launches {counts}, expected {expect}")
+    del params
+    torch.cuda.empty_cache()
+    return {"forward_ms": ms}
+
+
+def phase_other_archs():
+    """Phases 23-28: (a) flash at d_head 256 and whisper's cross shapes,
+    (b) recurrentgemma-9b, (c) paligemma-3b, (d) whisper-small, (e)
+    bert-base and vit-base served eagerly at full width and depth, (f) the
+    kernel path against the plain path in f32.  Returns (flash max error,
+    the local-layer shape's times, recurrentgemma's counts, the runs)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.time()
+    rg, pg, wh = (get_config(a) for a in (RG_ARCH, PALI_ARCH, WHISPER_ARCH))
+    err, times = phase_flash_d256(rg, pg, wh)
+    runs = {}
+    rg_counts, runs[RG_ARCH] = phase_eager(RG_ARCH, "24 (b)")
+    _, runs[PALI_ARCH] = phase_eager(PALI_ARCH, "25 (c)", S=256)
+    _, runs[WHISPER_ARCH] = phase_eager(WHISPER_ARCH, "26 (d)", S=WHISPER_PROMPT)
+    _, runs[BERT_ARCH] = phase_eager(BERT_ARCH, "27 (e)", S=BERT_L, gen=BERT_GEN)
+    runs[VIT_ARCH] = phase_vit(EAGER_B)
+    # recurrentgemma-9b cut to 5 layers (one pattern group and its 2-layer
+    # tail), its 2176-token prompt longer than the 2048-key window
+    phase_paths("phase 28 (f): f32 at full width",
+                ((RG_ARCH, {"n_layers": 5}, 2176), (PALI_ARCH, {}, 256),
+                 (WHISPER_ARCH, {}, WHISPER_PROMPT), (BERT_ARCH, {}, BERT_L)))
+    log(f"  other archs: {json.dumps(runs)}; flash times: {json.dumps(times)}; phases 23-28 "
+        f"took {time.time() - t0:.1f} s")
+    return err, times, rg_counts, runs
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2289,9 +2543,10 @@ def main() -> None:
 
     wkv_err, wkv_times = phase_wkv(get_config(RWKV_ARCH))
     flash_err, flash_times = phase_flash(cfg)
-    rwkv_counts, rwkv_run = phase_eager(RWKV_ARCH, "wkv", 9)
-    qwen_counts, qwen_run = phase_eager(SERVE_ARCH, "flash_attention", 10)
-    phase_paths()
+    rwkv_counts, rwkv_run = phase_eager(RWKV_ARCH, 9)
+    qwen_counts, qwen_run = phase_eager(SERVE_ARCH, 10)
+    phase_paths("phase 11: f32 full depth, prompt 256",
+                ((RWKV_ARCH, {}, 256), (SERVE_ARCH, {}, 256)))
     phase_engine_vs_eager()
     log(f"  eager runs: {json.dumps({RWKV_ARCH: rwkv_run, SERVE_ARCH: qwen_run})}")
     rms_err, rms_times_ = phase_rmsnorm(cfg)
@@ -2332,6 +2587,7 @@ def main() -> None:
     del params32
     torch.cuda.empty_cache()
     log(f"  speculative served: {json.dumps({k: spec_served[k] for k in ('mean_dispatch_ms', 'plain_mean_dispatch_ms', 'tok_per_s', 'peak_gib', 'spec', 'ttft_s', 'latency_s')})}")
+    d256_err, d256_times, rg_counts, _ = phase_other_archs()
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
@@ -2396,6 +2652,15 @@ def main() -> None:
             "launches": spec_counts["paged_attention"],
             "max_abs_err": verify_err,
             **verify_times,
+        },
+        {
+            "name": "flash_attention_d256",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "launches": rg_counts["flash_attention"],
+            "max_abs_err": d256_err,
+            **d256_times["local"],
         },
     ]
     print(card, flush=True)

@@ -11,7 +11,8 @@ paged kernel's key split, the norm's launch plan).  All sources are built
 in parallel (one ``nvcc`` each, under ``build/kernel_variants/``), bound
 with ``ctypes`` and launched through the wrappers' own ``launch`` on the
 main shapes: flash at the qwen3-1.7b prefill (B 8, S 2048, H 16, KH 8,
-D 128, bf16, causal); MM PU at the int8 FFN stage's T=2048 ``w1`` (2048 x
+D 128, bf16, causal) and recurrentgemma-9b's local layers (B 8, S 2048, H
+16, KH 1, D 256, window 2048); MM PU at the int8 FFN stage's T=2048 ``w1`` (2048 x
 2048 @ 2048 x 6144, silu) and T=256 ``w2`` (256 x 6144 @ 6144 x 2048)
 products, int8 and bf16 w; paged attention at ``chip_smoke.py`` phase 6's
 decode and mixed shapes (256 slots x 256-row slab, bf16 pages), with the
@@ -48,6 +49,8 @@ MM_WARPS = "constexpr int kWarpsM = 2, kWarpsN = 4;"
 FLASH_STAGES = "constexpr int kStages = 2;          // K/V ring depth"
 FLASH_KEYS = "constexpr int kKeys = 64;           // keys per tile"
 FLASH_BOUNDS = "__launch_bounds__(kThreads, 1)\nflash_attention_mma_kernel("
+FLASH_D256_KEYS = "constexpr int kTileKeys = D > 128 ? kKeys / 2 : kKeys;"
+FLASH_F32_LOADS = "constexpr int NVB = NVT > 8 ? 4 : NVT;"
 PAGED_STAGES = "constexpr int kStages = 2;          // K/V ring depth"
 PAGED_GRID = "dim3 grid((W + rows_per_cta - 1) / rows_per_cta, KH, B);"
 RMS_AHEAD = "constexpr bool kAhead = GL < 32;"
@@ -113,6 +116,10 @@ VARIANTS = {
         "32-key tiles, 3 CTAs an SM": [
             (FLASH_KEYS, FLASH_KEYS.replace("64;", "32;")),
             (FLASH_BOUNDS, FLASH_BOUNDS.replace("kThreads, 1", "kThreads, 3"))],
+        "32-key tiles": [(FLASH_KEYS, FLASH_KEYS.replace("64;", "32;"))],
+        "64-key tiles at D 256": [(FLASH_D256_KEYS, "constexpr int kTileKeys = kKeys;")],
+        # the CUDA-core entry (f32 only; read its registers and spills)
+        "f32 D 256: 2 + 2 loads in flight": [(FLASH_F32_LOADS, FLASH_F32_LOADS.replace("4 :", "2 :"))],
     },
     "mm_pu": {
         "committed": [],
@@ -420,6 +427,13 @@ def main(argv: list) -> int:
         timed(libs, lambda lib: lambda: fops.launch(lib, q, k, v, causal=True, window=0,
                                                     prefix=0, stream=stream),
               cs.flash_plain(q, k, v))
+        del q, k, v
+        q, k, v = cs.flash_inputs(8, 2048, 16, 1, 256, torch.bfloat16, seed=70)
+        print("  flash, B 8 S 2048 H 16 KH 1 D 256 bf16 causal, window 2048 "
+              "(recurrentgemma-9b's local layers):", flush=True)
+        timed(libs, lambda lib: lambda: fops.launch(lib, q, k, v, causal=True, window=2048,
+                                                    prefix=0, stream=stream),
+              cs.flash_plain(q, k, v, window=2048))
         del q, k, v
 
     if "mm_pu" in which:

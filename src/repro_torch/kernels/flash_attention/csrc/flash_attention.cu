@@ -4,9 +4,11 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // _flash_kernel (Pallas, launched by flash_attention_call).  Same function:
 // q (B, Sq, H, D) attends to k/v (B, Sk, KH, D), q head h reading kv head
-// h / G (G = H / KH); query row i sees key j where
+// h / G (G = H / KH), D 32, 64, 128 or 256; query row i sees key j where
 //     causal:  j <= i, or j < prefix (prefix-LM: the prefix is bidirectional)
 //     window:  i - j < window (window > 0)
+// and every key j < Sk with neither (bidirectional encoders, and decoder ->
+// encoder cross-attention, where Sq != Sk and Sq may be 1).
 // masked scores are -1e30, the softmax runs in f32 with the (m, l, acc)
 // carry over key tiles, l is floored at 1e-30, and the output has q's type.
 // A row that sees no key at all comes back 0 (no model path makes one).
@@ -21,9 +23,16 @@
 //   * one CTA of 4 warps per (64 (position, head) rows of one kv head,
 //     batch row): the G query heads of a kv head go together (GQA), so every
 //     K/V tile serves 64 rows; each warp owns 16 rows;
-//   * q is copied once into shared memory (cp.async), then held in
-//     registers as mma A fragments (ldmatrix);
-//   * 64-key tiles of K and V stream through a 2-stage cp.async ring: tile
+//   * q is copied once into shared memory (cp.async), then, up to D 128,
+//     held in registers as mma A fragments (ldmatrix).  At D 256 the
+//     output accumulator alone takes 128 f32 registers a thread and q's
+//     fragments would add 64: q keeps its own shared region after the K/V
+//     ring and each k-step of Q K^T reads its A fragment there by
+//     ldmatrix; and K/V tiles hold 32 keys, not 64, so the 16 score
+//     registers fit beside the output's without spilling (101,376 bytes of
+//     shared memory in all);
+//   * 64-key (D 256: 32-key) tiles of K and V stream through a 2-stage
+//     cp.async ring: tile
 //     j + 1 is in flight while tile j is computed.  S = Q K^T by
 //     mma.sync m16n8k16 (K fragments by ldmatrix), O += P V (V fragments by
 //     ldmatrix.trans), f32 accumulators throughout;
@@ -52,7 +61,10 @@
 //   * 32-key tiles are staged in shared memory as f32 with 16-byte vector
 //     loads (K rows padded to D + 1 floats so lane j reads key j without
 //     bank conflicts); m, l and the f32 accumulator stay in registers;
-//     ragged ends (Sq, Sk not multiples of a tile) are masked here.
+//     ragged ends (Sq, Sk not multiples of a tile) are masked here.  At D
+//     256 a thread's 32 loads of a tile go in 4 batches of 8, not all at
+//     once beside the 128-float accumulator (ptxas still reports a
+//     32-byte spill there, with batches of 4 too).
 //
 // Both read the model's (B, S, H, D) layout directly, with a token stride
 // per tensor, so q, k and v may be views of the fused QKV projection: the
@@ -134,34 +146,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VPR = D / VEC;  // 16-byte vectors per key row
   constexpr int NV = kTile * VPR;
   constexpr int NVT = (NV + kThreads - 1) / kThreads;
+  constexpr int NVB = NVT > 8 ? 4 : NVT;  // of k and of v, in flight at once
+  static_assert(NVT % NVB == 0, "load batches");
 
   for (int t0 = lo; t0 <= hi; t0 += kTile) {
     __syncthreads();  // the previous tile is consumed (and Qs is written)
-    // All of this thread's 16-byte loads are issued before any is used.
-    uint4 kr[NVT], vr[NVT];
 #pragma unroll
-    for (int it = 0; it < NVT; ++it) {
-      const int vi = tid + it * kThreads;
-      kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
-      const int p = t0 + vi / VPR;
-      if ((NV % kThreads == 0 || vi < NV) && p <= hi) {
-        const int off = (vi % VPR) * VEC;
-        kr[it] = *reinterpret_cast<const uint4*>(kb + p * k_ts + off);
-        vr[it] = *reinterpret_cast<const uint4*>(vb + p * v_ts + off);
+    for (int ib = 0; ib < NVT; ib += NVB) {
+      // All of a batch's 16-byte loads are issued before any is used.
+      uint4 kr[NVB], vr[NVB];
+#pragma unroll
+      for (int it = 0; it < NVB; ++it) {
+        const int vi = tid + (ib + it) * kThreads;
+        kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
+        const int p = t0 + vi / VPR;
+        if ((NV % kThreads == 0 || vi < NV) && p <= hi) {
+          const int off = (vi % VPR) * VEC;
+          kr[it] = *reinterpret_cast<const uint4*>(kb + p * k_ts + off);
+          vr[it] = *reinterpret_cast<const uint4*>(vb + p * v_ts + off);
+        }
       }
-    }
 #pragma unroll
-    for (int it = 0; it < NVT; ++it) {
-      const int vi = tid + it * kThreads;
-      if (NV % kThreads == 0 || vi < NV) {
-        const int j = vi / VPR, d0 = (vi % VPR) * VEC;
-        float kf[VEC], vf[VEC];
-        Vec<T>::unpack(kr[it], kf);
-        Vec<T>::unpack(vr[it], vf);
+      for (int it = 0; it < NVB; ++it) {
+        const int vi = tid + (ib + it) * kThreads;
+        if (NV % kThreads == 0 || vi < NV) {
+          const int j = vi / VPR, d0 = (vi % VPR) * VEC;
+          float kf[VEC], vf[VEC];
+          Vec<T>::unpack(kr[it], kf);
+          Vec<T>::unpack(vr[it], vf);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          Ks[j * (D + 1) + d0 + e] = kf[e];
-          Vs[j * D + d0 + e] = vf[e];
+          for (int e = 0; e < VEC; ++e) {
+            Ks[j * (D + 1) + d0 + e] = kf[e];
+            Vs[j * D + d0 + e] = vf[e];
+          }
         }
       }
     }
@@ -259,19 +276,30 @@ constexpr int kKeys = 64;           // keys per tile
 constexpr int kStages = 2;          // K/V ring depth
 static_assert(kRows <= 2 * kKeys, "q is staged in stage 1 (its K and V tiles are adjacent)");
 
+// Up to D 128 q is staged in stage 1 of the ring and then held in
+// registers; at D 256 it keeps its own region after the ring.
+template <int D>
+constexpr bool kQInSmem = D > 128;
+
+// Keys per tile: kKeys, and half as many at D 256, where a 64-key tile's
+// 32 score accumulators beside the output's 128 spilled the 255 registers
+// a thread has (ptxas: 124 bytes).
+template <int D>
+constexpr int kTileKeys = D > 128 ? kKeys / 2 : kKeys;
+
 __device__ __forceinline__ float minus_inf() { return -__uint_as_float(0x7f800000u); }
 
 using bf16 = __nv_bfloat16;
 
-// Shared memory: kStages x (K tile, V tile), rows of D + 8 elements; q is
-// staged in stage 1 before the ring starts.
+// Shared memory: kStages x (K tile, V tile), rows of D + 8 elements, and at
+// D 256 kRows rows of q after them (D 256: 101,376 bytes).
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * kStages * 2 * kKeys * (D + 8);
+  return sizeof(bf16) * (kStages * 2 * kTileKeys<D> + (kQInSmem<D> ? kRows : 0)) * (D + 8);
 }
 
 // (kThreads, 1): without the minimum of one CTA, ptxas held D 64 to 128
-// registers and spilled.
+// registers and spilled.  At D 256 shared memory allows one CTA an SM.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -282,10 +310,12 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   constexpr int LD = D + 8;       // shared row stride (elements): +16 bytes
   constexpr int KD = D / 16;      // mma k-steps over d
   constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr bool kQs = kQInSmem<D>;
+  constexpr int KN = kTileKeys<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
-  auto k_tile = [&](int st) { return sm + (2 * st) * kKeys * LD; };
-  auto v_tile = [&](int st) { return sm + (2 * st + 1) * kKeys * LD; };
+  auto k_tile = [&](int st) { return sm + (2 * st) * KN * LD; };
+  auto v_tile = [&](int st) { return sm + (2 * st + 1) * KN * LD; };
 
   const int kh = blockIdx.x % KH;
   const int b = blockIdx.x / KH;
@@ -301,16 +331,16 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   int hi = Sk - 1;
   if (causal) hi = min(hi, max(i0 + nq - 1, prefix - 1));
   const int lo = window > 0 ? max(0, i0 - window + 1) : 0;
-  const int n_tiles = hi >= lo ? (hi - lo) / kKeys + 1 : 0;
+  const int n_tiles = hi >= lo ? (hi - lo) / KN + 1 : 0;
   const bf16* kb = k + (int64_t)b * Sk * k_ts + (int64_t)kh * D;
   const bf16* vb = v + (int64_t)b * Sk * v_ts + (int64_t)kh * D;
 
   auto load_tile = [&](int tile, int st) {
-    const int t0 = lo + tile * kKeys;
+    const int t0 = lo + tile * KN;
     bf16* ks = k_tile(st);
     bf16* vs = v_tile(st);
 #pragma unroll
-    for (int c = tid; c < kKeys * CH; c += kThreads) {
+    for (int c = tid; c < KN * CH; c += kThreads) {
       const int j = c / CH, d0 = (c % CH) * 8;
       const int p = t0 + j;
       const bool ok = p <= hi;
@@ -320,9 +350,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
   };
 
-  // q rows -> shared memory (stage 1), then tile 0; both awaited.
+  // q rows -> shared memory (stage 1, or its own region), then tile 0; both
+  // awaited.
+  bf16* const qs = kQs ? sm + kStages * 2 * KN * LD : k_tile(1);
   {
-    bf16* qs = k_tile(1);
 #pragma unroll
     for (int c = tid; c < kRows * CH; c += kThreads) {
       const int r = c / CH, d0 = (c % CH) * 8;
@@ -336,13 +367,15 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   cp_async_wait<0>();
   __syncthreads();
 
-  unsigned qf[KD][4];  // this warp's 16 rows as A fragments
-  {
-    const bf16* qs = k_tile(1) + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  // this warp's 16 rows as A fragments: where ldmatrix reads them, and,
+  // up to D 128, in registers
+  const bf16* const q_frag = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  unsigned qf[kQs ? 1 : KD][4];
+  if constexpr (!kQs) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qs + kk * 16);
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_frag + kk * 16);
+    __syncthreads();  // stage 1 is free for the ring
   }
-  __syncthreads();  // stage 1 is free for the ring
 
   // This thread's two rows: r0 = warp * 16 + g and r0 + 8.
   const int r0 = warp * 16 + g;
@@ -363,30 +396,37 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     __syncthreads();     // ... and for every thread
     const bf16* ks = k_tile(tile % kStages);
     const bf16* vs = v_tile(tile % kStages);
-    const int t0 = lo + tile * kKeys;
+    const int t0 = lo + tile * KN;
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 n-blocks of 8 keys.
-    float s[kKeys / 8][4];
+    float s[KN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < KN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      unsigned qa[4];
+      if constexpr (kQs) {
+        ldmatrix_x4(qa, q_frag + kk * 16);
+      } else {
 #pragma unroll
-      for (int np = 0; np < kKeys / 16; ++np) {
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      }
+#pragma unroll
+      for (int np = 0; np < KN / 16; ++np) {
         unsigned kf[4];  // keys np*16 + {0..7, 8..15} x d kk*16 + {0..7, 8..15}
         ldmatrix_x4(kf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16_16816(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16_16816(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
     // Scores in log2 units; masked ones -inf, only in tiles a mask cuts.
-    const int t_end = t0 + kKeys - 1;
+    const int t_end = t0 + KN - 1;
     const bool cut = t_end > hi || (causal && t_end > i0 && t_end >= prefix) ||
                      (window > 0 && i_max - t0 >= window);
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
+    for (int j = 0; j < KN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale_log2;
@@ -407,7 +447,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     for (int h = 0; h < 2; ++h) {
       float mx = m[h];
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      for (int j = 0; j < KN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
       const float base = mx == minus_inf() ? 0.f : mx;  // a row with nothing seen yet
@@ -415,7 +455,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       m[h] = mx;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
+      for (int j = 0; j < KN / 8; ++j) {
         s[j][2 * h] = exp2f(s[j][2 * h] - base);
         s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - base);
         sum += s[j][2 * h] + s[j][2 * h + 1];
@@ -433,7 +473,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     // O += P V with P = hi + lo in bf16: the C fragments of key n-blocks
     // 2 kb and 2 kb + 1 are the A fragment of key step kb.
 #pragma unroll
-    for (int kb2 = 0; kb2 < kKeys / 16; ++kb2) {
+    for (int kb2 = 0; kb2 < KN / 16; ++kb2) {
       unsigned ph[4], pl[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
@@ -504,6 +544,7 @@ int launch_f32(int D, const void* q, const void* k, const void* v, void* out, in
     case 32: return launch<float, 1>(FA_ARGS);
     case 64: return launch<float, 2>(FA_ARGS);
     case 128: return launch<float, 4>(FA_ARGS);
+    case 256: return launch<float, 8>(FA_ARGS);
   }
   return -2;
 }
@@ -516,6 +557,7 @@ int launch_bf16(int D, const void* q, const void* k, const void* v, void* out, i
     case 32: return tc::launch<32>(FA_ARGS);
     case 64: return tc::launch<64>(FA_ARGS);
     case 128: return tc::launch<128>(FA_ARGS);
+    case 256: return tc::launch<256>(FA_ARGS);
   }
 #undef FA_ARGS
   return -2;
@@ -528,7 +570,8 @@ bool bad_grouping(int B, int Sq, int Sk, int H, int KH, int rows_per_cta) {
 
 }  // namespace
 
-// q: (B, Sq, H, D), k and v: (B, Sk, KH, D), each with unit stride over D,
+// q: (B, Sq, H, D), k and v: (B, Sk, KH, D), D 32, 64, 128 or 256, each
+// with unit stride over D,
 // D elements between heads and q_ts / k_ts / v_ts elements between tokens
 // (batch rows S * ts apart), 16-byte aligned rows; out: (B, Sq, H, D)
 // contiguous.  G = H / KH query heads per kv head; q head h = kh * G + g.

@@ -5,7 +5,9 @@ q stays (B, Sq, H, D) and k/v (B, Sk, KH, D), with the JAX GQA map (q head
 h reads kv head h // G); the kernels index that layout directly, with a
 token stride per tensor, so views of the fused QKV projection need no copy.
 Ragged Sq/Sk are masked in the kernels (the JAX wrapper halves its block
-instead; the results agree).  The dtype alone picks the kernel
+instead; the results agree).  Head dims 32, 64, 128 and 256 are built
+(256: recurrentgemma-9b and paligemma-3b); any other raises.  The dtype
+alone picks the kernel
 (``ENTRIES``): bf16 runs on tensor cores, f32 on CUDA cores (its 2e-5
 tolerance rules out TF32).  CPU tensors go to the plain version
 (``repro_torch.models.layers.blocked_attention``); CUDA tensors launch the
@@ -23,9 +25,18 @@ from repro_torch.models.layers import blocked_attention
 # Kernel launches so far; a run resets it to show which path it took.
 LAUNCHES = 0
 
-# q/k chunks of the plain version.  JAX takes them from the plan's PU tile;
-# the port has no tile search, and the chunking changes no result.
+# Largest q/k chunk of the plain version.  JAX takes its chunks from the
+# plan's PU tile; the port has no tile search, and the chunking changes no
+# result.
 PLAIN_CHUNK = 128
+
+
+def plain_chunk(n: int) -> int:
+    """The plain version's chunk along a length ``n``: its largest divisor
+    up to ``PLAIN_CHUNK``.  (``blocked_attention`` halves a chunk that does
+    not divide the length, JAX's rule, which leaves chunks of 4 at
+    whisper-small's 1,500 encoder frames.)"""
+    return max(c for c in range(1, min(PLAIN_CHUNK, n) + 1) if n % c == 0)
 
 # The C entry point (csrc/flash_attention.cu) each dtype launches.
 ENTRIES = {torch.float32: "flash_attention_forward", torch.bfloat16: "flash_attention_forward_mma"}
@@ -60,10 +71,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, KH, D).  Returns (B, Sq, H, D) in q's
     dtype: softmax(q k^T / sqrt(D)) v under the causal, sliding-window and
-    prefix-LM masks."""
+    prefix-LM masks (query i sits at key i), or none of them
+    (``causal=False``: bidirectional, and cross-attention with Sq != Sk)."""
     if q.device.type == "cpu":
-        return blocked_attention(q, k, v, causal=causal, window=window, q_chunk=PLAIN_CHUNK,
-                                 k_chunk=PLAIN_CHUNK, prefix_len=prefix)
+        return blocked_attention(q, k, v, causal=causal, window=window,
+                                 q_chunk=plain_chunk(q.shape[1]), k_chunk=plain_chunk(k.shape[1]),
+                                 prefix_len=prefix)
     _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
     out = launch(kernel.library(), q, k, v, causal=causal, window=window, prefix=prefix,
                  stream=torch.cuda.current_stream(q.device).cuda_stream)
@@ -82,7 +95,7 @@ def launch(lib, q, k, v, *, causal: bool, window: int, prefix: int, stream) -> t
     _require(q.dtype in ENTRIES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (all f32 or all bf16)")
     _require(k.shape == (B, Sk, KH, D) and v.shape == k.shape, "k/v shape")
-    _require(D in (32, 64, 128), f"head dim {D}")
+    _require(D in (32, 64, 128, 256), f"head dim {D}")
     _require(KH > 0 and H % KH == 0 and H // KH <= _ROWS_MAX, f"heads H={H} KH={KH}")
     _require(k.device == q.device and v.device == q.device, "all tensors on one device")
     strides = [_token_stride(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"))]

@@ -22,14 +22,22 @@
     # the eager path: one prefill of the batch, then lockstep greedy decode
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --engine eager --batch 8 --prompt-len 2048 --gen 32
+    # the eager path's other archs (random prefix embeddings / encoder frames)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+        --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+        --batch 8 --prompt-len 64 --gen 32
 
 The flags are those of ``repro.launch.serve.ServeArgs`` but
 ``--pages-per-tile`` (the CUDA kernels have no page-tile schedule),
 ``--from-family`` and the deprecated ``--trace``, plus ``--device`` and
 ``--dtype``.  ``plan_overrides``
 maps them onto ``derive_serve_plan`` keywords as ``ServeArgs.
-plan_overrides`` does.  An arch that ``serve_feasible`` refuses (RWKV-6)
-falls back to ``--engine eager``.  The plan derives for the ``h100``
+plan_overrides`` does.  An arch that ``serve_feasible`` refuses (RWKV-6,
+RG-LRU, prefix-LM, encoder-decoder, learned positions) falls back to
+``--engine eager``, which draws a frontend's prefix embeddings and an
+encoder-decoder's frames as JAX's ``run_eager`` does; a classifier
+(vit-base) has no tokens to serve and raises.  The plan derives for the ``h100``
 hardware entry.  Weights are random, drawn from ``--seed``, and so are the
 eager path's prompts, and a model drafter's weights (seed 2, as JAX).  The
 batched engine prints the execution and serve plans, the engine's health
@@ -245,19 +253,31 @@ def run(a: argparse.Namespace) -> dict:
 
 def run_eager(a: argparse.Namespace) -> dict:
     """``greedy_generate`` over a batch of random prompts: --batch x
-    --prompt-len tokens, --gen new tokens each."""
+    --prompt-len tokens, --gen new tokens each; with a frontend,
+    ``n_prefix_embeds`` random prefix embeddings in front of each prompt
+    (whisper's audio frontend: none), and for an encoder-decoder
+    ``enc_seq`` random encoder frames, as JAX's ``run_eager`` builds them.
+    The dense cache holds the prefix too (JAX's holds --prompt-len + --gen
+    positions, which drops a prefix-LM's first keys: ROADMAP §3).  A
+    classifier (vit-base) raises: it has no tokens to generate."""
     device = resolve_device(a.device)
     cfg = get_config(a.arch)
     plan = derive_execution_plan(cfg)
     gen = torch.Generator(device=device).manual_seed(a.seed)
     params = init_params(cfg, plan, _DTYPES[a.dtype], generator=gen, device=device)
-    tokens = torch.randint(0, cfg.vocab_size, (a.batch, a.prompt_len), generator=gen,
-                           device=device, dtype=torch.int32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (a.batch, a.prompt_len), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    if cfg.frontend != "none":
+        batch["prefix_embeds"] = torch.randn((a.batch, cfg.n_prefix_embeds, cfg.d_model),
+                                             generator=gen, device=device)
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.randn((a.batch, cfg.enc_seq, cfg.d_model), generator=gen,
+                                          device=device)
     if device.type == "cuda":  # build the path's kernels now: tok/s excludes nvcc
         _build.build_all([wkv_kernel.SOURCE, flash_kernel.SOURCE, rmsnorm_kernel.SOURCE])
     t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, plan, {"tokens": tokens}, n_steps=a.gen,
-                          cache_len=a.prompt_len + a.gen, device=device)
+    out = greedy_generate(params, cfg, plan, batch, n_steps=a.gen,
+                          cache_len=cfg.n_prefix_embeds + a.prompt_len + a.gen, device=device)
     out = out.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     tok_s = a.batch * a.gen / dt

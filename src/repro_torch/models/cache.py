@@ -7,6 +7,9 @@ Dense cache, per layer kind (the JAX layout):
                    softmax does not care about key order), else cache_len.
   rwkv6          : {"rwkv": {"S": (B, H, D, D) f32, "shift": (B, d) f32},
                     "cmix": (B, d) f32}
+  rglru          : {"rglru": {"h": (B, W) f32, "conv": (B, cw - 1, W)}}
+An encoder-decoder adds ``{"memory": (B, Se, d)}`` to the cache and
+``{"cross_kv": (k, v)}`` (each (B, Se, KV, Dh)) to every decoder layer.
 A layer's ``"t"`` (positions already cached) is an int32 tensor kept on the
 CPU, (n_groups,) in the stacked groups and 0-d in the tail, so reading it
 costs no device sync.  ``init_cache`` builds zero caches;
@@ -220,28 +223,38 @@ def _cache_slots(cfg, kind: str, cache_len: int) -> int:
 def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, device) -> dict:
     KV, Dh, d = cfg.n_kv_heads, cfg.d_head, cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
+    entry: dict = {}
     if kind in ("attn", "swa", "local"):
         Sc = _cache_slots(cfg, kind, cache_len)
         shape = lead + (B, Sc, KV, Dh)
-        return {"attn": {
+        entry["attn"] = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "t": torch.zeros(lead, dtype=torch.int32),
-        }}
-    if kind == "rwkv6":
-        H = cfg.rnn_heads
-        return {
-            "rwkv": {"S": torch.zeros(lead + (B, H, Dh, Dh), **f32),
-                     "shift": torch.zeros(lead + (B, d), **f32)},
-            "cmix": torch.zeros(lead + (B, d), **f32),
         }
-    raise NotImplementedError(f"{cfg.name}: no dense cache for layer kind {kind!r}")
+    elif kind == "rglru":
+        W = cfg.lru_width or d
+        entry["rglru"] = {"h": torch.zeros(lead + (B, W), **f32),
+                          "conv": torch.zeros(lead + (B, cfg.conv_width - 1, W), **f32)}
+    elif kind == "rwkv6":
+        H = cfg.rnn_heads
+        entry["rwkv"] = {"S": torch.zeros(lead + (B, H, Dh, Dh), **f32),
+                         "shift": torch.zeros(lead + (B, d), **f32)}
+        entry["cmix"] = torch.zeros(lead + (B, d), **f32)
+    else:
+        raise ValueError(kind)
+    if cfg.enc_dec:
+        shape = lead + (B, cfg.enc_seq, KV, Dh)
+        entry["cross_kv"] = (torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device))
+    return entry
 
 
 def init_cache(cfg, plan, batch_size: int, cache_len: int, dtype=torch.bfloat16,
                device="cuda") -> dict:
     """Zero dense caches mirroring the layer tree; ``"t"`` is the Python int
-    count of positions cached (0).  ``device`` defaults to the card."""
+    count of positions cached (0); an encoder-decoder adds a zero
+    ``"memory"``.  ``device`` defaults to the card."""
     device = resolve_device(device)
     pattern = cfg.layer_pattern
     n_full, rem = divmod(cfg.n_layers, len(pattern))
@@ -255,7 +268,11 @@ def init_cache(cfg, plan, batch_size: int, cache_len: int, dtype=torch.bfloat16,
         _layer_cache(cfg, pattern[i], (), batch_size, cache_len, dtype, device)
         for i in range(rem)
     )
-    return {"layers": {"stack": stack, "tail": tail}, "t": 0}
+    cache = {"layers": {"stack": stack, "tail": tail}, "t": 0}
+    if cfg.enc_dec:
+        cache["memory"] = torch.zeros((batch_size, cfg.enc_seq, cfg.d_model), dtype=dtype,
+                                      device=device)
+    return cache
 
 
 def _kv_to_ring(k: torch.Tensor, v: torch.Tensor, Sc: int, dtype):
@@ -300,7 +317,8 @@ def cache_from_prefill(cfg, plan, prefill_cache: dict, cache_len: int,
     """Convert the ``collect_cache=True`` output of ``forward`` into a
     decode cache of ``cache_len`` positions (windowed layers: a ring of
     ``min(window, cache_len)`` slots).  K/V are stored in ``dtype``; the
-    RWKV states stay f32."""
+    RWKV and RG-LRU states, the cross K/V and the encoder ``memory`` are
+    carried as the prefill left them."""
     S = int(prefill_cache["t"])
     pattern = cfg.layer_pattern
     layers = prefill_cache["layers"]
@@ -312,4 +330,7 @@ def cache_from_prefill(cfg, plan, prefill_cache: dict, cache_len: int,
                        torch.tensor(S, dtype=torch.int32), dtype)
         for i, e in enumerate(layers["tail"])
     )
-    return {"layers": {"stack": stack, "tail": tail}, "t": S}
+    cache = {"layers": {"stack": stack, "tail": tail}, "t": S}
+    if "memory" in prefill_cache:
+        cache["memory"] = prefill_cache["memory"]
+    return cache

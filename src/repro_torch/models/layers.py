@@ -1,7 +1,8 @@
 """Model building blocks (the port's ``repro/models/layers.py``, serve-path
-subset): norms, RoPE, the MLPs, the blocked online-softmax attention of the
-prefill (the plain version of the flash kernel), one-token attention over a
-dense cache, and the gather-path paged attention.
+subset): norms, RoPE and sinusoidal positions, the MLPs, the blocked
+online-softmax attention of the prefill (the plain version of the flash
+kernel) and its cross-attention form, one-token attention over a dense
+cache, and the gather-path paged attention.
 
 Conventions carried over from the JAX package: norms compute in f32 and
 cast back, RoPE rotates split halves (not interleaved pairs), gelu is the
@@ -62,6 +63,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """(seq_len, d_model) f32 table of positions ``offset .. offset +
+    seq_len - 1``: sines of the even frequencies, then their cosines."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +149,14 @@ def blocked_attention(
         o = o / torch.clamp(l[..., None], min=1e-30)
         out.append(o.permute(0, 3, 1, 2, 4).reshape(B, qc, H, D))
     return torch.cat(out, dim=1).to(q.dtype)
+
+
+def plain_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_chunk: int = 512) -> torch.Tensor:
+    """Bidirectional cross-attention (decoder -> encoder memory): the plain
+    version of the flash kernel with ``causal=False`` and Sq != Sk."""
+    return blocked_attention(q, k, v, causal=False, window=0, q_chunk=q_chunk,
+                             k_chunk=k.shape[1])
 
 
 def decode_attention(

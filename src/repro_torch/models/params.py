@@ -2,10 +2,15 @@
 
 The tree has the JAX package's shape: ``blocks.stack`` holds the n_full
 pattern-groups, each leaf stacked on a leading axis, ``blocks.tail`` the
-remainder layers, then ``embed`` and ``final_norm``.  Leaves and scales are
+remainder layers, then ``embed`` (absent when ``vocab_size == 1``: ViT's
+patches come precomputed), learned ``pos``, ``final_norm``, ``lm_head``,
+the classifier's ``cls_head`` and, for an encoder-decoder, the ``encoder``
+tree (``{"stack", "tail": (), "final_norm"}``) and each decoder layer's
+``cross`` leaves (split ``wq/wk/wv``, no qk-norm).  Leaves and scales are
 the JAX ones for attention layers with a dense or MoE FFN (``router``,
-``w1``/``w3`` (E, d, F), ``w2`` (E, F, d)) and for RWKV-6 layers (time-mix +
-channel-mix, params.py:44-124); the numbers differ, because a
+``w1``/``w3`` (E, d, F), ``w2`` (E, F, d)), for RWKV-6 layers (time-mix +
+channel-mix) and for RG-LRU layers (``lam`` the f32 ``linspace(-2, 1, W)``,
+not a draw; params.py:43-184); the numbers differ, because a
 ``torch.Generator`` is not a ``jax.random`` key.
 Parameters are a plain nested dict of tensors, not ``nn.Module``s, so the
 bridge and the tests compare like with like.
@@ -60,17 +65,18 @@ class _Init:
         return {"scale": torch.ones(shape, **z), "bias": torch.zeros(shape, **z)}
 
 
-def _attn_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, lead: tuple) -> dict:
+def _attn_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, lead: tuple,
+                 cross: bool = False) -> dict:
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p: dict = {"ln": init.norm(cfg, lead + (d,))}
-    if plan.fuse_qkv:
+    if plan.fuse_qkv and not cross:
         p["wqkv"] = init.normal(lead + (d, (H + 2 * KV) * Dh))
     else:
         p["wq"] = init.normal(lead + (d, H * Dh))
         p["wk"] = init.normal(lead + (d, KV * Dh))
         p["wv"] = init.normal(lead + (d, KV * Dh))
     p["wo"] = init.normal(lead + (H * Dh, d), scale=0.02 / max(1, cfg.n_layers) ** 0.5)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         z = dict(dtype=torch.float32, device=init.device)
         p["q_norm"] = torch.zeros(lead + (Dh,), **z)
         p["k_norm"] = torch.zeros(lead + (Dh,), **z)
@@ -126,15 +132,39 @@ def _rwkv6_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
     return p
 
 
+def _rglru_params(init: _Init, cfg: ArchConfig, lead: tuple) -> dict:
+    d, W, Hn = cfg.d_model, cfg.lru_width or cfg.d_model, max(cfg.rnn_heads, 1)
+    bh = W // Hn
+    lam = torch.linspace(-2.0, 1.0, W, dtype=torch.float32, device=init.device)
+    return {
+        "ln": init.norm(cfg, lead + (d,)),
+        "w_x": init.normal(lead + (d, W)),
+        "w_g": init.normal(lead + (d, W)),
+        "conv_w": init.normal(lead + (cfg.conv_width, W), scale=0.1),
+        "w_gate_a": init.normal(lead + (Hn, bh, bh)),
+        "b_gate_a": init.zeros(lead + (W,)),
+        "w_gate_x": init.normal(lead + (Hn, bh, bh)),
+        "b_gate_x": init.zeros(lead + (W,)),
+        # softplus(lam) spans so that a = exp(-8 softplus(lam)) is in (0.7, 0.999)
+        "lam": lam.expand(lead + (W,)).clone(),
+        "w_out": init.normal(lead + (W, d)),
+    }
+
+
 def _layer_params(init: _Init, cfg: ArchConfig, plan: ExecutionPlan, kind: str,
-                  lead: tuple = ()) -> dict:
+                  lead: tuple = (), with_cross: bool = False) -> dict:
     if kind in ("attn", "swa", "local"):
-        core = _attn_params(init, cfg, plan, lead)
+        core = {"attn": _attn_params(init, cfg, plan, lead)}
+    elif kind == "rglru":
+        core = {"attn": _rglru_params(init, cfg, lead)}
     elif kind == "rwkv6":
-        core = _rwkv6_params(init, cfg, lead)
+        core = {"attn": _rwkv6_params(init, cfg, lead)}
     else:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return {"attn": core, "ffn": _ffn_params(init, cfg, lead)}
+        raise ValueError(kind)
+    if with_cross:
+        core["cross"] = _attn_params(init, cfg, plan, lead, cross=True)
+    core["ffn"] = _ffn_params(init, cfg, lead)
+    return core
 
 
 def init_params(
@@ -147,28 +177,33 @@ def init_params(
     """Random weights with the JAX tree and scales, drawn from ``generator``
     (a fresh one seeded 0 on ``device`` when omitted)."""
     dev = resolve_device(device)
-    if cfg.enc_dec or cfg.frontend != "none" or cfg.n_classes:
-        raise NotImplementedError(
-            f"{cfg.name}: only attention (dense or MoE FFN) and RWKV-6 decoders are ported")
-    if cfg.activation not in ("swiglu", "geglu", "gelu", "rwkv"):
-        raise NotImplementedError(f"{cfg.name}: activation {cfg.activation!r}")
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.name}: pos_embedding {cfg.pos_embedding!r}")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     init = _Init(generator, dtype, dev)
     pattern = cfg.layer_pattern
     n_full, rem = divmod(cfg.n_layers, len(pattern))
     # leaves of the stacked groups are drawn stacked (no per-group copies)
+    cross = cfg.enc_dec
     stack = (
-        tuple(_layer_params(init, cfg, plan, kind, (n_full,)) for kind in pattern)
+        tuple(_layer_params(init, cfg, plan, kind, (n_full,), cross) for kind in pattern)
         if n_full
         else None
     )
-    tail = tuple(_layer_params(init, cfg, plan, pattern[i]) for i in range(rem))
+    tail = tuple(_layer_params(init, cfg, plan, pattern[i], (), cross) for i in range(rem))
     params: dict = {"blocks": {"stack": stack, "tail": tail}}
-    params["embed"] = init.normal((cfg.vocab_size, cfg.d_model))
+    if cfg.vocab_size > 1:
+        params["embed"] = init.normal((cfg.vocab_size, cfg.d_model))
+    if cfg.pos_embedding == "learned":
+        params["pos"] = init.normal((cfg.max_seq_len, cfg.d_model))
     params["final_norm"] = init.norm(cfg, (cfg.d_model,))
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and cfg.vocab_size > 1:
         params["lm_head"] = init.normal((cfg.d_model, cfg.vocab_size))
+    if cfg.n_classes:
+        params["cls_head"] = init.normal((cfg.d_model, cfg.n_classes))
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "stack": (_layer_params(init, cfg, plan, "attn", (cfg.n_enc_layers,)),),
+            "tail": (),
+            "final_norm": init.norm(cfg, (cfg.d_model,)),
+        }
     return params

@@ -1,14 +1,25 @@
 """EDPU forward (the port's ``repro/models/transformer.py``): one
-``edpu_layer`` = one decoder layer, MHA (or RWKV-6 time-mix) stage then the
-FFN (dense, MoE through ``models/moe.py``, or channel-mix) stage.  Three cache modes, as in JAX:
+``edpu_layer`` = one layer, the MHA (or RWKV-6 time-mix, or RG-LRU) stage,
+the cross-attention sub-stage of an encoder-decoder's decoder, then the FFN
+(dense, MoE through ``models/moe.py``, or channel-mix) stage.  Three cache
+modes, as in JAX:
 
 * no cache: the whole prompt at once (prefill); attention goes through the
-  flash-attention kernel wrapper, RWKV-6 through the WKV kernel wrapper,
-  and ``collect_cache=True`` harvests what the decode cache needs;
+  flash-attention kernel wrapper (causal, windowed, prefix-LM or, for
+  encoders, bidirectional), RWKV-6 through the WKV kernel wrapper, and
+  ``collect_cache=True`` harvests what the decode cache needs;
 * a dense cache (``models/cache.init_cache`` / ``cache_from_prefill``): one
   decode token, the eager ``greedy_generate`` path;
 * a paged cache (``init_paged_cache`` + ``page_state``): one continuous-
   batching serve step over the block pools.
+
+Inputs are token embeddings, precomputed frontend embeddings in front of
+them (``prefix_embeds``: a prefix-LM's bidirectional prefix, or a ViT's
+patches) and, for an encoder-decoder, ``enc_embeds``, which the encoder
+stack turns into the ``memory`` every decoder layer cross-attends to (its
+K/V computed once, kept in the decode cache).  Positions are RoPE,
+learned or sinusoidal.  Cross-attention runs through the flash kernel
+(``causal=False``, Sq != Sk) in the prefill and in every decode step.
 
 Every RMSNorm (each layer's two, qk-norm, the final norm) goes through the
 RMSNorm kernel's wrapper, in all three modes; ``fused=False`` runs every
@@ -34,6 +45,7 @@ from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 
 
@@ -80,6 +92,8 @@ def attention_stage(
     cache: Optional[dict] = None,
     page_state: Optional[dict] = None,
     fused: bool = True,
+    prefix_len: int = 0,
+    causal: Optional[bool] = None,
 ):
     """Returns ``(out, kv_out)``: ``kv_out`` is this pass's (k, v) with no
     cache (the prefill harvests it), else None.
@@ -88,9 +102,10 @@ def attention_stage(
       attend off the block table, through the CUDA kernel
       (``page_state["fused"]``) or by gathering the pages (the fallback and
       oracle);
-    * no cache: causal (windowed) attention over the whole input, through
-      the flash kernel's wrapper, or, with ``fused=False``, the plain
-      ``blocked_attention`` on any device;
+    * no cache: attention over the whole input under ``causal`` (default
+      ``cfg.causal``), the window and ``prefix_len`` (a prefix-LM's
+      bidirectional prefix), through the flash kernel's wrapper, or, with
+      ``fused=False``, the plain ``blocked_attention`` on any device;
     * dense cache (one token): write K/V at slot ``t % Sc`` (ring, windowed
       layers) or ``min(t, Sc - 1)``, in place, then attend over the
       ``min(t + 1, Sc)`` filled slots."""
@@ -116,12 +131,14 @@ def attention_stage(
             kf, vf = C.paged_gather(entry, table, bs, page_state.get("max_blocks"))
             o = L.paged_attention(q, kf, vf, pos2d, window=window)
     elif cache is None:
+        causal = cfg.causal if causal is None else causal
         if fused:
-            o = flash_ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+            o = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                          prefix=prefix_len)
         else:
-            o = L.blocked_attention(q, k, v, causal=cfg.causal, window=window,
-                                    q_chunk=flash_ops.PLAIN_CHUNK,
-                                    k_chunk=flash_ops.PLAIN_CHUNK)
+            c = flash_ops.plain_chunk(S)
+            o = L.blocked_attention(q, k, v, causal=causal, window=window, q_chunk=c,
+                                    k_chunk=c, prefix_len=prefix_len)
         kv_out = (k, v)
     else:
         Sc = cache["k"].shape[1]
@@ -134,6 +151,29 @@ def attention_stage(
     return o.reshape(B, S, H * Dh) @ ap["wo"], kv_out
 
 
+def cross_attention_stage(cp: dict, h: torch.Tensor, memory_kv, cfg: ArchConfig,
+                          fused: bool = True) -> torch.Tensor:
+    """Decoder -> encoder-memory attention (whisper).  memory_kv: (k, v),
+    each (B, Se, KV, Dh).  Through the flash kernel's wrapper with
+    ``causal=False``, or the plain ``plain_cross_attention``."""
+    B, S, _ = h.shape
+    q = (h @ cp["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    mk, mv = memory_kv
+    if fused:
+        o = flash_ops.flash_attention(q, mk, mv, causal=False)
+    else:
+        o = L.plain_cross_attention(q, mk, mv)
+    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ cp["wo"]
+
+
+def cross_kv(cp: dict, memory: torch.Tensor, cfg: ArchConfig):
+    """The encoder memory's K and V for one decoder layer, (B, Se, KV, Dh)."""
+    B, Se, _ = memory.shape
+    mk = (memory @ cp["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
+    mv = (memory @ cp["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
+    return mk, mv
+
+
 def edpu_layer(
     lp: dict,
     x: torch.Tensor,
@@ -143,37 +183,61 @@ def edpu_layer(
     kind: str,
     positions: torch.Tensor,
     cache: Optional[dict] = None,
+    memory: Optional[torch.Tensor] = None,
+    prefix_len: int = 0,
+    causal_override: Optional[bool] = None,
     collect: bool = False,
     page_state: Optional[dict] = None,
     fused: bool = True,
 ):
-    """One decoder layer: MHA (or RWKV-6 time-mix) stage, then the FFN (MoE
-    on an MoE arch, with the plan's dispatch, or channel-mix) stage.  Returns ``(x, cache)``: with a cache, the same
-    cache updated in place; with ``collect`` (prefill), a new entry of what
-    the decode cache needs (``kv_out`` for attention layers, the states for
-    RWKV-6); else None."""
-    if kind not in ("attn", "swa", "local", "rwkv6"):
-        raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} not ported")
+    """One layer: MHA (or RWKV-6 time-mix, or RG-LRU) stage, the
+    cross-attention sub-stage when the layer has ``cross`` leaves (over
+    ``memory``, or the cached ``cross_kv``), then the FFN (MoE on an MoE
+    arch, with the plan's dispatch, or channel-mix) stage.
+    ``causal_override`` replaces ``cfg.causal`` in the attention stage (an
+    encoder's layers: False).  Returns ``(x, cache)``: with a cache, the
+    same cache updated in place; with ``collect`` (prefill), a new entry of
+    what the decode cache needs (``kv_out`` for attention layers, the
+    states for RWKV-6 and RG-LRU, ``cross_kv``); else None."""
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
-    if kind == "rwkv6":
+    if kind == "rglru":
+        a, nc = G.rglru_block(lp["attn"], h, n_heads=max(cfg.rnn_heads, 1),
+                              cache=None if cache is None else cache["rglru"], collect=collect)
+        if cache is not None:
+            new_cache = cache
+        elif nc is not None:
+            new_cache["rglru"] = nc
+    elif kind == "rwkv6":
         a, nc = R.rwkv6_time_mix(
             lp["attn"], h, n_heads=cfg.rnn_heads, d_head=cfg.d_head,
             cache=None if cache is None else cache["rwkv"], collect=collect, fused=fused,
         )
         if nc is not None:
             new_cache["rwkv"] = nc
-    else:
+    elif kind in ("attn", "swa", "local"):
         ac = None if cache is None else (cache if "paged" in cache else cache["attn"])
         a, kv_out = attention_stage(
             lp["attn"], h, cfg=cfg, plan=plan, kind=kind, positions=positions,
-            cache=ac, page_state=page_state, fused=fused,
+            cache=ac, page_state=page_state, fused=fused, prefix_len=prefix_len,
+            causal=causal_override,
         )
         if cache is not None:
             new_cache = cache
         elif collect:
             new_cache["kv_out"] = kv_out  # harvested by cache_from_prefill
+    else:
+        raise ValueError(kind)
     x = x + a
+    if "cross" in lp:  # an encoder-decoder's decoder layer
+        hc = _norm(lp["cross"]["ln"], x, cfg.norm, fused)
+        if cache is not None and "cross_kv" in cache:
+            mkv = cache["cross_kv"]
+        else:
+            mkv = cross_kv(lp["cross"], memory, cfg)
+        x = x + cross_attention_stage(lp["cross"], hc, mkv, cfg, fused)
+        if cache is None and collect:
+            new_cache["cross_kv"] = mkv
     h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
     if cfg.is_moe:
         st = M.MoESettings(
@@ -251,19 +315,70 @@ def _run_stack(
     return x, {"stack": new_stack, "tail": tuple(new_tail)}
 
 
-def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, t=None):
-    """Token embedding + RoPE positions: (x, positions).  ``t`` is None (a
+def _compute_dtype(params: dict) -> torch.dtype:
+    """The dtype activations run in: the token embedding's, or, with no
+    token embedding (ViT: patches come precomputed), the first layer's FFN
+    output weight's.  (JAX takes its first 2-D leaf, which in a stacked
+    tree is an f32 norm scale: ROADMAP, deliberate divergences.)"""
+    if "embed" in params:
+        return params["embed"].dtype
+    blocks = params["blocks"]
+    first = blocks["stack"][0] if blocks["stack"] is not None else blocks["tail"][0]
+    return first["ffn"]["w2"].dtype
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype):
+    """Prefix + token embeddings and positions: (x, positions, prefix_len).
+
+    ``batch["prefix_embeds"]`` (B, P, d), when given, goes in front of the
+    token embeddings (``prefix_len`` = P; P may be 0); ``batch["tokens"]``
+    is embedded when the model has a token embedding.  ``t`` is None (a
     pass from position 0: positions (1, S)), an int (a dense cache's filled
     length: positions (1, S) from t) or a (B,) tensor (the paged cache's
-    per-slot lengths: positions (B, S))."""
-    emb = params["embed"][tokens.long()]
-    if cfg.activation == "geglu":  # gemma family scales embeddings
-        emb = emb * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
-    S = tokens.shape[1]
-    ar = torch.arange(S, device=tokens.device)[None, :]
+    per-slot lengths: positions (B, S)).  Learned and sinusoidal positions
+    are added to x from position t (the sinusoids computed at their offset,
+    not sliced from a ``max_seq_len`` table)."""
+    parts = []
+    prefix_len = 0
+    if "prefix_embeds" in batch:
+        parts.append(batch["prefix_embeds"].to(dtype))
+        prefix_len = batch["prefix_embeds"].shape[1]
+    if "tokens" in batch and "embed" in params:
+        emb = params["embed"].to(dtype)[batch["tokens"].long()]
+        if cfg.activation == "geglu":  # gemma family scales embeddings
+            emb = emb * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
+        parts.append(emb)
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    S, dev = x.shape[1], x.device
+    ar = torch.arange(S, device=dev)[None, :]
     if isinstance(t, torch.Tensor):
-        return emb, t.long()[:, None] + ar
-    return emb, ar + (t or 0)
+        positions = t.long()[:, None] + ar
+    else:
+        positions = ar + (t or 0)
+    if cfg.pos_embedding == "learned":
+        off = int(t or 0)
+        x = x + params["pos"].to(dtype)[off:off + S][None]
+    elif cfg.pos_embedding == "sinusoidal":
+        x = x + L.sinusoidal_positions(S, cfg.d_model, int(t or 0), dev).to(dtype)[None]
+    return x, positions, prefix_len
+
+
+def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan,
+            dtype, fused: bool) -> torch.Tensor:
+    """The encoder of an encoder-decoder: sinusoidal positions, the
+    ``params["encoder"]`` stack with bidirectional attention, its final
+    norm.  Returns the memory (B, Se, d)."""
+    enc = enc_embeds.to(dtype)
+    Se, dev = enc.shape[1], enc.device
+    enc = enc + L.sinusoidal_positions(Se, cfg.d_model, device=dev).to(dtype)[None]
+    positions = torch.arange(Se, device=dev)[None, :]
+
+    def enc_layer_fn(lp, xx, kind, c):
+        return edpu_layer(lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
+                          causal_override=False, fused=fused)
+
+    enc, _ = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",))
+    return _norm(params["encoder"]["final_norm"], enc, cfg.norm, fused)
 
 
 def forward(
@@ -277,16 +392,21 @@ def forward(
     page_state: Optional[dict] = None,
     fused: bool = True,
 ):
-    """The model over ``batch["tokens"]`` (B, S); the compute dtype is the
-    embedding's (norms stay f32).  Returns ``(hidden (B, S, d), cache)``.
+    """The model over ``batch``: ``"tokens"`` (B, S), optional
+    ``"prefix_embeds"`` (B, P, d) in front of them, and an encoder-decoder's
+    ``"enc_embeds"`` (B, Se, d) (unless the cache holds the encoder's
+    ``"memory"``).  The compute dtype is the embedding's (norms stay f32);
+    an encoder-only arch attends bidirectionally.  Returns ``(hidden (B,
+    P + S, d), cache)``.
 
     ``fused=False`` runs the plain versions of the kernels on any device
     (the oracle): the norms and, with no cache, the flash and WKV kernels;
     a paged step's attention follows ``page_state["fused"]``.
 
     * ``cache=None``: a pass from position 0; with ``collect_cache`` the
-      returned cache is ``{"layers": per-layer harvest, "t": S}`` for
-      ``cache_from_prefill``, else None.
+      returned cache is ``{"layers": per-layer harvest, "t": S}`` (plus
+      ``"memory"`` for an encoder-decoder) for ``cache_from_prefill``, else
+      None.
     * a dense cache ``{"layers", "t": int}`` (S == 1): one decode step,
       written in place; returns the cache with ``t + 1``.
     * a paged cache ``{"layers": pools, "t": lens}`` with ``lens`` the
@@ -294,13 +414,22 @@ def forward(
       {"table": (B, MB), "block_size", "q_lens": (B,) live rows per slot,
       "fused": bool[, "max_blocks"]}``: one continuous-batching serve step;
       the pools are updated in place and ``t`` advances by S."""
+    dtype = _compute_dtype(params)
     t = None if cache is None else cache["t"]
-    x, positions = _embed_inputs(params, batch["tokens"], cfg, t)
+    x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype)
     S = x.shape[1]
+    memory = None
+    if cfg.enc_dec:
+        if cache is not None and "memory" in cache:
+            memory = cache["memory"]
+        else:
+            memory = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused)
+    causal_override = False if cfg.encoder_only else None
 
     def layer_fn(lp, xx, kind, c):
         return edpu_layer(
             lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions, cache=c,
+            memory=memory, prefix_len=prefix_len, causal_override=causal_override,
             collect=collect_cache, page_state=page_state, fused=fused,
         )
 
@@ -310,11 +439,18 @@ def forward(
     if cache is not None:
         return x, {**cache, "layers": new_layers, "t": cache["t"] + S}
     if collect_cache:
-        return x, {"layers": new_layers, "t": S}
+        pc = {"layers": new_layers, "t": S}
+        if memory is not None:
+            pc["memory"] = memory
+        return x, pc
     return x, None
 
 
 def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Token logits (B, S, V), or, for a classifier (``n_classes``), class
+    logits (B, n_classes) of the mean over positions."""
+    if cfg.n_classes:
+        return x.mean(dim=1) @ params["cls_head"]
     w: Optional[torch.Tensor] = params.get("lm_head")
     if w is None:
         w = params["embed"].T

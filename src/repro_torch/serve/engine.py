@@ -63,7 +63,8 @@ from repro_torch.serve.scheduler import DONE, WAITING, Request, Scheduler
 
 def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
     """``prefill(params, batch) -> (logits (B, 1, V) of the last position,
-    prefill cache)``: one pass over the whole prompt with
+    prefill cache)``: one pass over the whole prompt (``batch["tokens"]``,
+    with any ``prefix_embeds`` and ``enc_embeds``) with
     ``collect_cache=True``.  ``fused=False`` runs the kernels' plain
     versions on any device (the oracle)."""
 
@@ -77,7 +78,8 @@ def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = Tru
 
 def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
     """``decode(params, token (B, 1), cache) -> (logits (B, 1, V), cache)``:
-    one token over the dense cache, which is updated in place.
+    one token over the dense cache, which is updated in place (it carries
+    an encoder-decoder's memory: a step takes tokens only, as in JAX).
     ``fused=False`` runs the kernels' plain versions on any device."""
 
     @torch.no_grad()
@@ -101,13 +103,21 @@ def greedy_generate(
     device="cuda",
     fused: bool = True,
 ) -> torch.Tensor:
-    """Prefill ``batch["tokens"]`` (B, S), then ``n_steps - 1`` lockstep
-    greedy decode steps over a dense cache of ``cache_len`` positions in
+    """Prefill ``batch`` (``"tokens"`` (B, S), and an arch's
+    ``"prefix_embeds"`` (B, P, d) and ``"enc_embeds"`` (B, Se, d), cast to
+    the compute dtype by ``forward``), then ``n_steps - 1`` lockstep greedy
+    decode steps over a dense cache of ``cache_len`` positions in
     ``cache_dtype``.  Returns the (B, n_steps) int32 greedy tokens on
     ``device`` (the card by default; raises without one unless ``"cpu"``),
     where the parameters and the batch are moved first.  ``fused=False``
     runs every kernel's plain version, in the prefill and in each decode
-    step."""
+    step.  A classifier (``cfg.n_classes``: ViT) has no token to generate
+    and raises (in JAX it fails with an ``IndexError``)."""
+    if cfg.n_classes:
+        raise ValueError(
+            f"{cfg.name} is a classifier: logits_fn gives (B, {cfg.n_classes}) class logits, "
+            "not tokens, so it cannot be served by greedy_generate; call forward and "
+            "logits_fn instead")
     dev = resolve_device(device)
     params = _tree_to(params, dev)
     batch = {k: v.to(dev) for k, v in batch.items()}

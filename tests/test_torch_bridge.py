@@ -73,3 +73,30 @@ def test_port_init_params_has_the_jax_tree(dtype):
     assert torch.equal(again["embed"], mine["embed"])
     # same scales: embed ~ N(0, 0.02^2)
     assert abs(float(mine["embed"].float().std()) - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "paligemma-3b", "whisper-small",
+                                  "bert-base", "vit-base"])
+def test_port_init_params_other_archs_have_the_jax_tree(arch):
+    """The eager path's other archs: RG-LRU leaves (``lam`` the JAX
+    linspace, not a draw), the cross-attention leaves and the ``encoder``
+    tree (whisper-small), learned ``pos`` and no ``embed`` without a
+    vocabulary (vit-base), ``cls_head``: same keys, tuple lengths, shapes
+    and dtypes as the JAX init, in bf16."""
+    # vit-base with its own vocabulary of 1 (the reduced config has 512)
+    _, _, jparams, tcfg, tplan, _ = model_pair(
+        arch, dtype=jnp.bfloat16, **({"vocab_size": 1} if arch == "vit-base" else {}))
+    mine = init_params(tcfg, tplan, torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    jp, tp = _paths(jparams), _paths(mine)
+    assert jp.keys() == tp.keys()
+    for path, j in jp.items():
+        t = tp[path]
+        if path[-1] == "#len" or j is None:
+            assert t == j, path
+            continue
+        assert tuple(t.shape) == j.shape, path
+        assert t.dtype == (torch.bfloat16 if j.dtype == jnp.bfloat16 else torch.float32), path
+        if path[-1] == "lam":  # not random: equal to JAX's within f32 rounding
+            np.testing.assert_allclose(t2n(t), np.asarray(j), rtol=1e-6, atol=1e-6)
+    assert ("embed" in mine) == (tcfg.vocab_size > 1)

@@ -10,7 +10,13 @@ exact softmax.  The bf16 tensor-core kernel's numeric scheme
 Pallas kernel and the f32 plain version at the card's bf16 tolerance, and
 why P is split (rounded once, it breaks that tolerance); and, with the
 kernel library replaced by counting stubs, which C entry each dtype
-launches."""
+launches.  At d_head 256 (recurrentgemma-9b's local layers, paligemma-3b's
+prefix-LM): the plain versions under causal + window, prefix and
+non-causal masks, with Sq != Sk (whisper-small's cross-attention, Sq 1 in
+decode), against the Pallas kernel and JAX ``blocked_attention``; the
+tensor-core scheme at D 256 (32-key tiles) within one bf16 step; the
+wrapper takes D 256 on both entries and refuses any other D (96); and the
+plain version's chunk along a length no power of two divides."""
 from collections import Counter
 
 import jax.numpy as jnp
@@ -189,3 +195,110 @@ def test_dtype_selects_the_kernel(dtype, entry):
         ops.launch(lib, q.half(), k.half(), v.half(), causal=True, window=0, prefix=0,
                    stream=None)
     assert lib.calls == Counter({entry: 1})
+
+
+# d_head 256 and cross-attention shapes: (B, Sq, Sk, H, KH, D, causal, window, prefix)
+D256_CASES = [
+    (1, 128, 128, 4, 1, 256, True, 48, 0),   # recurrentgemma-9b's local layers (G 16 there)
+    (1, 128, 128, 2, 1, 256, True, 0, 32),   # paligemma-3b's prefix-LM
+    (2, 16, 96, 2, 2, 256, False, 0, 0),     # bidirectional, Sq != Sk
+    (2, 8, 24, 4, 4, 64, False, 0, 0),       # whisper-small's cross-attention ...
+    (2, 1, 24, 4, 4, 64, False, 0, 0),       # ... in a decode step
+]
+
+
+@pytest.mark.parametrize("case", D256_CASES)
+def test_plain_flash_d256_and_cross_match_jax(case):
+    """Every plain version of the port (the wrapper on CPU tensors,
+    ``blocked_attention``, the kernel-layout ref, and for the non-causal
+    cases ``plain_cross_attention``) against the Pallas kernel (interpret
+    mode) and JAX ``blocked_attention``, f32, 1e-5."""
+    from repro.models.layers import plain_cross_attention as jax_cross
+    from repro_torch.models.layers import plain_cross_attention
+
+    B, Sq, Sk, H, KH, D, causal, window, prefix = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Sk, KH, D)).astype(np.float32) for _ in range(2))
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want = {
+        "pallas": np.asarray(jax_flash(jq, jk, jv, block_q=64, block_k=64, **kw)),
+        "jax blocked_attention": np.asarray(jax_blocked(
+            jq, jk, jv, causal=causal, window=window, q_chunk=64, k_chunk=64,
+            prefix_len=prefix)),
+    }
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    kl = lambda x, n: x.permute(0, 2, 1, 3).reshape(B * n, x.shape[1], D)  # noqa: E731
+    ref = flash_attention_ref(kl(tq, H), kl(tk, KH), kl(tv, KH), n_q_per_kv=H // KH, **kw)
+    got = {
+        "ops.flash_attention": ops.flash_attention(tq, tk, tv, **kw),
+        "blocked_attention": blocked_attention(tq, tk, tv, causal=causal, window=window,
+                                               q_chunk=32, k_chunk=32, prefix_len=prefix),
+        "ref.flash_attention_ref": ref.reshape(B, H, Sq, D).permute(0, 2, 1, 3),
+    }
+    if not causal:
+        got["plain_cross_attention"] = plain_cross_attention(tq, tk, tv)
+        want["jax plain_cross_attention"] = np.asarray(jax_cross(jq, jk, jv))
+    for name, x in got.items():
+        assert x.shape == (B, Sq, H, D), name
+        for rname, w in want.items():
+            np.testing.assert_allclose(t2n(x), w, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{name} vs {rname}")
+
+
+def _mma_d256(seed, *, p_split):
+    """(the tensor-core scheme at D 256 with the kernel's 32-key tiles, the
+    Pallas kernel's output, the f32 plain version's) on bf16 q, k, v:
+    B 1, S 256, H 2, KH 1, causal, window 96."""
+    q, k, v = _mk(1, 256, 2, 1, 256, seed=seed)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(t2n(t), jnp.bfloat16) for t in (tq, tk, tv))
+    pallas = np.asarray(jax_flash(jq, jk, jv, causal=True, window=96, block_q=128,
+                                  block_k=128), np.float32)
+    f32 = t2n(blocked_attention(tq.float(), tk.float(), tv.float(), causal=True, window=96,
+                                q_chunk=128, k_chunk=128))
+    kl = lambda x: x.permute(0, 2, 1, 3).reshape(-1, 256, 256)  # noqa: E731
+    got = flash_attention_mma_ref(kl(tq), kl(tk), kl(tv), n_q_per_kv=2, causal=True,
+                                  window=96, p_split=p_split, tile=32)
+    return t2n(got.reshape(1, 2, 256, 256).permute(0, 2, 1, 3)), {"pallas": pallas,
+                                                                  "f32 plain": f32}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mma_scheme_d256_within_bf16_tolerance(seed):
+    """At D 256 the tensor-core kernel's scheme (32-key tiles, P as bf16 hi
+    + lo) stays within one bf16 step of the Pallas kernel and of the f32
+    plain version; P rounded once does not."""
+    got, refs = _mma_d256(seed, p_split=True)
+    for name, want in refs.items():
+        assert _outside(got, want) == 0.0, name
+    once, _ = _mma_d256(seed, p_split=False)
+    for name, want in refs.items():
+        assert _outside(once, want) > 0.0, name
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_forward_mma"),
+                                         (torch.float32, "flash_attention_forward")])
+def test_d256_launches_and_other_head_dims_raise(dtype, entry):
+    """D 256 reaches the entry its dtype selects (G 16: 4 positions a CTA);
+    a head dim the kernels were not built for (96) raises before any
+    launch."""
+    q = torch.zeros((1, 8, 16, 256), dtype=dtype)
+    k = v = torch.zeros((1, 8, 1, 256), dtype=dtype)
+    lib = _Library()
+    assert ops.launch(lib, q, k, v, causal=True, window=0, prefix=0, stream=None).shape == q.shape
+    assert lib.calls == Counter({entry: 1})
+    q96 = torch.zeros((1, 8, 2, 96), dtype=dtype)
+    k96 = torch.zeros((1, 8, 1, 96), dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.launch(lib, q96, k96, k96, causal=True, window=0, prefix=0, stream=None)
+    assert lib.calls == Counter({entry: 1})
+
+
+@pytest.mark.parametrize("n,chunk", [(2048, 128), (1500, 125), (2100, 105), (97, 97), (1, 1),
+                                     (300, 100)])
+def test_plain_chunk_divides(n, chunk):
+    """The plain version's chunk: the largest divisor up to 128 (whisper's
+    1,500 frames take 125, not the 4 that halving from 128 would reach)."""
+    assert ops.plain_chunk(n) == chunk and n % chunk == 0

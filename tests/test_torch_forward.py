@@ -5,7 +5,10 @@ and MoE archs (reduced mixtral-8x7b and qwen3-moe-30b-a3b), through
 the fused path (JAX: the Pallas kernel in interpret mode; port on CPU: the
 plain version) and the gather path.  f32: hidden states and logits within
 1e-4; the pools hold the same pages after each step (every block but the
-trash block, where dead rows collide and any writer may win)."""
+trash block, where dead rows collide and any writer may win).  The eager
+path's other archs in a full pass (no cache), both paths: hidden states
+and logits within 1e-4 of JAX's, vit-base's class logits included; and
+the compute dtype of a model with no token embedding."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +110,57 @@ def test_bf16_compute_dtype_is_a_deliberate_divergence():
     jx, _, _ = jax_forward(jparams, {"tokens": jnp.asarray(tokens)}, cfg=jcfg, plan=jplan)
     tx, _ = forward(tparams, {"tokens": torch.from_numpy(tokens)}, cfg=tcfg, plan=tplan)
     assert jx.dtype == jnp.float32 and tx.dtype == torch.bfloat16
+
+
+def _frontend_batch(cfg, B, S, seed):
+    """Tokens (none for vit-base: it has no token embedding) and the arch's
+    prefix embeddings / encoder frames, from numpy."""
+    rng = np.random.default_rng(seed)
+    b = {}
+    if cfg.vocab_size > 1:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    if cfg.frontend != "none":
+        b["prefix_embeds"] = rng.standard_normal(
+            (B, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        b["enc_embeds"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return b
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "paligemma-3b", "whisper-small",
+                                  "bert-base", "vit-base"])
+def test_other_archs_forward_matches_jax(arch, fused):
+    """A full pass: RG-LRU + local layers, a bidirectional prefix, the
+    encoder and cross-attention, learned positions and bidirectional
+    encoders, the classifier head ((B, n_classes) for vit-base)."""
+    from repro.models.transformer import logits_fn as jax_logits_fn
+
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair(arch)
+    b = _frontend_batch(tcfg, 2, 10, seed=5)
+    jx, _, _ = jax_forward(jparams, {k: jnp.asarray(v) for k, v in b.items()}, cfg=jcfg,
+                           plan=jplan)
+    tx, none = forward(tparams, {k: torch.from_numpy(v) for k, v in b.items()}, cfg=tcfg,
+                       plan=tplan, fused=fused)
+    assert none is None
+    np.testing.assert_allclose(t2n(tx), np.asarray(jx), rtol=TOL, atol=TOL)
+    tl = logits_fn(tparams, tx, tcfg)
+    if tcfg.n_classes:
+        assert tl.shape == (2, tcfg.n_classes)
+    np.testing.assert_allclose(t2n(tl), np.asarray(jax_logits_fn(jparams, jx, jcfg)), rtol=TOL,
+                               atol=TOL)
+
+
+def test_compute_dtype_without_token_embedding():
+    """vit-base has no ``embed``: the port computes in its first layer's FFN
+    weight dtype (bf16 here), beside the bf16 divergence above (JAX: f32)."""
+    from repro.models.transformer import _weight_dtype
+
+    # the reduced config has a 512-token vocabulary; vit-base itself has none
+    jcfg, jplan, jparams, tcfg, tplan, tparams = model_pair("vit-base", dtype=jnp.bfloat16,
+                                                            vocab_size=1)
+    assert "embed" not in tparams and _weight_dtype(jparams) == jnp.float32
+    b = _frontend_batch(tcfg, 1, 0, seed=6)
+    tx, _ = forward(tparams, {k: torch.from_numpy(v) for k, v in b.items()}, cfg=tcfg,
+                    plan=tplan)
+    assert tx.dtype == torch.bfloat16 and tx.shape == (1, tcfg.n_prefix_embeds, tcfg.d_model)

@@ -1,6 +1,8 @@
 """Port layers vs ``repro.models.layers`` on the same numpy inputs, f32:
-rmsnorm, layernorm, rope, the three MLPs and the gather-path paged
-attention.  Tolerance 1e-5 (f32 sums taken in a different order)."""
+rmsnorm, layernorm, rope, sinusoidal positions (with an offset, against a
+slice of JAX's table), the three MLPs, the gather-path paged attention and
+the cross-attention.  Tolerance 1e-5 (f32 sums taken in a different
+order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,3 +68,28 @@ def test_gather_paged_attention_matches(window):
     got = TL.paged_attention(*map(torch.from_numpy, (q, k, v, pos)), window=window)
     want = JL.paged_attention(*map(jnp.asarray, (q, k, v, pos)), window=window)
     _close(got, want)
+
+
+@pytest.mark.parametrize("seq_len,d_model,offset", [(10, 16, 0), (7, 64, 0), (1, 768, 1499),
+                                                    (3, 32, 100_000)])
+def test_sinusoidal_positions_at_an_offset(seq_len, d_model, offset):
+    """Rows ``offset ..`` equal the same rows of JAX's table from 0 (which
+    JAX's decode step slices out of a ``max_seq_len`` table).  Tolerance
+    1e-5 plus 4 f32 ulps of the largest angle (the position itself, in
+    radians): sin and cos of an angle rounded to f32 differ by that much."""
+    got = TL.sinusoidal_positions(seq_len, d_model, offset)
+    assert got.shape == (seq_len, d_model) and got.dtype == torch.float32
+    want = np.asarray(JL.sinusoidal_positions(offset + seq_len, d_model))[offset:]
+    tol = TOL + (offset + seq_len) * 2.0**-22
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(JL.sinusoidal_positions(seq_len, d_model, offset)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(5, 12), (1, 12), (16, 7)])
+def test_plain_cross_attention_matches(Sq, Sk):
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, 2, Sq, 4, 8), _rand(rng, 2, Sk, 2, 8), _rand(rng, 2, Sk, 2, 8)
+    _close(TL.plain_cross_attention(*map(torch.from_numpy, (q, k, v))),
+           JL.plain_cross_attention(*map(jnp.asarray, (q, k, v))))
