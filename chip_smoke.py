@@ -4,13 +4,14 @@
 
 Needs one CUDA card and the repository around it (it imports ``src/
 repro_torch``); without either it exits non-zero and prints no result.  It
-builds the five CUDA kernels from the checkout (one ``nvcc`` per source,
-in parallel), holds each against its plain PyTorch version at the main
-paths' shapes, drives both serving paths at full width and depth (random
-weights from a seed) on a dense, a recurrent and an MoE arch, the eager
-path on the other archs (RG-LRU + local attention, prefix-LM,
-encoder-decoder, bidirectional encoders), and the int8 FFN stage at full
-width, checks the outputs, times the kernels, and prints:
+builds the five CUDA kernels and the flash-attention and RMSNorm backward
+kernels from the checkout (one ``nvcc`` per source, in parallel), holds
+each against its plain PyTorch version at the main paths' shapes, drives
+both serving paths at full width and depth (random weights from a seed) on
+a dense, a recurrent and an MoE arch, the eager path on the other archs
+(RG-LRU + local attention, prefix-LM, encoder-decoder, bidirectional
+encoders), the int8 FFN stage at full width, and training (qwen3-1.7b at
+full width and depth), checks the outputs, times the kernels, and prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
@@ -90,8 +91,25 @@ scan's share of the prefill; 25 paligemma-3b, B 8, 256 prefix embeddings
 prompt; 27 bert-base at L 256 (8 new tokens) and a vit-base forward +
 ``logits_fn`` over 197 patches; 28 kernel path vs plain path in f32
 (untied heads, identical tokens) on each generating arch (recurrentgemma
-cut to 5 layers, its 2176-token prompt past the window).  Every main path
-(phases 3-5, 9-11, 18-19, 21-22, 24-28) checks the exact launch count of
+cut to 5 layers, its 2176-token prompt past the window); then training:
+29 the flash forward kernels' logsumexp (both entries) and the backward
+kernel against the plain versions, f32 and bf16, on the JAX backward
+test's cases (D 16 raised to 32), prefix-LM, bidirectional, Sq != Sk,
+fused-QKV views and the qwen3-1.7b (B 8 x 2048, H 16, KH 8, D 128) and
+smollm-135m (H 9, KH 3, D 64) training shapes, with the backward's time
+against SDPA's backward and the forward's lse cost; 30 the RMSNorm
+backward kernel at every model width, with a residual and on strided q/k
+views; 31 the training main path: ``launch.train.run`` trains qwen3-1.7b
+at full width and depth in bf16, B 8 x 2048, on the H100 plan (remat on),
+4 AdamW steps (finite losses and norms, a gradient on every leaf, exact
+launch counts: flash 56 + backward 28, RMSNorm 225 + backward 113 a step;
+step ms, tokens/s, peak memory), then 4 steps on one repeated batch whose
+loss must go down, and rwkv6-1.6b, recurrentgemma-9b and paligemma-3b
+refused on the card; 32 kernel path vs plain path in f32 (qwen3-1.7b cut
+to 4 layers, B 2 x 2048: loss, every gradient leaf, parameters after 3
+steps; smollm-135m at full depth with 2 microbatches and with int8
+compression).  Every main path
+(phases 3-5, 9-11, 18-19, 21-22, 24-28, 31) checks the exact launch count of
 every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -106,8 +124,9 @@ of paged attention's combine, the WKV's cross-chunk term dropped, its
 diagonal halves' per-element weights dropped, or its operands rounded
 once to TF32 (logged if it passes), the norm's ``1 + scale`` or mean
 changed, a dropped K slice, a per-row scale, the causal edge between
-verify rows dropped) show that the tolerances
-reject a wrong kernel.  Kernel times are medians over batches
+verify rows dropped; in the backward kernels lse left in log2 units,
+delta dropped, one head of each GQA group folded, ``1 + scale`` taken as
+``scale``) show that the tolerances reject a wrong kernel.  Kernel times are medians over batches
 of back-to-back calls (``time_ms``).
 """
 from __future__ import annotations
@@ -630,15 +649,18 @@ def phase_times(cfg, name, B, n_prefill, seed, kv="bfloat16", q_len=1):
 
 # ---------------------------------------------------------------- WKV
 def kernel_ops() -> dict:
-    """Each kernel's wrapper module, which holds its LAUNCHES count."""
+    """Each kernel's launch counter: (its wrapper module, the counter's
+    name there); the flash and RMSNorm backward kernels count apart."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.mm_pu import ops as mm_pu
     from repro_torch.kernels.paged_attention import ops as paged
     from repro_torch.kernels.rmsnorm import ops as rmsnorm
     from repro_torch.kernels.rwkv6 import ops as wkv
 
-    return {"paged_attention": paged, "wkv": wkv, "flash_attention": flash, "rmsnorm": rmsnorm,
-            "mm_pu": mm_pu}
+    return {"paged_attention": (paged, "LAUNCHES"), "wkv": (wkv, "LAUNCHES"),
+            "flash_attention": (flash, "LAUNCHES"), "rmsnorm": (rmsnorm, "LAUNCHES"),
+            "mm_pu": (mm_pu, "LAUNCHES"), "flash_attention_bwd": (flash, "BWD_LAUNCHES"),
+            "rmsnorm_bwd": (rmsnorm, "BWD_LAUNCHES")}
 
 
 def expect_counts(**launches) -> dict:
@@ -656,12 +678,12 @@ def norms_per_forward(cfg) -> int:
 
 
 def reset_counts() -> None:
-    for m in kernel_ops().values():
-        m.LAUNCHES = 0
+    for m, attr in kernel_ops().values():
+        setattr(m, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: m.LAUNCHES for name, m in kernel_ops().items()}
+    return {name: getattr(m, attr) for name, (m, attr) in kernel_ops().items()}
 
 
 def rel_err(got, want) -> float:
@@ -2424,10 +2446,15 @@ def rglru_share(cfg, params, prefill_ms, B, S):
     g = torch.Generator(device="cuda").manual_seed(5)
     u = torch.randn((B, S, W), generator=g, device="cuda").to(torch.bfloat16)
     ms = time_ms(lambda: rglru(lp, u, n_heads), reps=5, warmup=1)
+    # the training form (new tensors at every scan step: autograd records)
+    ug = u.detach().requires_grad_()
+    train_ms = time_ms(lambda: rglru(lp, ug, n_heads), reps=5, warmup=1)
     n = sum(cfg.layer_kind(i) == "rglru" for i in range(cfg.n_layers))
     log(f"  plain RG-LRU at B={B} S={S} W={W}: {ms:.3f} ms a layer x {n} layers = "
-        f"{ms * n:.1f} ms, {ms * n / prefill_ms:.1%} of the {prefill_ms:.1f} ms prefill")
-    return {"rglru_ms": ms, "rglru_layers": n, "rglru_share": ms * n / prefill_ms}
+        f"{ms * n:.1f} ms, {ms * n / prefill_ms:.1%} of the {prefill_ms:.1f} ms prefill; "
+        f"its training form (autograd recording, no backward) {train_ms:.3f} ms a layer")
+    return {"rglru_ms": ms, "rglru_train_ms": train_ms, "rglru_layers": n,
+            "rglru_share": ms * n / prefill_ms}
 
 
 def phase_vit(B):
@@ -2486,6 +2513,560 @@ def phase_other_archs():
     return err, times, rg_counts, runs
 
 
+# ---------------------------------------------------------------- training
+# The training main path: qwen3-1.7b at full width and depth in bf16, B 8 x
+# S 2048 on the plan derived for the H100 (remat on, one microbatch).
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 4
+# Gradients as (atol, rtol) with the atol times max(1, the largest |want|
+# of the tensor).  f32: the JAX flash-backward test's 2e-4; bf16: one bf16
+# step, both sides computing in f32 from the same inputs and rounding once;
+# the atol covers their f32 disagreement at gradients near 0.  The lse (f32
+# on both sides, natural log, values ~ log of the keys seen): 1e-4 / 1e-5.
+GRAD_F32_TOL = (2e-4, 2e-4)
+GRAD_BF16_TOL = (1e-4, 2.0**-7)
+LSE_TOL = (1e-4, 1e-5)
+# Kernel path vs plain path, f32, whole models (phase 32): each gradient
+# leaf within 1e-4 of its own largest magnitude plus 1e-4 relative (both
+# paths compute in f32; only the order of the sums differs).  Parameters
+# after AdamW steps at peak lr 1e-3: within 1e-4, except where the two
+# paths' gradients straddle an int8 rounding boundary (int8 compression)
+# or a sign, where Adam's normalized step moves one of them by up to 2 lr a
+# step: at most FLIP_SHARE[case] of the elements, each set a few times
+# above the case's reading on the H100 (4.2e-6, 4.5e-7 and 2.4e-6 of the
+# elements).
+PATH_GRAD_TOL = (1e-4, 1e-4)
+PARAM_ATOL = 1e-4
+FLIP_SHARE = {"3 steps": 1e-5, "2 microbatches": 2e-6, "int8 compression": 1e-5}
+
+
+def grad_within(got, want, tol, *, unit_floor=True):
+    """``within`` with the atol times max(1, max |want|) (``unit_floor``)
+    or times max |want|."""
+    atol, rtol = tol
+    top = float(want.float().abs().max())
+    return within(got, want, (atol * (max(1.0, top) if unit_floor else top), rtol))
+
+
+# tests/test_flash_backward.py's three cases (D 16 raised to 32: the
+# kernels take 32, 64, 128), then prefix-LM, bidirectional at D 128, Sq !=
+# Sk (cross-attention, and causal with a window), a ragged length.
+FLASH_BWD_CASES = [
+    # (B, Sq, Sk, H, KH, D, causal, window, prefix)
+    (2, 64, 64, 4, 2, 32, True, 0, 0),
+    (1, 128, 128, 2, 1, 32, True, 32, 0),
+    (1, 64, 64, 3, 3, 32, False, 0, 0),
+    (2, 96, 96, 6, 2, 64, True, 0, 40),
+    (2, 100, 100, 4, 4, 128, False, 0, 0),
+    (2, 24, 150, 4, 4, 64, False, 0, 0),
+    (1, 40, 72, 4, 2, 32, True, 16, 0),
+    (2, 300, 300, 4, 2, 128, True, 100, 0),
+]
+
+
+def fused_qkv(B, S, H, KH, D, dtype, seed):
+    """q, k, v as the model hands them over: views of one fused QKV
+    projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((B, S, (H + 2 * KH) * D), generator=g, device="cuda").to(dtype)
+    q, k, v = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    return q.reshape(B, S, H, D), k.reshape(B, S, KH, D), v.reshape(B, S, KH, D)
+
+
+def flash_bwd_check(name, q, k, v, seed, **kw):
+    """The forward kernel's lse against the plain lse, and the backward
+    kernel against the plain backward on the kernel's (out, lse) and a
+    random dO.  Returns ((out, lse, do), the plain (dq, dk, dv), max grad
+    error, lse error)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref, flash_forward_lse_ref
+
+    out, lse = ops.forward_with_lse(q, k, v, with_lse=True, **kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(q.dtype)
+    got = ops.backward(q, k, v, out, lse, do, **kw)
+    # no atomics: a second launch on the same inputs gives the same bits
+    same = all(torch.equal(a, b) for a, b in zip(got, ops.backward(q, k, v, out, lse, do, **kw)))
+    torch.cuda.synchronize()
+    ok_l, err_l, _ = within(lse, flash_forward_lse_ref(q, k, v, **kw)[1], LSE_TOL)
+    want = flash_backward_ref(q, k, v, out, lse, do, **kw)
+    tol = GRAD_BF16_TOL if q.dtype == torch.bfloat16 else GRAD_F32_TOL
+    errs, ok = [], ok_l
+    for a, b in zip(got, want):
+        o, e, _ = grad_within(a, b, tol)
+        ok = (ok and o and a.dtype == q.dtype and a.shape == b.shape
+              and bool(torch.isfinite(a).all()))
+        errs.append(e)
+    log(f"  {name}: lse err {err_l:.3g} tol {LSE_TOL}; dq/dk/dv max_abs_err "
+        f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} tol(atol x max(1, |want|), rtol)={tol}; "
+        f"rerun {'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"flash backward disagrees with the plain version on {name}")
+    check(same, f"flash backward's rerun differs from its first run on {name}")
+    del got
+    return (out, lse, do), want, max(errs), err_l
+
+
+def planted_grads(name, control, want, tol):
+    """A control on the backward: rejected when any of dq, dk, dv falls
+    outside the tolerance."""
+    res = [grad_within(c, w, tol) for c, w in zip(control, want)]
+    rejected = not all(r[0] for r in res)
+    log(f"  control {name}: share outside (dq, dk, dv) "
+        f"{', '.join(f'{r[2]:.2%}' for r in res)}: {'rejected' if rejected else 'ACCEPTED'}")
+    check(rejected, f"the tolerance accepts the planted control '{name}'")
+
+
+def flash_bwd_bound(q, k, causal=True, window=0, prefix=0):
+    """Least time for the backward on an H100 SXM: 10 H D flops a visible
+    pair at the bf16 peak (f32: the CUDA-core peak), vs q, k, v, o, dO and
+    lse read and dq, dk, dv written once at 3.35 TB/s."""
+    B, S, H, D = q.shape
+    flops = 10 * H * D * B * visible_pairs(S, k.shape[1], causal, window, prefix)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * S
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "fp32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_backward():
+    """Phase 29: the forward kernels' lse (both entries) and the backward
+    kernel against the plain versions, f32 (CUDA-core forward) and bf16
+    (tensor-core forward), on the JAX test's cases, prefix-LM,
+    bidirectional, Sq != Sk, fused-QKV views and the qwen3-1.7b and
+    smollm-135m training shapes; planted controls; times.  Returns (max
+    grad error, max lse error, times at the qwen3-1.7b shape, lse cost)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    log("phase 29: flash-attention lse and backward kernel vs plain versions")
+    errs, lse_errs = [], []
+    for n, (B, Sq, Sk, H, KH, D, causal, window, prefix) in enumerate(FLASH_BWD_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(B, Sq, H, KH, D, dt, seed=80 + n, Sk=Sk)
+            kw = dict(causal=causal, window=window, prefix=prefix)
+            _, _, e, el = flash_bwd_check(
+                f"case{n} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} {str(dt)[6:]} "
+                f"causal={causal} window={window} prefix={prefix}", q, k, v, seed=n, **kw)
+            errs.append(e)
+            lse_errs.append(el)
+    times = {}
+    for arch in (TRAIN_ARCH, "smollm-135m"):
+        cfg = get_config(arch)
+        H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = fused_qkv(TRAIN_B, TRAIN_S, H, KH, D, dt, seed=95)
+            name = (f"{arch} training shape B={TRAIN_B} S={TRAIN_S} H={H} KH={KH} D={D} "
+                    f"{str(dt)[6:]}")
+            (out, lse, do), want, e, el = flash_bwd_check(f"{name}, fused-QKV views", q, k, v,
+                                                          seed=96, causal=True, window=0,
+                                                          prefix=0)
+            errs.append(e)
+            lse_errs.append(el)
+            if dt == torch.bfloat16:
+                tol = GRAD_BF16_TOL
+                def plain(lse_log2=False, **c):
+                    lse_ = lse / 0.6931471805599453 if lse_log2 else lse
+                    return flash_backward_ref(q, k, v, out, lse_, do, **c)
+
+                planted_grads("lse in log2 units", plain(lse_log2=True), want, tol)
+                planted_grads("delta dropped", plain(drop_delta=True), want, tol)
+                planted_grads(f"only the first of each group's {H // KH} heads folded",
+                              plain(fold_first_only=True), want, tol)
+                if arch == TRAIN_ARCH:
+                    times = flash_bwd_times(q, k, v, out, lse, do)
+            del q, k, v, out, lse, do, want
+            torch.cuda.empty_cache()
+    # the forward's lse cost at the serving prefill shape (bf16, causal)
+    cfg = get_config(TRAIN_ARCH)
+    q, k, v = flash_inputs(EAGER_B, EAGER_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                           torch.bfloat16, seed=20)
+    kw = dict(causal=True, window=0, prefix=0)
+    ts = {False: [], True: []}
+    with torch.no_grad():
+        for with_lse in (False, True, True, False):  # in turns: clocks drift within a call
+            ts[with_lse].append(time_ms(lambda: ops.forward_with_lse(q, k, v, **kw,
+                                                                     with_lse=with_lse)))
+    no_lse, with_lse = (float(np.mean(ts[w])) for w in (False, True))
+    cost = {"forward_ms_lse_null": no_lse, "forward_ms_with_lse": with_lse}
+    log(f"  forward at the prefill shape (B {EAGER_B}, S {EAGER_PROMPT}, bf16), timed null, lse, "
+        f"lse, null: {ts[False][0]:.4f} / {ts[True][0]:.4f} / {ts[True][1]:.4f} / "
+        f"{ts[False][1]:.4f} ms: {no_lse:.4f} ms with lse null (the serving path), "
+        f"{with_lse:.4f} ms writing the lse")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return max(errs), max(lse_errs), times, cost
+
+
+def flash_bwd_times(q, k, v, out, lse, do):
+    """The backward kernel alone, the plain backward, and SDPA's forward +
+    backward minus its forward (head-major views, ``enable_gqa``), with the
+    bound, at the given (training) shape."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    kw = dict(causal=True, window=0, prefix=0)
+    ms = time_ms(lambda: ops.backward(q, k, v, out, lse, do, **kw), reps=10, warmup=2)
+    plain_ms = time_ms(lambda: flash_backward_ref(q, k, v, out, lse, do), reps=3, warmup=1)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                 enable_gqa=True)
+    fwd_ms = time_ms(fwd, reps=10, warmup=2)
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot), reps=10, warmup=2)
+    b_ms, b_by = flash_bwd_bound(q, k)
+    B, S, H, D = q.shape
+    flops = 10 * H * D * B * visible_pairs(S, S)
+    log(f"  backward times at B={B} S={S} H={H} KH={k.shape[2]} D={D} bf16: kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of least work), bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.2f} ms, SDPA forward + backward "
+        f"{both_ms:.3f} ms - forward {fwd_ms:.3f} ms = {both_ms - fwd_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": both_ms - fwd_ms}
+
+
+def rms_bwd_check(name, x, s, residual=None, seed=0):
+    """The backward kernel (dx, d(scale)) against the plain backward on a
+    random dy.  Returns (dy, plain (dx, dscale), max error)."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    dx, ds = ops.backward(x, s, dy, residual)
+    # two-stage d(scale), no atomics: a second launch gives the same bits
+    dx2, ds2 = ops.backward(x, s, dy, residual)
+    same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    torch.cuda.synchronize()
+    want = rmsnorm_backward_ref(x, s, dy, residual)
+    tol = GRAD_BF16_TOL if x.dtype == torch.bfloat16 else (1e-5, 1e-5)
+    ok_x, ex, _ = grad_within(dx, want[0], tol)
+    ok_s, es, _ = grad_within(ds, want[1], (1e-4, 1e-4), unit_floor=False)
+    ok = (ok_x and ok_s and dx.dtype == x.dtype and dx.shape == x.shape and dx.is_contiguous()
+          and bool(torch.isfinite(dx).all()))
+    log(f"  {name}: dx max_abs_err {ex:.3g} tol {tol}, d(scale) {es:.3g} tol (1e-4 x max, "
+        f"1e-4); rerun {'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"rmsnorm backward disagrees with the plain version on {name}")
+    check(same, f"rmsnorm backward's rerun differs from its first run on {name}")
+    return dy, want, max(ex, es)
+
+
+def rms_bwd_times(name, x, s, dy):
+    """The backward kernel, the plain backward, and the autograd backward
+    of ``F.rms_norm`` (weight 1 + scale in x's dtype; its graph kept), with
+    the bound: x and dy read and dx written once."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+
+    d = x.shape[-1]
+    ms = time_ms(lambda: ops.backward(x, s, dy))
+    plain_ms = time_ms(lambda: rmsnorm_backward_ref(x, s, dy), reps=10, warmup=2)
+    xl = x.detach().contiguous().requires_grad_()
+    wl = (1.0 + s).to(x.dtype).requires_grad_()
+    y = F.rms_norm(xl, (d,), wl, 1e-6)
+    lib_ms = time_ms(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))
+    del y, xl, wl
+    b_ms = (3 * x.numel() * x.element_size() + 8 * d) / PEAK_BYTES_S * 1e3
+    log(f"  backward times {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms (bytes, "
+        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, F.rms_norm autograd backward "
+        f"{lib_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
+def phase_rmsnorm_backward():
+    """Phase 30: the RMSNorm backward kernel against the plain backward at
+    every model width (f32 and bf16), with a residual, on the strided q / k
+    views of qwen3-1.7b's training shape and its norm rows; the planted
+    ``1 + scale`` -> ``scale`` control; times at the norm rows and the q
+    view.  Returns (max error, times at the norm rows, at the q view)."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+
+    log("phase 30: RMSNorm backward kernel vs plain version")
+    errs = []
+    widths = sorted({get_config(a).d_model for a in ALL_ARCHS} | {64, 128, 256})
+    for n, d in enumerate(widths):
+        for dt in (torch.float32, torch.bfloat16):
+            x, s = rms_inputs((1024, d), dt, seed=100 + n)
+            errs.append(rms_bwd_check(f"rows=1024 d={d} {str(dt)[6:]}", x, s, seed=n)[2])
+    cfg = get_config(TRAIN_ARCH)
+    d = cfg.d_model
+    for dt in (torch.float32, torch.bfloat16):
+        x, s = rms_inputs((2048, d), dt, seed=120)
+        r, _ = rms_inputs((2048, d), dt, seed=121)
+        errs.append(rms_bwd_check(f"rows=2048 d={d} {str(dt)[6:]} with a residual", x, s,
+                                  residual=r, seed=7)[2])
+    qv, kv = qkv_views(TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, torch.bfloat16,
+                       seed=122)
+    s = torch.randn(cfg.d_head, device="cuda") * 0.1
+    dyq, _, e = rms_bwd_check(f"q view {tuple(qv.shape)} bf16 (strided)", qv, s, seed=8)
+    errs.append(e)
+    errs.append(rms_bwd_check(f"k view {tuple(kv.shape)} bf16 (strided)", kv, s, seed=9)[2])
+    q_times = rms_bwd_times("q view", qv, s, dyq)
+    del qv, kv, dyq
+    x, s = rms_inputs((TRAIN_B * TRAIN_S, d), torch.bfloat16, seed=123)
+    dy, want, e = rms_bwd_check(f"norm rows {TRAIN_B * TRAIN_S} x {d} bf16", x, s, seed=10)
+    errs.append(e)
+    planted("1 + scale taken as scale", rmsnorm_backward_ref(x, s, dy, one_plus=False)[0],
+            want[0], (GRAD_BF16_TOL[0] * max(1.0, float(want[0].float().abs().max())),
+                      GRAD_BF16_TOL[1]))
+    times = rms_bwd_times("norm rows", x, s, dy)
+    del x, dy, want
+    torch.cuda.empty_cache()
+    return max(errs), times, q_times
+
+
+def parse_step_log(text: str) -> list:
+    """(loss, grad norm, ms) of every ``step N loss L gnorm G (T ms)`` line
+    the training launcher printed."""
+    rows = []
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) >= 7 and parts[0] == "step" and parts[2] == "loss" and parts[4] == "gnorm":
+            rows.append((float(parts[3]), float(parts[5]), float(parts[6].lstrip("("))))
+    return rows
+
+
+def training_launches(cfg, plan, steps: int) -> dict:
+    """Kernel launches of ``steps`` training steps of a dense RMSNorm arch:
+    flash forward once an attention layer (again in the backward with
+    remat), backward once; RMSNorm forward once a norm (each layer's again
+    with remat; the final norm sits outside the groups), backward once a
+    norm.  qwen3-1.7b with remat: 56, 28, 225, 113 a step."""
+    L = cfg.n_layers
+    norms = norms_per_forward(cfg)
+    again = int(plan.remat) * plan.microbatches
+    return expect_counts(
+        flash_attention=steps * L * (plan.microbatches + again),
+        flash_attention_bwd=steps * L * plan.microbatches,
+        rmsnorm=steps * (norms * plan.microbatches + (norms - 1) * again),
+        rmsnorm_bwd=steps * norms * plan.microbatches)
+
+
+def phase_train():
+    """Phase 31 (main path): ``repro_torch.launch.train.run`` trains
+    qwen3-1.7b at full width and depth in bf16, B 8 x S 2048, on the plan
+    derived for the H100, 4 AdamW steps; then 4 steps of the same step
+    function on one repeated batch from a fresh init must lower the loss.
+    The archs whose kernels lack a backward are refused on the card.
+    Returns (launch counts, the run's numbers)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.train import run
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import OptimizerConfig, init_state, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    plan = derive_execution_plan(cfg, training=True, batch=TRAIN_B, seq_len=TRAIN_S, hw=H100_SXM)
+    log(f"phase 31 (main path): {TRAIN_ARCH} training, bf16, B={TRAIN_B} S={TRAIN_S}, "
+        f"{TRAIN_STEPS} steps through launch.train.run; plan remat={plan.remat} "
+        f"microbatches={plan.microbatches}")
+    check(plan.remat and plan.microbatches == 1, "the H100 plan at B 8 x S 2048")
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "paligemma-3b"):
+        c = get_config(arch)
+        try:
+            make_train_step(c, derive_execution_plan(c, training=True), OptimizerConfig(),
+                            device="cuda")
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        log(f"  {arch} on the card: {'refused: ' + refused if refused else 'NOT REFUSED'}")
+        check("ROADMAP queue 1, item 5" in refused, f"{arch} is not refused on the card")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses, state = run(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=3e-4,
+                            dtype=torch.bfloat16, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    rows = parse_step_log(out.getvalue())
+    check(len(rows) == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "a step is missing")
+    check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows), "non-finite loss or norm")
+    m_leaves = tree_leaves(state.m)
+    no_grad = sum(not bool((m != 0).any()) for m in m_leaves)
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
+    log(f"  losses {losses}; {len(m_leaves) - no_grad}/{len(m_leaves)} parameter leaves got a "
+        f"nonzero gradient; parameters finite: {finite}")
+    check(no_grad == 0, f"{no_grad} parameter leaves got no gradient")
+    check(finite, "non-finite parameters")
+    want = training_launches(cfg, plan, TRAIN_STEPS)
+    log(f"  launches {counts} (expected {want}: a step flash {want['flash_attention'] // 4} + "
+        f"backward {want['flash_attention_bwd'] // 4}, RMSNorm {want['rmsnorm'] // 4} + "
+        f"backward {want['rmsnorm_bwd'] // 4})")
+    check(counts == want, f"training launches {counts}, expected {want}")
+    step_ms = [r[2] for r in rows]
+    steady = float(np.median(step_ms[1:]))
+    res = {"step_ms": step_ms, "steady_step_ms": steady,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3), "peak_gib": peak,
+           "run_wall_s": wall, "losses": losses}
+    log(f"  step ms {step_ms} (steady median {steady:.0f}), {res['tokens_per_s']:.0f} tokens/s, "
+        f"peak {peak:.2f} GiB, run() wall {wall:.1f} s (init included)")
+    del state, m_leaves
+    torch.cuda.empty_cache()
+
+    # one repeated batch: the step function must lower its loss
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda")
+    state = init_state(params)
+    del params
+    step = make_train_step(cfg, plan, OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                                      total_steps=TRAIN_STEPS), device="cuda")
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=1), 0,
+                            device="cuda")
+    rep = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        rep.append(float(metrics["loss"]))
+    log(f"  one repeated batch, peak lr 1e-3: losses {rep}")
+    check(all(np.isfinite(rep)) and rep[-1] < rep[0], "the loss did not go down")
+    res["repeated_batch_losses"] = rep
+    # where a step's device time goes: one more step under torch.profiler
+    # (scripts/ab_serve.py's breakdown by kernel class; "port": this
+    # checkout's CUDA kernels)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import ab_serve
+
+    prof = ab_serve.profile(lambda: step(state, batch), ab_serve.port_kernels(str(ROOT)))
+    log(f"  profiled step: wall {prof['wall_ms']:.0f} ms, device {prof['device_ms']:.0f} ms "
+        f"(busy {prof['busy_share']:.2f}); by class {json.dumps(prof['by_class'])}; port "
+        f"kernels {json.dumps(prof['port_kernels'])}; top {json.dumps(prof['top'][:8])}")
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "by_class",
+                                           "port_kernels")}
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def tree_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def compare_params(tag, a, b, steps, lr, case):
+    """Parameters of the two paths after ``steps`` AdamW steps: within
+    PARAM_ATOL but for at most FLIP_SHARE[case] of the elements, each of
+    those within 2 lr a step."""
+    out = n = 0
+    worst = 0.0
+    for (path, x), (_, y) in zip(tree_paths(a), tree_paths(b)):
+        diff = (x.float() - y.float()).abs()
+        out += int((diff > PARAM_ATOL).sum())
+        n += diff.numel()
+        worst = max(worst, float(diff.max()))
+    ok = out <= FLIP_SHARE[case] * n and worst <= 2 * lr * steps
+    log(f"  {tag}: parameters after {steps} steps, {out} of {n} elements beyond {PARAM_ATOL} "
+        f"({out / n:.2e}; allowed {FLIP_SHARE[case]:.0e}), largest difference {worst:.3g} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{tag}: kernel and plain paths' parameters differ")
+
+
+def phase_train_paths():
+    """Phase 32: kernel path against plain path (``fused=False``) in f32.
+    qwen3-1.7b cut to 4 layers at full width, B 2 x S 2048: the loss and
+    every gradient leaf, then the parameters after 3 steps; smollm-135m at
+    full depth, one step with 2 microbatches and one with int8
+    compression."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.train.compression import CompressionConfig
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_loss_fn, make_train_step, value_and_grad
+
+    log("phase 32: training, kernel path vs plain path in f32")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=4)
+    B, S = 2, TRAIN_S
+    plan = derive_execution_plan(cfg, training=True, batch=B, seq_len=S, hw=H100_SXM)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=3), 0, device="cuda")
+    res = {}
+    for fused in (True, False):
+        reset_counts()
+        res[fused] = value_and_grad(make_loss_fn(cfg, plan, fused), params, batch)
+        res[fused] += (read_counts(),)
+    (lk, gk, ck), (lp, gp, cp) = res[True], res[False]
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst, n_leaves = 0.0, 0
+    for (path, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
+        ok, err, share = grad_within(a, b, PATH_GRAD_TOL, unit_floor=False)
+        top = float(b.abs().max())
+        worst = max(worst, err / max(top, 1e-30))
+        n_leaves += 1
+        check(ok, f"{cfg.name} 4 layers: gradient {path} differs ({err:.3g}, {share:.2%} out)")
+    log(f"  {cfg.name} cut to 4 layers, B={B} S={S}, plan remat={plan.remat}: loss {float(lk):.6f} "
+        f"vs {float(lp):.6f} (rel {rel:.2e}); {n_leaves} gradient leaves within "
+        f"{PATH_GRAD_TOL} (largest error {worst:.2e} of the leaf's scale); launches {ck} / {cp}")
+    check(rel < 1e-5, "kernel and plain paths' losses differ")
+    check(cp == expect_counts() and ck["flash_attention_bwd"] == cfg.n_layers
+          and ck["rmsnorm_bwd"] == norms_per_forward(cfg), f"launches {ck} / {cp}")
+    del res, gk, gp
+    lr = 1e-3
+    opt = OptimizerConfig(peak_lr=lr, warmup_steps=1, total_steps=10)
+    states = {}
+    for fused in (True, False):
+        step = make_train_step(cfg, plan, opt, fused=fused, device="cuda")
+        st = init_state(params)
+        for i in range(3):
+            batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=3), i, device="cuda")
+            st, _ = step(st, batch)
+        states[fused] = st
+    compare_params(f"{cfg.name} 4 layers", states[True].params, states[False].params, 3, lr,
+                   "3 steps")
+    del states, params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("smollm-135m")
+    B, S = 4, 1024
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    base = derive_execution_plan(cfg, training=True, batch=B, seq_len=S, hw=H100_SXM)
+    params = init_params(cfg, base, torch.float32, generator=gen, device="cuda")
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=4), 0, device="cuda")
+    for tag, knobs, comp in (("2 microbatches", {"microbatches": 2}, "none"),
+                             ("int8 compression", {"grad_compression": "int8"}, "int8")):
+        plan = dataclasses.replace(base, **knobs)
+        out = {}
+        for fused in (True, False):
+            step = make_train_step(cfg, plan, opt, compression=CompressionConfig(comp),
+                                   fused=fused, device="cuda")
+            st, m = step(init_state(params, with_residual=comp != "none"), batch)
+            out[fused] = (st, float(m["loss"]), float(m["grad_norm"]))
+        (sk, lk, nk), (sp, lp, np_) = out[True], out[False]
+        log(f"  {cfg.name} ({cfg.n_layers} layers) B={B} S={S}, {tag}: loss {lk:.6f} / {lp:.6f}, "
+            f"grad norm {nk:.6f} / {np_:.6f}")
+        check(abs(lk - lp) <= 1e-5 * abs(lp) and abs(nk - np_) <= 1e-4 * abs(np_),
+              f"{cfg.name} {tag}: losses or gradient norms differ")
+        compare_params(f"{cfg.name} {tag}", sk.params, sp.params, 1, lr, tag)
+        del out, sk, sp
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2512,13 +3093,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (paged_kernel, wkv_kernel, flash_kernel, rmsnorm_kernel, mm_pu_kernel)
+    sources = [k.SOURCE for k in kernels] + [flash_kernel.BACKWARD_SOURCE,
+                                             rmsnorm_kernel.BACKWARD_SOURCE]
     t0 = time.time()
-    _build.build_all([k.SOURCE for k in kernels])  # one nvcc per source, in parallel
+    _build.build_all(sources)  # one nvcc per source, in parallel
     for k in kernels:
         k.library()
-    log(f"  built + loaded {len(kernels)} kernel libraries in {time.time() - t0:.1f} s")
-    for k in kernels:
-        ptxas = _build.library_path(k.SOURCE).with_suffix(".log")
+    flash_kernel.backward_library()
+    rmsnorm_kernel.backward_library()
+    log(f"  built + loaded {len(sources)} kernel libraries in {time.time() - t0:.1f} s")
+    for source in sources:
+        ptxas = _build.library_path(source).with_suffix(".log")
         if ptxas.exists():
             lines = ptxas.read_text().splitlines()
             used = [ln.strip() for ln in lines if "Used" in ln]
@@ -2588,6 +3173,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"  speculative served: {json.dumps({k: spec_served[k] for k in ('mean_dispatch_ms', 'plain_mean_dispatch_ms', 'tok_per_s', 'peak_gib', 'spec', 'ttft_s', 'latency_s')})}")
     d256_err, d256_times, rg_counts, _ = phase_other_archs()
+    t0 = time.time()
+    bwd_err, lse_err, bwd_times, lse_cost = phase_flash_backward()
+    rms_bwd_err, rms_bwd_rows, rms_bwd_q = phase_rmsnorm_backward()
+    train_counts, train_run = phase_train()
+    phase_train_paths()
+    log(f"  training: {json.dumps(train_run)}; flash lse cost: {json.dumps(lse_cost)} (max lse "
+        f"error {lse_err:.3g}); rmsnorm backward at the q view: {json.dumps(rms_bwd_q)}; "
+        f"phases 29-32 took {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
@@ -2661,6 +3254,24 @@ def main() -> None:
             "launches": rg_counts["flash_attention"],
             "max_abs_err": d256_err,
             **d256_times["local"],
+        },
+        {
+            "name": "flash_attention_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/backward.py:69",
+            "launches": train_counts["flash_attention_bwd"],
+            "max_abs_err": bwd_err,
+            **bwd_times,
+        },
+        {
+            "name": "rmsnorm_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
+            "launches": train_counts["rmsnorm_bwd"],
+            "max_abs_err": rms_bwd_err,
+            **rms_bwd_rows,
         },
     ]
     print(card, flush=True)

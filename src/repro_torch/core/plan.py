@@ -1,10 +1,14 @@
-"""The serving half of the CAT planner, copied from ``repro/core/plan.py``.
+"""The CAT planner's halves the port runs, copied from ``repro/core/plan.py``.
 
 The port carries ``ServePlan`` / ``serve_feasible`` / ``derive_serve_plan``
 unchanged (the parity tests hold them field for field against the JAX
-package) and a small ``ExecutionPlan`` with the two fields the forward
-reads.  ``derive_plan`` is not ported: its MM-tile search is sized for the
-TPU's VMEM and finds no feasible tile for a 227 KB shared-memory budget.
+package) and a small ``ExecutionPlan`` with the fields the forward and the
+train step read.  ``derive_execution_plan(training=True)`` copies the
+Factor2' outcome of ``derive_plan`` (remat and microbatches, from the
+activation bytes against device memory) for a 1 x 1 mesh, term for term;
+the rest of ``derive_plan`` is not ported: its MM-tile search is sized for
+the TPU's VMEM and finds no feasible tile for a 227 KB shared-memory
+budget, and its modes and shardings wait for ``dist/``.
 """
 from __future__ import annotations
 
@@ -16,26 +20,78 @@ from repro_torch.core.hardware import DEFAULT_HARDWARE, HardwareSpec
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """The model-side plan decisions the forward reads."""
+    """The model-side plan decisions the forward and the train step read."""
 
     arch: str
     # C5 Independent-Linear: one fused (q | k | v) projection matrix.
     fuse_qkv: bool
     # MoE dispatch algorithm: "gshard" grouped one-hot products | "sort".
     moe_dispatch: str = "gshard"
+    # Activation checkpointing of each stacked pattern-group (Factor2').
+    remat: bool = False
+    # Gradient accumulation over this many microbatches (Factor2').
+    microbatches: int = 1
+    # Gradient format at the accumulation boundary: "none" | "bf16" | "int8".
+    grad_compression: str = "none"
+
+
+GRAD_COMPRESSION = ("none", "bf16", "int8")
 
 
 def derive_execution_plan(cfg, fuse_qkv: Optional[bool] = None, *,
-                          moe_dispatch: str = "gshard") -> ExecutionPlan:
+                          moe_dispatch: str = "gshard", training: bool = False,
+                          batch: int = 8, seq_len: int = 2048,
+                          hw: HardwareSpec = DEFAULT_HARDWARE, dtype_bytes: int = 2,
+                          grad_compression: str = "none") -> ExecutionPlan:
     """``fuse_qkv`` and ``moe_dispatch`` as ``repro.core.plan.derive_plan``
     sets them: QKV fused wherever the arch has attention, unless the caller
     decides; the dispatch the caller names, "gshard" by default (the JAX
-    serving launcher never names another)."""
+    serving launcher never names another).  With ``training``, ``remat``
+    and ``microbatches`` as ``derive_plan`` derives them on a 1 x 1 mesh
+    (``repro/core/plan.py:186-204, 266-278, 318-325``) for ``batch`` x
+    ``seq_len`` tokens on ``hw``, and ``grad_compression`` recorded."""
     if fuse_qkv is None:
         fuse_qkv = cfg.fused_qkv_ok()
     if moe_dispatch not in ("gshard", "sort"):
         raise ValueError(f"moe_dispatch {moe_dispatch!r}: 'gshard' or 'sort'")
-    return ExecutionPlan(arch=cfg.name, fuse_qkv=bool(fuse_qkv), moe_dispatch=moe_dispatch)
+    if grad_compression not in GRAD_COMPRESSION:
+        raise ValueError(f"grad_compression {grad_compression!r}: one of {GRAD_COMPRESSION}")
+    remat, microbatches = False, 1
+    if training:
+        remat, microbatches = _factor2_outcome(cfg, hw, batch, seq_len, dtype_bytes)
+    return ExecutionPlan(arch=cfg.name, fuse_qkv=bool(fuse_qkv), moe_dispatch=moe_dispatch,
+                         remat=remat, microbatches=microbatches,
+                         grad_compression=grad_compression)
+
+
+def _factor2_outcome(cfg, hw: HardwareSpec, batch: int, seq_len: int,
+                     dtype_bytes: int) -> tuple[bool, int]:
+    """``derive_plan``'s training remat and microbatch count on a 1 x 1 mesh
+    (model and data axes 1: no width sharding, the whole batch on the
+    chip, the ZeRO split a no-op, and the microbatch cap the batch)."""
+    tokens = batch * seq_len
+    qkv_width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
+    mha_act = tokens * (cfg.d_model + qkv_width + cfg.n_heads * cfg.d_head)
+    ffn_act = tokens * (cfg.d_model + 2 * cfg.effective_ff_width())
+    mha_factor2 = int(mha_act * dtype_bytes * cfg.n_layers)
+    ffn_factor2 = int(ffn_act * dtype_bytes * cfg.n_layers)
+    # the f32 attention probabilities, the big saved residual without remat
+    attn_layers = sum(
+        1 for i in range(cfg.n_layers) if cfg.layer_kind(i) in ("attn", "swa", "local")
+    )
+    eff_kv = min(seq_len, cfg.sliding_window or seq_len)
+    probs = tokens * eff_kv * cfg.n_heads * 4.0
+    mha_factor2 += int(probs * attn_layers)
+    # parameters, gradients and f32 m / v: 12 bytes a parameter
+    param_bytes = cfg.param_count() * 12.0
+    act_budget = max(hw.hbm_bytes - param_bytes, hw.hbm_bytes * 0.25)
+    remat = mha_factor2 + ffn_factor2 > 0.25 * act_budget
+    resid = tokens * cfg.d_model * dtype_bytes * cfg.n_layers
+    microbatches = 1
+    while (resid / microbatches > 0.5 * act_budget and microbatches * 2 <= max(1, batch)
+           and batch % (microbatches * 2) == 0):
+        microbatches *= 2
+    return remat, microbatches
 
 
 @dataclasses.dataclass(frozen=True)

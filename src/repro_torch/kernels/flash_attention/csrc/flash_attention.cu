@@ -12,6 +12,11 @@
 // masked scores are -1e30, the softmax runs in f32 with the (m, l, acc)
 // carry over key tiles, l is floored at 1e-30, and the output has q's type.
 // A row that sees no key at all comes back 0 (no model path makes one).
+// Given an lse buffer (training: ops.FlashAttention saves it for the
+// backward kernel, csrc/flash_attention_bwd.cu), each entry also writes
+// every row's logsumexp of its scaled, masked scores, in natural-log units
+// (the bf16 entry keeps its running max in log2 units and converts once, at
+// the store); the serving paths pass null and nothing is written.
 //
 // Bound on an H100 SXM: at the prefill's shapes, operations.  The least
 // work is 4 * D flops per visible (query, key) pair and head, at the bf16
@@ -94,7 +99,8 @@ constexpr float kNegInf = -1e30f;
 template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int H,
                        int KH, int64_t q_ts, int64_t k_ts, int64_t v_ts, int causal,
                        int window, int prefix, int rows_per_cta, float scale) {
   constexpr int D = DL * 32;
@@ -241,6 +247,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (r >= nrows) continue;
       const int i = i0 + r / G, h = kh * G + r % G;
       const float inv = 1.f / fmaxf(l[c][kk], 1e-30f);
+      if (lse != nullptr && lane == 0)
+        lse[((int64_t)b * H + h) * Sq + i] = m[c][kk] + logf(fmaxf(l[c][kk], 1e-30f));
       T* o = out + (((int64_t)b * Sq + i) * H + h) * D;
 #pragma unroll
       for (int e = 0; e < DL; ++e) store(o + lane + 32 * e, acc[c][kk][e] * inv);
@@ -249,8 +257,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DL>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-           int H, int KH, long long q_ts, long long k_ts, long long v_ts, int causal,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts, int causal,
            int window, int prefix, int rows_per_cta, float scale, cudaStream_t stream) {
   constexpr int D = DL * 32;
   const size_t smem = sizeof(float) * (kRowsMax * D + kTile * (D + 1) + kTile * D);
@@ -261,7 +269,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   dim3 grid((Sq + rows_per_cta - 1) / rows_per_cta, KH, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix,
+      static_cast<T*>(out), lse, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix,
       rows_per_cta, scale);
   return (int)cudaGetLastError();
 }
@@ -303,7 +311,8 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out, int B, int Sq,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse, int B, int Sq,
                            int Sk, int H, int KH, int64_t q_ts, int64_t k_ts, int64_t v_ts,
                            int causal, int window, int prefix, int rows_per_cta, int n_qblocks,
                            float scale_log2) {
@@ -505,6 +514,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     const int r = r0 + 8 * h;
     const int hd = kh * G + r % G;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
+    if (lse != nullptr && t4 == 0)  // m is in log2 units: convert once, here
+      lse[((int64_t)b * H + hd) * Sq + pos[h]] =
+          (m[h] + log2f(fmaxf(lt, 1e-30f))) * 0.6931471805599453f;
     bf16* orow = out + (((int64_t)b * Sq + pos[h]) * H + hd) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -514,9 +526,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int KH, long long q_ts, long long k_ts, long long v_ts, int causal, int window,
-           int prefix, int rows_per_cta, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts, int causal,
+           int window, int prefix, int rows_per_cta, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_attention_mma_kernel<D>;
   cudaError_t err =
@@ -527,19 +539,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   dim3 grid(B * KH, n_qblocks);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix,
+      static_cast<bf16*>(out), lse, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix,
       rows_per_cta, n_qblocks, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-int launch_f32(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+int launch_f32(int D, const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Sq,
                int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts,
                int causal, int window, int prefix, int rows_per_cta, float scale,
                cudaStream_t stream) {
 #define FA_ARGS \
-  q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix, rows_per_cta, scale, stream
+  q, k, v, out, lse, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window, prefix, rows_per_cta, \
+      scale, stream
   switch (D) {
     case 32: return launch<float, 1>(FA_ARGS);
     case 64: return launch<float, 2>(FA_ARGS);
@@ -549,7 +563,8 @@ int launch_f32(int D, const void* q, const void* k, const void* v, void* out, in
   return -2;
 }
 
-int launch_bf16(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+int launch_bf16(int D, const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Sq,
                 int Sk, int H, int KH, long long q_ts, long long k_ts, long long v_ts,
                 int causal, int window, int prefix, int rows_per_cta, float scale,
                 cudaStream_t stream) {
@@ -574,27 +589,29 @@ bool bad_grouping(int B, int Sq, int Sk, int H, int KH, int rows_per_cta) {
 // with unit stride over D,
 // D elements between heads and q_ts / k_ts / v_ts elements between tokens
 // (batch rows S * ts apart), 16-byte aligned rows; out: (B, Sq, H, D)
-// contiguous.  G = H / KH query heads per kv head; q head h = kh * G + g.
+// contiguous; lse: null, or (B, H, Sq) f32 contiguous, which receives each
+// row's logsumexp (natural log).  G = H / KH query heads per kv head; q head
+// h = kh * G + g.
 // rows_per_cta query positions per CTA, with G * rows_per_cta <= 64.
 // flash_attention_forward takes f32 (CUDA cores), flash_attention_forward_mma
 // bf16 (tensor cores).  Each returns 0 or a CUDA error code (negative for an
 // unsupported D or grouping); launches on `stream` and does not synchronise.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out,
-                                       int B, int Sq, int Sk, int H, int KH, int D,
+                                       float* lse, int B, int Sq, int Sk, int H, int KH, int D,
                                        long long q_ts, long long k_ts, long long v_ts,
                                        int causal, int window, int prefix, int rows_per_cta,
                                        float scale, void* stream) {
   if (bad_grouping(B, Sq, Sk, H, KH, rows_per_cta)) return -3;
-  return launch_f32(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
+  return launch_f32(D, q, k, v, out, lse, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
                     prefix, rows_per_cta, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_forward_mma(const void* q, const void* k, const void* v,
-                                           void* out, int B, int Sq, int Sk, int H, int KH,
-                                           int D, long long q_ts, long long k_ts,
+                                           void* out, float* lse, int B, int Sq, int Sk, int H,
+                                           int KH, int D, long long q_ts, long long k_ts,
                                            long long v_ts, int causal, int window, int prefix,
                                            int rows_per_cta, float scale, void* stream) {
   if (bad_grouping(B, Sq, Sk, H, KH, rows_per_cta)) return -3;
-  return launch_bf16(D, q, k, v, out, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
+  return launch_bf16(D, q, k, v, out, lse, B, Sq, Sk, H, KH, q_ts, k_ts, v_ts, causal, window,
                      prefix, rows_per_cta, scale, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,12 @@
 (``csrc/flash_attention.cu``, which replaces
 ``repro/kernels/flash_attention/kernel.py::_flash_kernel``): two C entry
 points of one signature, ``flash_attention_forward`` (f32, CUDA cores) and
-``flash_attention_forward_mma`` (bf16, tensor cores).
+``flash_attention_forward_mma`` (bf16, tensor cores), each writing the
+rows' logsumexp when given a buffer for it; and the backward
+(``csrc/flash_attention_bwd.cu``, the kernel counterpart of the jnp
+``repro/kernels/flash_attention/backward.py::_vjp_bwd``), C entry
+``flash_attention_backward`` (f32 or bf16, CUDA cores), in a library of its
+own.
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` and the token strides
@@ -17,12 +22,19 @@ from pathlib import Path
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BACKWARD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I] * 4 + [ctypes.c_float, _P]
+# q, k, v, out, lse; B, Sq, Sk, H, KH, D; token strides; causal, window,
+# prefix, rows a CTA; scale; stream
+_ARGTYPES = [_P] * 5 + [_I] * 6 + [_L] * 3 + [_I] * 4 + [ctypes.c_float, _P]
 ENTRIES = ("flash_attention_forward", "flash_attention_forward_mma")
+# q, k, v, o, lse, do, dq, dk, dv, delta scratch; B, Sq, Sk, H, KH, D;
+# q, k, v token strides; causal, window, prefix, dtype; scale; stream
+BACKWARD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_L] * 3 + [_I] * 4 + [ctypes.c_float, _P]
 
 _lib = None
+_bwd_lib = None
 
 
 def library() -> ctypes.CDLL:
@@ -36,3 +48,15 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def backward_library() -> ctypes.CDLL:
+    """The loaded backward library, built on first call; raises as
+    ``library`` does."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load(BACKWARD_SOURCE)
+        lib.flash_attention_backward.argtypes = BACKWARD_ARGTYPES
+        lib.flash_attention_backward.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib

@@ -77,3 +77,107 @@ def flash_attention_mma_ref(q, k, v, *, n_q_per_kv: int, causal: bool, window: i
         acc = acc * corr + pv
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+# ---------------------------------------------------------------- training
+def attention_mask(Sq: int, Sk: int, causal: bool, window: int, prefix: int,
+                   device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: query i sees key j (JAX's ``backward._mask``)."""
+    iq = torch.arange(Sq, device=device)[:, None]
+    ik = torch.arange(Sk, device=device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        c = iq >= ik
+        if prefix > 0:
+            c |= ik < prefix
+        m &= c
+    if window > 0:
+        m &= (iq - ik) < window
+    return m
+
+
+def _scores(q, k, G, causal, window, prefix, scale):
+    """Masked f32 scores (BH, Sq, Sk), kernel layout."""
+    kk = torch.repeat_interleave(k, G, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kk.float()) * scale
+    mask = attention_mask(q.shape[1], k.shape[1], causal, window, prefix, q.device)
+    return torch.where(mask[None], s, NEG_INF)
+
+
+def fwd_with_lse(q, k, v, *, n_q_per_kv: int, causal: bool, window: int = 0,
+                 prefix: int = 0, scale: Optional[float] = None):
+    """JAX's ``backward._fwd_with_lse``, kernel layout: (out in q's dtype,
+    the f32 logsumexp of every row's scaled scores (BH, Sq), natural log)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, n_q_per_kv, causal, window, prefix, scale)
+    m = s.amax(dim=-1)
+    lse = m + torch.log(torch.exp(s - m[..., None]).sum(dim=-1))
+    p = torch.exp(s - lse[..., None])
+    vv = torch.repeat_interleave(v, n_q_per_kv, dim=0)
+    return torch.einsum("bqk,bkd->bqd", p, vv.float()).to(q.dtype), lse
+
+
+def vjp_bwd(q, k, v, o, lse, do, *, n_q_per_kv: int, causal: bool, window: int = 0,
+            prefix: int = 0, scale: Optional[float] = None, drop_delta: bool = False,
+            fold_first_only: bool = False):
+    """JAX's ``backward._vjp_bwd``, kernel layout: (dq, dk, dv) in the
+    inputs' dtypes, from the saved (q, k, v, o, lse) and the output's
+    gradient ``do``.  P is recomputed from q, k and ``lse``; delta =
+    rowsum(do * o); dS = P (dO V^T - delta) scale; the G query heads of a
+    kv head are summed onto it.  ``drop_delta`` and ``fold_first_only``
+    (only the first query head of each group folded) plant the faults the
+    card's checks must reject."""
+    G = n_q_per_kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q32, do32, o32 = q.float(), do.float(), o.float()
+    kk = torch.repeat_interleave(k, G, dim=0).float()
+    vv = torch.repeat_interleave(v, G, dim=0).float()
+    p = torch.exp(_scores(q, k, G, causal, window, prefix, scale) - lse[..., None].float())
+    dv_full = torch.einsum("bqk,bqd->bkd", p, do32)
+    dp = torch.einsum("bqd,bkd->bqk", do32, vv)
+    delta = 0.0 if drop_delta else (do32 * o32).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kk)
+    dk_full = torch.einsum("bqk,bqd->bkd", ds, q32)
+    BKH = k.shape[0]
+
+    def fold(x):
+        x = x.reshape(BKH, G, *x.shape[1:])
+        return x[:, 0] if fold_first_only else x.sum(dim=1)
+
+    return dq.to(q.dtype), fold(dk_full).to(k.dtype), fold(dv_full).to(v.dtype)
+
+
+def _to_kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, D) -> (B * heads, S, D)."""
+    B, S, n, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * n, S, D)
+
+
+def _to_model_layout(x: torch.Tensor, B: int) -> torch.Tensor:
+    """(B * heads, S, D) -> (B, S, heads, D)."""
+    n = x.shape[0] // B
+    return x.reshape(B, n, *x.shape[1:]).permute(0, 2, 1, 3)
+
+
+def flash_forward_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, prefix: int = 0):
+    """``fwd_with_lse`` in the model layout: q (B, Sq, H, D), k/v (B, Sk,
+    KH, D) -> (out (B, Sq, H, D), lse (B, H, Sq) f32)."""
+    B, Sq, H, _ = q.shape
+    o, lse = fwd_with_lse(_to_kernel_layout(q), _to_kernel_layout(k), _to_kernel_layout(v),
+                          n_q_per_kv=H // k.shape[2], causal=causal, window=window,
+                          prefix=prefix)
+    return _to_model_layout(o, B), lse.reshape(B, H, Sq)
+
+
+def flash_backward_ref(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                       prefix: int = 0, **controls):
+    """``vjp_bwd`` in the model layout (lse (B, H, Sq)): the plain version
+    of the CUDA backward kernel.  Returns (dq, dk, dv) in the model layout,
+    contiguous."""
+    B, Sq, H, _ = q.shape
+    kl = _to_kernel_layout
+    dq, dk, dv = vjp_bwd(kl(q), kl(k), kl(v), kl(o), lse.reshape(B * H, Sq), kl(do),
+                         n_q_per_kv=H // k.shape[2], causal=causal, window=window,
+                         prefix=prefix, **controls)
+    return tuple(_to_model_layout(x, B).contiguous() for x in (dq, dk, dv))

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.pu import MMTileSpec
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mm_pu import kernel
 from repro_torch.kernels.mm_pu.ref import mm_pu_ref
 
@@ -99,6 +100,7 @@ def mm_pu(
         return mm_pu_ref(x, w, bias=bias, residual=residual, w_scale=w_scale,
                          activation=activation, out_dtype=out_dtype)
     _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    refuse_grad("mm_pu", "no training path calls it, as in JAX", x, w, bias, residual, w_scale)
     out = launch(kernel.library(), x, w, bias=bias, residual=residual, w_scale=w_scale,
                  activation=activation, out_dtype=out_dtype,
                  stream=torch.cuda.current_stream(x.device).cuda_stream)

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention import kernel
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -64,6 +65,7 @@ def paged_attention(
         )
     lib = kernel.library()
     _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    refuse_grad("paged_attention", "serving only, as in JAX", q, entry["k"], entry["v"])
     out = launch(lib, q, entry, table, lens, q_lens, block_size=block_size, window=window,
                  rows_per_cta=rows_per_cta, stream=torch.cuda.current_stream(q.device).cuda_stream)
     global LAUNCHES

@@ -7,8 +7,16 @@ strided ones is read in place: the qk-norm input, a (B, S, H, D) view of the
 fused QKV projection, needs no copy.  A view that does not fold is copied
 first.  The output is a new dense tensor in x's dtype.  ``launch_plan``
 gives the kernel its schedule (lanes a row, vectors a lane, CTAs).  CPU
-tensors go to the plain version (``ref.rmsnorm_ref``); CUDA tensors launch
-the kernel or raise: there is no fallback.
+tensors go to the plain version (``ref.rmsnorm_ref``, which autograd
+differentiates); CUDA tensors launch the kernel or raise: there is no
+fallback.
+
+Training: when autograd would record the call, a CUDA call goes through
+``RMSNorm``, a ``torch.autograd.Function`` whose backward launches
+``rmsnorm_backward`` (``csrc/rmsnorm_bwd.cu``): dx (and d(residual), the
+same tensor) contiguous in x's dtype, read from the same strided layouts
+the forward takes, and d(scale) in f32 by a deterministic two-stage sum
+over the rows.
 """
 from __future__ import annotations
 
@@ -16,11 +24,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import needs_grad
 from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
-# Kernel launches so far; a run resets it to show which path it took.
+# Kernel launches so far (forward; backward); a run resets them to show
+# which path it took.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 WARPS = 8  # warps a CTA (csrc/rmsnorm.cu kWarps)
@@ -102,15 +113,49 @@ def rmsnorm(
 ) -> torch.Tensor:
     """x: (..., d) f32 or bf16; scale: (d,) f32; residual: x's shape and
     dtype, or None.  Returns RMSNorm(x [+ residual]) * (1 + scale) in x's
-    dtype, computed in f32."""
+    dtype, computed in f32.  Differentiable on every device: the plain
+    version by autograd, the kernel through ``RMSNorm``."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, residual, eps)
     _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    if needs_grad(x, scale, residual):
+        return RMSNorm.apply(x, scale, residual, eps)
+    return _forward(x, scale, residual, eps)
+
+
+class RMSNorm(torch.autograd.Function):
+    """The forward kernel, then the backward kernel.  x may be a strided
+    view (qk-norm's q and k of the fused projection); its gradient comes
+    back contiguous and autograd's view backward places it."""
+
+    @staticmethod
+    def forward(ctx, x, scale, residual, eps: float):
+        ctx.save_for_backward(x, scale, residual)
+        ctx.eps = eps
+        return _forward(x, scale, residual, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, residual = ctx.saved_tensors
+        dx, dscale = backward(x, scale, dy, residual, eps=ctx.eps)
+        return dx, dscale, None if residual is None else dx, None
+
+
+def _forward(x, scale, residual, eps: float) -> torch.Tensor:
     out = launch(kernel.library(), x, scale, residual, eps=eps,
                  stream=torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def backward(x, scale, dy, residual=None, *, eps: float = 1e-6):
+    """One backward launch on the card: (dx, d(scale))."""
+    grads = launch_backward(kernel.backward_library(), x, scale, dy, residual, eps=eps,
+                            stream=torch.cuda.current_stream(x.device).cuda_stream)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return grads
 
 
 def launch(lib, x, scale, residual=None, *, eps: float, stream, plan=None) -> torch.Tensor:
@@ -149,3 +194,59 @@ def launch(lib, x, scale, residual=None, *, eps: float, stream, plan=None) -> to
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed (code {rc})")
     return out
+
+
+BWD_COL_TILE = 32  # columns a d(scale) CTA sums (csrc/rmsnorm_bwd.cu kCols)
+BWD_CTAS = 8 * N_SMS  # d(scale) CTAs to aim for
+
+
+def backward_chunks(rows: int, d: int) -> int:
+    """Row chunks of the d(scale) partial sums: enough CTAs (column tiles
+    x chunks) to cover the card about ``BWD_CTAS`` times over, each chunk at
+    least 128 rows."""
+    col_tiles = -(-d // BWD_COL_TILE)
+    return max(1, min(-(-rows // 128), -(-BWD_CTAS // col_tiles)))
+
+
+def launch_backward(lib, x, scale, dy, residual=None, *, eps: float, stream):
+    """Check the operands, allocate dx (x's shape, contiguous, x's dtype),
+    d(scale) (f32) and the f32 scratch (a row's rsqrt, the row chunks'
+    partial sums), and call ``lib``'s ``rmsnorm_backward`` on ``stream``;
+    x is read in its strided layout (``row_layout``), dy and residual
+    contiguous.  Raises on what the kernel does not take or a failed
+    launch."""
+    _require(x.dtype in _CODES, f"dtype {x.dtype} (f32 or bf16)")
+    d = x.shape[-1] if x.dim() else 0
+    _require(d > 0, f"x must be (..., d) with d > 0, got {tuple(x.shape)}")
+    _require(scale.shape == (d,) and scale.dtype == torch.float32, f"scale must be ({d},) f32")
+    _require(dy.shape == x.shape and dy.dtype == x.dtype, "dy must match x")
+    scale, dy = scale.contiguous(), dy.contiguous()
+    if residual is not None:
+        _require(residual.shape == x.shape and residual.dtype == x.dtype,
+                 "residual must match x's shape and dtype")
+        residual = residual.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dscale = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    if dx.numel() == 0:
+        return dx, dscale
+    layout = row_layout(x)
+    if layout is None:
+        x = x.contiguous()
+        layout = row_layout(x)
+    outer, inner, so, si = layout
+    rows = outer * inner
+    es = x.element_size()
+    vec = (d * es) % 16 == 0 and all(p % 16 == 0 for p in (
+        x.data_ptr(), dy.data_ptr(), so * es, si * es,
+        residual.data_ptr() if residual is not None else 0))
+    chunks = backward_chunks(rows, d)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
+    rc = lib.rmsnorm_backward(
+        x.data_ptr(), scale.data_ptr(), residual.data_ptr() if residual is not None else None,
+        dy.data_ptr(), dx.data_ptr(), rstd.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+        outer, inner, d, so, si, float(eps), int(vec), _CODES[x.dtype], chunks, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm backward kernel launch failed (code {rc})")
+    return dx, dscale

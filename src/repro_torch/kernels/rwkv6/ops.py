@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rwkv6 import kernel
 
 # Kernel launches so far; a run resets it to show which path it took.
@@ -60,6 +61,7 @@ def wkv(
 
         return wkv_chunked(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
     _require(r.is_cuda, f"r must be a CUDA or CPU tensor, got {r.device}")
+    refuse_grad("wkv", "the WKV backward, ROADMAP queue 1, item 5", r, k, v, w, u, state)
     res = launch(kernel.library(), r, k, v, w, u, chunk=chunk, state=state,
                  return_state=return_state, stream=torch.cuda.current_stream(r.device).cuda_stream)
     global LAUNCHES

@@ -57,14 +57,20 @@ def rglru(params: dict, u: torch.Tensor, n_heads: int, h0: Optional[torch.Tensor
     """u: (B, S, W), upcast to f32 inside; returns (y (B, S, W) in u's dtype,
     h_last (B, W) f32)."""
     a, b = _gates(params, u.float(), n_heads)
+    # in place when autograd does not record (serving); under autograd
+    # (training), whose backward needs every step's a and b, each step
+    # builds new tensors (chip_smoke.py phase 24 times both forms)
+    in_place = not b.requires_grad
     if h0 is not None:
-        b[:, 0] += a[:, 0] * h0.float()
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
     S, d = u.shape[1], 1
     while d < S:
-        # (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2) with the pair d back;
-        # b first, from the a of the previous step
-        b[:, d:] = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        # (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2) with the pair d back
+        bd, ad = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d]), a[:, d:] * a[:, :-d]
+        if in_place:
+            b[:, d:], a[:, d:] = bd, ad
+        else:
+            b, a = torch.cat([b[:, :d], bd], dim=1), torch.cat([a[:, :d], ad], dim=1)
         d *= 2
     return b.to(u.dtype), b[:, -1].clone()
 

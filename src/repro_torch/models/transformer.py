@@ -26,6 +26,14 @@ RMSNorm kernel's wrapper, in all three modes; ``fused=False`` runs every
 kernel's plain version instead (the oracle).  LayerNorm archs keep the plain
 norm.
 
+Training (``lm_loss``): the same no-cache pass, differentiable: on the card
+the flash and RMSNorm wrappers go through their ``torch.autograd.Function``s
+(backward kernels); each layer returns its MoE aux loss, summed as JAX sums
+it; with ``plan.remat`` every stacked pattern-group runs under
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint(group_body)``), so its
+kernels launch again in the backward; the LM head's cross-entropy is taken
+512 positions at a time, each chunk's logits recomputed in the backward.
+
 The JAX package scans the stacked pattern-groups with ``lax.scan``; here
 that is a Python loop over their leading dimension, then the tail layers.
 Caches and pools are written in place (JAX returned new ones or took them
@@ -36,6 +44,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
@@ -195,10 +204,11 @@ def edpu_layer(
     ``memory``, or the cached ``cross_kv``), then the FFN (MoE on an MoE
     arch, with the plan's dispatch, or channel-mix) stage.
     ``causal_override`` replaces ``cfg.causal`` in the attention stage (an
-    encoder's layers: False).  Returns ``(x, cache)``: with a cache, the
-    same cache updated in place; with ``collect`` (prefill), a new entry of
-    what the decode cache needs (``kv_out`` for attention layers, the
-    states for RWKV-6 and RG-LRU, ``cross_kv``); else None."""
+    encoder's layers: False).  Returns ``(x, cache, aux)``: with a cache,
+    the same cache updated in place; with ``collect`` (prefill), a new entry
+    of what the decode cache needs (``kv_out`` for attention layers, the
+    states for RWKV-6 and RG-LRU, ``cross_kv``); else None.  ``aux`` is the
+    MoE layer's load-balancing loss (an f32 scalar), 0.0 on other layers."""
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rglru":
@@ -239,13 +249,14 @@ def edpu_layer(
         if cache is None and collect:
             new_cache["cross_kv"] = mkv
     h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
+    aux = 0.0
     if cfg.is_moe:
         st = M.MoESettings(
             n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.moe_capacity_factor, dispatch=plan.moe_dispatch,
         )
-        # the aux loss is for training; no serving path reads it
-        f, _ = M.moe_ffn(lp["ffn"], h2, st, cfg.activation)
+        # the aux loss is for training (lm_loss); no serving path reads it
+        f, aux = M.moe_ffn(lp["ffn"], h2, st, cfg.activation)
     elif kind == "rwkv6":
         f, nc = R.rwkv6_channel_mix(
             lp["ffn"], h2, cache=None if cache is None else cache["cmix"], collect=collect,
@@ -254,7 +265,7 @@ def edpu_layer(
             new_cache["cmix"] = nc
     else:
         f = L.mlp(lp["ffn"], h2, cfg.activation)
-    return x + f, (new_cache or None)
+    return x + f, (new_cache or None), aux
 
 
 def _index(tree, i: int):
@@ -285,34 +296,52 @@ def _run_stack(
     layer_fn: Callable,
     pattern: tuple,
     caches: Optional[dict] = None,
+    remat: bool = False,
 ):
     """The stacked pattern-groups in order, then the tail layers.
-    ``layer_fn(lp, x, kind, cache) -> (x, new_cache)``; ``caches`` mirrors
-    ``blocks``.  Returns ``(x, new_caches)``: with ``caches``, the same tree
-    (the layers write it in place); without, the layers' new caches with the
-    stacked groups' entries stacked (the prefill's collect), or None leaves."""
+    ``layer_fn(lp, x, kind, cache) -> (x, new_cache, aux)``; ``caches``
+    mirrors ``blocks``.  Returns ``(x, new_caches, aux)``: with ``caches``,
+    the same tree (the layers write it in place); without, the layers' new
+    caches with the stacked groups' entries stacked (the prefill's collect),
+    or None leaves; ``aux`` the layers' aux losses summed.  With ``remat``
+    (no caches, grad enabled) each stacked group runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, as JAX's ``jax.checkpoint(group_body)``; the tail layers are
+    not."""
     stack = blocks["stack"]
     new_stack = None
+    total_aux = 0.0
     if stack is not None:
         n = stack[0]["attn"]["ln"]["scale"].shape[0]
         per_group = []
         for g in range(n):
             gp = _index(stack, g)
             gc = None if caches is None else _index(caches["stack"], g)
-            outs = []
-            for i, kind in enumerate(pattern):
-                x, nc = layer_fn(gp[i], x, kind, None if gc is None else gc[i])
-                outs.append(nc)
-            per_group.append(tuple(outs))
+
+            def group(xx, gp=gp, gc=gc):
+                outs, aux = [], 0.0
+                for i, kind in enumerate(pattern):
+                    xx, nc, a = layer_fn(gp[i], xx, kind, None if gc is None else gc[i])
+                    outs.append(nc)
+                    aux = aux + a
+                return xx, tuple(outs), aux
+
+            if remat and caches is None and torch.is_grad_enabled():
+                x, outs, aux = checkpoint(group, x, use_reentrant=False)
+            else:
+                x, outs, aux = group(x)
+            total_aux = total_aux + aux
+            per_group.append(outs)
         new_stack = None if caches is not None else _stack(per_group)
     new_tail = []
     for i, lp in enumerate(blocks["tail"]):
-        x, nc = layer_fn(lp, x, pattern[i % len(pattern)],
-                         None if caches is None else caches["tail"][i])
+        x, nc, a = layer_fn(lp, x, pattern[i % len(pattern)],
+                            None if caches is None else caches["tail"][i])
         new_tail.append(nc)
+        total_aux = total_aux + a
     if caches is not None:
-        return x, caches
-    return x, {"stack": new_stack, "tail": tuple(new_tail)}
+        return x, caches, total_aux
+    return x, {"stack": new_stack, "tail": tuple(new_tail)}, total_aux
 
 
 def _compute_dtype(params: dict) -> torch.dtype:
@@ -367,7 +396,7 @@ def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: Execu
             dtype, fused: bool) -> torch.Tensor:
     """The encoder of an encoder-decoder: sinusoidal positions, the
     ``params["encoder"]`` stack with bidirectional attention, its final
-    norm.  Returns the memory (B, Se, d)."""
+    norm.  Returns the memory (B, Se, d) and the stack's aux loss."""
     enc = enc_embeds.to(dtype)
     Se, dev = enc.shape[1], enc.device
     enc = enc + L.sinusoidal_positions(Se, cfg.d_model, device=dev).to(dtype)[None]
@@ -377,8 +406,8 @@ def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: Execu
         return edpu_layer(lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
                           causal_override=False, fused=fused)
 
-    enc, _ = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",))
-    return _norm(params["encoder"]["final_norm"], enc, cfg.norm, fused)
+    enc, _, aux = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",), remat=plan.remat)
+    return _norm(params["encoder"]["final_norm"], enc, cfg.norm, fused), aux
 
 
 def forward(
@@ -391,13 +420,16 @@ def forward(
     collect_cache: bool = False,
     page_state: Optional[dict] = None,
     fused: bool = True,
+    with_aux: bool = False,
 ):
     """The model over ``batch``: ``"tokens"`` (B, S), optional
     ``"prefix_embeds"`` (B, P, d) in front of them, and an encoder-decoder's
     ``"enc_embeds"`` (B, Se, d) (unless the cache holds the encoder's
     ``"memory"``).  The compute dtype is the embedding's (norms stay f32);
     an encoder-only arch attends bidirectionally.  Returns ``(hidden (B,
-    P + S, d), cache)``.
+    P + S, d), cache)``, or, ``with_aux``, ``(hidden, cache, aux)`` with
+    ``aux`` the decoder stack's summed MoE aux loss (0.0 without MoE; the
+    encoder's is dropped, as JAX's ``forward`` drops it).
 
     ``fused=False`` runs the plain versions of the kernels on any device
     (the oracle): the norms and, with no cache, the flash and WKV kernels;
@@ -423,7 +455,7 @@ def forward(
         if cache is not None and "memory" in cache:
             memory = cache["memory"]
         else:
-            memory = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused)
+            memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused)
     causal_override = False if cfg.encoder_only else None
 
     def layer_fn(lp, xx, kind, c):
@@ -434,16 +466,19 @@ def forward(
         )
 
     layers = None if cache is None else cache["layers"]
-    x, new_layers = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers)
+    x, new_layers, aux = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers,
+                                    remat=plan.remat)
     x = _norm(params["final_norm"], x, cfg.norm, fused)
     if cache is not None:
-        return x, {**cache, "layers": new_layers, "t": cache["t"] + S}
-    if collect_cache:
+        out = x, {**cache, "layers": new_layers, "t": cache["t"] + S}
+    elif collect_cache:
         pc = {"layers": new_layers, "t": S}
         if memory is not None:
             pc["memory"] = memory
-        return x, pc
-    return x, None
+        out = x, pc
+    else:
+        out = x, None
+    return (*out, aux) if with_aux else out
 
 
 def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -455,3 +490,74 @@ def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if w is None:
         w = params["embed"].T
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def _xent_chunk(xc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    """Summed masked cross-entropy of one chunk: f32 logits (B, c, V)."""
+    logits = (xc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return ((lse - tl) * mc).sum()
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    targets: torch.Tensor,
+    loss_mask: Optional[torch.Tensor] = None,
+    chunk: int = 512,
+):
+    """Cross-entropy without materializing the whole (B, S, V) logits.
+
+    x: (B, S, d); w: (d, V); targets: (B, S) int.  Returns (summed loss,
+    number of tokens, at least 1), both f32 scalars.  The sequence is cut
+    into chunks of ``chunk`` positions (halved until it divides S, as in
+    JAX); with autograd recording, each chunk runs under
+    ``torch.utils.checkpoint``, so its f32 logits are recomputed in the
+    backward instead of saved (B 8 x 512 x 151,936 f32 is 2.5 GB a chunk)."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if loss_mask is None
+            else loss_mask.float())
+    remat = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, c):
+        args = (x[:, i:i + c], w, targets[:, i:i + c], mask[:, i:i + c])
+        total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                         else _xent_chunk(*args))
+    return total, torch.clamp(mask.sum(), min=1.0)
+
+
+def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux):
+    """The loss from the final hidden states: a classifier's (``n_classes``,
+    over ``batch["label"]``) or the LM's over ``batch["targets"]`` (the
+    prefix embeddings' positions dropped, ``batch["loss_mask"]`` applied),
+    plus 0.01 x the aux loss."""
+    if cfg.n_classes:
+        logits = logits_fn(params, x, cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = torch.gather(logits, -1, batch["label"].long()[:, None])[:, 0]
+        return (lse - tl).mean() + 0.01 * aux
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T.to(x.dtype)
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]  # the prefix carries no targets
+    total, n = chunked_softmax_xent(x, w, batch["targets"], batch.get("loss_mask"))
+    return total / n + 0.01 * aux
+
+
+def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
+            fused: bool = True) -> torch.Tensor:
+    """The training loss (the port's ``repro.models.transformer.lm_loss``):
+    the no-cache forward, then ``_head_loss``.  ``fused=False`` runs every
+    kernel's plain version (the oracle)."""
+    x, _, aux = forward(params, batch, cfg=cfg, plan=plan, fused=fused, with_aux=True)
+    return _head_loss(params, x, batch, cfg, aux)

@@ -1,0 +1,140 @@
+"""AdamW + cosine schedule + global-norm clipping (the port's
+``repro/train/optimizer.py``).
+
+Parameters, gradients and the moments are plain trees (nested dicts and
+tuples of tensors, ``None`` leaves kept), as the model's parameters are.
+m and v are f32; the update is computed in f32 and each new parameter is
+cast back to its own dtype; weight decay applies to matrices only (two
+dimensions or more, so a stacked norm scale counts as one, as in JAX).
+The update builds new tensors and leaves the state it is given untouched.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+Tree = Any
+
+
+def tree_leaves(tree: Tree) -> list:
+    """The tensor leaves of ``tree`` in a fixed order (dict keys as stored,
+    tuples in order; ``None`` leaves skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the tensor leaves of ``tree`` (and the same leaves of the
+    ``rest`` trees, which share its shape); ``None`` leaves stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree: Tree, leaves) -> Tree:
+    """A tree of ``tree``'s shape with its tensor leaves replaced, in
+    ``tree_leaves`` order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    min_lr: float = 3e-5
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor  # () int32
+    params: Tree
+    m: Tree  # f32 first moment
+    v: Tree  # f32 second moment
+    residual: Tree = None  # f32 error-feedback residual (gradient compression)
+
+
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def init_state(params: Tree, with_residual: bool = False) -> TrainState:
+    device = tree_leaves(params)[0].device
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        params=params,
+        m=tree_map(_zeros32, params),
+        v=tree_map(_zeros32, params),
+        residual=tree_map(_zeros32, params) if with_residual else None,
+    )
+
+
+def lr_at(opt: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up to ``peak_lr``, then a cosine down to ``min_lr`` at
+    ``total_steps``; f32, as JAX computes it."""
+    step = step.float()
+    warm = opt.peak_lr * step / max(opt.warmup_steps, 1)
+    frac = torch.clamp((step - opt.warmup_steps) / max(opt.total_steps - opt.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = opt.min_lr + 0.5 * (opt.peak_lr - opt.min_lr) * (1 + torch.cos(math.pi * frac))
+    return torch.where(step < opt.warmup_steps, warm, cos)
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+
+
+def adamw_update(state: TrainState, grads: Tree, opt: OptimizerConfig) -> tuple:
+    """One AdamW step: clip by the global norm, bias-correct, decoupled
+    weight decay on matrices.  Returns (new state, {"grad_norm", "lr"});
+    the residual is carried unchanged."""
+    if opt.clip_norm > 0:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        gnorm = torch.zeros((), device=state.step.device)
+        scale = torch.ones((), device=state.step.device)
+    step = state.step + 1
+    lr = lr_at(opt, step)
+    b1, b2 = opt.b1, opt.b2
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g.square()
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            delta = delta + opt.weight_decay * p.float()
+        return (p.float() - lr * delta).to(p.dtype), m, v
+
+    out = [upd(*leaf) for leaf in zip(tree_leaves(state.params), tree_leaves(grads),
+                                       tree_leaves(state.m), tree_leaves(state.v))]
+    new_state = TrainState(
+        step,
+        tree_unflatten(state.params, [o[0] for o in out]),
+        tree_unflatten(state.params, [o[1] for o in out]),
+        tree_unflatten(state.params, [o[2] for o in out]),
+        state.residual,
+    )
+    return new_state, {"grad_norm": gnorm, "lr": lr}

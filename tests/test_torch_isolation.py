@@ -44,6 +44,8 @@ def test_importing_the_port_pulls_in_neither():
         "import repro_torch.kernels.rmsnorm.ops, repro_torch.kernels.mm_pu.ops\n"
         "import repro_torch.core.pu\n"
         "import repro_torch.models.rwkv6\n"
+        "import repro_torch.launch.train, repro_torch.train.train_step\n"
+        "import repro_torch.train.compression, repro_torch.data.pipeline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"

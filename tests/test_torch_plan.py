@@ -87,3 +87,37 @@ def test_h100_plan_for_qwen3():
     assert derive_serve_plan(cfg, MESH1, H100_SXM, decode_batch=8).n_blocks == 1025
     with pytest.raises(ValueError):
         derive_serve_plan(get_config("rwkv6-1.6b"), MESH1, H100_SXM)
+
+
+TRAIN_GRID = [(8, 2048), (32, 4096), (2, 128), (64, 8192), (4, 32768), (1, 512)]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_training_plan_matches_jax(arch):
+    """remat and microbatches as ``derive_plan(training=True)`` derives them
+    on a 1 x 1 mesh, on the TPU_V5E numbers, over a grid of (batch, seq)
+    (qwen3-1.7b at B 32 x S 4096: 8 microbatches)."""
+    for batch, seq in TRAIN_GRID:
+        theirs = derive_plan(jax_get_config(arch), MESH1, TPU_V5E, batch=batch, seq_len=seq,
+                             training=True, grad_compression="int8")
+        mine = derive_execution_plan(get_config(arch), training=True, batch=batch, seq_len=seq,
+                                     hw=V5E, grad_compression="int8")
+        assert (mine.remat, mine.microbatches, mine.grad_compression) == (
+            theirs.remat, theirs.microbatches, theirs.grad_compression), (batch, seq)
+    if arch == "qwen3-1.7b":
+        mine = derive_execution_plan(get_config(arch), training=True, batch=32, seq_len=4096,
+                                     hw=V5E)
+        assert mine.microbatches == 8
+
+
+def test_training_plan_on_the_h100():
+    """The H100's 80 GB: qwen3-1.7b at B 8 x S 2048 rematerializes in one
+    microbatch; serving plans keep the training fields at their defaults;
+    an unknown compression mode raises."""
+    cfg = get_config("qwen3-1.7b")
+    plan = derive_execution_plan(cfg, training=True, batch=8, seq_len=2048, hw=H100_SXM)
+    assert (plan.remat, plan.microbatches, plan.grad_compression) == (True, 1, "none")
+    serve = derive_execution_plan(cfg)
+    assert (serve.remat, serve.microbatches, serve.grad_compression) == (False, 1, "none")
+    with pytest.raises(ValueError, match="grad_compression"):
+        derive_execution_plan(cfg, training=True, grad_compression="fp8")

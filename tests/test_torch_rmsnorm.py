@@ -9,7 +9,15 @@ row once, no idle lane at d_head 128 bf16) and the wrapper's arguments to
 it (a stand-in library records them); the routed forward against the JAX
 ``forward``; and ``fused=False`` through both serving entry points
 launching no kernel (a counting stub stands in for each kernel's launch on
-the CPU)."""
+the CPU).  The backward: the plain version (``ref.rmsnorm_backward_ref``)
+against ``jax.grad`` of ``repro.models.layers.rmsnorm`` on strided q/k
+views of a fused projection and with a residual (f32: 1e-5 relative to
+each gradient's scale), the planted ``1 + scale`` -> ``scale`` fault
+failing it, the ``RMSNorm`` autograd Function with the plain versions
+standing in for its kernels, and the backward launcher's arguments."""
+from collections import Counter
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +31,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mm_pu import ops as mm_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.rmsnorm import ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.models import layers
 from repro_torch.models import transformer
@@ -294,3 +302,153 @@ def test_fused_false_launches_no_kernel(counting, entry, fused):
         assert counts == {name: expect.get(name, 0) for name in counts}
     else:
         assert counts == {name: 0 for name in counts}
+
+
+# ---------------------------------------------------------------- backward
+def _jax_grads(qkv, scale, w, H, KH, D, part, residual=None):
+    """jax.grad of sum(rmsnorm(view [+ residual]) * w) over the fused
+    projection ``qkv`` (B, S, (H + 2 KH) D) and the scale, ``view`` its q
+    (``part`` 0) or k (1) heads."""
+    from repro.models.layers import rmsnorm as jax_layers_rmsnorm
+
+    B, S, _ = qkv.shape
+
+    def f(t, sc, r):
+        q, k, _ = jnp.split(t, [H * D, (H + KH) * D], axis=-1)
+        x = (q.reshape(B, S, H, D), k.reshape(B, S, KH, D))[part]
+        if r is not None:
+            x = x + r
+        return jnp.sum(jax_layers_rmsnorm(x, sc) * w)
+
+    r = None if residual is None else jnp.asarray(residual)
+    return jax.grad(f, argnums=(0, 1, 2) if r is not None else (0, 1))(
+        jnp.asarray(qkv), jnp.asarray(scale), r)
+
+
+def _views(t, H, KH, D):
+    B, S, _ = t.shape
+    q, k, _ = torch.split(t, [H * D, KH * D, KH * D], dim=-1)
+    return q.reshape(B, S, H, D), k.reshape(B, S, KH, D)
+
+
+def _close_scaled(got, want, tol=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(t2n(got), want, rtol=0,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("part", [0, 1])
+def test_plain_backward_matches_jax_grad(part, residual):
+    """dx (the view's gradient) and d(scale), f32, on qwen3-1.7b-like
+    strided q and k views (H 4, KH 2, D 32; G 2), with and without a
+    residual (whose gradient is dx)."""
+    B, S, H, KH, D = 2, 6, 4, 2, 32
+    rng = np.random.default_rng(10 + part)
+    qkv = rng.standard_normal((B, S, (H + 2 * KH) * D)).astype(np.float32)
+    n = (H, KH)[part]
+    scale = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    w = rng.standard_normal((B, S, n, D)).astype(np.float32)
+    r = rng.standard_normal((B, S, n, D)).astype(np.float32) if residual else None
+    jg = _jax_grads(qkv, scale, w, H, KH, D, part, r)
+    x = _views(torch.from_numpy(qkv), H, KH, D)[part]
+    assert not x.is_contiguous()
+    dx, dscale = rmsnorm_backward_ref(x, torch.from_numpy(scale), torch.from_numpy(w),
+                                      None if r is None else torch.from_numpy(r))
+    jdx = np.asarray(jg[0])[..., [0, H * D][part]:][..., :n * D].reshape(B, S, n, D)
+    _close_scaled(dx, jdx)
+    _close_scaled(dscale, jg[1])
+    if residual:
+        _close_scaled(dx, jg[2])
+    bad, _ = rmsnorm_backward_ref(x, torch.from_numpy(scale), torch.from_numpy(w),
+                                  None if r is None else torch.from_numpy(r), one_plus=False)
+    diff = np.abs(t2n(bad) - jdx)
+    assert (diff > 1e-5 * max(1.0, float(np.abs(jdx).max()))).mean() > 0.5
+
+
+@pytest.fixture
+def plain_norm_kernels(monkeypatch):
+    """The Function's launches with the plain versions standing in."""
+    calls = Counter()
+
+    def fwd(x, scale, residual, eps):
+        calls["forward"] += 1
+        return rmsnorm_ref(x, scale, residual, eps)
+
+    def bwd(x, scale, dy, residual=None, *, eps):
+        calls["backward"] += 1
+        return rmsnorm_backward_ref(x, scale, dy, residual, eps)
+
+    monkeypatch.setattr(ops, "_forward", fwd)
+    monkeypatch.setattr(ops, "backward", bwd)
+    return calls
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_function_on_strided_view(plain_norm_kernels, residual):
+    """``RMSNorm`` on the k view of a fused projection: the gradients of
+    the projection, the scale and the residual equal autograd's through
+    the plain norm; one forward and one backward launch."""
+    B, S, H, KH, D = 2, 5, 4, 2, 32
+    g = torch.Generator().manual_seed(4)
+    qkv0 = torch.randn((B, S, (H + 2 * KH) * D), generator=g)
+    s0 = 0.1 * torch.randn(D, generator=g)
+    r0 = torch.randn((B, S, KH, D), generator=g) if residual else None
+    w = torch.randn((B, S, KH, D), generator=g)
+    grads = []
+    for use_fn in (True, False):
+        t = qkv0.clone().requires_grad_()
+        sc = s0.clone().requires_grad_()
+        r = None if r0 is None else r0.clone().requires_grad_()
+        k = _views(t, H, KH, D)[1]
+        y = ops.RMSNorm.apply(k, sc, r, 1e-6) if use_fn else rmsnorm_ref(k, sc, r)
+        (y * w).sum().backward()
+        grads.append([t.grad, sc.grad] + ([] if r is None else [r.grad]))
+    assert plain_norm_kernels == Counter({"forward": 1, "backward": 1})
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(t2n(a), t2n(b), rtol=1e-5, atol=1e-6)
+
+
+class _BackwardLibrary:
+    """Stands in for the backward library: records ``rmsnorm_backward``'s
+    arguments and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.args, self.rc = None, rc
+
+    def rmsnorm_backward(self, *args):
+        self.args = args
+        return self.rc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_backward_passes_the_layout(dtype):
+    """The strided k view goes in place (its (outer, inner) strides), dy is
+    made dense, dx comes back dense in x's dtype, d(scale) f32; a failed
+    launch raises."""
+    B, S, H, KH, D = 2, 5, 4, 2, 64
+    t = torch.zeros((B, S, (H + 2 * KH) * D), dtype=dtype)
+    k = _views(t, H, KH, D)[1]
+    scale = torch.zeros(D)
+    dy = torch.zeros((B, S, KH, D), dtype=dtype).transpose(0, 1).contiguous().transpose(0, 1)
+    lib = _BackwardLibrary()
+    dx, dscale = ops.launch_backward(lib, k, scale, dy, eps=1e-6, stream=None)
+    assert dx.shape == k.shape and dx.dtype == dtype and dx.is_contiguous()
+    assert dscale.shape == (D,) and dscale.dtype == torch.float32
+    args = lib.args
+    assert args[0] == k.data_ptr()
+    assert args[8:13] == (B * S, KH, D, (H + 2 * KH) * D, D)
+    assert args[15] == (0 if dtype == torch.float32 else 1)
+    assert args[16] == ops.backward_chunks(B * S * KH, D)
+    with pytest.raises(RuntimeError, match="backward kernel launch failed"):
+        ops.launch_backward(_BackwardLibrary(rc=1), k, scale, dy, eps=1e-6, stream=None)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 64), (262144, 128), (16384, 2048), (100, 12288)])
+def test_backward_chunks(rows, d):
+    """Every chunk holds at least 128 rows (or all of them), and the CTAs
+    (column tiles x chunks) fill the card about 8 times over."""
+    c = ops.backward_chunks(rows, d)
+    assert 1 <= c <= 65535
+    assert c == 1 or rows / c >= 128
+    assert c * -(-d // ops.BWD_COL_TILE) <= 2 * ops.BWD_CTAS
