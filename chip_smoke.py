@@ -10,8 +10,9 @@ each against its plain PyTorch version at the main paths' shapes, drives
 both serving paths at full width and depth (random weights from a seed) on
 a dense, a recurrent and an MoE arch, the eager path on the other archs
 (RG-LRU + local attention, prefix-LM, encoder-decoder, bidirectional
-encoders), the int8 FFN stage at full width, and training (qwen3-1.7b at
-full width and depth), checks the outputs, times the kernels, and prints:
+encoders), the int8 FFN stage at full width, and training (qwen3-1.7b and
+paligemma-3b at full width and depth, recurrentgemma-9b at full width),
+checks the outputs, times the kernels, and prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * one JSON line ``{"kernels": [...]}`` (times, launches on the main paths,
@@ -93,23 +94,30 @@ prompt; 27 bert-base at L 256 (8 new tokens) and a vit-base forward +
 (untied heads, identical tokens) on each generating arch (recurrentgemma
 cut to 5 layers, its 2176-token prompt past the window); then training:
 29 the flash forward kernels' logsumexp (both entries) and the backward
-kernel against the plain versions, f32 and bf16, on the JAX backward
-test's cases (D 16 raised to 32), prefix-LM, bidirectional, Sq != Sk,
-fused-QKV views and the qwen3-1.7b (B 8 x 2048, H 16, KH 8, D 128) and
-smollm-135m (H 9, KH 3, D 64) training shapes, with the backward's time
-against SDPA's backward and the forward's lse cost; 30 the RMSNorm
+kernel against the plain versions, f32 (CUDA cores) and bf16 (tensor
+cores), D 32 to 256, on the JAX backward test's cases (D 16 raised to
+32), prefix-LM, bidirectional, Sq != Sk, paligemma-3b's heads (prefix 0
+and 256) and recurrentgemma-9b's (window 2048 at S 4096), fused-QKV
+views and the qwen3-1.7b (B 8 x 2048, H 16, KH 8, D 128), smollm-135m
+(H 9, KH 3, D 64) and paligemma-3b (H 8, KH 1, D 256) training shapes,
+every rerun bit-identical, ptxas registers and spills of every backward
+instantiation, with the backward's times against SDPA's backward at the
+qwen3-1.7b and paligemma-3b shapes and the forward's lse cost; 30 the RMSNorm
 backward kernel at every model width, with a residual and on strided q/k
 views; 31 the training main path: ``launch.train.run`` trains qwen3-1.7b
 at full width and depth in bf16, B 8 x 2048, on the H100 plan (remat on),
 4 AdamW steps (finite losses and norms, a gradient on every leaf, exact
 launch counts: flash 56 + backward 28, RMSNorm 225 + backward 113 a step;
 step ms, tokens/s, peak memory), then 4 steps on one repeated batch whose
-loss must go down, and rwkv6-1.6b, recurrentgemma-9b and paligemma-3b
-refused on the card; 32 kernel path vs plain path in f32 (qwen3-1.7b cut
-to 4 layers, B 2 x 2048: loss, every gradient leaf, parameters after 3
-steps; smollm-135m at full depth with 2 microbatches and with int8
-compression).  Every main path
-(phases 3-5, 9-11, 18-19, 21-22, 24-28, 31) checks the exact launch count of
+loss must go down, and rwkv6-1.6b refused on the card; 32 kernel path vs
+plain path in f32 (qwen3-1.7b cut to 4 layers, B 2 x 2048: loss, every
+gradient leaf, parameters after 3 steps; smollm-135m at full depth with 2
+microbatches and with int8 compression; paligemma-3b cut to 2 layers with
+its 256 prefix rows: loss and every gradient leaf); 33 the d_head-256
+archs trained in bf16: paligemma-3b at full width and depth through
+``launch.train.run`` (B 8 x 2048, 3 steps) and recurrentgemma-9b at full
+width cut to 6 layers (B 2 x 4096, 2 steps).  Every main path
+(phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33) checks the exact launch count of
 every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -125,7 +133,8 @@ diagonal halves' per-element weights dropped, or its operands rounded
 once to TF32 (logged if it passes), the norm's ``1 + scale`` or mean
 changed, a dropped K slice, a per-row scale, the causal edge between
 verify rows dropped; in the backward kernels lse left in log2 units,
-delta dropped, one head of each GQA group folded, ``1 + scale`` taken as
+delta dropped, one head of each GQA group folded, P and dS rounded once
+to bf16 instead of split into hi + lo, ``1 + scale`` taken as
 ``scale``) show that the tolerances reject a wrong kernel.  Kernel times are medians over batches
 of back-to-back calls (``time_ms``).
 """
@@ -162,8 +171,22 @@ EAGER_B, EAGER_PROMPT, EAGER_GEN = 8, 2048, 32
 SLAB_ROWS = 256 * 256
 
 
+# The phase running now and when it began (each "phase N..." line opens
+# one): ``log`` prints every phase's seconds when the next begins.
+_PHASE = {"name": None, "t": 0.0}
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        end_phase()
+        _PHASE.update(name=msg.split(":")[0], t=time.time())
     print(msg, flush=True)
+
+
+def end_phase() -> None:
+    if _PHASE["name"] is not None:
+        print(f"  ({_PHASE['name']} took {time.time() - _PHASE['t']:.1f} s)", flush=True)
+        _PHASE["name"] = None
 
 
 def fail(msg: str) -> None:
@@ -2549,8 +2572,10 @@ def grad_within(got, want, tol, *, unit_floor=True):
 
 
 # tests/test_flash_backward.py's three cases (D 16 raised to 32: the
-# kernels take 32, 64, 128), then prefix-LM, bidirectional at D 128, Sq !=
-# Sk (cross-attention, and causal with a window), a ragged length.
+# kernels take 32 to 256), then prefix-LM, bidirectional at D 128, Sq !=
+# Sk (cross-attention, and causal with a window), a ragged length; at D
+# 256 (both column halves of the dk/dv pass), prefix-LM with a ragged
+# length, and keys past every query under a window.
 FLASH_BWD_CASES = [
     # (B, Sq, Sk, H, KH, D, causal, window, prefix)
     (2, 64, 64, 4, 2, 32, True, 0, 0),
@@ -2561,6 +2586,8 @@ FLASH_BWD_CASES = [
     (2, 24, 150, 4, 4, 64, False, 0, 0),
     (1, 40, 72, 4, 2, 32, True, 16, 0),
     (2, 300, 300, 4, 2, 128, True, 100, 0),
+    (2, 100, 100, 4, 2, 256, True, 0, 40),
+    (1, 40, 72, 4, 2, 256, True, 16, 0),
 ]
 
 
@@ -2628,20 +2655,65 @@ def flash_bwd_bound(q, k, causal=True, window=0, prefix=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_kernels(source):
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel instantiation in ``source``'s ptxas report."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    report = _build.library_path(source).with_suffix(".log")
+    rows, name, spill = [], None, (0, 0)
+    for line in report.read_text().splitlines() if report.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"(dkdv_mma|dq_mma|dkdv|dq|delta)_kernel", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            dt = "bf16" if "bfloat16" in mangled else "f32"
+            name = f"{base.group(0) if base else mangled}<{dt}{''.join(',' + a for a in args)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return rows
+
+
 def phase_flash_backward():
     """Phase 29: the forward kernels' lse (both entries) and the backward
-    kernel against the plain versions, f32 (CUDA-core forward) and bf16
-    (tensor-core forward), on the JAX test's cases, prefix-LM,
-    bidirectional, Sq != Sk, fused-QKV views and the qwen3-1.7b and
-    smollm-135m training shapes; planted controls; times.  Returns (max
-    grad error, max lse error, times at the qwen3-1.7b shape, lse cost)."""
+    kernel against the plain versions, f32 (CUDA cores) and bf16 (tensor
+    cores), at D 32 to 256: the JAX test's cases, prefix-LM,
+    bidirectional, Sq != Sk, paligemma-3b's heads (prefix 0 and 256) and
+    recurrentgemma-9b's (window 2048 at S 4096), fused-QKV views at the
+    qwen3-1.7b, smollm-135m and paligemma-3b training shapes; every rerun
+    bit-identical; planted controls at D 128 and 256 (lse in log2 units,
+    delta dropped, one head of each group folded, P and dS rounded once);
+    ptxas registers and spills; times against the bound and SDPA's
+    backward.  Returns (max grad error, max lse error, times at the
+    qwen3-1.7b shape with the D 256 times under "d256", lse cost)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+    from repro_torch.kernels.flash_attention.ref import flash_backward_mma_ref, flash_backward_ref
 
     log("phase 29: flash-attention lse and backward kernel vs plain versions")
+    spilled = []
+    for name, regs, st, ld in ptxas_kernels(flash_kernel.BACKWARD_SOURCE):
+        log(f"  ptxas {name}: {regs} registers, spill stores {st} B, loads {ld} B")
+        if st or ld:
+            spilled.append(name)
+    log(f"  backward instantiations that spill: {spilled or 'none'}")
     errs, lse_errs = [], []
-    for n, (B, Sq, Sk, H, KH, D, causal, window, prefix) in enumerate(FLASH_BWD_CASES):
+    pg, rg = get_config("paligemma-3b"), get_config("recurrentgemma-9b")
+    cases = FLASH_BWD_CASES + [
+        (2, 768, 768, pg.n_heads, pg.n_kv_heads, pg.d_head, True, 0, 0),
+        (2, 768, 768, pg.n_heads, pg.n_kv_heads, pg.d_head, True, 0, pg.n_prefix_embeds),
+        (1, 4096, 4096, rg.n_heads, rg.n_kv_heads, rg.d_head, True, rg.local_window, 0),
+    ]
+    for n, (B, Sq, Sk, H, KH, D, causal, window, prefix) in enumerate(cases):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(B, Sq, H, KH, D, dt, seed=80 + n, Sk=Sk)
             kw = dict(causal=causal, window=window, prefix=prefix)
@@ -2650,33 +2722,49 @@ def phase_flash_backward():
                 f"causal={causal} window={window} prefix={prefix}", q, k, v, seed=n, **kw)
             errs.append(e)
             lse_errs.append(el)
+            del q, k, v
+            torch.cuda.empty_cache()
     times = {}
-    for arch in (TRAIN_ARCH, "smollm-135m"):
+    d256 = {}
+    for arch, prefixes in ((TRAIN_ARCH, (0,)), ("smollm-135m", (0,)),
+                           ("paligemma-3b", (0, pg.n_prefix_embeds))):
         cfg = get_config(arch)
         H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = fused_qkv(TRAIN_B, TRAIN_S, H, KH, D, dt, seed=95)
-            name = (f"{arch} training shape B={TRAIN_B} S={TRAIN_S} H={H} KH={KH} D={D} "
-                    f"{str(dt)[6:]}")
-            (out, lse, do), want, e, el = flash_bwd_check(f"{name}, fused-QKV views", q, k, v,
-                                                          seed=96, causal=True, window=0,
-                                                          prefix=0)
-            errs.append(e)
-            lse_errs.append(el)
-            if dt == torch.bfloat16:
-                tol = GRAD_BF16_TOL
-                def plain(lse_log2=False, **c):
-                    lse_ = lse / 0.6931471805599453 if lse_log2 else lse
-                    return flash_backward_ref(q, k, v, out, lse_, do, **c)
+            for prefix in prefixes:
+                if prefix and dt == torch.float32:
+                    continue
+                q, k, v = fused_qkv(TRAIN_B, TRAIN_S, H, KH, D, dt, seed=95)
+                kw = dict(causal=True, window=0, prefix=prefix)
+                name = (f"{arch} training shape B={TRAIN_B} S={TRAIN_S} H={H} KH={KH} D={D} "
+                        f"{str(dt)[6:]} prefix={prefix}")
+                (out, lse, do), want, e, el = flash_bwd_check(f"{name}, fused-QKV views", q, k,
+                                                              v, seed=96, **kw)
+                errs.append(e)
+                lse_errs.append(el)
+                if dt == torch.bfloat16 and arch != "smollm-135m":
+                    tol = GRAD_BF16_TOL
+                    if not prefix:
+                        def plain(lse_log2=False, **c):
+                            lse_ = lse / 0.6931471805599453 if lse_log2 else lse
+                            return flash_backward_ref(q, k, v, out, lse_, do, **kw, **c)
 
-                planted_grads("lse in log2 units", plain(lse_log2=True), want, tol)
-                planted_grads("delta dropped", plain(drop_delta=True), want, tol)
-                planted_grads(f"only the first of each group's {H // KH} heads folded",
-                              plain(fold_first_only=True), want, tol)
-                if arch == TRAIN_ARCH:
-                    times = flash_bwd_times(q, k, v, out, lse, do)
-            del q, k, v, out, lse, do, want
-            torch.cuda.empty_cache()
+                        planted_grads(f"D {D}: lse in log2 units", plain(lse_log2=True), want,
+                                      tol)
+                        planted_grads(f"D {D}: delta dropped", plain(drop_delta=True), want, tol)
+                        planted_grads(f"D {D}: only the first of each group's {H // KH} heads "
+                                      "folded", plain(fold_first_only=True), want, tol)
+                        planted_grads(f"D {D}: P and dS rounded once to bf16 (no hi + lo split)",
+                                      flash_backward_mma_ref(q, k, v, out, lse, do, **kw,
+                                                             split=False), want, tol)
+                    t = flash_bwd_times(q, k, v, out, lse, do, **kw)
+                    if arch == TRAIN_ARCH:
+                        times = t
+                    else:
+                        d256[f"prefix{prefix}"] = t
+                del q, k, v, out, lse, do, want
+                torch.cuda.empty_cache()
+    times = {**times, "d256": d256}
     # the forward's lse cost at the serving prefill shape (bf16, causal)
     cfg = get_config(TRAIN_ARCH)
     q, k, v = flash_inputs(EAGER_B, EAGER_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
@@ -2698,29 +2786,43 @@ def phase_flash_backward():
     return max(errs), max(lse_errs), times, cost
 
 
-def flash_bwd_times(q, k, v, out, lse, do):
+def flash_bwd_times(q, k, v, out, lse, do, *, causal=True, window=0, prefix=0):
     """The backward kernel alone, the plain backward, and SDPA's forward +
-    backward minus its forward (head-major views, ``enable_gqa``), with the
+    backward minus its forward (head-major views, ``enable_gqa``; where
+    ``is_causal`` cannot say the mask, an explicit boolean mask, with k and
+    v repeated to H heads for its memory-efficient backend), with the
     bound, at the given (training) shape."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+    from repro_torch.kernels.flash_attention.ref import attention_mask, flash_backward_ref
 
-    kw = dict(causal=True, window=0, prefix=0)
+    kw = dict(causal=causal, window=window, prefix=prefix)
     ms = time_ms(lambda: ops.backward(q, k, v, out, lse, do, **kw), reps=10, warmup=2)
-    plain_ms = time_ms(lambda: flash_backward_ref(q, k, v, out, lse, do), reps=3, warmup=1)
-    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    plain_ms = time_ms(lambda: flash_backward_ref(q, k, v, out, lse, do, **kw), reps=3,
+                       warmup=1)
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qt = q.detach().transpose(1, 2).requires_grad_()
     dot = do.transpose(1, 2)
-    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
-                                                 enable_gqa=True)
+    if causal and not window and not prefix:
+        kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (k, v))
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        how = "is_causal"
+    else:
+        mask = attention_mask(S, k.shape[1], causal, window, prefix, q.device)
+        kt, vt = (x.detach().transpose(1, 2).repeat_interleave(G, dim=1).requires_grad_()
+                  for x in (k, v))
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        how = "explicit mask"
     fwd_ms = time_ms(fwd, reps=10, warmup=2)
     both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot), reps=10, warmup=2)
-    b_ms, b_by = flash_bwd_bound(q, k)
-    B, S, H, D = q.shape
-    flops = 10 * H * D * B * visible_pairs(S, S)
-    log(f"  backward times at B={B} S={S} H={H} KH={k.shape[2]} D={D} bf16: kernel {ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s of least work), bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.2f} ms, SDPA forward + backward "
-        f"{both_ms:.3f} ms - forward {fwd_ms:.3f} ms = {both_ms - fwd_ms:.3f} ms")
+    b_ms, b_by = flash_bwd_bound(q, k, **kw)
+    flops = 10 * H * D * B * visible_pairs(S, k.shape[1], **kw)
+    log(f"  backward times at B={B} S={S} H={H} KH={k.shape[2]} D={D} bf16 prefix={prefix}: "
+        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s of least work), bound {b_ms:.4f} "
+        f"ms ({b_by}, {b_ms / ms:.1%} of roofline), plain {plain_ms:.2f} ms, SDPA ({how}) "
+        f"forward + backward {both_ms:.3f} ms - forward {fwd_ms:.3f} ms = "
+        f"{both_ms - fwd_ms:.3f} ms ({ms / (both_ms - fwd_ms):.2f}x)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": both_ms - fwd_ms}
 
@@ -2829,19 +2931,38 @@ def parse_step_log(text: str) -> list:
 
 
 def training_launches(cfg, plan, steps: int) -> dict:
-    """Kernel launches of ``steps`` training steps of a dense RMSNorm arch:
-    flash forward once an attention layer (again in the backward with
-    remat), backward once; RMSNorm forward once a norm (each layer's again
-    with remat; the final norm sits outside the groups), backward once a
-    norm.  qwen3-1.7b with remat: 56, 28, 225, 113 a step."""
-    L = cfg.n_layers
+    """Kernel launches of ``steps`` training steps of an RMSNorm arch
+    without RWKV-6 layers: flash forward once an attention layer (again in
+    the backward with remat, for the layers of the stacked pattern groups),
+    backward once; RMSNorm forward once a norm (each stacked layer's again
+    with remat; the final norm and the tail layers sit outside the groups),
+    backward once a norm.  qwen3-1.7b with remat: 56, 28, 225, 113 a step;
+    recurrentgemma-9b counts only its local layers."""
+    stacked = cfg.n_layers // len(cfg.layer_pattern) * len(cfg.layer_pattern)
+    attn = [cfg.layer_kind(i) in ("attn", "swa", "local") for i in range(cfg.n_layers)]
     norms = norms_per_forward(cfg)
+    layer_norms = (norms - 1) // cfg.n_layers if norms else 0
     again = int(plan.remat) * plan.microbatches
     return expect_counts(
-        flash_attention=steps * L * (plan.microbatches + again),
-        flash_attention_bwd=steps * L * plan.microbatches,
-        rmsnorm=steps * (norms * plan.microbatches + (norms - 1) * again),
+        flash_attention=steps * (sum(attn) * plan.microbatches + sum(attn[:stacked]) * again),
+        flash_attention_bwd=steps * sum(attn) * plan.microbatches,
+        rmsnorm=steps * (norms * plan.microbatches + layer_norms * stacked * again),
         rmsnorm_bwd=steps * norms * plan.microbatches)
+
+
+def check_trained(tag, losses, state):
+    """Finite losses and parameters after training, and a nonzero AdamW
+    first moment (a gradient reached it) in every parameter leaf."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    m_leaves = tree_leaves(state.m)
+    no_grad = sum(not bool((m != 0).any()) for m in m_leaves)
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
+    log(f"  {tag}: losses {losses}; {len(m_leaves) - no_grad}/{len(m_leaves)} parameter leaves "
+        f"got a nonzero gradient; parameters finite: {finite}")
+    check(all(np.isfinite(losses)), f"{tag}: non-finite loss")
+    check(no_grad == 0, f"{tag}: {no_grad} parameter leaves got no gradient")
+    check(finite, f"{tag}: non-finite parameters")
 
 
 def phase_train():
@@ -2849,7 +2970,7 @@ def phase_train():
     qwen3-1.7b at full width and depth in bf16, B 8 x S 2048, on the plan
     derived for the H100, 4 AdamW steps; then 4 steps of the same step
     function on one repeated batch from a fresh init must lower the loss.
-    The archs whose kernels lack a backward are refused on the card.
+    rwkv6-1.6b, whose WKV kernel lacks a backward, is refused on the card.
     Returns (launch counts, the run's numbers)."""
     import contextlib
     import io
@@ -2860,7 +2981,7 @@ def phase_train():
     from repro_torch.data.pipeline import DataConfig, synthetic_batch
     from repro_torch.launch.train import run
     from repro_torch.models.params import init_params
-    from repro_torch.train.optimizer import OptimizerConfig, init_state, tree_leaves
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
     from repro_torch.train.train_step import make_train_step
 
     cfg = get_config(TRAIN_ARCH)
@@ -2869,7 +2990,7 @@ def phase_train():
         f"{TRAIN_STEPS} steps through launch.train.run; plan remat={plan.remat} "
         f"microbatches={plan.microbatches}")
     check(plan.remat and plan.microbatches == 1, "the H100 plan at B 8 x S 2048")
-    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "paligemma-3b"):
+    for arch in ("rwkv6-1.6b",):
         c = get_config(arch)
         try:
             make_train_step(c, derive_execution_plan(c, training=True), OptimizerConfig(),
@@ -2897,13 +3018,7 @@ def phase_train():
     rows = parse_step_log(out.getvalue())
     check(len(rows) == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "a step is missing")
     check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows), "non-finite loss or norm")
-    m_leaves = tree_leaves(state.m)
-    no_grad = sum(not bool((m != 0).any()) for m in m_leaves)
-    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
-    log(f"  losses {losses}; {len(m_leaves) - no_grad}/{len(m_leaves)} parameter leaves got a "
-        f"nonzero gradient; parameters finite: {finite}")
-    check(no_grad == 0, f"{no_grad} parameter leaves got no gradient")
-    check(finite, "non-finite parameters")
+    check_trained(TRAIN_ARCH, losses, state)
     want = training_launches(cfg, plan, TRAIN_STEPS)
     log(f"  launches {counts} (expected {want}: a step flash {want['flash_attention'] // 4} + "
         f"backward {want['flash_attention_bwd'] // 4}, RMSNorm {want['rmsnorm'] // 4} + "
@@ -2916,7 +3031,7 @@ def phase_train():
            "run_wall_s": wall, "losses": losses}
     log(f"  step ms {step_ms} (steady median {steady:.0f}), {res['tokens_per_s']:.0f} tokens/s, "
         f"peak {peak:.2f} GiB, run() wall {wall:.1f} s (init included)")
-    del state, m_leaves
+    del state
     torch.cuda.empty_cache()
 
     # one repeated batch: the step function must lower its loss
@@ -2941,12 +3056,20 @@ def phase_train():
     sys.path.insert(0, str(ROOT / "scripts"))
     import ab_serve
 
-    prof = ab_serve.profile(lambda: step(state, batch), ab_serve.port_kernels(str(ROOT)))
+    prof = ab_serve.profile(lambda: step(state, batch), ab_serve.port_kernels(str(ROOT)),
+                           with_kernels=True)
+    # the stacked gradients' accumulation: a per-group select would add
+    # each group's gradient into a full-size zero tensor (310 bf16 adds a
+    # qwen3-1.7b step on the H100; one unbind a leaf leaves the layers' own)
+    adds = [(ms, n) for ms, n, name in prof["kernels"] if "_add<c10::BFloat16>" in name]
+    bf16_adds = {"count": sum(n for _, n in adds), "ms": round(sum(ms for ms, _ in adds), 3)}
     log(f"  profiled step: wall {prof['wall_ms']:.0f} ms, device {prof['device_ms']:.0f} ms "
         f"(busy {prof['busy_share']:.2f}); by class {json.dumps(prof['by_class'])}; port "
-        f"kernels {json.dumps(prof['port_kernels'])}; top {json.dumps(prof['top'][:8])}")
+        f"kernels {json.dumps(prof['port_kernels'])}; top {json.dumps(prof['top'][:8])}; bf16 "
+        f"adds {bf16_adds['count']} taking {bf16_adds['ms']} ms")
     res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "by_class",
                                            "port_kernels")}
+    res["profile"]["bf16_adds"] = bf16_adds
     del state, batch
     torch.cuda.empty_cache()
     return counts, res
@@ -2986,7 +3109,8 @@ def phase_train_paths():
     qwen3-1.7b cut to 4 layers at full width, B 2 x S 2048: the loss and
     every gradient leaf, then the parameters after 3 steps; smollm-135m at
     full depth, one step with 2 microbatches and one with int8
-    compression."""
+    compression; paligemma-3b cut to 2 layers at full width, B 2 x (256
+    prefix rows + 1792 tokens): the loss and every gradient leaf."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2996,7 +3120,7 @@ def phase_train_paths():
     from repro_torch.models.params import init_params
     from repro_torch.train.compression import CompressionConfig
     from repro_torch.train.optimizer import OptimizerConfig, init_state
-    from repro_torch.train.train_step import make_loss_fn, make_train_step, value_and_grad
+    from repro_torch.train.train_step import make_train_step
 
     log("phase 32: training, kernel path vs plain path in f32")
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=4)
@@ -3005,27 +3129,7 @@ def phase_train_paths():
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
     batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=3), 0, device="cuda")
-    res = {}
-    for fused in (True, False):
-        reset_counts()
-        res[fused] = value_and_grad(make_loss_fn(cfg, plan, fused), params, batch)
-        res[fused] += (read_counts(),)
-    (lk, gk, ck), (lp, gp, cp) = res[True], res[False]
-    rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    worst, n_leaves = 0.0, 0
-    for (path, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
-        ok, err, share = grad_within(a, b, PATH_GRAD_TOL, unit_floor=False)
-        top = float(b.abs().max())
-        worst = max(worst, err / max(top, 1e-30))
-        n_leaves += 1
-        check(ok, f"{cfg.name} 4 layers: gradient {path} differs ({err:.3g}, {share:.2%} out)")
-    log(f"  {cfg.name} cut to 4 layers, B={B} S={S}, plan remat={plan.remat}: loss {float(lk):.6f} "
-        f"vs {float(lp):.6f} (rel {rel:.2e}); {n_leaves} gradient leaves within "
-        f"{PATH_GRAD_TOL} (largest error {worst:.2e} of the leaf's scale); launches {ck} / {cp}")
-    check(rel < 1e-5, "kernel and plain paths' losses differ")
-    check(cp == expect_counts() and ck["flash_attention_bwd"] == cfg.n_layers
-          and ck["rmsnorm_bwd"] == norms_per_forward(cfg), f"launches {ck} / {cp}")
-    del res, gk, gp
+    compare_path_grads(f"{cfg.name} cut to 4 layers, B={B} S={S}", cfg, plan, params, batch)
     lr = 1e-3
     opt = OptimizerConfig(peak_lr=lr, warmup_steps=1, total_steps=10)
     states = {}
@@ -3065,6 +3169,138 @@ def phase_train_paths():
         del out, sk, sp
     del params
     torch.cuda.empty_cache()
+
+    # paligemma-3b at full width, its 256 prefix rows bidirectional (the
+    # flash kernels' prefix mask at D 256, G 8)
+    cfg = dataclasses.replace(get_config("paligemma-3b"), n_layers=2)
+    P = cfg.n_prefix_embeds
+    B, S = 2, TRAIN_S - P
+    plan = derive_execution_plan(cfg, training=True, batch=B, seq_len=S + P, hw=H100_SXM)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_params(cfg, plan, torch.float32, generator=gen, device="cuda")
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=5), 0, device="cuda")
+    batch["prefix_embeds"] = torch.randn((B, P, cfg.d_model), generator=gen, device="cuda")
+    compare_path_grads(f"{cfg.name} cut to 2 layers, B={B} prefix {P} + S={S}", cfg, plan,
+                       params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def compare_path_grads(tag, cfg, plan, params, batch):
+    """The loss and every gradient leaf of ``lm_loss`` on the kernel path
+    against the plain path (``fused=False``); the kernel path launches
+    each backward kernel once a layer or norm, the plain path none."""
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+
+    res = {}
+    for fused in (True, False):
+        reset_counts()
+        res[fused] = value_and_grad(make_loss_fn(cfg, plan, fused), params, batch)
+        res[fused] += (read_counts(),)
+    (lk, gk, ck), (lp, gp, cp) = res[True], res[False]
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst, n_leaves = 0.0, 0
+    for (path, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
+        ok, err, share = grad_within(a, b, PATH_GRAD_TOL, unit_floor=False)
+        top = float(b.abs().max())
+        worst = max(worst, err / max(top, 1e-30))
+        n_leaves += 1
+        check(ok, f"{tag}: gradient {path} differs ({err:.3g}, {share:.2%} out)")
+    log(f"  {tag}, plan remat={plan.remat}: loss {float(lk):.6f} vs {float(lp):.6f} (rel "
+        f"{rel:.2e}); {n_leaves} gradient leaves within {PATH_GRAD_TOL} (largest error "
+        f"{worst:.2e} of the leaf's scale); launches {ck} / {cp}")
+    check(rel < 1e-5, f"{tag}: kernel and plain paths' losses differ")
+    n_attn = sum(cfg.layer_kind(i) in ("attn", "swa", "local") for i in range(cfg.n_layers))
+    check(cp == expect_counts() and ck["flash_attention_bwd"] == n_attn
+          and ck["rmsnorm_bwd"] == norms_per_forward(cfg), f"{tag}: launches {ck} / {cp}")
+
+
+def phase_train_archs():
+    """Phase 33: the d_head-256 archs train on the card, bf16 on the H100
+    plan.  paligemma-3b at full width and depth (18 layers, d_model 2048,
+    vocab 257,216) through ``launch.train.run``, B 8 x S 2048, 3 AdamW
+    steps; recurrentgemma-9b at full width cut to 6 layers (two RG-LRU,
+    RG-LRU, local groups: its 38 layers' params, gradients and f32 moments
+    would need ~100 GB), B 2 x S 4096, so that the 2,048-key window cuts, 2
+    steps of ``make_train_step``.  Each: finite losses, a gradient in every
+    leaf, launches as the plan says.  Returns {arch: its numbers}."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.train import run
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+
+    out = {}
+    arch, B, S, steps = "paligemma-3b", TRAIN_B, TRAIN_S, 3
+    cfg = get_config(arch)
+    plan = derive_execution_plan(cfg, training=True, batch=B, seq_len=S, hw=H100_SXM)
+    log(f"phase 33: {arch} training at full width and depth, bf16, B={B} S={S}, {steps} steps "
+        f"through launch.train.run; plan remat={plan.remat} microbatches={plan.microbatches}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(text):
+        losses, state = run(arch, steps=steps, batch=B, seq=S, lr=3e-4, dtype=torch.bfloat16,
+                            log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for line in text.getvalue().splitlines():
+        log(f"  | {line}")
+    rows = parse_step_log(text.getvalue())
+    check(len(rows) == steps, f"{arch}: a step is missing")
+    check_trained(arch, losses, state)
+    want = training_launches(cfg, plan, steps)
+    log(f"  launches {counts} (expected {want})")
+    check(counts == want, f"{arch}: training launches {counts}, expected {want}")
+    step_ms = [r[2] for r in rows]
+    steady = float(np.median(step_ms[1:]))
+    out[arch] = {"step_ms": step_ms, "steady_step_ms": steady,
+                 "tokens_per_s": B * S / (steady / 1e3),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses}
+    log(f"  {arch}: {json.dumps(out[arch])}")
+    del state
+    torch.cuda.empty_cache()
+
+    arch, B, S, steps = "recurrentgemma-9b", 2, 4096, 2
+    cfg = dataclasses.replace(get_config(arch), n_layers=6)
+    plan = derive_execution_plan(cfg, training=True, batch=B, seq_len=S, hw=H100_SXM)
+    log(f"phase 33: {arch} at full width cut to {cfg.n_layers} of 38 layers, bf16, B={B} S={S} "
+        f"(window {cfg.local_window}), {steps} steps of make_train_step; plan remat={plan.remat} "
+        f"microbatches={plan.microbatches}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    state = init_state(init_params(cfg, plan, torch.bfloat16, generator=gen, device="cuda"))
+    step = make_train_step(cfg, plan, OptimizerConfig(peak_lr=3e-4, warmup_steps=5,
+                                                      total_steps=steps), device="cuda")
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(steps):
+        batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B, seed=6), i, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    check_trained(f"{arch} ({cfg.n_layers} layers)", losses, state)
+    want = training_launches(cfg, plan, steps)
+    log(f"  launches {counts} (expected {want})")
+    check(counts == want, f"{arch}: training launches {counts}, expected {want}")
+    out[arch] = {"layers": cfg.n_layers, "step_ms": step_ms,
+                 "tokens_per_s": B * S / (step_ms[-1] / 1e3),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses}
+    log(f"  {arch}: {json.dumps(out[arch])}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -3178,9 +3414,11 @@ def main() -> None:
     rms_bwd_err, rms_bwd_rows, rms_bwd_q = phase_rmsnorm_backward()
     train_counts, train_run = phase_train()
     phase_train_paths()
-    log(f"  training: {json.dumps(train_run)}; flash lse cost: {json.dumps(lse_cost)} (max lse "
-        f"error {lse_err:.3g}); rmsnorm backward at the q view: {json.dumps(rms_bwd_q)}; "
-        f"phases 29-32 took {time.time() - t0:.1f} s")
+    archs_run = phase_train_archs()
+    log(f"  training: {json.dumps(train_run)}; {json.dumps(archs_run)}; flash lse cost: "
+        f"{json.dumps(lse_cost)} (max lse error {lse_err:.3g}); rmsnorm backward at the q view: "
+        f"{json.dumps(rms_bwd_q)}; phases 29-33 took {time.time() - t0:.1f} s")
+    end_phase()
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {

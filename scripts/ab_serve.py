@@ -146,9 +146,10 @@ def kernel_class(name: str, port: frozenset) -> str:
     return "other"
 
 
-def profile(fn, port: frozenset) -> dict:
+def profile(fn, port: frozenset, with_kernels: bool = False) -> dict:
     """Device time by kernel name and by class over one call of ``fn``
-    (torch.profiler); ``port``: the port's kernel names."""
+    (torch.profiler); ``port``: the port's kernel names.  ``with_kernels``
+    adds ``kernels``: every (ms, launches, full name), longest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -176,11 +177,13 @@ def profile(fn, port: frozenset) -> dict:
         c = classes.setdefault(kernel_class(name, port), [0.0, 0])
         c[0], c[1] = round(c[0] + ms, 3), c[1] + n
     own = [(ms, n, name[:80]) for ms, n, name in rows if is_port(name, port)]
-    rows = [(ms, n, name[:80]) for ms, n, name in rows]
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms if wall_ms else None, "by_class": classes,
-            "top": [[round(ms, 3), n, name] for ms, n, name in rows[:12]],
-            "port_kernels": [[round(ms, 3), n, name] for ms, n, name in own]}
+    res = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms if wall_ms else None, "by_class": classes,
+           "top": [[round(ms, 3), n, name[:80]] for ms, n, name in rows[:12]],
+           "port_kernels": [[round(ms, 3), n, name] for ms, n, name in own]}
+    if with_kernels:
+        res["kernels"] = rows
+    return res
 
 
 def main(argv: list) -> int:

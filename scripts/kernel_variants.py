@@ -1,9 +1,9 @@
 """Time variants of the port's CUDA kernels on one CUDA card, against the
 committed sources, in one process.
 
-    python3 scripts/kernel_variants.py [flash] [mm_pu] [paged] [rmsnorm] [wkv]
+    python3 scripts/kernel_variants.py [flash] [flash_bwd] [mm_pu] [paged] [rmsnorm] [wkv]
 
-(no argument: all five).  Each variant is the committed source with a few
+(no argument: all six).  Each variant is the committed source with a few
 lines replaced (``VARIANTS`` below: other tile constants, and diagnostics
 that leave a part out, whose results may be wrong by design), or the
 committed library launched with other runtime arguments (``RUNS``: the
@@ -12,7 +12,11 @@ in parallel (one ``nvcc`` each, under ``build/kernel_variants/``), bound
 with ``ctypes`` and launched through the wrappers' own ``launch`` on the
 main shapes: flash at the qwen3-1.7b prefill (B 8, S 2048, H 16, KH 8,
 D 128, bf16, causal) and recurrentgemma-9b's local layers (B 8, S 2048, H
-16, KH 1, D 256, window 2048); MM PU at the int8 FFN stage's T=2048 ``w1`` (2048 x
+16, KH 1, D 256, window 2048); the flash backward's bf16 entry at the
+qwen3-1.7b and paligemma-3b training shapes (B 8, S 2048, causal; H 16,
+KH 8, D 128 and H 8, KH 1, D 256) and recurrentgemma-9b's (B 2, S 4096, H
+16, KH 1, D 256, window 2048), with a profiler split of its three
+kernels for each variant; MM PU at the int8 FFN stage's T=2048 ``w1`` (2048 x
 2048 @ 2048 x 6144, silu) and T=256 ``w2`` (256 x 6144 @ 6144 x 2048)
 products, int8 and bf16 w; paged attention at ``chip_smoke.py`` phase 6's
 decode and mixed shapes (256 slots x 256-row slab, bf16 pages), with the
@@ -58,6 +62,12 @@ RMS_ROWS = "constexpr int kRows = NV >= 4 ? 1 : 4 / NV;"
 RMS_LOAD = "if (j < nvec) v[k][t] = *reinterpret_cast<const uint4*>(xr + j * VEC);"
 RMS_STORE = "  *reinterpret_cast<uint4*>(yr + j * VEC) = Vec<T>::pack(f);"
 WKV_SCAN = "    {\n      float lw[TOK], tot = 0.f;"
+BWD_QROWS = "template <int D>\nconstexpr int kQRows = 32;"
+BWD_DQ_KEYS = "template <int D>\nconstexpr int kTileKeys = D > 128 ? 16 : 64;"
+BWD_SHARE = "constexpr bool kShare = D > DC;"
+BWD_GRID = ("  const int kh = blockIdx.x % KH, b = blockIdx.x / KH;\n"
+            "  const int j0 = blockIdx.y * KEYS;")
+BWD_LAUNCH = "dkdv<<<dim3(B * KH, (Sk + keys - 1) / keys),"
 WKV_FACTORS = "    for (int i0 = 0; i0 < C * G; i0 += kT) {\n      const int i = i0 + tid;\n      if (i >= C"
 WKV_TC = "      float c[3][4] = {};\n"
 WKV_HALVES = "      if (it >= kOff + NT) {\n"
@@ -120,6 +130,21 @@ VARIANTS = {
         "64-key tiles at D 256": [(FLASH_D256_KEYS, "constexpr int kTileKeys = kKeys;")],
         # the CUDA-core entry (f32 only; read its registers and spills)
         "f32 D 256: 2 + 2 loads in flight": [(FLASH_F32_LOADS, FLASH_F32_LOADS.replace("4 :", "2 :"))],
+    },
+    "flash_bwd": {
+        "committed": [],
+        # the dk/dv grid with the key block fastest: each batch row's heavy
+        # causal blocks spread over the run instead of first
+        "dk/dv grid (key block, kv head x batch)": [
+            (BWD_GRID, BWD_GRID.replace("blockIdx.x", "blockIdx.T").replace(
+                "blockIdx.y", "blockIdx.x").replace("blockIdx.T", "blockIdx.y")),
+            (BWD_LAUNCH, "dkdv<<<dim3((Sk + keys - 1) / keys, B * KH),")],
+        "64-row q/dO tiles up to D 128": [
+            (BWD_QROWS, BWD_QROWS.replace("32;", "D > 128 ? 32 : 64;"))],
+        "D 256: 16-row q/dO tiles": [(BWD_QROWS, BWD_QROWS.replace("32;", "D > 128 ? 16 : 32;"))],
+        "D 256: each column group computes S^T and dP^T": [
+            (BWD_SHARE, "constexpr bool kShare = false;")],
+        "D 256: 32-key dq tiles": [(BWD_DQ_KEYS, BWD_DQ_KEYS.replace("? 16", "? 32"))],
     },
     "mm_pu": {
         "committed": [],
@@ -250,6 +275,52 @@ def timed(variants: dict, make_run, want) -> None:
         ok, err, _ = cs.within(make_run(lib)(), want, cs.BF16_TOL)
         print(f"    {tag}: matches {ok} (max abs err {err:.3g}), ms {times[tag][0]:.4f} / "
               f"{times[tag][1]:.4f}", flush=True)
+
+
+def run_flash_bwd(libs: dict) -> None:
+    """The backward's bf16 entry of each variant at the training shapes:
+    dq, dk, dv within one bf16 step of the plain backward (chip_smoke's
+    GRAD_BF16_TOL), times A..Z..A, and each variant's three kernels'
+    device times (torch.profiler)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, S, H, KH, D, window in ((8, 2048, 16, 8, 128, 0), (8, 2048, 8, 1, 256, 0),
+                                   (2, 4096, 16, 1, 256, 2048)):
+        kw = dict(causal=True, window=window, prefix=0)
+        q, k, v = cs.fused_qkv(B, S, H, KH, D, torch.bfloat16, seed=95)
+        o, lse = ops.forward_with_lse(q, k, v, with_lse=True, **kw)
+        g = torch.Generator(device="cuda").manual_seed(96)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(q.dtype)
+        want = flash_backward_ref(q, k, v, o, lse, do, **kw)
+        print(f"  flash backward, B {B} S {S} H {H} KH {KH} D {D} bf16 causal window {window}:",
+              flush=True)
+        run = lambda lib: lambda: ops.launch_backward(lib, q, k, v, o, lse, do,  # noqa: E731
+                                                      **kw, stream=stream)
+        times = {tag: [] for tag in libs}
+        for order in (list(libs), list(reversed(libs))):
+            for tag in order:
+                times[tag].append(cs.time_ms(run(libs[tag]), reps=10, warmup=2))
+        for tag, lib in libs.items():
+            ok = all(cs.grad_within(a, b, cs.GRAD_BF16_TOL)[0] for a, b in zip(run(lib)(), want))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run(lib)()
+                torch.cuda.synchronize()
+            parts = [f"{re.search(r'(\w+_kernel)', e.key).group(1)} "
+                     f"{e.device_time_total / 5e3:.3f}"
+                     for e in prof.key_averages() if e.device_time_total > 0]
+            print(f"    {tag}: matches {ok}, ms {times[tag][0]:.4f} / {times[tag][1]:.4f}; "
+                  f"{'; '.join(parts)} ms", flush=True)
+        del q, k, v, o, lse, do, want
+        torch.cuda.empty_cache()
 
 
 def paged_core(lib, q, entry, table, lens, q_lens, bs, stream):
@@ -405,7 +476,7 @@ def main(argv: list) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    sources = {"flash": fk.SOURCE, "mm_pu": mk.SOURCE, "paged": pk.SOURCE, "rmsnorm": rk.SOURCE,
+    sources = {"flash": fk.SOURCE, "flash_bwd": fk.BACKWARD_SOURCE, "mm_pu": mk.SOURCE, "paged": pk.SOURCE, "rmsnorm": rk.SOURCE,
                "wkv": wk.SOURCE}
     paths = {(k, tag): write_variant(sources[k], tag, subs)
              for k in which for tag, subs in VARIANTS[k].items()}
@@ -435,6 +506,12 @@ def main(argv: list) -> int:
                                                     prefix=0, stream=stream),
               cs.flash_plain(q, k, v, window=2048))
         del q, k, v
+
+    if "flash_bwd" in which:
+        fk.library()
+        run_flash_bwd({tag: bind(paths[("flash_bwd", tag)],
+                                 {"flash_attention_backward": fk.BACKWARD_ARGTYPES})
+                       for tag in VARIANTS["flash_bwd"]})
 
     if "mm_pu" in which:
         libs = {tag: bind(paths[("mm_pu", tag)], mk._ARGTYPES) for tag in VARIANTS["mm_pu"]}

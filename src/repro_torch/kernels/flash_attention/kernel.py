@@ -6,8 +6,8 @@ points of one signature, ``flash_attention_forward`` (f32, CUDA cores) and
 rows' logsumexp when given a buffer for it; and the backward
 (``csrc/flash_attention_bwd.cu``, the kernel counterpart of the jnp
 ``repro/kernels/flash_attention/backward.py::_vjp_bwd``), C entry
-``flash_attention_backward`` (f32 or bf16, CUDA cores), in a library of its
-own.
+``flash_attention_backward`` (bf16 on tensor cores, f32 on CUDA cores,
+picked by its dtype argument; D 32-256), in a library of its own.
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
 every pointer and the stream are declared ``c_void_p`` and the token strides

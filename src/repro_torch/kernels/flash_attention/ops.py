@@ -22,8 +22,9 @@ the rows' logsumexp (natural log, f32, (B, H, Sq)) and saves (q, k, v, out,
 lse), nothing quadratic; its backward launches ``flash_attention_backward``
 (``csrc/flash_attention_bwd.cu``), which recomputes P from q, k and the
 logsumexp and returns contiguous dq, dk and dv (dk and dv summed over each
-kv head's G query heads).  The backward takes head dims 32, 64 and 128;
-D 256 raises (ROADMAP).
+kv head's G query heads).  The backward takes the forward's head dims, 32,
+64, 128 and 256 (``BWD_HEAD_DIMS``), and picks its kernel by dtype as the
+forward does: bf16 on tensor cores, f32 on CUDA cores.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def plain_chunk(n: int) -> int:
 # The C entry point (csrc/flash_attention.cu) each dtype launches.
 ENTRIES = {torch.float32: "flash_attention_forward", torch.bfloat16: "flash_attention_forward_mma"}
 _ROWS_MAX = 64  # query rows (G heads x positions) one CTA holds
-BWD_HEAD_DIMS = (32, 64, 128)  # D 256: ROADMAP queue 1, item 5
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -99,9 +100,6 @@ def flash_attention(
                                  prefix_len=prefix)
     _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
     if needs_grad(q, k, v):
-        _require(q.shape[-1] in BWD_HEAD_DIMS,
-                 f"no backward kernel at head dim {q.shape[-1]} (built: {BWD_HEAD_DIMS}; "
-                 "D 256 is listed in ROADMAP queue 1, item 5)")
         return FlashAttention.apply(q, k, v, causal, window, prefix)
     return forward_with_lse(q, k, v, causal=causal, window=window, prefix=prefix)[0]
 

@@ -119,26 +119,38 @@ def fwd_with_lse(q, k, v, *, n_q_per_kv: int, causal: bool, window: int = 0,
 
 def vjp_bwd(q, k, v, o, lse, do, *, n_q_per_kv: int, causal: bool, window: int = 0,
             prefix: int = 0, scale: Optional[float] = None, drop_delta: bool = False,
-            fold_first_only: bool = False):
+            fold_first_only: bool = False, split: Optional[bool] = None):
     """JAX's ``backward._vjp_bwd``, kernel layout: (dq, dk, dv) in the
     inputs' dtypes, from the saved (q, k, v, o, lse) and the output's
     gradient ``do``.  P is recomputed from q, k and ``lse``; delta =
-    rowsum(do * o); dS = P (dO V^T - delta) scale; the G query heads of a
-    kv head are summed onto it.  ``drop_delta`` and ``fold_first_only``
-    (only the first query head of each group folded) plant the faults the
-    card's checks must reject."""
+    rowsum(do * o); dS = P (dO V^T - delta); dV = P^T dO, dQ = dS K scale,
+    dK = dS^T Q scale; the G query heads of a kv head are summed onto it.
+    Every product in f32, or, with ``split``, the bf16 tensor-core
+    kernel's scheme: P and dS enter dV, dQ and dK as bf16 hi + lo (hi =
+    bf16(x), lo = bf16(x - hi)), or rounded once to bf16 with ``split=
+    False``.  ``drop_delta`` and ``fold_first_only`` (only the first query
+    head of each group folded) plant the faults the card's checks must
+    reject."""
     G = n_q_per_kv
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     q32, do32, o32 = q.float(), do.float(), o.float()
     kk = torch.repeat_interleave(k, G, dim=0).float()
     vv = torch.repeat_interleave(v, G, dim=0).float()
     p = torch.exp(_scores(q, k, G, causal, window, prefix, scale) - lse[..., None].float())
-    dv_full = torch.einsum("bqk,bqd->bkd", p, do32)
     dp = torch.einsum("bqd,bkd->bqk", do32, vv)
     delta = 0.0 if drop_delta else (do32 * o32).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
-    dq = torch.einsum("bqk,bkd->bqd", ds, kk)
-    dk_full = torch.einsum("bqk,bqd->bkd", ds, q32)
+    ds = p * (dp - delta)
+
+    def product(eq, x, y):
+        if split is None:
+            return torch.einsum(eq, x, y)
+        hi = x.to(torch.bfloat16).float()
+        out = torch.einsum(eq, hi, y)
+        return out + torch.einsum(eq, (x - hi).to(torch.bfloat16).float(), y) if split else out
+
+    dv_full = product("bqk,bqd->bkd", p, do32)
+    dq = product("bqk,bkd->bqd", ds, kk) * scale
+    dk_full = product("bqk,bqd->bkd", ds, q32) * scale
     BKH = k.shape[0]
 
     def fold(x):
@@ -181,3 +193,12 @@ def flash_backward_ref(q, k, v, o, lse, do, *, causal: bool = True, window: int 
                          n_q_per_kv=H // k.shape[2], causal=causal, window=window,
                          prefix=prefix, **controls)
     return tuple(_to_model_layout(x, B).contiguous() for x in (dq, dk, dv))
+
+
+def flash_backward_mma_ref(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                           prefix: int = 0, split: bool = True):
+    """What the bf16 backward kernel computes, up to the order of its f32
+    sums: ``flash_backward_ref`` with P and dS as bf16 hi + lo in their
+    products (``split=False``: rounded once)."""
+    return flash_backward_ref(q, k, v, o, lse, do, causal=causal, window=window, prefix=prefix,
+                              split=split)

@@ -278,6 +278,20 @@ def _index(tree, i: int):
     return None if tree is None else tree[i]
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` groups of a stacked tree, each leaf unbound once: its
+    gradient is one stack of the groups' gradients, where ``_index``'s
+    per-group ``select`` would add each group's into a full-size zero
+    tensor."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_unbind(v, n) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return [None] * n if tree is None else list(torch.unbind(tree))
+
+
 def _stack(groups: list):
     """Per-group trees -> one tree with every leaf stacked on a new axis 0."""
     first = groups[0]
@@ -313,9 +327,10 @@ def _run_stack(
     total_aux = 0.0
     if stack is not None:
         n = stack[0]["attn"]["ln"]["scale"].shape[0]
+        groups = _unbind(stack, n)
         per_group = []
         for g in range(n):
-            gp = _index(stack, g)
+            gp = groups[g]
             gc = None if caches is None else _index(caches["stack"], g)
 
             def group(xx, gp=gp, gc=gc):

@@ -28,7 +28,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
-from repro_torch.kernels.flash_attention.ops import BWD_HEAD_DIMS
 from repro_torch.models.transformer import lm_loss
 from repro_torch.train.compression import CompressionConfig, compress_grads
 from repro_torch.train.optimizer import (OptimizerConfig, TrainState, adamw_update,
@@ -46,19 +45,14 @@ def _split_micro(batch: dict, n: int) -> dict:
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise when ``cfg``'s card path runs a kernel that has no backward
-    yet: the WKV kernel (RWKV-6 layers), or flash attention at a head dim
-    the backward kernel does not take (D 256: recurrentgemma-9b,
-    paligemma-3b).  Both are listed in ROADMAP queue 1, item 5."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if "rwkv6" in kinds:
+    yet: the WKV kernel (RWKV-6 layers, ROADMAP queue 1, item 5).  Flash
+    attention's backward takes every head dim its forward does, so the
+    attention archs, d_head 256 included (recurrentgemma-9b,
+    paligemma-3b), train on the card."""
+    if any(cfg.layer_kind(i) == "rwkv6" for i in range(cfg.n_layers)):
         raise NotImplementedError(
             f"{cfg.name}: the WKV kernel has no backward yet (ROADMAP queue 1, item 5); "
             "train it on the plain path (fused=False) or on the CPU")
-    if kinds & {"attn", "swa", "local"} and cfg.d_head not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{cfg.name}: the flash-attention backward kernel takes head dims "
-            f"{BWD_HEAD_DIMS}, not {cfg.d_head} (ROADMAP queue 1, item 5); train it on the "
-            "plain path (fused=False) or on the CPU")
 
 
 def make_loss_fn(cfg: ArchConfig, plan: ExecutionPlan, fused: bool = True) -> Callable:

@@ -7,9 +7,12 @@ package's ``backward.py`` (``flash_attention_grad``, ``_fwd_with_lse``) on
 units, delta dropped, one head of each group folded) fail the tolerance;
 ``FlashAttention`` (the autograd Function) routes the forward's lse to the
 backward and returns the gradients of fused-QKV views, with the plain
-versions standing in for the kernels; the backward launcher's checks.
-Tolerances: the JAX test's 2e-4 (rtol and atol) on the gradients, 1e-5 on
-the lse and the output."""
+versions standing in for the kernels; the backward launcher's checks; the
+bf16 tensor-core kernel's numeric scheme (``flash_backward_mma_ref``: P
+and dS as bf16 hi + lo) within one bf16 step of the f32 plain backward,
+and P and dS rounded once outside it.  Tolerances: the JAX test's 2e-4
+(rtol and atol) on the gradients, 1e-5 on the lse and the output; the
+scheme, ``chip_smoke.py``'s ``GRAD_BF16_TOL``."""
 import math
 from collections import Counter
 
@@ -22,8 +25,8 @@ import torch
 from repro.kernels.flash_attention.backward import _fwd_with_lse as jax_fwd_with_lse
 from repro.kernels.flash_attention.backward import flash_attention_grad
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (flash_backward_ref, flash_forward_lse_ref,
-                                                     fwd_with_lse)
+from repro_torch.kernels.flash_attention.ref import (flash_backward_mma_ref, flash_backward_ref,
+                                                     flash_forward_lse_ref, fwd_with_lse)
 from repro_torch.models.layers import blocked_attention
 from torch_parity import t2n
 
@@ -39,6 +42,10 @@ CASES = [
     # Sq != Sk: cross-attention (non-causal) and a causal query block
     dict(B=2, S=24, Sk=40, H=4, KH=4, D=32, causal=False, window=0, prefix=0),
     dict(B=1, S=24, Sk=40, H=4, KH=2, D=32, causal=True, window=8, prefix=0),
+    # D 256: paligemma-3b's G 8 with a prefix, recurrentgemma-9b's G 16
+    # with a window that cuts
+    dict(B=1, S=40, H=8, KH=1, D=256, causal=True, window=0, prefix=12),
+    dict(B=1, S=48, H=16, KH=1, D=256, causal=True, window=20, prefix=0),
 ]
 
 
@@ -190,7 +197,8 @@ class _Library:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_launch_backward_checks(dtype):
     """One launch of the C entry with the dtype's code; the outputs are
-    contiguous in the inputs' dtype; D 256 and a failed launch raise; the
+    contiguous in the inputs' dtype; D 256 reaches the entry, a head dim
+    the kernels are not built for (96) and a failed launch raise; the
     forward launcher passes an lse buffer through."""
     B, S, H, KH, D = 2, 40, 4, 2, 64
     q = torch.zeros((B, S, H, D), dtype=dtype)
@@ -209,11 +217,62 @@ def test_launch_backward_checks(dtype):
         ops.launch_backward(_Library(rc=1), q, k, v, o, lse, o, causal=True, window=0,
                             prefix=0, stream=None)
     q256, k256 = torch.zeros((B, S, H, 256), dtype=dtype), torch.zeros((B, S, KH, 256), dtype=dtype)
-    with pytest.raises(ValueError, match="head dim 256"):
-        ops.launch_backward(lib, q256, k256, k256, q256, lse, q256, causal=True, window=0,
+    dq, dk, _ = ops.launch_backward(lib, q256, k256, k256, q256, lse, q256, causal=True,
+                                    window=0, prefix=0, stream=None)
+    assert lib.calls == Counter({"flash_attention_backward": 2}) and lib.args[15] == 256
+    assert dq.shape == q256.shape and dk.shape == k256.shape
+    q96, k96 = torch.zeros((B, S, H, 96), dtype=dtype), torch.zeros((B, S, KH, 96), dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.launch_backward(lib, q96, k96, k96, q96, lse, q96, causal=True, window=0,
                             prefix=0, stream=None)
+    assert lib.calls == Counter({"flash_attention_backward": 2})
     fwd = _Library()
     ops.launch(fwd, q, k, v, causal=True, window=0, prefix=0, stream=None, lse=lse)
     assert fwd.args[4] == lse.data_ptr()
     ops.launch(fwd, q, k, v, causal=True, window=0, prefix=0, stream=None)
     assert fwd.args[4] is None
+
+
+# chip_smoke.py's GRAD_BF16_TOL: (atol x max(1, max |want|), rtol)
+GRAD_BF16_TOL = (1e-4, 2.0 ** -7)
+
+
+def _outside_bf16(got, want):
+    """Share of each gradient's elements outside GRAD_BF16_TOL."""
+    atol, rtol = GRAD_BF16_TOL
+    shares = []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        tol = atol * max(1.0, float(b.abs().max())) + rtol * b.abs()
+        shares.append(float(((a - b).abs() > tol).float().mean()))
+    return shares
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["hi+lo", "rounded-once"])
+@pytest.mark.parametrize("shape", [
+    # qwen3-1.7b's heads, causal; paligemma-3b's with its 256-long prefix
+    # cut to 64; recurrentgemma-9b's with a window that cuts
+    dict(B=2, S=192, H=16, KH=8, D=128, causal=True, window=0, prefix=0),
+    dict(B=2, S=192, H=8, KH=1, D=256, causal=True, window=0, prefix=64),
+    dict(B=1, S=256, H=16, KH=1, D=256, causal=True, window=96, prefix=0),
+], ids=["qwen3-D128", "paligemma-D256", "recurrentgemma-D256"])
+def test_mma_scheme_within_one_bf16_step(shape, split):
+    """The bf16 kernel's scheme (P and dS as bf16 hi + lo in the products,
+    f32 sums) stays within GRAD_BF16_TOL of the f32 plain backward on bf16
+    inputs; P and dS rounded once to bf16 put elements of each gradient
+    outside it (the planted control phase 29 holds the kernel to)."""
+    g = torch.Generator().manual_seed(5)
+    B, S, H, KH, D = (shape[n] for n in ("B", "S", "H", "KH", "D"))
+    q = torch.randn((B, S, H, D), generator=g).bfloat16()
+    k, v = (torch.randn((B, S, KH, D), generator=g).bfloat16() for _ in range(2))
+    kw = _mask_kw(shape)
+    o, lse = flash_forward_lse_ref(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=g).bfloat16()
+    want = flash_backward_ref(q, k, v, o, lse, do, **kw)
+    got = flash_backward_mma_ref(q, k, v, o, lse, do, **kw, split=split)
+    assert all(a.dtype == torch.bfloat16 and a.shape == b.shape for a, b in zip(got, want))
+    shares = _outside_bf16(got, want)
+    if split:
+        assert shares == [0.0, 0.0, 0.0], shares
+    else:
+        assert min(shares) > 1e-3, shares

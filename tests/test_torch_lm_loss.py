@@ -43,3 +43,38 @@ def test_lm_loss_and_grads_match_jax(arch):
         with torch.no_grad():
             _, _, aux = forward(tparams, tb, cfg=tcfg, plan=tplan, with_aux=True)
         assert float(aux) > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-9b", "paligemma-3b"])
+def test_stacked_params_unbound_once(arch):
+    """``lm_loss`` takes each stacked parameter's groups with one unbind:
+    every autograd edge into a stacked leaf comes from an UnbindBackward,
+    none from a SelectBackward (whose backward adds each group's gradient
+    into a full-size zero tensor of the stack)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    cfg = get_config(arch + "-reduced")
+    plan = derive_execution_plan(cfg, training=True, batch=2, seq_len=16)
+    params = init_params(cfg, plan, torch.float32, device="cpu")
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    tree = tree_unflatten(params, leaves)
+    stacked = {id(x) for x in tree_leaves(tree["blocks"]["stack"])}
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, 16, 2, seed=0), 0, device="cpu")
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = torch.zeros((2, cfg.n_prefix_embeds, cfg.d_model))
+    loss = lm_loss(tree, batch, cfg=cfg, plan=plan)
+    into_stacked, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or id(fn) in seen:
+            continue
+        seen.add(id(fn))
+        for nxt, _ in fn.next_functions:
+            if nxt is not None and id(getattr(nxt, "variable", None)) in stacked:
+                into_stacked.setdefault(type(fn).__name__, set()).add(id(nxt.variable))
+            todo.append(nxt)
+    assert set(into_stacked) == {"UnbindBackward0"}, sorted(into_stacked)
+    assert into_stacked["UnbindBackward0"] == stacked
