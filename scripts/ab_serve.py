@@ -116,14 +116,16 @@ CLASSES = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")),
            ("reduce", ("reduce", "norm", "softmax")),
            ("copy", ("copy", "Memcpy", "Memset", "cat", "Cat", "index")))
 # How the profiler names a kernel in an anonymous namespace at the top, as
-# the port's are (PyTorch has such kernels too: the name decides).
-ANON = "void (anonymous namespace)::"
+# the port's are (PyTorch has such kernels too: the name decides); a
+# template's name starts with its return type, a plain function's does not.
+ANON = "(anonymous namespace)::"
 
 
-def port_kernels(tree: str) -> frozenset:
-    """The names of the ``__global__`` functions in ``tree``'s CUDA sources."""
+def port_kernels(tree: str, sources=None) -> frozenset:
+    """The names of the ``__global__`` functions in ``tree``'s CUDA sources
+    (or in ``sources``, paths of some of them)."""
     names = set()
-    for path in Path(tree, "src/repro_torch/kernels").glob("*/csrc/*.cu"):
+    for path in sources or Path(tree, "src/repro_torch/kernels").glob("*/csrc/*.cu"):
         for decl in re.findall(r"__global__([^{;]*)", path.read_text()):
             names.update([n for n in re.findall(r"(\w+)\s*\(", decl)
                           if n != "__launch_bounds__"][:1])
@@ -133,6 +135,7 @@ def port_kernels(tree: str) -> frozenset:
 def is_port(name: str, port: frozenset) -> bool:
     """Whether the profiler's kernel ``name`` is one of ``port``: in the
     top anonymous namespace or one inside it (``tc::``), by its own name."""
+    name = name.removeprefix("void ")
     m = re.match(r"[\w:]+", name[len(ANON):]) if name.startswith(ANON) else None
     return bool(m) and m.group(0).split("::")[-1] in port
 

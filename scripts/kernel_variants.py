@@ -1,9 +1,10 @@
 """Time variants of the port's CUDA kernels on one CUDA card, against the
 committed sources, in one process.
 
-    python3 scripts/kernel_variants.py [flash] [flash_bwd] [mm_pu] [paged] [rmsnorm] [wkv]
+    python3 scripts/kernel_variants.py [flash] [flash_bwd] [mm_pu] [paged] [paged_int8]
+        [rmsnorm] [rmsnorm_bwd] [wkv]
 
-(no argument: all six).  Each variant is the committed source with a few
+(no argument: all eight).  Each variant is the committed source with a few
 lines replaced (``VARIANTS`` below: other tile constants, and diagnostics
 that leave a part out, whose results may be wrong by design), or the
 committed library launched with other runtime arguments (``RUNS``: the
@@ -21,7 +22,16 @@ kernels for each variant; MM PU at the int8 FFN stage's T=2048 ``w1`` (2048 x
 products, int8 and bf16 w; paged attention at ``chip_smoke.py`` phase 6's
 decode and mixed shapes (256 slots x 256-row slab, bf16 pages), with the
 CUDA-core entry (``paged_attention_forward``) and, as a diagnostic, its grid
-cut to row block 0 (the gap is what its dead CTAs cost); RMSNorm at the
+cut to row block 0 (the gap is what its dead CTAs cost); bf16 q with int8
+pages at qwen3-moe-30b-a3b's plan (128 slots x 256 rows, G 8; phase 16's
+decode and mixed shapes, phase 20's verify rows at q_len 5): the
+tensor-core entry with ring depth 2 and 3, widened in shared memory or
+after ldmatrix, against the CUDA-core entry (the earlier route), and the
+committed entry's three kernels' device times; the RMSNorm backward at
+qwen3-1.7b's training rows (the norm rows and the q / k views): the
+resident wave against one pass, rows a group halved and doubled (each with
+its two kernels' device times), and ``F.rms_norm``'s autograd backward;
+RMSNorm at the
 continuous slab (65,536 x 2048 bf16), the prefill rows (16,384 x 2048) and
 the slab's q view (65,536 x 16 x 128, token stride 4096); WKV at the
 rwkv6-1.6b prefill (B 8, S 2048, H 32, D 64): the tensor-core entry on bf16
@@ -58,6 +68,7 @@ FLASH_F32_LOADS = "constexpr int NVB = NVT > 8 ? 4 : NVT;"
 PAGED_STAGES = "constexpr int kStages = 2;          // K/V ring depth"
 PAGED_GRID = "dim3 grid((W + rows_per_cta - 1) / rows_per_cta, KH, B);"
 RMS_AHEAD = "constexpr bool kAhead = GL < 32;"
+BWD_ROWS = "constexpr int kRows = GL == kThreads || NV >= 4 ? 1 : 4 / NV;"
 RMS_ROWS = "constexpr int kRows = NV >= 4 ? 1 : 4 / NV;"
 RMS_LOAD = "if (j < nvec) v[k][t] = *reinterpret_cast<const uint4*>(xr + j * VEC);"
 RMS_STORE = "  *reinterpret_cast<uint4*>(yr + j * VEC) = Vec<T>::pack(f);"
@@ -119,6 +130,148 @@ OLD_INTRA = "      if (s < t) {"
 OLD_OUT = "    for (int i = tid; i < nt * D; i += kThreads) {"
 OLD_CARRY = "    for (int i = tid; i < D * D; i += kThreads) {\n      const int kk = i / D, e = i % D;"
 OLD_EXP = "expf(Lq[t * P + d] - Ls[s * P + d])"
+# int8 pages widened after ldmatrix instead of in shared memory: the ring's
+# int8 rows padded to D + 16 bytes (ldmatrix reads 8 rows of 16 bytes at
+# once), no widening pass, K fragments read by ldmatrix from the int8 rows
+# (b16 pairs: a thread gets d 4t..4t+3 of a key) and widened in registers,
+# q's fragments loaded with the same permutation of d; V by ldmatrix.trans
+# (a thread gets keys 2t, 2t+1 at d 2g, 2g+1), split into the even- and
+# odd-d column blocks, so O's column blocks hold d 16c + 4t + {0, 2} and
+# + {1, 3}, which the two epilogues write back in place.
+PA_QF = ("      const bf16* qs = k_tile(kStages - 1) + (roff + (lane & 15)) * LD + "
+         "(lane >> 4) * 8;\n"
+         "#pragma unroll\n"
+         "      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qs + kk * 16);\n")
+PA_S = """#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NK / 16; ++np) {
+      unsigned kf[4];  // keys np*16 + {0..7, 8..15} x d kk*16 + {0..7, 8..15}
+      ldmatrix_x4(kf, ks + (koff + np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
+      mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+"""
+PA_S_REGS = """  if constexpr (kScaled) {
+    const unsigned char* k8 = reinterpret_cast<const unsigned char*>(ks);
+#pragma unroll
+    for (int kk = 0; kk < KD; kk += 2) {
+#pragma unroll
+      for (int np = 0; np < NK / 16; ++np) {
+        unsigned kf[4];  // keys np*16 + {0..7, 8..15} x d chunks kk, kk + 1
+        ldmatrix_x4(kf, k8 + (koff + np * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * (D + 16) +
+                            (kk + (lane >> 4)) * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          unsigned b0, b1;
+          int8x4_to_bf16(kf[i], b0, b1);
+          mma_bf16_16816(s[2 * np + (i & 1)], qf[kk + (i >> 1)], b0, b1);
+        }
+      }
+    }
+  } else {
+""" + PA_S + "  }\n"
+PA_PV = """#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      unsigned vf[4];  // keys kb2*16 + {0..7, 8..15} x d dp*16 + {0..7, 8..15}, transposed
+      ldmatrix_x4_trans(vf, vs + (koff + kb2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                dp * 16 + (lane >> 4) * 8);
+      mma_bf16_16816(o[2 * dp], ph, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp + 1], ph, vf[2], vf[3]);
+      mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+    }
+"""
+PA_PV_REGS = """    if constexpr (kScaled) {
+      const unsigned char* v8 = reinterpret_cast<const unsigned char*>(vs);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; dp += 2) {
+        unsigned vf[4];  // keys kb2*16 + {0..7, 8..15} x d chunks dp, dp + 1, as b16, transposed
+        ldmatrix_x4_trans(vf, v8 + (koff + kb2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                       (D + 16) + (dp + (lane >> 4)) * 16);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          unsigned e0, o0, e1, o1;
+          int8x4_even_odd(vf[2 * c], e0, o0);
+          int8x4_even_odd(vf[2 * c + 1], e1, o1);
+          mma_bf16_16816(o[2 * (dp + c)], ph, e0, e1);
+          mma_bf16_16816(o[2 * (dp + c)], pl, e0, e1);
+          mma_bf16_16816(o[2 * (dp + c) + 1], ph, o0, o1);
+          mma_bf16_16816(o[2 * (dp + c) + 1], pl, o0, o1);
+        }
+      }
+    } else {
+""" + PA_PV + "    }\n"
+PA_STORE = """#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+"""
+PA_MERGE = """#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(os + (warp * kDecRows + g + 8 * h) * D + 8 * j + 2 * t4) =
+              make_float2(o[j][2 * h], o[j][2 * h + 1]);
+"""
+PA_MINF = "__device__ __forceinline__ float minus_inf() { return -__uint_as_float(0x7f800000u); }\n"
+PAGED_INT8_REGS = [
+    (PA_MINF, PA_MINF + """// bytes 0 and 2 (even), 1 and 3 (odd) of an int8 word as bf16 pairs
+__device__ __forceinline__ void int8x4_even_odd(unsigned w, unsigned& ev, unsigned& od) {
+  unsigned lo, hi;
+  int8x4_to_bf16(w, lo, hi);
+  ev = __byte_perm(lo, hi, 0x5410);
+  od = __byte_perm(lo, hi, 0x7632);
+}
+"""),
+    ("kTileBytes = (size_t)kKeys * D * sizeof(TKV);",
+     "kTileBytes = (size_t)kKeys * (D + 16) * sizeof(TKV);"),
+    ("cp_async16(k_ring(st) + j * D + d0,", "cp_async16(k_ring(st) + j * (D + 16) + d0,"),
+    ("cp_async16(v_ring(st) + j * D + d0,", "cp_async16(v_ring(st) + j * (D + 16) + d0,"),
+    ("        widen(st);\n        __syncthreads();  // the widened pair is complete\n", ""),
+    ("attend_tile<D, 16, kQuant>(k_tile(st), v_tile(st),",
+     "attend_tile<D, 16, kQuant>(kQuant ? reinterpret_cast<const bf16*>(k_ring(st)) : k_tile(st), "
+     "kQuant ? reinterpret_cast<const bf16*>(v_ring(st)) : v_tile(st),"),
+    ("attend_tile<D, kKeys, kQuant>(k_tile(st), v_tile(st),",
+     "attend_tile<D, kKeys, kQuant>(kQuant ? reinterpret_cast<const bf16*>(k_ring(st)) : "
+     "k_tile(st), kQuant ? reinterpret_cast<const bf16*>(v_ring(st)) : v_tile(st),"),
+    (PA_QF, """      if constexpr (kQuant) {  // d permuted as K's: 4t, 4t+1 | 4t+2, 4t+3
+        const bf16* q0 = k_tile(kStages - 1) + (roff + g) * LD + 4 * t4;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const uint2 u = *reinterpret_cast<const uint2*>(q0 + kk * 16);
+          const uint2 w = *reinterpret_cast<const uint2*>(q0 + 8 * LD + kk * 16);
+          qf[kk][0] = u.x;
+          qf[kk][1] = w.x;
+          qf[kk][2] = u.y;
+          qf[kk][3] = w.y;
+        }
+      } else {
+""" + PA_QF + "      }\n"),
+    (PA_S, PA_S_REGS),
+    (PA_PV, PA_PV_REGS),
+    (PA_STORE, """        if constexpr (kQuant) {  // o[2c]: d 16c + 4t + {0, 2}, o[2c + 1] {1, 3}
+#pragma unroll
+          for (int c = 0; c < D / 16; ++c) {
+            auto* p = reinterpret_cast<__nv_bfloat162*>(orow - 2 * t4 + 16 * c + 4 * t4);
+            p[0] = __floats2bfloat162_rn(o[2 * c][2 * h] * inv, o[2 * c + 1][2 * h] * inv);
+            p[1] = __floats2bfloat162_rn(o[2 * c][2 * h + 1] * inv, o[2 * c + 1][2 * h + 1] * inv);
+          }
+        } else {
+""" + PA_STORE + "        }\n"),
+    (PA_MERGE, """      if constexpr (kQuant) {
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float4*>(os + (warp * kDecRows + g + 8 * h) * D + 16 * c + 4 * t4) =
+                make_float4(o[2 * c][2 * h], o[2 * c + 1][2 * h], o[2 * c][2 * h + 1],
+                            o[2 * c + 1][2 * h + 1]);
+      } else {
+""" + PA_MERGE + "      }\n"),
+]
 VARIANTS = {
     "flash": {
         "committed": [],
@@ -168,6 +321,19 @@ VARIANTS = {
         "CUDA-core entry, grid cut to row block 0 (diagnostic)": [(PAGED_GRID,
                                                                    "dim3 grid(1, KH, B);")],
     },
+    # bf16 q with int8 pages on the tensor-core entry
+    "paged_int8": {
+        "committed": [],
+        "ring depth 3": [(PAGED_STAGES, PAGED_STAGES.replace("2;", "3;"))],
+        "widened after ldmatrix": PAGED_INT8_REGS,
+    },
+    "rmsnorm_bwd": {
+        "committed": [],
+        "twice the rows a group": [
+            (BWD_ROWS, "constexpr int kRows = GL == kThreads ? 1 : NV >= 8 ? 2 : 8 / NV;")],
+        "half the rows a group": [
+            (BWD_ROWS, "constexpr int kRows = GL == kThreads || NV >= 2 ? 1 : 2 / NV;")],
+    },
     "rmsnorm": {
         "committed": [],
         "rows in flight ahead on every row": [(RMS_AHEAD, "constexpr bool kAhead = true;")],
@@ -214,6 +380,20 @@ RUNS = {
         "CUDA-core entry": ("committed", {"core": True}),
         "CUDA-core entry, grid cut to row block 0 (diagnostic)": (
             "CUDA-core entry, grid cut to row block 0 (diagnostic)", {"core": True}),
+    },
+    "paged_int8": {
+        "committed (widened in shared memory, ring depth 2)": ("committed", {}),
+        "ring depth 3": ("ring depth 3", {}),
+        "widened after ldmatrix (int8 rows of D + 16 bytes)": ("widened after ldmatrix", {}),
+        "CUDA-core entry (the earlier route)": ("committed", {"core": True}),
+    },
+    "rmsnorm_bwd": {
+        "committed (one wave of resident CTAs)": ("committed", {}),
+        "one pass, no grid stride (a CTA for each CTA's rows at once)": ("committed",
+                                                                         {"one_pass": True}),
+        "twice the rows a group": ("twice the rows a group", {"rows": 2}),
+        "half the rows a group": ("half the rows a group", {"rows": 0.5}),
+        "F.rms_norm autograd backward (library call)": (None, {}),
     },
     "rmsnorm": {
         "committed": ("committed", {}),
@@ -277,15 +457,32 @@ def timed(variants: dict, make_run, want) -> None:
               f"{times[tag][1]:.4f}", flush=True)
 
 
+def kernel_parts(fn, n: int = 5) -> str:
+    """Device ms of each kernel ``fn`` launches, a call (torch.profiler over
+    ``n`` calls)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            m = re.search(r"(\w+_kernel)", e.key)
+            parts.append(f"{m.group(1) if m else e.key[:40]} {e.device_time_total / n / 1e3:.3f}")
+    return "; ".join(parts) + " ms"
+
+
 def run_flash_bwd(libs: dict) -> None:
     """The backward's bf16 entry of each variant at the training shapes:
     dq, dk, dv within one bf16 step of the plain backward (chip_smoke's
     GRAD_BF16_TOL), times A..Z..A, and each variant's three kernels'
     device times (torch.profiler)."""
-    import re
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from repro_torch.kernels.flash_attention import ops
@@ -310,22 +507,16 @@ def run_flash_bwd(libs: dict) -> None:
                 times[tag].append(cs.time_ms(run(libs[tag]), reps=10, warmup=2))
         for tag, lib in libs.items():
             ok = all(cs.grad_within(a, b, cs.GRAD_BF16_TOL)[0] for a, b in zip(run(lib)(), want))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    run(lib)()
-                torch.cuda.synchronize()
-            parts = [f"{re.search(r'(\w+_kernel)', e.key).group(1)} "
-                     f"{e.device_time_total / 5e3:.3f}"
-                     for e in prof.key_averages() if e.device_time_total > 0]
             print(f"    {tag}: matches {ok}, ms {times[tag][0]:.4f} / {times[tag][1]:.4f}; "
-                  f"{'; '.join(parts)} ms", flush=True)
+                  f"{kernel_parts(run(lib))}", flush=True)
         del q, k, v, o, lse, do, want
         torch.cuda.empty_cache()
 
 
 def paged_core(lib, q, entry, table, lens, q_lens, bs, stream):
-    """The CUDA-core entry (``paged_attention_forward``) on bf16 q and pages,
-    as the wrapper launched it before the tensor-core entry."""
+    """The CUDA-core entry (``paged_attention_forward``) on bf16 q with bf16
+    or int8 pages, as the wrapper launched it before the tensor-core
+    entry took them."""
     import math
 
     import torch
@@ -333,10 +524,12 @@ def paged_core(lib, q, entry, table, lens, q_lens, bs, stream):
     B, W, H, D = q.shape
     KH = entry["k"].shape[2]
     out = torch.empty_like(q)
+    quant = entry["k"].dtype == torch.int8
+    scales = (entry["k_scale"].data_ptr(), entry["v_scale"].data_ptr()) if quant else (None, None)
     rc = lib.paged_attention_forward(
-        q.data_ptr(), entry["k"].data_ptr(), entry["v"].data_ptr(), None, None, table.data_ptr(),
+        q.data_ptr(), entry["k"].data_ptr(), entry["v"].data_ptr(), *scales, table.data_ptr(),
         lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), B, W, H, KH, D, bs, table.shape[1],
-        0, 64 // (H // KH), 1.0 / math.sqrt(D), 1, 1, stream)
+        0, 64 // (H // KH), 1.0 / math.sqrt(D), 1, 2 if quant else 1, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_forward failed (code {rc})")
     return out
@@ -369,6 +562,106 @@ def run_paged(libs: dict) -> None:
               f"slots, bf16 pages):", flush=True)
         timed({tag: (libs[v], kw) for tag, (v, kw) in RUNS["paged"].items()}, make_run, want)
         del q, entry, want
+        torch.cuda.empty_cache()
+
+
+def run_paged_int8(libs: dict) -> None:
+    """bf16 q with int8 pages at qwen3-moe-30b-a3b's plan (128 slots x 256
+    rows, H 32, KH 4, D 128): chip_smoke phase 16's decode and mixed shapes
+    and phase 20's verify rows (every slot at q_len 5)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    H, KH, D, bs, W, MB = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 16, 256, 128
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, n_prefill, seed, q_len in (("decode", 0, 60, 1), ("mixed", 16, 61, 1),
+                                         ("verify, q_len 5", 0, 74, 5)):
+        lens, q_lens = cs.main_path_lens(128, W, n_prefill, seed, q_len=q_len)
+        q, entry, table, lens_t, q_lens_t = cs.make_inputs(
+            128, W, H, KH, D, bs, MB, "int8", lens, q_lens, q_dtype=torch.bfloat16, seed=seed)
+        want = cs.plain((q, entry, table, lens_t, q_lens_t), bs=bs)
+
+        def make_run(run, q=q, entry=entry, table=table, lens_t=lens_t, q_lens_t=q_lens_t):
+            lib, kw = run
+            if kw.get("core"):
+                return lambda: paged_core(lib, q, entry, table, lens_t, q_lens_t, bs, stream)
+            return lambda: pops.launch(lib, q, entry, table, lens_t, q_lens_t, block_size=bs,
+                                       window=0, rows_per_cta=0, stream=stream)
+
+        print(f"  paged attention, int8 pages, {name} (128 slots x {W} rows, {n_prefill} "
+              f"prefill slots, G {H // KH}):", flush=True)
+        runs = {tag: (libs[v], kw) for tag, (v, kw) in RUNS["paged_int8"].items()}
+        timed(runs, make_run, want)
+        print(f"    committed, by kernel: {kernel_parts(make_run(next(iter(runs.values()))))}",
+              flush=True)
+        del q, entry, want
+        torch.cuda.empty_cache()
+
+
+def run_rmsnorm_bwd(libs: dict) -> None:
+    """The RMSNorm backward at qwen3-1.7b's training rows (B 8 x S 2048):
+    the norm rows (16,384 x 2048) and the q / k views of the fused
+    projection (16 and 8 heads of 128), bf16: dx and d(scale) against the
+    plain backward (chip_smoke's GRAD_BF16_TOL; d(scale) 1e-4 of its
+    largest), times A..Z..A."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    qv, kv = cs.qkv_views(8, 2048, 16, 8, 128, torch.bfloat16, 122)
+    sq = torch.randn(128, device="cuda") * 0.1
+    shapes = {"norm rows (16384, 2048)": cs.rms_inputs((8 * 2048, 2048), torch.bfloat16, 123),
+              "q view (8, 2048, 16, 128)": (qv, sq), "k view (8, 2048, 8, 128)": (kv, sq)}
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for name, (x, sc) in shapes.items():
+        d = x.shape[-1]
+        rows = x.numel() // d
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+        want = rmsnorm_backward_ref(x, sc, dy)
+        plan = rops.backward_launch_plan(rows, d, 2, True)
+
+        def make_run(run, x=x, sc=sc, dy=dy, plan=plan, rows=rows, d=d):
+            lib, kw = run
+            if lib is None:
+                xl = x.detach().contiguous().requires_grad_()
+                wl = (1.0 + sc).to(x.dtype).requires_grad_()
+                y = F.rms_norm(xl, (d,), wl, 1e-6)
+                return lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True)
+            group, nv, r, grid = plan
+            r = max(1, int(r * kw.get("rows", 1))) if group != rops.CTA_ROW else r
+            per_cta = rops.CTA_ROW // group * r
+            grid = -(-rows // per_cta) if kw.get("one_pass") else min(
+                -(-rows // per_cta), rops.N_SMS * rops.backward_resident_ctas(nv, r))
+            return lambda: rops.launch_backward(lib, x, sc, dy, eps=1e-6, stream=stream,
+                                                plan=(group, nv, r, grid))
+
+        print(f"  rmsnorm backward, {name} bf16, plan (lanes a row, vectors a lane, rows a "
+              f"group, CTAs) {plan}:", flush=True)
+        runs = {tag: (libs[v], kw) for tag, (v, kw) in RUNS["rmsnorm_bwd"].items()}
+        times = {tag: [] for tag in runs}
+        for order in (list(runs), list(reversed(runs))):
+            for tag in order:
+                times[tag].append(cs.time_ms(make_run(runs[tag])))
+        for tag, run in runs.items():
+            ok = "n/a"
+            if run[0] is not None:
+                dx, ds = make_run(run)()
+                dx2, ds2 = make_run(run)()
+                ok = (cs.grad_within(dx, want[0], cs.GRAD_BF16_TOL)[0]
+                      and cs.grad_within(ds, want[1], (1e-4, 1e-4), unit_floor=False)[0]
+                      and torch.equal(dx, dx2) and torch.equal(ds, ds2))
+            parts = f"; {kernel_parts(make_run(run))}" if run[0] is not None else ""
+            print(f"    {tag}: matches (and reruns bit-identical) {ok}, ms {times[tag][0]:.4f} / "
+                  f"{times[tag][1]:.4f}{parts}", flush=True)
+        del dy, want
         torch.cuda.empty_cache()
 
 
@@ -476,12 +769,13 @@ def main(argv: list) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    sources = {"flash": fk.SOURCE, "flash_bwd": fk.BACKWARD_SOURCE, "mm_pu": mk.SOURCE, "paged": pk.SOURCE, "rmsnorm": rk.SOURCE,
-               "wkv": wk.SOURCE}
+    sources = {"flash": fk.SOURCE, "flash_bwd": fk.BACKWARD_SOURCE, "mm_pu": mk.SOURCE,
+               "paged": pk.SOURCE, "paged_int8": pk.SOURCE, "rmsnorm": rk.SOURCE,
+               "rmsnorm_bwd": rk.BACKWARD_SOURCE, "wkv": wk.SOURCE}
     paths = {(k, tag): write_variant(sources[k], tag, subs)
              for k in which for tag, subs in VARIANTS[k].items()}
     t0 = time.time()
-    _build.build_all(list(paths.values()))
+    _build.build_all(list(dict.fromkeys(paths.values())))  # paged and paged_int8 share some
     print(f"built {len(paths)} variants in {time.time() - t0:.1f} s", flush=True)
     for (k, tag), path in paths.items():
         log = _build.library_path(path).with_suffix(".log").read_text().splitlines()
@@ -531,10 +825,17 @@ def main(argv: list) -> int:
 
     if "paged" in which:
         run_paged({tag: bind(paths[("paged", tag)], pk._ARGTYPES) for tag in VARIANTS["paged"]})
+    if "paged_int8" in which:
+        run_paged_int8({tag: bind(paths[("paged_int8", tag)], pk._ARGTYPES)
+                        for tag in VARIANTS["paged_int8"]})
     if "rmsnorm" in which:
         libs = {tag: bind(paths[("rmsnorm", tag)], {"rmsnorm_forward": rk._ARGTYPES})
                 for tag in VARIANTS["rmsnorm"]}
         run_rmsnorm({**libs, None: None})
+    if "rmsnorm_bwd" in which:
+        libs = {tag: bind(paths[("rmsnorm_bwd", tag)], {"rmsnorm_backward": rk.BACKWARD_ARGTYPES})
+                for tag in VARIANTS["rmsnorm_bwd"]}
+        run_rmsnorm_bwd({**libs, None: None})
     if "wkv" in which:
         run_wkv({tag: bind(paths[("wkv", tag)], {n: wk._ARGTYPES for n in wk.ENTRIES})
                  for tag in VARIANTS["wkv"]})

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's CUDA kernels: f32 conversions,
 // 16-byte vector packing and unpacking, warp reductions, and the Hopper
 // tensor-core primitives (inline PTX: cp.async copies into shared memory,
-// ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulate).  Included by
+// ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulate, int8 -> bf16).  Included by
 // path from each kernel's csrc/; repro_torch/kernels/_build.py keys every
 // library on this header's content too.
 #pragma once
@@ -96,6 +96,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 16 : 0));
 }
+// cp.async.ca: 4 bytes (a scale), zeroed when `pred` is false.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>
@@ -132,6 +138,21 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const unsigned a[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 values (one 32-bit word, the lowest byte first) as two bf16
+// pairs, exactly (|v| <= 128 fits bf16's 8 bits of mantissa): each byte
+// + 128 becomes the low byte of the float 2^23 + byte, from which 2^23 +
+// 128 is subtracted.
+__device__ __forceinline__ void int8x4_to_bf16(unsigned w, unsigned& lo, unsigned& hi) {
+  const unsigned u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | k)) - 8388736.f;
+  __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]), b = __floats2bfloat162_rn(f[2], f[3]);
+  lo = *reinterpret_cast<const unsigned*>(&a);
+  hi = *reinterpret_cast<const unsigned*>(&b);
 }
 
 // Two floats as a bf16 pair in one register (lo in the lower half, the

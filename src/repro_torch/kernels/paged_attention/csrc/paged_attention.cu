@@ -11,14 +11,16 @@
 // back exactly 0.
 //
 // Bound on an H100 SXM: bytes.  The least work is reading each live slot's
-// K and V pages once per kv head, sum_b ctx_b * KH * D * 2 * bytes, and
-// writing the (B, W, H, D) output once, at 3.35 TB/s; the arithmetic (4 * D
-// flops per query row per key) is far below the card's rate at these
-// shapes.  Two kernels, chosen by the wrapper from the (q, page) dtypes
-// alone (ops.ENTRIES; never a fallback):
+// K and V pages once per kv head, sum_b ctx_b * KH * D * 2 * bytes (int8
+// pages: 1 byte a value plus 4 / D bytes of its f32 scale), and writing
+// the (B, W, H, D) output once, at 3.35 TB/s; the arithmetic (4 * D flops
+// per query row per key) is far below the card's rate at these shapes.
+// Two kernels, chosen by the wrapper from the (q, page) dtypes alone
+// (ops.ENTRIES; never a fallback):
 //
-// bf16 q with bf16 pages (paged_attention_forward_mma, the served plan's):
-// tensor cores, three passes in one call.
+// bf16 q with bf16 or int8 pages (paged_attention_forward_mma; qwen3-1.7b's
+// plan serves bf16 pages, qwen3-moe-30b-a3b's int8): tensor cores, three
+// passes in one call.
 //   * a prologue builds a work list on the device from lens / q_lens (no
 //     host sync) and writes zeros into the dead rows: only (slot, row block)
 //     or (slot, key split) pairs with live rows become items, so no CTA is
@@ -36,16 +38,28 @@
 //     order (deterministic);
 //   * other slots' row blocks hold 64 (slab row, head) rows of one kv head,
 //     16 a warp, over every tile they can see;
-//   * 64-key tiles of bf16 pages stream through a 2-stage cp.async ring
-//     (no widening in shared memory); each tile's page slots are resolved
-//     from the block table once, a tile ahead; keys outside the item's
-//     range land as zeros;
+//   * 64-key tiles stream through a 2-stage cp.async ring; each tile's page
+//     slots are resolved from the block table once, a tile ahead; keys
+//     outside the item's range land as zeros.  bf16 tiles are read by
+//     ldmatrix in place.  int8 tiles move half the bytes: the threads that
+//     resolve a tile's slots also copy its 64 k and v scales (cp.async, 4
+//     bytes each) into the ring beside it, and once a tile lands the whole
+//     CTA widens it to bf16 (exact: |v| <= 127) into one (K, V) pair in
+//     shared memory, which the warps read as they read a bf16 stage
+//     (widening in registers after ldmatrix instead ties at decode and
+//     loses at the mixed shape: scripts/kernel_variants.py paged_int8).
+//     Shared memory at D 128: bf16 69,632 bytes (the ring); int8 68,608
+//     (ring 32,768, widened pair 34,816, scales 1,024): 3 CTAs an SM;
 //   * S = Q K^T and O += P V by mma.sync m16n8k16 (ldmatrix, ldmatrix.trans),
 //     the online softmax in the accumulator layout, P as bf16 hi + lo (a
 //     single rounding of P puts a few percent of the outputs outside one
-//     bf16 step), l from the f32 p; masks only on tiles a mask cuts.
+//     bf16 step), l from the f32 p; masks only on tiles a mask cuts.  int8
+//     pages: S's columns are multiplied by k_scale after the mma (q . (k
+//     k_scale) reassociated), P's by v_scale before the hi + lo split, and l
+//     sums the unscaled p.
 //
-// Every other dtype pair (paged_attention_forward): CUDA cores.
+// f32 q with any pages, and bf16 q with f32 pages (paged_attention_forward):
+// CUDA cores (f32's tolerance rules out rounding q or f32 pages to bf16).
 //   * one CTA per (block of slab rows, kv head, slot).  The CTA takes the G
 //     query heads of its kv head together (GQA), so every page it loads
 //     serves G * rows queries;
@@ -65,7 +79,8 @@
 // probabilities exactly 0 so fully masked rows stay 0, l floored at 1e-30,
 // and q rounded to bf16 before the dot for bf16 pages.  The tensor-core
 // kernel keeps P V's P at f32 accuracy (hi + lo), where the TPU kernel
-// rounds it once to bf16.
+// rounds it once to bf16 (bf16 pages) or computes in f32 (int8 pages);
+// ref.paged_attention_split_ref emulates its scheme on the CPU.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/_build.py).  Plain C entry
@@ -328,7 +343,7 @@ int launch_d(int D, int kv_dtype, const void* q, const void* k_pages, const void
   return -2;
 }
 
-// ---------------------------------------------------------------- bf16, tensor cores
+// ---------------------------------------------------------------- bf16 q, tensor cores
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -340,17 +355,31 @@ constexpr int kDecRows = 16;        // rows of a decode item: one mma row block
 constexpr int kKeys = 64;           // keys per tile
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kPlanThreads = 256;   // threads of the prologue's CTAs
-static_assert(kRows <= kKeys, "q is staged in one K tile of the ring");
+static_assert(kRows <= kKeys, "q is staged in one K tile");
 
 __device__ __forceinline__ float minus_inf() { return -__uint_as_float(0x7f800000u); }
 
-// Shared memory: kStages x (K tile, V tile) of kKeys rows of D + 8
-// elements (+16 bytes a row: the 8 rows an ldmatrix reads fall in distinct
-// banks); the decode merge reuses it.
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * kStages * 2 * kKeys * (D + 8);
-}
+// Shared memory, in bytes from its start.  bf16 pages: the ring, kStages x
+// (K tile, V tile) of kKeys rows of D + 8 bf16 (+16 bytes a row: the 8 rows
+// an ldmatrix reads fall in distinct banks), q staged in its last K tile.
+// int8 pages: the ring of int8 tiles (kKeys rows of D bytes: a quarter-warp
+// of 16-byte copies covers 128 bytes, no conflict), then one widened bf16
+// (K, V) pair laid out as a bf16 stage (q staged in its K tile), then the
+// ring's scales, kStages x (k, v) x kKeys f32.  The decode merge reuses the
+// start.  At D 128: 69,632 bytes (bf16), 32,768 + 34,816 + 1,024 = 68,608
+// (int8); 3 CTAs an SM by shared memory.
+template <int D, typename TKV>
+struct Smem {
+  static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  static constexpr int LD = D + 8;
+  static constexpr size_t kTileBytes = (size_t)kKeys * D * sizeof(TKV);  // a ring tile (int8)
+  static constexpr size_t kPair = 2 * (size_t)kKeys * LD * sizeof(bf16);  // a bf16 (K, V) pair
+  static constexpr size_t kRing = kQuant ? kStages * 2 * kTileBytes : kStages * kPair;
+  static constexpr size_t kWide = kRing;  // the widened pair (int8)
+  static constexpr size_t kScales = kWide + (kQuant ? kPair : 0);
+  static constexpr size_t kBytes = kScales + (kQuant ? kStages * 2 * kKeys * sizeof(float) : 0);
+  static_assert(kBytes >= (size_t)4 * kDecRows * (D + 2) * sizeof(float), "decode merge");
+};
 
 // What every pass derives from a slot's lens / q_lens alike.
 struct Slot {
@@ -362,8 +391,10 @@ struct Slot {
 
 struct Args {
   const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* k;        // bf16 or int8 pages
+  const void* v;
+  const float* k_scale;  // int8 pages: (N, block_size, KH) f32; null for bf16
+  const float* v_scale;
   const int* table;
   const int* lens;
   const int* q_lens;
@@ -477,12 +508,16 @@ __global__ void __launch_bounds__(kPlanThreads) plan_kernel(Args a) {
 // koff..koff+NK-1 of the tile (NK 64: a prefill warp's whole tile; 16: a
 // decode warp's quarter).  S = Q K^T and O += P V on the tensor cores, the
 // online softmax in the accumulator layout (m in log2 units), P as bf16
-// hi + lo, l from the f32 p.  Masks only where `cut`.
-template <int D, int NK>
-__device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, unsigned (*qf)[4],
-                                            int koff, int t0, bool cut, const int* pos,
-                                            const bool* live, int k_lo, int k_hi, int window,
-                                            float scale_log2, float (*o)[4], float* m, float* l) {
+// hi + lo, l from the f32 p.  Masks only where `cut`.  int8 pages (kScaled):
+// ks / vs hold the tile's integer values as bf16 and ksc / vsc its keys'
+// scales: S's column j times ksc[j] before the softmax, P's column j times
+// vsc[j] before the hi + lo split (l stays the sum of the unscaled p).
+template <int D, int NK, bool kScaled>
+__device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, const float* ksc,
+                                            const float* vsc, unsigned (*qf)[4], int koff,
+                                            int t0, bool cut, const int* pos, const bool* live,
+                                            int k_lo, int k_hi, int window, float scale_log2,
+                                            float (*o)[4], float* m, float* l) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
   const int lane = threadIdx.x & 31;
@@ -505,7 +540,9 @@ __device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, unsi
   for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = s[j][e] * scale_log2;
+      float x = s[j][e];
+      if (kScaled) x *= ksc[koff + 8 * j + 2 * t4 + (e & 1)];
+      x *= scale_log2;
       if (cut) {
         const int p = t0 + 8 * j + 2 * t4 + (e & 1);
         const int i = pos[e >> 1];
@@ -534,6 +571,16 @@ __device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, unsi
       sum += s[j][2 * h] + s[j][2 * h + 1];
     }
     l[h] = l[h] * corr[h] + sum;
+  }
+  if (kScaled) {
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      const float2 vc = *reinterpret_cast<const float2*>(vsc + koff + 8 * j + 2 * t4);
+      s[j][0] *= vc.x;
+      s[j][1] *= vc.y;
+      s[j][2] *= vc.x;
+      s[j][3] *= vc.y;
+    }
   }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -572,16 +619,31 @@ __device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs, unsi
 // empty.  Prefill items: 4 warps x 16 (slab row, head) rows over every key
 // tile.  Decode items: all 4 warps on the same 16 rows, each on a quarter
 // of every tile's keys, merged at the end; a slot whose keys span one split
-// writes its output here, one of several splits writes f32 partials.
-template <int D>
+// writes its output here, one of several splits writes f32 partials.  int8
+// pages: each landed tile (and its scales) is widened to bf16 in shared
+// memory by the whole CTA before the warps read it.
+template <int D, typename TKV>
 __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
+  using S = Smem<D, TKV>;
+  constexpr bool kQuant = S::kQuant;
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int EV = 16 / sizeof(TKV);  // page elements a 16-byte copy
+  constexpr int CH = D / EV;            // 16-byte copies a page row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
-  auto k_tile = [&](int st) { return sm + (2 * st) * kKeys * LD; };
-  auto v_tile = [&](int st) { return sm + (2 * st + 1) * kKeys * LD; };
+  // the bf16 (K, V) pair the warps read: ring stage st (bf16 pages) or the
+  // widened pair (int8 pages)
+  auto k_tile = [&](int st) {
+    return reinterpret_cast<bf16*>(smem_raw + (kQuant ? (int)S::kWide : st * (int)S::kPair));
+  };
+  auto v_tile = [&](int st) { return k_tile(st) + kKeys * LD; };
+  // int8 pages: ring stage st's tiles and scales
+  auto k_ring = [&](int st) { return smem_raw + 2 * st * (int)S::kTileBytes; };
+  auto v_ring = [&](int st) { return k_ring(st) + S::kTileBytes; };
+  auto k_sc = [&](int st) {
+    return reinterpret_cast<float*>(smem_raw + (int)S::kScales) + 2 * st * kKeys;
+  };
+  auto v_sc = [&](int st) { return k_sc(st) + kKeys; };
   __shared__ int tok_s[kStages][kKeys];  // each tile key's token row in the pool, or -1
   __shared__ int item_s;
 
@@ -615,8 +677,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
     const int t_first = k_lo / kKeys * kKeys;
     const int n_tiles = k_hi >= k_lo ? (k_hi - t_first) / kKeys + 1 : 0;
     const int* trow = a.table + (long long)b * a.max_blocks;
-    const bf16* kb = a.k + (long long)kh * D;
-    const bf16* vb = a.v + (long long)kh * D;
+    const TKV* kb = static_cast<const TKV*>(a.k) + (long long)kh * D;
+    const TKV* vb = static_cast<const TKV*>(a.v) + (long long)kh * D;
 
     auto resolve = [&](int tile, int st) {  // threads 0..kKeys-1
       const int p = t_first + tile * kKeys + tid;
@@ -625,27 +687,56 @@ __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
                            : -1;
     };
     auto load_tile = [&](int st) {
-      bf16* ks = k_tile(st);
-      bf16* vs = v_tile(st);
 #pragma unroll
       for (int c = tid; c < kKeys * CH; c += kThreads) {
-        const int j = c / CH, d0 = (c % CH) * 8;
+        const int j = c / CH, d0 = (c % CH) * EV;
         const int tok = tok_s[st][j];
         const long long off = (long long)(tok >= 0 ? tok : 0) * a.KH * D + d0;
-        cp_async16(ks + j * LD + d0, kb + off, tok >= 0);
-        cp_async16(vs + j * LD + d0, vb + off, tok >= 0);
+        if constexpr (kQuant) {
+          cp_async16(k_ring(st) + j * D + d0, kb + off, tok >= 0);
+          cp_async16(v_ring(st) + j * D + d0, vb + off, tok >= 0);
+        } else {
+          cp_async16(k_tile(st) + j * LD + d0, kb + off, tok >= 0);
+          cp_async16(v_tile(st) + j * LD + d0, vb + off, tok >= 0);
+        }
+      }
+      if constexpr (kQuant) {
+        if (tid < kKeys) {  // the threads that resolved the slots: the scales
+          const int tok = tok_s[st][tid];
+          const long long at = (long long)(tok >= 0 ? tok : 0) * a.KH + kh;
+          cp_async4(k_sc(st) + tid, a.k_scale + at, tok >= 0);
+          cp_async4(v_sc(st) + tid, a.v_scale + at, tok >= 0);
+        }
+      }
+    };
+    // int8 pages: ring stage st widened into the bf16 pair, 16 values a step
+    auto widen = [&](int st) {
+#pragma unroll
+      for (int c = tid; c < 2 * kKeys * CH; c += kThreads) {
+        const int kv = c / (kKeys * CH), j = c / CH % kKeys, d0 = (c % CH) * EV;
+        const uint4 w = *reinterpret_cast<const uint4*>((kv ? v_ring(st) : k_ring(st)) +
+                                                        j * D + d0);
+        uint4 lo, hi;
+        int8x4_to_bf16(w.x, lo.x, lo.y);
+        int8x4_to_bf16(w.y, lo.z, lo.w);
+        int8x4_to_bf16(w.z, hi.x, hi.y);
+        int8x4_to_bf16(w.w, hi.z, hi.w);
+        uint4* dst = reinterpret_cast<uint4*>((kv ? v_tile(0) : k_tile(0)) + j * LD + d0);
+        dst[0] = lo;
+        dst[1] = hi;
       }
     };
 
-    // Prologue: page slots of the first kStages tiles; q rows into the last
-    // stage's K tile and the first kStages - 1 tiles into the ring.
+    // Prologue: page slots of the first kStages tiles; q rows into a K tile
+    // the ring's first tiles do not use (the last stage's, or the widened
+    // one) and the first kStages - 1 tiles into the ring.
     if (tid < kKeys)
       for (int st = 0; st < kStages; ++st)
         if (st < n_tiles) resolve(st, st);
     {
       bf16* qs = k_tile(kStages - 1);
-      for (int c = tid; c < kRows * CH; c += kThreads) {
-        const int r = c / CH, d0 = (c % CH) * 8;
+      for (int c = tid; c < kRows * (D / 8); c += kThreads) {  // bf16 q: 8 a copy
+        const int r = c / (D / 8), d0 = c % (D / 8) * 8;
         const bool ok = r < nrows;
         const int i = ok ? i0 + r / G : 0, h = ok ? kh * G + r % G : 0;
         cp_async16(qs + r * LD + d0, a.q + (((long long)b * a.W + i) * a.H + h) * D + d0, ok);
@@ -666,7 +757,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qs + kk * 16);
     }
-    __syncthreads();  // the last stage is free for the ring
+    __syncthreads();  // the q tile is free for the ring (or the widening)
 
     const int r0 = roff + g;  // this thread's rows: r0 and r0 + 8
     const int pos[2] = {sl.base + i0 + r0 / G, sl.base + i0 + (r0 + 8) / G};
@@ -687,18 +778,23 @@ __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(Args a) {
       __syncthreads();                // ... and for every thread
       if (tid < kKeys && tile + kStages < n_tiles) resolve(tile + kStages, tile % kStages);
       const int st = tile % kStages;
+      if constexpr (kQuant) {
+        widen(st);
+        __syncthreads();  // the widened pair is complete
+      }
       const int koff = dec ? warp * 16 : 0;
       const int t0 = t_first + tile * kKeys + koff;
       const int t_end = t0 + (dec ? 16 : kKeys) - 1;
       const bool cut = t0 < k_lo || t_end > k_hi || t_end > pos_min ||
                        (a.window > 0 && pos_max - t0 >= a.window);
       if (dec)
-        attend_tile<D, 16>(k_tile(st), v_tile(st), qf, koff, t0, cut, pos, live, k_lo, k_hi,
-                           a.window, a.scale_log2, o, m, l);
+        attend_tile<D, 16, kQuant>(k_tile(st), v_tile(st), k_sc(st), v_sc(st), qf, koff, t0,
+                                   cut, pos, live, k_lo, k_hi, a.window, a.scale_log2, o, m, l);
       else if (warp_live)
-        attend_tile<D, kKeys>(k_tile(st), v_tile(st), qf, 0, t0, cut, pos, live, k_lo, k_hi,
-                              a.window, a.scale_log2, o, m, l);
-      __syncthreads();  // this stage is consumed before the next load refills it
+        attend_tile<D, kKeys, kQuant>(k_tile(st), v_tile(st), k_sc(st), v_sc(st), qf, 0, t0,
+                                      cut, pos, live, k_lo, k_hi, a.window, a.scale_log2, o, m,
+                                      l);
+      __syncthreads();  // this stage (and the widened pair) is consumed before a refill
     }
     cp_async_wait<0>();  // no copy is left in flight into shared memory
 
@@ -798,10 +894,10 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(Args a) {
   }
 }
 
-template <int D>
+template <int D, typename TKV>
 int launch(Args a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = paged_mma_kernel<D>;
+  constexpr size_t smem = Smem<D, TKV>::kBytes;
+  auto kernel = paged_mma_kernel<D, TKV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -857,38 +953,54 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   return -1;
 }
 
-// bf16 q with bf16 pages, on the tensor cores.  q, out: (B, W, H, D)
-// contiguous bf16; k, v: (N, block_size, KH, D) bf16, 16-byte aligned;
-// table (B, max_blocks), lens and q_lens (B,) int32.  rows_per_cta slab
-// rows per prefill item (G * rows_per_cta <= 64); split keys per decode
-// split, a multiple of 64, and n_splits >= max_blocks * block_size / split.
-// Scratch the caller allocates: part (B, KH, n_splits, 16, D + 2) f32 and
-// work: 2 + 2 x (B x max(ceil(W / rows_per_cta), n_splits)) int32.  Three kernels on `stream` (the plan and
-// zeros, the persistent main pass, the combine); returns 0 or a CUDA error
-// code (negative for an unsupported D or arguments); does not synchronise.
+// bf16 q on the tensor cores, with bf16 (kv_dtype 1) or int8 (2) pages.
+// q, out: (B, W, H, D) contiguous bf16; k, v: (N, block_size, KH, D),
+// 16-byte aligned, with (N, block_size, KH, 1) f32 scales for int8 (null
+// for bf16); table (B, max_blocks), lens and q_lens (B,) int32.
+// rows_per_cta slab rows per prefill item (G * rows_per_cta <= 64); split
+// keys per decode split, a multiple of 64, and n_splits >= max_blocks *
+// block_size / split.  Scratch the caller allocates: part (B, KH, n_splits,
+// 16, D + 2) f32 and work: 2 + 2 x (B x max(ceil(W / rows_per_cta),
+// n_splits)) int32.  Three kernels on `stream` (the plan and zeros, the
+// persistent main pass, the combine); returns 0 or a CUDA error code
+// (negative for an unsupported D, page type or arguments); does not
+// synchronise.
 extern "C" int paged_attention_forward_mma(const void* q, const void* k_pages,
-                                           const void* v_pages, const void* table,
+                                           const void* v_pages, const void* k_scale,
+                                           const void* v_scale, const void* table,
                                            const void* lens, const void* q_lens, void* out,
                                            void* part, void* work, int B, int W,
                                            int H, int KH, int D, int block_size, int max_blocks,
                                            int window, int rows_per_cta, int split, int n_splits,
-                                           float scale, void* stream) {
+                                           int kv_dtype, float scale, void* stream) {
   if (B <= 0 || W <= 0 || (long long)B * W > 0x7fffffff || KH <= 0 || H % KH != 0 ||
       rows_per_cta <= 0 ||
       (H / KH) * rows_per_cta > tc::kRows || split <= 0 || split % tc::kKeys != 0 ||
-      (long long)n_splits * split < (long long)max_blocks * block_size)
+      (long long)n_splits * split < (long long)max_blocks * block_size ||
+      (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)))
     return -3;
-  tc::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
-             static_cast<const __nv_bfloat16*>(v_pages), static_cast<const int*>(table),
-             static_cast<const int*>(lens), static_cast<const int*>(q_lens),
-             static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
-             static_cast<int*>(work), B, W, H, KH, block_size,
+  tc::Args a{static_cast<const __nv_bfloat16*>(q), k_pages, v_pages,
+             static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+             static_cast<const int*>(table), static_cast<const int*>(lens),
+             static_cast<const int*>(q_lens), static_cast<__nv_bfloat16*>(out),
+             static_cast<float*>(part), static_cast<int*>(work), B, W, H, KH, block_size,
              max_blocks, window, rows_per_cta, split, n_splits, scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return tc::launch<32>(a, s);
-    case 64: return tc::launch<64>(a, s);
-    case 128: return tc::launch<128>(a, s);
+  if (kv_dtype == 1) {
+    switch (D) {
+      case 32: return tc::launch<32, __nv_bfloat16>(a, s);
+      case 64: return tc::launch<64, __nv_bfloat16>(a, s);
+      case 128: return tc::launch<128, __nv_bfloat16>(a, s);
+    }
+    return -2;
   }
-  return -2;
+  if (kv_dtype == 2) {
+    switch (D) {
+      case 32: return tc::launch<32, int8_t>(a, s);
+      case 64: return tc::launch<64, int8_t>(a, s);
+      case 128: return tc::launch<128, int8_t>(a, s);
+    }
+    return -2;
+  }
+  return -1;
 }

@@ -17,7 +17,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "paged_attention_forward": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P],
-    "paged_attention_forward_mma": [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P],
+    "paged_attention_forward_mma": [_P] * 11 + [_I] * 12 + [ctypes.c_float, _P],
 }
 
 _lib = None

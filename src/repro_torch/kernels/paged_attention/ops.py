@@ -4,13 +4,15 @@
 ``q`` stays (B, W, H, D) with the JAX package's GQA map, q head
 ``h = kh * G + g`` reading kv head ``kh``; the kernels index that layout
 directly, so no transpose is paid.  The (q, page) dtypes alone pick the C
-entry (``ENTRIES``): bf16 q with bf16 pages, the served plan's, runs on the
-tensor cores (``paged_attention_forward_mma``: a work list of live row
-blocks and key splits, a persistent grid, a combine pass); every other
-pair on CUDA cores (``paged_attention_forward``: f32's 2e-5 tolerance rules
-out TF32, and int8 pages on the tensor cores are a later step).  CPU
-tensors go to the plain version in ``ref.py``; CUDA tensors launch the
-kernel their dtypes select or raise: there is no fallback.
+entry (``ENTRIES``): bf16 q with bf16 pages (qwen3-1.7b's plan) or int8
+pages (qwen3-moe-30b-a3b's, widened to bf16 in shared memory, the scales
+on S and P) runs on the tensor cores (``paged_attention_forward_mma``: a
+work list of live row blocks and key splits, a persistent grid, a combine
+pass); f32 q with any pages, and bf16 q with f32 pages, on CUDA cores
+(``paged_attention_forward``: f32's 2e-5 tolerance rules out rounding them
+to bf16 or TF32).  CPU tensors
+go to the plain version in ``ref.py``; CUDA tensors launch the kernel
+their dtypes select or raise: there is no fallback.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ _ROWS_MAX = 64  # query rows (G heads x slab rows) one CTA holds
 # The C entry point (csrc/paged_attention.cu) each (q dtype, page dtype) launches.
 ENTRIES = {(q, kv): "paged_attention_forward" for q in _Q_CODES for kv in _KV_CODES}
 ENTRIES[torch.bfloat16, torch.bfloat16] = "paged_attention_forward_mma"
+ENTRIES[torch.bfloat16, torch.int8] = "paged_attention_forward_mma"
 SPLIT = 512  # keys a decode split of the tensor-core kernel (a multiple of 64)
 DEC_ROWS = 16  # rows of a decode item: G x q_len at most this
 
@@ -77,8 +80,9 @@ def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
            rows_per_cta: int, stream, split: int = SPLIT) -> torch.Tensor:
     """Check the operands, allocate the output (and the tensor-core entry's
     work list and split partials) and call ``lib``'s entry point for the
-    (q, page) dtypes (``ENTRIES``) on ``stream``; raises on what the kernels
-    do not take or a failed launch."""
+    (q, page) dtypes (``ENTRIES``) on ``stream``, with int8 pages' scale
+    pointers (null otherwise); raises on what the kernels do not take or a
+    failed launch."""
     k, v = entry["k"], entry["v"]
     ks, vs = entry.get("k_scale"), entry.get("v_scale")
     B, W, H, D = q.shape
@@ -112,6 +116,7 @@ def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
     out = torch.empty_like(q)
     entry_name = ENTRIES[q.dtype, k.dtype]
     scale = 1.0 / math.sqrt(D)
+    scales = (ks.data_ptr(), vs.data_ptr()) if quant else (None, None)
     if entry_name == "paged_attention_forward_mma":
         _require(split > 0 and split % 64 == 0, f"split {split} (a multiple of 64)")
         n_splits = -(-MB * bs // split)
@@ -120,17 +125,16 @@ def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
         work = torch.empty(2 + 2 * B * max(-(-W // rows), n_splits), dtype=torch.int32,
                            device=q.device)
         rc = getattr(lib, entry_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), lens.data_ptr(),
-            q_lens.data_ptr(), out.data_ptr(), o_part.data_ptr(), work.data_ptr(),
-            B, W, H, KH, D, bs, MB, int(window), rows, split, n_splits, scale, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, table.data_ptr(),
+            lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+            work.data_ptr(), B, W, H, KH, D, bs, MB, int(window), rows, split, n_splits,
+            _KV_CODES[k.dtype], scale, stream,
         )
     else:
         rc = getattr(lib, entry_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
-            table.data_ptr(), lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-            B, W, H, KH, D, bs, MB, int(window), rows, scale,
-            _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, table.data_ptr(),
+            lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), B, W, H, KH, D, bs, MB,
+            int(window), rows, scale, _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed ({entry_name}, code {rc})")

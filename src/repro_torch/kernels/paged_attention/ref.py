@@ -5,9 +5,10 @@ Same contract as the CUDA kernel (pool entry + block table + per-slot
 lens/q_lens), but it does what the kernel exists to avoid: materializes the
 dense gather and runs an exact masked softmax over it.  ``ops`` calls it for
 CPU tensors; ``chip_smoke.py`` holds the kernel against it on the card.
-``paged_attention_split_ref`` emulates the bf16 tensor-core kernel's
-arithmetic (splits over keys, f32 partials, P as bf16 hi + lo) for the
-tests and the planted controls.
+``paged_attention_split_ref`` emulates the tensor-core kernel's arithmetic
+for bf16 q with bf16 or int8 pages (splits over keys, f32 partials, P as
+bf16 hi + lo, int8 scales on S and P) for the tests and the planted
+controls.
 """
 from __future__ import annotations
 
@@ -89,18 +90,23 @@ DEC_ROWS = 16  # rows of a decode item: one mma row block
 WARPS = 4
 
 
-def _partial(qr, kr, vr, pos, chunks, window, scale2, p_split):
+def _partial(qr, kr, vr, pos, chunks, window, scale2, p_split, ksc=None, vsc=None):
     """The online softmax of one warp (or CTA row block) over ``chunks``
     (key position tensors, in order): qr (KH, R, D), kr/vr (KH, S, D) f32,
     pos (R,) absolute row positions.  Scores in log2 units, masked ones
     -inf, l from the f32 p, P V with P as bf16 hi + lo (or rounded once).
+    int8 pages: kr/vr hold the integer values and ksc/vsc (KH, S) their
+    scales: S = (q . k) k_scale, and P' = P v_scale is what P V splits.
     Returns (m, l, acc): (KH, R), (KH, R), (KH, R, D)."""
     KH, R, D = qr.shape
     m = torch.full((KH, R), -math.inf, device=qr.device)
     l = torch.zeros((KH, R), device=qr.device)
     acc = torch.zeros((KH, R, D), device=qr.device)
     for idx in chunks:
-        s = torch.einsum("hrd,hkd->hrk", qr, kr[:, idx]) * scale2
+        s = torch.einsum("hrd,hkd->hrk", qr, kr[:, idx])
+        if ksc is not None:
+            s = s * ksc[:, None, idx]
+        s = s * scale2
         ok = idx[None] <= pos[:, None]
         if window > 0:
             ok &= (pos[:, None] - idx[None]) < window
@@ -110,6 +116,8 @@ def _partial(qr, kr, vr, pos, chunks, window, scale2, p_split):
         p = torch.exp2(s - base[..., None])
         corr = torch.exp2(m - base)
         l = l * corr + p.sum(dim=-1)
+        if vsc is not None:
+            p = p * vsc[:, None, idx]
         hi = p.to(torch.bfloat16).float()
         pv = hi @ vr[:, idx]
         if p_split:
@@ -141,21 +149,28 @@ def paged_attention_split_ref(
     p_split: bool = True,
     drop_split: Optional[int] = None,
 ) -> torch.Tensor:
-    """The bf16 tensor-core kernel's arithmetic in plain PyTorch (CPU, same
-    contract as ``paged_attention_ref``).  A slot whose G * q_len rows fit
-    one 16-row block is a decode slot: its keys are cut at absolute
-    multiples of ``split``; in each split the four warps take a quarter of
-    every 64-key tile each (own online softmax), merged in warp order, and
-    the splits' f32 partials are merged in split order.  Other slots run one
-    online softmax a row over 64-key tiles.  ``p_split=False`` rounds P once
-    to bf16; ``drop_split`` leaves that split index out of every merge
-    (both planted controls).  Returns q's dtype; dead rows are 0."""
+    """The bf16-q tensor-core kernel's arithmetic in plain PyTorch (CPU,
+    same contract as ``paged_attention_ref``), for bf16 or int8 pages.  A
+    slot whose G * q_len rows fit one 16-row block is a decode slot: its
+    keys are cut at absolute multiples of ``split``; in each split the four
+    warps take a quarter of every 64-key tile each (own online softmax),
+    merged in warp order, and the splits' f32 partials are merged in split
+    order.  Other slots run one online softmax a row over 64-key tiles.
+    int8 pages enter the products as their integer values (exact in bf16),
+    with k_scale on S's columns and v_scale on P before its split.
+    ``p_split=False`` rounds P (P') once to bf16; ``drop_split`` leaves that
+    split index out of every merge (both planted controls).  Returns q's
+    dtype; dead rows are 0."""
     B, W, H, D = q.shape
     KH = entry["k"].shape[2]
     G = H // KH
     MB = table.shape[1]
     scale2 = 1.0 / math.sqrt(D) * math.log2(math.e)
-    k, v = paged_gather(entry, table, block_size, MB)  # (B, MB*bs, KH, D)
+    k, v = paged_gather({"k": entry["k"], "v": entry["v"]}, table, block_size, MB)
+    quant = "k_scale" in entry
+    if quant:  # (B, MB*bs, KH, 1) scales beside the integer pages
+        ks, vs = paged_gather({"k": entry["k_scale"], "v": entry["v_scale"]}, table,
+                              block_size, MB)
     dev = q.device
     out = torch.zeros((B, W, H, D), dtype=torch.float32, device=dev)
     lens, q_lens = lens.tolist(), q_lens.tolist()
@@ -169,6 +184,7 @@ def paged_attention_split_ref(
         pos = base + torch.arange(nq * G, device=dev) // G
         kr = k[b].float().permute(1, 0, 2)  # (KH, S, D)
         vr = v[b].float().permute(1, 0, 2)
+        sc = (ks[b, :, :, 0].T, vs[b, :, :, 0].T) if quant else (None, None)  # (KH, S)
         if G * nq <= DEC_ROWS:
             parts = []
             for s in range(lo // split, hi // split + 1):
@@ -178,7 +194,8 @@ def paged_attention_split_ref(
                 for w in range(WARPS):  # warp w: keys 16 w .. 16 w + 15 of every tile
                     spans = [(max(k_lo, t + 16 * w), min(k_hi + 1, t + 16 * w + 16)) for t in tiles]
                     chunks = [torch.arange(a, e, device=dev) for a, e in spans if e > a]
-                    warps.append(_partial(qr, kr, vr, pos, chunks, window, scale2, p_split))
+                    warps.append(_partial(qr, kr, vr, pos, chunks, window, scale2, p_split,
+                                          *sc))
                 if s != drop_split:
                     parts.append(_merge(warps))
             if not parts:
@@ -187,7 +204,7 @@ def paged_attention_split_ref(
         else:
             chunks = [torch.arange(t, min(hi + 1, t + TILE), device=dev)
                       for t in range(lo // TILE * TILE, hi + 1, TILE)]
-            _, lt, at = _partial(qr, kr, vr, pos, chunks, window, scale2, p_split)
+            _, lt, at = _partial(qr, kr, vr, pos, chunks, window, scale2, p_split, *sc)
         o = at / torch.clamp(lt, min=1e-30)[..., None]  # (KH, nq*G, D)
         out[b, :nq] = o.reshape(KH, nq, G, D).permute(1, 0, 2, 3).reshape(nq, H, D)
     return out.to(q.dtype)

@@ -20,9 +20,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 4 + [_L, _I, _I, _L, _L, ctypes.c_float] + [_I] * 6 + [_P]
 BACKWARD_SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm_bwd.cu"
-# x, scale, residual, dy, dx, rstd scratch, partial scratch, dscale; outer,
-# inner, d, outer stride, inner stride; eps; vec, dtype, row chunks; stream
-BACKWARD_ARGTYPES = [_P] * 8 + [_L, _I, _I, _L, _L, ctypes.c_float] + [_I] * 3 + [_P]
+# x, scale, residual, dy, dx, partial scratch, dscale; outer, inner, d,
+# outer stride, inner stride; eps; vec, dtype, group, nv, rows a group,
+# grid; stream
+BACKWARD_ARGTYPES = [_P] * 7 + [_L, _I, _I, _L, _L, ctypes.c_float] + [_I] * 6 + [_P]
 
 _lib = None
 _bwd_lib = None

@@ -13,10 +13,12 @@ fallback.
 
 Training: when autograd would record the call, a CUDA call goes through
 ``RMSNorm``, a ``torch.autograd.Function`` whose backward launches
-``rmsnorm_backward`` (``csrc/rmsnorm_bwd.cu``): dx (and d(residual), the
-same tensor) contiguous in x's dtype, read from the same strided layouts
-the forward takes, and d(scale) in f32 by a deterministic two-stage sum
-over the rows.
+``rmsnorm_backward`` (``csrc/rmsnorm_bwd.cu``): one pass over the rows,
+which reads x (in the same strided layouts the forward takes) and dy once
+and writes dx (and d(residual), the same tensor) contiguous in x's dtype,
+on ``backward_launch_plan``'s schedule; d(scale) in f32 from per-lane
+column sums, one partial row a CTA summed in a fixed order (no atomics:
+every rerun gives the same bits).
 """
 from __future__ import annotations
 
@@ -196,24 +198,52 @@ def launch(lib, x, scale, residual=None, *, eps: float, stream, plan=None) -> to
     return out
 
 
-BWD_COL_TILE = 32  # columns a d(scale) CTA sums (csrc/rmsnorm_bwd.cu kCols)
-BWD_CTAS = 8 * N_SMS  # d(scale) CTAs to aim for
+BWD_MAX_NV = 8  # 16-byte vectors a lane holds of a row in the backward (x and dy)
+CTA_ROW = 32 * WARPS  # lanes of a group that is the whole CTA
 
 
-def backward_chunks(rows: int, d: int) -> int:
-    """Row chunks of the d(scale) partial sums: enough CTAs (column tiles
-    x chunks) to cover the card about ``BWD_CTAS`` times over, each chunk at
-    least 128 rows."""
-    col_tiles = -(-d // BWD_COL_TILE)
-    return max(1, min(-(-rows // 128), -(-BWD_CTAS // col_tiles)))
+def backward_resident_ctas(nv: int, rows: int) -> int:
+    """CTAs an SM holds, as the backward kernel's ``__launch_bounds__``
+    promise them: 1 when a lane holds 8 vectors of x (and 8 of dy) or more,
+    else 2."""
+    return 1 if nv * rows >= 8 else 2
 
 
-def launch_backward(lib, x, scale, dy, residual=None, *, eps: float, stream):
+def backward_launch_plan(rows: int, d: int, elem_size: int, vec: bool) -> tuple:
+    """``(group, nv, rows_a_group, grid)`` of the backward kernel for
+    ``rows`` rows of ``d`` elements of ``elem_size`` bytes.  16-byte rows
+    (``vec``): ``group`` lanes take a row, the fewest of 8, 16, 32 and the
+    whole CTA (``CTA_ROW``) for which ``nv``, the 16-byte vectors a lane
+    holds of the row's x and dy, is at most 1 below 32 lanes and
+    ``BWD_MAX_NV`` otherwise (a power of two); ``rows_a_group`` rows at once
+    (``IN_FLIGHT / nv``, at least 1; 1 for CTA rows); ``grid`` one wave of
+    resident CTAs at most, striding over the rows, so each lane's column
+    sums of d(scale) cover many rows.  Other rows, and rows wider than
+    ``CTA_ROW x BWD_MAX_NV`` vectors: a CTA a row (``group`` ``CTA_ROW``,
+    ``nv`` 0), the same wave."""
+    nvec = d * elem_size // 16
+    if vec and nvec <= CTA_ROW * BWD_MAX_NV:
+        group = next(g for g in (8, 16, 32, CTA_ROW)
+                     if nvec <= g * (1 if g < 32 else BWD_MAX_NV))
+        nv = 1
+        while nv * group < nvec:
+            nv *= 2
+        r = 1 if group == CTA_ROW else max(1, IN_FLIGHT // nv)
+    else:
+        group, nv, r = CTA_ROW, 0, 1
+    per_cta = CTA_ROW // group * r
+    grid = min(-(-rows // per_cta), N_SMS * backward_resident_ctas(nv, r))
+    return group, nv, r, grid
+
+
+def launch_backward(lib, x, scale, dy, residual=None, *, eps: float, stream, plan=None):
     """Check the operands, allocate dx (x's shape, contiguous, x's dtype),
-    d(scale) (f32) and the f32 scratch (a row's rsqrt, the row chunks'
-    partial sums), and call ``lib``'s ``rmsnorm_backward`` on ``stream``;
-    x is read in its strided layout (``row_layout``), dy and residual
-    contiguous.  Raises on what the kernel does not take or a failed
+    d(scale) (f32) and the f32 scratch (a partial row of d(scale) a CTA),
+    and call ``lib``'s ``rmsnorm_backward`` on ``stream`` with
+    ``backward_launch_plan``'s schedule (or ``plan``, a ``(group, nv,
+    rows_a_group, grid)`` of one's own); x is read in its strided layout
+    (``row_layout``), dy and residual contiguous (dy arrives so from
+    autograd).  Raises on what the kernel does not take or a failed
     launch."""
     _require(x.dtype in _CODES, f"dtype {x.dtype} (f32 or bf16)")
     d = x.shape[-1] if x.dim() else 0
@@ -226,9 +256,9 @@ def launch_backward(lib, x, scale, dy, residual=None, *, eps: float, stream):
                  "residual must match x's shape and dtype")
         residual = residual.contiguous()
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    dscale = torch.zeros((d,), dtype=torch.float32, device=x.device)
     if dx.numel() == 0:
-        return dx, dscale
+        return dx, torch.zeros((d,), dtype=torch.float32, device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)  # the kernel writes it all
     layout = row_layout(x)
     if layout is None:
         x = x.contiguous()
@@ -237,15 +267,16 @@ def launch_backward(lib, x, scale, dy, residual=None, *, eps: float, stream):
     rows = outer * inner
     es = x.element_size()
     vec = (d * es) % 16 == 0 and all(p % 16 == 0 for p in (
-        x.data_ptr(), dy.data_ptr(), so * es, si * es,
+        x.data_ptr(), dy.data_ptr(), scale.data_ptr(), so * es, si * es,
         residual.data_ptr() if residual is not None else 0))
-    chunks = backward_chunks(rows, d)
-    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
+    group, nv, r, grid = plan or backward_launch_plan(rows, d, es, vec)
+    vec = vec and nv > 0  # nv 0: the scalar route (rows too wide for the registers)
+    partial = torch.empty((grid, d), dtype=torch.float32, device=x.device)
     rc = lib.rmsnorm_backward(
         x.data_ptr(), scale.data_ptr(), residual.data_ptr() if residual is not None else None,
-        dy.data_ptr(), dx.data_ptr(), rstd.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-        outer, inner, d, so, si, float(eps), int(vec), _CODES[x.dtype], chunks, stream,
+        dy.data_ptr(), dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+        outer, inner, d, so, si, float(eps), int(vec), _CODES[x.dtype], group, nv, r, grid,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed (code {rc})")

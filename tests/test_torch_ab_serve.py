@@ -20,7 +20,19 @@ def test_port_kernels_name_every_global_function():
     assert len(PORT) == n_global
     assert {"wkv_mma_kernel", "wkv_kernel", "paged_mma_kernel", "flash_attention_mma_kernel",
             "mm_pu_splitk_reduce", "rmsnorm_vec_kernel", "dkdv_kernel", "dq_kernel",
-            "dx_kernel", "dscale_partial_kernel"} <= PORT
+            "bwd_vec_kernel", "dscale_sum_kernel"} <= PORT
+
+
+def test_port_kernels_of_some_sources():
+    """Given sources, only their ``__global__`` functions: the RMSNorm
+    backward's, which ``chip_smoke.py`` phase 31 sums in its profile."""
+    bwd = ROOT / "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu"
+    names = ab_serve.port_kernels(str(ROOT), [bwd])
+    assert names == {"bwd_vec_kernel", "bwd_scalar_kernel", "dscale_sum_kernel"} and names <= PORT
+    assert ab_serve.is_port(
+        "void (anonymous namespace)::bwd_vec_kernel<__nv_bfloat16, 32, 8, 1>(__nv_bfloat16", names)
+    assert not ab_serve.is_port(
+        "void (anonymous namespace)::rmsnorm_vec_kernel<__nv_bfloat16, 16, 1, 4>(__nv_bfl", names)
 
 
 @pytest.mark.parametrize("name, cls", [
@@ -28,6 +40,7 @@ def test_port_kernels_name_every_global_function():
     ("void (anonymous namespace)::rmsnorm_vec_kernel<__nv_bfloat16, 16, 1, 4>(__nv_bfl", "port"),
     ("void (anonymous namespace)::tc::paged_mma_kernel<128>((anonymous namespace)::tc:", "port"),
     ("void (anonymous namespace)::tc::flash_attention_mma_kernel<128>(__nv_bfloat16 co", "port"),
+    ("(anonymous namespace)::dscale_sum_kernel(float const*, float*, int, int)", "port"),
     ("void (anonymous namespace)::elementwise_kernel_with_index<int, at::native::arang",
      "elementwise"),
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy_vectorized<at::nativ", "copy"),

@@ -10,7 +10,9 @@ dead rows are exactly 0.  The bf16 tensor-core kernel's arithmetic (key
 splits with f32 partials merged in order, P as bf16 hi + lo), emulated by
 ``ref.paged_attention_split_ref``, is held at one bf16 step to the Pallas
 kernel and the JAX oracle on the same bf16 values, and its two planted
-controls (P rounded once, a split left out) fail that step.  The CUDA
+controls (P rounded once, a split left out) fail that step; with int8
+pages (scales on S and on P before its split) the same holds on the JAX
+test's int8 cases and G 8 decode and verify rows.  The CUDA
 kernels themselves run only on the card (``chip_smoke.py``); here the
 wrapper's routing by dtype runs against a counting stand-in library, and a
 non-CPU tensor must raise, never fall back."""
@@ -228,6 +230,67 @@ def test_split_size_changes_only_rounding():
         assert _outside(got.float().numpy(), want) == 0.0, split
 
 
+# bf16 q with int8 pages on the tensor cores (``paged_attention_split_ref``
+# with the pages' scales): the JAX test's two int8 cases, a G 8 decode case
+# whose contexts cross several 64-key splits, and G 8 verify rows (q_len
+# 2-5: 16-40 rows, so row blocks as well as decode items).
+# (B, W, H, KH, D, bs, MB, kv_dtype, window, pages_per_tile)
+INT8_SPLIT_CASES = [c for c in CASES if c[7] == "int8"] + [
+    (4, 1, 16, 2, 64, 16, 128, "int8", 0, 8),  # G 8 decode, contexts 333-1500
+]
+INT8_VERIFY = (5, 6, 8, 1, 32, 16, 40, "int8", [2, 3, 4, 5, 5], [127, 62, 300, 520, 40])
+
+
+def _int8_inputs(case, seed=0):
+    """bf16 q and int8 pages (torch), the same values for JAX (q as f32),
+    and the JAX call's case; long decode contexts for the G 8 case."""
+    if case == INT8_VERIFY:
+        q, entry, table, lens, q_lens = make_verify_case(case)
+        jcase = case[:8] + (0, 8)
+    else:
+        B, W, H, KH, D, bs, MB, kv, window, ppt = case
+        q, entry, table, lens, q_lens = make_case(B, W, H, KH, D, bs, MB, kv, seed=seed)
+        if MB * bs >= 1024:
+            lens = np.array([900, 700, 1500, 333][:B], np.int32)
+            q_lens = np.ones(B, np.int32)
+            table[:] = 1 + np.arange(B)[:, None] * MB + np.arange(MB)[None]
+        jcase = case
+    tq = torch.from_numpy(q).bfloat16()
+    te = {k: torch.from_numpy(x) for k, x in entry.items()}
+    tin = (tq, te, torch.from_numpy(table), torch.from_numpy(lens), torch.from_numpy(q_lens))
+    return tin, (tq.float().numpy(), entry, table, lens, q_lens), jcase
+
+
+@pytest.mark.parametrize("case", INT8_SPLIT_CASES + [INT8_VERIFY],
+                         ids=["jax-int8", "jax-int8-swa", "G8-decode", "G8-verify"])
+def test_int8_split_scheme_matches_jax(case):
+    """int8 pages through the tensor-core scheme (their integer values as
+    bf16, exact; S = (q . k) k_scale; P' = P v_scale split into bf16 hi +
+    lo; l from the unscaled p), 64-key splits, within one bf16 step of the
+    Pallas kernel (interpret mode, in-kernel dequantization in f32) and the
+    JAX oracle on the same values.  Dead rows exactly 0."""
+    tin, jin, jcase = _int8_inputs(case)
+    got = paged_attention_split_ref(*tin, block_size=jcase[5], window=jcase[8], split=64)
+    assert got.dtype == torch.bfloat16 and got.shape == tin[0].shape
+    for name, want in _jax_wants(jcase, jin).items():
+        assert _outside(got.float().numpy(), want) == 0.0, name
+    dead = np.arange(jcase[1])[None] >= jin[4][:, None]
+    assert not got.float().numpy()[dead].any()
+
+
+@pytest.mark.parametrize("control", ["P' rounded once", "split dropped"])
+def test_int8_split_controls_break_the_tolerance(control):
+    """On the long G 8 int8 case: P' = P v_scale rounded once to bf16 (no
+    hi + lo) and a slot's second 512-key split left out each put elements
+    outside one bf16 step of the JAX oracle, so the kernel keeps the
+    split."""
+    case = INT8_SPLIT_CASES[2]
+    tin, jin, jcase = _int8_inputs(case)
+    kw = {"p_split": False} if control == "P' rounded once" else {"drop_split": 1}
+    bad = paged_attention_split_ref(*tin, block_size=case[5], split=512, **kw)
+    assert _outside(bad.float().numpy(), _jax_wants(jcase, jin)["jax oracle"]) > 0.0
+
+
 class _Library:
     """Stands in for the kernel library: every C entry point counts its
     calls, keeps its arguments and returns ``rc``."""
@@ -245,15 +308,18 @@ class _Library:
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,entry", [
     (torch.bfloat16, "bfloat16", "paged_attention_forward_mma"),
-    (torch.bfloat16, "int8", "paged_attention_forward"),
+    (torch.bfloat16, "int8", "paged_attention_forward_mma"),
+    (torch.float32, "int8", "paged_attention_forward"),
     (torch.float32, "bfloat16", "paged_attention_forward"),
     (torch.float32, "float32", "paged_attention_forward"),
 ])
 def test_dtypes_select_the_kernel(q_dtype, kv_dtype, entry):
-    """bf16 q with bf16 pages launches the tensor-core entry, every other
-    pair the CUDA-core one, once; the tensor-core entry gets a work list
-    and split partials sized from the table width (2 splits of 512 keys
-    for 64 blocks of 16); a failed launch raises with the entry's name."""
+    """bf16 q with bf16 or int8 pages launches the tensor-core entry (with
+    the int8 pages' scale pointers and page-dtype code), every other pair
+    the CUDA-core one (f32 q with int8 pages too: f32's 2e-5 rules out q
+    in bf16), once; the tensor-core entry gets a work list and split
+    partials sized from the table width (2 splits of 512 keys for 64
+    blocks of 16); a failed launch raises with the entry's name."""
     q, e, table, lens, q_lens = _torch_in(*make_case(2, 4, 4, 2, 32, 16, 64, kv_dtype),
                                           kv_dtype)
     q = q.to(q_dtype)
@@ -262,9 +328,16 @@ def test_dtypes_select_the_kernel(q_dtype, kv_dtype, entry):
                      stream=None)
     assert lib.calls == Counter({entry: 1}) and ops.ENTRIES[q_dtype, e["k"].dtype] == entry
     assert out.shape == q.shape and out.dtype == q_dtype
+    args = lib.args[entry]
     if entry == "paged_attention_forward_mma":
-        *_, rows, split, n_splits, _, _ = lib.args[entry]
+        *_, rows, split, n_splits, kv_code, _, _ = args
         assert (rows, split, n_splits) == (4, ops.SPLIT, 2)
+        assert kv_code == {"bfloat16": 1, "int8": 2}[kv_dtype]
+    scales = args[3:5]
+    if kv_dtype == "int8":
+        assert scales == (e["k_scale"].data_ptr(), e["v_scale"].data_ptr())
+    else:
+        assert scales == (None, None)
     with pytest.raises(RuntimeError, match=entry):
         ops.launch(_Library(rc=1), q, e, table, lens, q_lens, block_size=16, window=0,
                    rows_per_cta=0, stream=None)

@@ -14,7 +14,9 @@ against ``jax.grad`` of ``repro.models.layers.rmsnorm`` on strided q/k
 views of a fused projection and with a residual (f32: 1e-5 relative to
 each gradient's scale), the planted ``1 + scale`` -> ``scale`` fault
 failing it, the ``RMSNorm`` autograd Function with the plain versions
-standing in for its kernels, and the backward launcher's arguments."""
+standing in for its kernels, the backward launcher's arguments, its
+launch plan (whole groups, each column one lane's, every row once) and
+d(scale) summed in the kernel's fixed order against ``jax.grad``."""
 from collections import Counter
 
 import jax
@@ -31,7 +33,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mm_pu import ops as mm_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.rmsnorm import ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_backward_ref, rmsnorm_backward_split_ref,
+                                             rmsnorm_ref)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.models import layers
 from repro_torch.models import transformer
@@ -437,18 +440,124 @@ def test_launch_backward_passes_the_layout(dtype):
     assert dscale.shape == (D,) and dscale.dtype == torch.float32
     args = lib.args
     assert args[0] == k.data_ptr()
-    assert args[8:13] == (B * S, KH, D, (H + 2 * KH) * D, D)
-    assert args[15] == (0 if dtype == torch.float32 else 1)
-    assert args[16] == ops.backward_chunks(B * S * KH, D)
+    assert args[7:12] == (B * S, KH, D, (H + 2 * KH) * D, D)
+    assert args[14] == (0 if dtype == torch.float32 else 1)
+    assert args[15:19] == ops.backward_launch_plan(B * S * KH, D, k.element_size(), True)
     with pytest.raises(RuntimeError, match="backward kernel launch failed"):
         ops.launch_backward(_BackwardLibrary(rc=1), k, scale, dy, eps=1e-6, stream=None)
 
 
-@pytest.mark.parametrize("rows,d", [(1, 64), (262144, 128), (16384, 2048), (100, 12288)])
-def test_backward_chunks(rows, d):
-    """Every chunk holds at least 128 rows (or all of them), and the CTAs
-    (column tiles x chunks) fill the card about 8 times over."""
-    c = ops.backward_chunks(rows, d)
-    assert 1 <= c <= 65535
-    assert c == 1 or rows / c >= 128
-    assert c * -(-d // ops.BWD_COL_TILE) <= 2 * ops.BWD_CTAS
+@pytest.mark.parametrize("d,dtype,vec", [(12288, torch.float32, False), (4096, torch.float32, True),
+                                         (33, torch.float32, False)])
+def test_launch_backward_routes_wide_and_unaligned_rows(d, dtype, vec):
+    """Rows wider than the CTA's registers hold (f32 d 12288: 3072 vectors)
+    and unaligned rows (d 33 f32) reach the kernel as the scalar route (vec
+    0, nv 0, a CTA a row); f32 d 4096 takes the CTA's vector route."""
+    x = torch.zeros((5, d), dtype=dtype)
+    lib = _BackwardLibrary()
+    ops.launch_backward(lib, x, torch.zeros(d), torch.zeros_like(x), eps=1e-6, stream=None)
+    plan = ops.backward_launch_plan(5, d, 4, d * 4 % 16 == 0)
+    assert lib.args[15:19] == plan and bool(lib.args[13]) == vec == (plan[1] > 0)
+    assert plan[0] == ops.CTA_ROW
+
+
+def _backward_row_order(rows, plan):
+    """The rows each group of each CTA of the backward kernel takes under
+    ``plan``, in order (``order[cta][group]``), as csrc/rmsnorm_bwd.cu's
+    loops take them: warp w of CTA c starts at row (c x WARPS + w) x groups
+    a warp x R (a CTA row at c x R), group g takes that + g + groups a warp
+    x k for k < R, and every pass adds the grid's rows."""
+    group, _, r, grid = plan
+    gpw = 1 if group == ops.CTA_ROW else 32 // group
+    gpc = 1 if group == ops.CTA_ROW else ops.WARPS * gpw
+    stride = grid * gpc * r
+    order = []
+    for c in range(grid):
+        groups = []
+        for me in range(gpc):
+            w, g = divmod(me, gpw)
+            base = c * r if group == ops.CTA_ROW else (c * ops.WARPS + w) * gpw * r
+            seq = (b + g + gpw * k for b in range(base, rows, stride) for k in range(r))
+            groups.append([row for row in seq if row < rows])
+        order.append(groups)
+    return order
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 576, 2048, 4096, 12288])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_launch_plan_covers_every_row_once(d, dtype):
+    """At every model width (d_head 32-128 for qk-norm) and odd row counts,
+    the backward's plan takes whole groups (8, 16, 32 lanes or the CTA),
+    the fewest lanes whose registers hold the row (one vector a lane below
+    32 lanes, at most ``BWD_MAX_NV``), so every column is one lane's, once;
+    the grid is one wave of resident CTAs at most; the kernel's loops visit
+    every row exactly once; rows wider than the CTA's registers (f32 d
+    12288) take the CTA-a-row scalar route."""
+    es = torch.finfo(dtype).bits // 8
+    nvec = d * es // 16
+    for rows in (1, 37, 4097):
+        group, nv, r, grid = plan = ops.backward_launch_plan(rows, d, es, True)
+        assert group in (8, 16, 32, ops.CTA_ROW) and grid >= 1 and r >= 1
+        per_cta = ops.CTA_ROW // group * r
+        assert grid == min(-(-rows // per_cta), ops.N_SMS * ops.backward_resident_ctas(nv, r))
+        if nv == 0:  # the scalar route
+            assert nvec > ops.CTA_ROW * ops.BWD_MAX_NV and (group, r) == (ops.CTA_ROW, 1)
+        else:
+            assert 1 <= nv <= (1 if group < 32 else ops.BWD_MAX_NV) and group * nv >= nvec
+            assert group == 8 or nvec > {16: 8, 32: 16, ops.CTA_ROW: 32 * ops.BWD_MAX_NV}[group]
+            vec = 16 // es  # columns of a vector; lane l holds vectors l + group x t
+            cols = np.concatenate([np.arange(j * vec, (j + 1) * vec) for lane in range(group)
+                                   for j in range(lane, nvec, group)[:nv]])
+            np.testing.assert_array_equal(np.sort(cols), np.arange(d))
+        order = _backward_row_order(rows, plan)
+        assert len(order) == grid
+        assert sorted(row for groups in order for g in groups for row in g) == list(range(rows))
+
+
+def test_backward_plan_at_the_training_shapes():
+    """qwen3-1.7b's training rows: the norm rows (16,384 x 2048 bf16) take a
+    warp a row, 8 vectors a lane (64 columns), one CTA an SM; the q view
+    (262,144 x 128 bf16) 16 lanes a row, one vector a lane (8 columns), 4
+    rows a group, two CTAs an SM."""
+    assert ops.backward_launch_plan(16384, 2048, 2, True) == (32, 8, 1, ops.N_SMS)
+    assert ops.backward_launch_plan(8 * 2048 * 16, 128, 2, True) == (16, 1, 4, 2 * ops.N_SMS)
+
+
+# (B, S, H, KH, D, part): the view's rows take groups of 8 and 16 lanes, a
+# warp (8 vectors a lane), the CTA (2 vectors a lane) and the scalar route
+SPLIT_SUM_CASES = {
+    "d 32 q view, 8 lanes": (2, 6, 4, 2, 32, 0),
+    "d 64 k view, 16 lanes": (2, 5, 4, 2, 64, 1),
+    "d 576, a warp": (1, 40, 1, 1, 576, 0),
+    "d 2048, the CTA": (1, 9, 1, 1, 2048, 0),
+    "d 33, scalar": (2, 7, 1, 1, 33, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_SUM_CASES))
+def test_backward_split_sum_matches_jax_grad(case):
+    """d(scale) summed in the backward kernel's fixed order (each lane's
+    columns over its rows, a CTA's groups in order, the partial rows by 8
+    lanes then in order; ``ref.rmsnorm_backward_split_ref``), f32, against
+    ``jax.grad`` of the JAX norm on the view, at the f32 tolerance (1e-5
+    of the gradient's scale), under the plan and under a 3-CTA grid that
+    makes the groups stride; dx too."""
+    B, S, H, KH, D, part = SPLIT_SUM_CASES[case]
+    rng = np.random.default_rng(20)
+    qkv = rng.standard_normal((B, S, (H + 2 * KH) * D)).astype(np.float32)
+    n = (H, KH)[part]
+    scale = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    w = rng.standard_normal((B, S, n, D)).astype(np.float32)
+    jg = _jax_grads(qkv, scale, w, H, KH, D, part)
+    x = _views(torch.from_numpy(qkv), H, KH, D)[part]
+    rows = B * S * n
+    vec = D * 4 % 16 == 0
+    plan = ops.backward_launch_plan(rows, D, 4, vec)
+    assert (plan[1] == 0) == (case == "d 33, scalar")
+    jdx = np.asarray(jg[0])[..., [0, H * D][part]:][..., :n * D].reshape(B, S, n, D)
+    for p in (plan, plan[:3] + (3,)):
+        dx, dscale = rmsnorm_backward_split_ref(
+            x, torch.from_numpy(scale), torch.from_numpy(w),
+            order=_backward_row_order(rows, p))
+        _close_scaled(dx, jdx)
+        _close_scaled(dscale, jg[1])
