@@ -11,6 +11,16 @@ transpose is paid.  The dtype of r/k/v alone picks the kernel
 go to the plain version (``repro_torch.models.rwkv6.wkv_chunked``); CUDA
 tensors launch the kernel their dtype selects or raise: there is no
 fallback.
+
+Training: when autograd would record the call (grad enabled, an input
+requiring grad), it goes through ``WKV``, a ``torch.autograd.Function``.
+On the card its forward launches the forward kernel and saves its inputs
+(nothing per chunk); its backward launches ``wkv_backward``
+(``csrc/wkv_bwd.cu``, CUDA cores, f32 or bf16 r/k/v), which recomputes the
+chunk-start states and returns dr, dk, dv, d(log w), du and d(state).  On
+the CPU the same Function runs the plain versions (``wkv_chunked``, then
+``ref.wkv_backward_ref``).  d(w) follows from d(log w) as JAX's
+``log(maximum(w, 1e-12))`` gives it (``dw_from_dlogw``).
 """
 from __future__ import annotations
 
@@ -18,11 +28,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import needs_grad
 from repro_torch.kernels.rwkv6 import kernel
+from repro_torch.kernels.rwkv6.ref import wkv_backward_ref
 
-# Kernel launches so far; a run resets it to show which path it took.
+# Kernel launches so far (forward; backward); a run resets them to show
+# which path it took.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 # The C entry point (csrc/wkv.cu) each r/k/v dtype launches, and the dtype
 # code both entries take.
@@ -54,14 +67,22 @@ def wkv(
 
     ``chunk`` is the tokens per step of the recurrence, in the kernels and
     in the plain version: it changes the schedule, not the function
-    (outputs agree to rounding across chunks)."""
+    (outputs agree to rounding across chunks).  Differentiable on every
+    device, through ``WKV``."""
+    if r.device.type != "cpu":
+        _require(r.is_cuda, f"r must be a CUDA or CPU tensor, got {r.device}")
+    if needs_grad(r, k, v, w, u, state):
+        return WKV.apply(r, k, v, w, u, state, chunk, return_state)
+    return _forward(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
+
+
+def _forward(r, k, v, w, u, *, chunk: int, state, return_state: bool):
+    """The plain version for CPU tensors, else one forward launch."""
     if r.device.type == "cpu":
         # the plain version lives with the model (it imports this module)
         from repro_torch.models.rwkv6 import wkv_chunked
 
         return wkv_chunked(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
-    _require(r.is_cuda, f"r must be a CUDA or CPU tensor, got {r.device}")
-    refuse_grad("wkv", "the WKV backward, ROADMAP queue 1, item 5", r, k, v, w, u, state)
     res = launch(kernel.library(), r, k, v, w, u, chunk=chunk, state=state,
                  return_state=return_state, stream=torch.cuda.current_stream(r.device).cuda_stream)
     global LAUNCHES
@@ -69,10 +90,54 @@ def wkv(
     return res
 
 
-def launch(lib, r, k, v, w, u, *, chunk: int, state, return_state: bool, stream):
-    """Check the operands, allocate the outputs and call ``lib``'s entry
-    point for r's dtype (``ENTRIES``) on ``stream``; raises on what the
-    kernels do not take or a failed launch."""
+def dw_from_dlogw(dlogw: torch.Tensor, w: torch.Tensor, *, clamp: bool = True) -> torch.Tensor:
+    """d(w) from the gradient of log(max(w, 1e-12)): d(log w) / w where w
+    > 1e-12, else 0 (there the clamp, not w, set the decay).  ``clamp=False``
+    divides everywhere: a planted control."""
+    dw = dlogw / w
+    return torch.where(w > 1e-12, dw, torch.zeros_like(dw)) if clamp else dw
+
+
+class WKV(torch.autograd.Function):
+    """The WKV recurrence as one differentiable op: the forward kernel (or
+    ``wkv_chunked`` on the CPU), then the backward kernel (or
+    ``wkv_backward_ref``).  Saves r, k, v, w, u and the state passed in;
+    the backward recomputes what it needs per chunk."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk: int, return_state: bool):
+        ctx.set_materialize_grads(False)
+        out, s_out = _forward(r, k, v, w, u, chunk=chunk, state=state, return_state=True)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.chunk = chunk
+        return (out, s_out) if return_state else out
+
+    @staticmethod
+    def backward(ctx, dout, dstate=None):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        if r.device.type == "cpu":
+            dr, dk, dv, dlogw, du, dstate_in = wkv_backward_ref(
+                r, k, v, w, u, dout, chunk=ctx.chunk, state=state, dstate=dstate)
+        else:
+            dr, dk, dv, dlogw, du, dstate_in = backward(r, k, v, w, u, dout, chunk=ctx.chunk,
+                                                        state=state, dstate=dstate)
+        return dr, dk, dv, dw_from_dlogw(dlogw, w), du, dstate_in, None, None
+
+
+def backward(r, k, v, w, u, dout, *, chunk: int, state=None, dstate=None):
+    """One backward launch on the card: (dr, dk, dv, d(log w), du,
+    d(state) or None)."""
+    res = launch_backward(kernel.backward_library(), r, k, v, w, u, dout, chunk=chunk,
+                          state=state, dstate=dstate,
+                          stream=torch.cuda.current_stream(r.device).cuda_stream)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return res
+
+
+def _check(r, k, v, w, u, chunk: int, state) -> tuple:
     _require(r.dim() == 4, f"r must be (B, S, H, D), got {tuple(r.shape)}")
     B, S, H, D = r.shape
     _require(r.dtype in ENTRIES and k.dtype == r.dtype and v.dtype == r.dtype,
@@ -90,6 +155,14 @@ def launch(lib, r, k, v, w, u, *, chunk: int, state, return_state: bool, stream)
     _require(all(t.device == r.device for t in tensors), "all tensors on one device")
     _require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, w)),
              "r/k/v/w must be 16-byte aligned (the kernels copy 16-byte vectors)")
+    return B, S, H, D
+
+
+def launch(lib, r, k, v, w, u, *, chunk: int, state, return_state: bool, stream):
+    """Check the operands, allocate the outputs and call ``lib``'s entry
+    point for r's dtype (``ENTRIES``) on ``stream``; raises on what the
+    kernels do not take or a failed launch."""
+    B, S, H, D = _check(r, k, v, w, u, chunk, state)
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
     s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device) if return_state else None
     entry = ENTRIES[r.dtype]
@@ -102,3 +175,38 @@ def launch(lib, r, k, v, w, u, *, chunk: int, state, return_state: bool, stream)
     if rc != 0:
         raise RuntimeError(f"wkv kernel launch failed ({entry}, code {rc})")
     return (out, s_out) if return_state else out
+
+
+def launch_backward(lib, r, k, v, w, u, dout, *, chunk: int, state, dstate, stream):
+    """Check the operands, allocate dr, dk, dv (r's dtype), d(log w) (f32,
+    the shape of w), du (H, D) f32, d(state) when ``state`` is given, and
+    the scratch (each chunk's start state, f32 (B, H, N, D, D), and du's
+    (B, H, D) partial sums), then call ``lib``'s ``wkv_backward`` on
+    ``stream``.  ``dout`` (f32, the forward output's shape) and ``dstate``
+    (f32 (B, H, D, D) or None) are made contiguous.  Raises on what the
+    kernel does not take or a failed launch."""
+    B, S, H, D = _check(r, k, v, w, u, chunk, state)
+    dout = dout.float().contiguous()
+    _require(dout.shape == r.shape and dout.device == r.device, "dout must be r's shape")
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+        _require(dstate.shape == (B, H, D, D) and dstate.device == r.device,
+                 "d(state out) must be (B, H, D, D)")
+    N = -(-S // chunk)
+    dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=r.device) for _ in range(3))
+    dlogw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    du = torch.empty((H, D), dtype=torch.float32, device=r.device)
+    dstate_in = (torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+                 if state is not None else None)
+    states = torch.empty((B, H, N, D, D), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.wkv_backward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ptr(state),
+        dout.data_ptr(), ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dlogw.data_ptr(), du.data_ptr(), ptr(dstate_in), states.data_ptr(), du_part.data_ptr(),
+        B, S, H, D, chunk, _IN_CODES[r.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wkv backward kernel launch failed (wkv_backward, code {rc})")
+    return dr, dk, dv, dlogw, du, dstate_in

@@ -7,7 +7,10 @@ model-layout plain version, which ``ops.wkv`` runs for CPU tensors, is
 tensor-core entry's arithmetic (``csrc/wkv.cu`` ``wkv_forward_mma``) for the
 tests and the planted controls: 16-token tiles factored at their edges,
 8-token diagonal halves in per-element form, log2-domain decays, and every
-tensor-core operand rounded to TF32 as hi + lo.
+tensor-core operand rounded to TF32 as hi + lo.  ``wkv_backward_ref`` is the
+backward kernel's (``csrc/wkv_bwd.cu``) chunked reverse pass in plain
+PyTorch: what ``ops.WKV`` runs on the CPU, and what the card's kernel is
+held to.
 """
 from __future__ import annotations
 
@@ -141,3 +144,124 @@ def wkv_split_ref(r, k, v, w, u, *, chunk: int = 32, state: Optional[torch.Tenso
     out = torch.stack(outs, dim=2).reshape(B, H, N * C, D).permute(0, 2, 1, 3)[:, :S]
     out = out.contiguous()
     return (out, S_state) if return_state else out
+
+
+def _chunks(x, B, N, C, H, D):
+    """(B, N * C, H, D) -> (B, H, N, C, D)."""
+    return x.reshape(B, N, C, H, D).permute(0, 3, 1, 2, 4)
+
+
+def wkv_backward_ref(r, k, v, w, u, dout, *, chunk: int = 32, state: Optional[torch.Tensor] = None,
+                     dstate: Optional[torch.Tensor] = None, carry: bool = True,
+                     state_out_term: bool = True, du_rows: Optional[int] = None):
+    """The gradients of ``wkv_chunked``'s function (``o`` and, with
+    ``dstate``, the final state) given ``dout`` (B, S, H, D) and ``dstate``
+    (B, H, D, D) or None.  Returns (dr, dk, dv in r's dtype, d(log w) f32
+    (the gradient of the clamped log, log(max(w, 1e-12))), du (H, D) f32,
+    d(state) (B, H, D, D) f32, None without ``state``).
+
+    Chunks of ``chunk`` tokens (a ragged last one padded with r = k = v = dO
+    = 0, log w = 0), L the inclusive cumsum of log w, Lq = L - log w.  A
+    forward pass keeps each chunk's start state S0; the reverse pass carries
+    G, the gradient of the state after the chunk (dstate, or 0, after the
+    last), and per chunk, with M = dO V^T and the decay ratios
+    E_ts = exp(Lq_t - L_s) (s < t, exponent <= 0):
+      dr_t = exp(Lq_t) S0 dO_t + sum_{s<t} M_ts E_ts k_s + u k_t M_tt
+      dk_s = exp(Lc - L_s) G v_s + sum_{t>s} M_ts E_ts r_t + u r_s M_ss
+      dv   = A^T dO + kfut^T G          (A: the forward's weights, bonus on
+                                         the diagonal; kfut = k exp(Lc - L))
+      du   = sum over b, t of r k M_tt
+      G   <- exp(Lc) G + (r exp(Lq))^T dO   (the transposed state update).
+    d(log w)_i = w_i sum_e G_i S_{i-1} (G_i the gradient of the state after
+    token i) is the sum of the terms r_t' k_s E ... M_t's of the pairs s < i
+    < t' (s before the chunk or the state in, t' after it or the state out
+    included), taken per chunk as four parts, each without cancellation
+    between large terms: exp(Lc) sum_e G S0 (pairs across the whole chunk);
+    the suffix over t' > i of r exp(Lq) S0 dO (s before the chunk); the
+    prefix over s < i of k exp(Lc - L) G v (t' after it); and the pairs
+    inside the chunk, as the suffix over t' > i of a_t' minus the suffix
+    over s >= i of b_s, where a and b leave out the adjacent pairs (t' = s +
+    1), which straddle no token: under strong decay those are the large
+    ones, and with them in, the two suffixes would cancel to a small
+    difference.
+
+    Controls (each gives a wrong gradient the tests must reject):
+    ``carry=False`` starts every chunk but the last from G = 0 (dS not
+    carried across chunks); ``state_out_term=False`` leaves dstate out of
+    d(log w) only; ``du_rows=n`` sums du over the first n batch rows."""
+    if not state_out_term and dstate is not None:
+        full = wkv_backward_ref(r, k, v, w, u, dout, chunk=chunk, state=state, dstate=dstate,
+                                carry=carry, du_rows=du_rows)
+        part = wkv_backward_ref(r, k, v, w, u, dout, chunk=chunk, state=state, carry=carry,
+                                du_rows=du_rows)
+        return full[:3] + (part[3],) + full[4:]
+    B, S, H, D = r.shape
+    C = chunk
+    N = -(-S // C)
+    pad = N * C - S
+    dtype = r.dtype
+    r, k, v, w, dout = (t.float() for t in (r, k, v, w, dout))
+    lw = torch.log(torch.clamp(w, min=1e-12))
+    if pad:
+        r, k, v, lw, dout = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                             for t in (r, k, v, lw, dout))
+    rr, kk, vv, lw, do = (_chunks(t, B, N, C, H, D) for t in (r, k, v, lw, dout))
+    uu = u.float()[None, :, None, :]  # (1, H, 1, D)
+    L = torch.cumsum(lw, dim=3)
+    Lq = L - lw
+    Lc = L[:, :, :, -1]  # (B, H, N, D)
+    dev = r.device
+    below = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
+    far = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -2)
+    adj = below & ~far
+    # the forward state pass: each chunk's start state
+    S0 = []
+    st = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) if state is None
+          else state.float())
+    for n in range(N):
+        S0.append(st)
+        kfut = kk[:, :, n] * torch.exp(Lc[:, :, n, None] - L[:, :, n])
+        st = torch.exp(Lc[:, :, n])[..., None] * st + torch.einsum("bhsk,bhse->bhke", kfut,
+                                                                   vv[:, :, n])
+    G = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) if dstate is None
+         else dstate.float())
+    grads = [torch.zeros_like(rr) for _ in range(4)]  # dr, dk, dv, dlogw
+    rows = slice(None) if du_rows is None else slice(0, du_rows)
+    du = torch.zeros(u.shape, dtype=torch.float32, device=dev)
+    suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, [2]), 2), [2])  # noqa: E731
+    for n in reversed(range(N)):
+        if not carry and n < N - 1:
+            G = torch.zeros_like(G)
+        ri, ki, vi, doi, Li, Lqi = (t[:, :, n] for t in (rr, kk, vv, do, L, Lq))
+        Lci = Lc[:, :, n]
+        M = torch.einsum("bhte,bhse->bhts", doi, vi)
+        E = torch.exp((Lqi[:, :, :, None] - Li[:, :, None, :]).masked_fill(
+            ~below[None, None, :, :, None], -torch.inf))  # (B, H, t, s, D)
+        Ef, Ea = E * far[None, None, :, :, None], E * adj[None, None, :, :, None]
+        r_far = torch.einsum("bhts,bhsd,bhtsd->bhtd", M, ki, Ef)
+        r_adj = torch.einsum("bhts,bhsd,bhtsd->bhtd", M, ki, Ea)
+        k_far = torch.einsum("bhts,bhtd,bhtsd->bhsd", M, ri, Ef)
+        k_adj = torch.einsum("bhts,bhtd,bhtsd->bhsd", M, ri, Ea)
+        r_cross = torch.exp(Lqi) * torch.einsum("bhke,bhte->bhtk", S0[n], doi)
+        decay_end = torch.exp(Lci[:, :, None] - Li)
+        k_cross = decay_end * torch.einsum("bhke,bhse->bhsk", G, vi)
+        Mtt = torch.diagonal(M, dim1=-2, dim2=-1)[..., None]
+        grads[0][:, :, n] = r_cross + r_far + r_adj + uu * ki * Mtt
+        grads[1][:, :, n] = k_cross + k_far + k_adj + uu * ri * Mtt
+        kfut = ki * decay_end
+        A = (torch.einsum("bhtd,bhsd,bhtsd->bhts", ri, ki, E)
+             + torch.diag_embed(torch.einsum("bhtd,bhtd->bht", ri * uu, ki)))
+        grads[2][:, :, n] = (torch.einsum("bhts,bhte->bhse", A, doi)
+                             + torch.einsum("bhsk,bhke->bhse", kfut, G))
+        du = du + (ri * ki * Mtt)[rows].sum(dim=(0, 2))
+        whole = torch.exp(Lci) * (G * S0[n]).sum(-1)  # (B, H, D)
+        a = ri * (r_cross + r_far)
+        b_cross, b_far = ki * k_cross, ki * k_far
+        grads[3][:, :, n] = (whole[:, :, None] + suffix(a) - a + torch.cumsum(b_cross, 2)
+                             - b_cross - suffix(b_far))
+        G = torch.exp(Lci)[..., None] * G + torch.einsum("bhtk,bhte->bhke",
+                                                         ri * torch.exp(Lqi), doi)
+    dr, dk, dv, dlogw = (g.permute(0, 2, 3, 1, 4).reshape(B, N * C, H, D)[:, :S].contiguous()
+                         for g in grads)
+    return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dlogw, du,
+            G if state is not None else None)

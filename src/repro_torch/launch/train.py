@@ -10,13 +10,14 @@ True)`` sets remat and microbatches for the batch on the card (the H100
 entry), ``--compression`` quantizes the gradients at the accumulation
 boundary with an error-feedback residual in the train state.  A per-step
 watchdog flags stragglers.  On the card the forward and backward run
-through the flash-attention and RMSNorm kernels; an arch whose kernels
-have no backward yet is refused (``train_step.check_trainable``).
+through the flash-attention, RMSNorm and WKV kernels (every arch trains
+there).  ``--ckpt-dir`` saves the train state every ``--ckpt-every`` steps
+(on a background thread; ``repro_torch.ckpt``) and ``--resume`` restarts
+from the latest one, the data stream at the same step.
 
-Not ported yet, and refused with the ROADMAP item that lists them:
-checkpoints and resume (``--ckpt-dir``, ``--ckpt-every``, ``--resume``:
-queue 1, item 6) and the mesh flags (``--pipeline``, ``--dp``,
-``--seq-parallel``, ``--force-mode``: item 7).
+Not ported yet, and refused with the ROADMAP item that lists them: the
+mesh flags (``--pipeline``, ``--dp``, ``--seq-parallel``, ``--force-mode``:
+queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.plan import derive_execution_plan
@@ -36,7 +38,6 @@ from repro_torch.train.compression import CompressionConfig
 from repro_torch.train.optimizer import OptimizerConfig, init_state
 from repro_torch.train.train_step import make_train_step
 
-CKPT_ITEM = "checkpoints and resume are ROADMAP queue 1, item 6"
 MESH_ITEM = "meshes (pipeline, data and sequence parallelism) are ROADMAP queue 1, item 7"
 
 
@@ -60,12 +61,9 @@ class StepWatchdog:
         return False
 
 
-def refuse_unported(*, ckpt_dir=None, ckpt_every=None, resume=False, pipeline=0, dp=1,
-                    seq_parallel=False, force_mode=None) -> None:
+def refuse_unported(*, pipeline=0, dp=1, seq_parallel=False, force_mode=None) -> None:
     """Raise ``ValueError`` naming the ROADMAP item of any option the port
     does not run yet."""
-    if ckpt_dir is not None or ckpt_every is not None or resume:
-        raise ValueError(f"--ckpt-dir / --ckpt-every / --resume: not ported ({CKPT_ITEM})")
     if pipeline > 1 or dp > 1 or seq_parallel or force_mode is not None:
         raise ValueError(f"--pipeline / --dp / --seq-parallel / --force-mode: not ported "
                          f"({MESH_ITEM})")
@@ -79,7 +77,7 @@ def run(
     seq: int = 128,
     lr: float = 3e-4,
     ckpt_dir: Optional[str] = None,
-    ckpt_every: Optional[int] = None,
+    ckpt_every: int = 50,
     resume: bool = False,
     compression: str = "none",
     pipeline: int = 0,
@@ -91,11 +89,14 @@ def run(
     log_every: int = 10,
     device="cuda",
 ):
-    """Train ``arch`` for ``steps`` AdamW steps on the synthetic stream;
-    returns (the losses, the final ``TrainState``).  ``device`` is the card
-    unless the caller asks for ``"cpu"`` (plain kernels)."""
-    refuse_unported(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume, pipeline=pipeline,
-                    dp=dp, seq_parallel=seq_parallel, force_mode=force_mode)
+    """Train ``arch`` up to step ``steps`` (AdamW, the synthetic stream);
+    returns (the losses of the steps this call ran, the final
+    ``TrainState``).  With ``ckpt_dir`` the state is saved after every
+    ``ckpt_every`` steps; with ``resume`` too, the run restarts from the
+    latest saved step (a run resumed at 4 returns steps 4..steps - 1).
+    ``device`` is the card unless the caller asks for ``"cpu"`` (plain
+    kernels)."""
+    refuse_unported(pipeline=pipeline, dp=dp, seq_parallel=seq_parallel, force_mode=force_mode)
     dev = resolve_device(device)
     cfg = get_config(arch)
     plan = derive_execution_plan(cfg, training=True, batch=batch, seq_len=seq, hw=H100_SXM,
@@ -108,10 +109,19 @@ def run(
     opt = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
     step_fn = make_train_step(cfg, plan, opt, compression=CompressionConfig(mode=compression),
                               device=dev)
-    data = DataIterator(DataConfig(cfg.vocab_size, seq, batch, seed=seed), device=dev)
+    start = 0
+    if resume and ckpt_dir:
+        k = latest_step(ckpt_dir)
+        if k is not None:
+            state = restore_checkpoint(ckpt_dir, k, state)
+            start = k
+            print(f"resumed from step {k}")
+    data = DataIterator(DataConfig(cfg.vocab_size, seq, batch, seed=seed), start_step=start,
+                        device=dev)
     dog = StepWatchdog()
     losses = []
-    for step in range(steps):
+    pending = None
+    for step in range(start, steps):
         b = next(data)
         t0 = time.time()
         state, metrics = step_fn(state, b)
@@ -123,6 +133,13 @@ def run(
         if log_every and step % log_every == 0:
             print(f"step {step:5d} loss {loss:.4f} gnorm "
                   f"{float(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms)")
+        if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+            if pending is not None:
+                pending.join()
+            pending = save_checkpoint(ckpt_dir, step + 1, state, meta={"arch": arch},
+                                      async_save=True)
+    if pending is not None:
+        pending.join()
     return losses, state
 
 
@@ -135,10 +152,10 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--compression", default="none", choices=["none", "bf16", "int8"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    # JAX's flags the port refuses until the ROADMAP items land
-    ap.add_argument("--ckpt-dir", default=None, help=f"refused: {CKPT_ITEM}")
-    ap.add_argument("--ckpt-every", type=int, default=None, help=f"refused: {CKPT_ITEM}")
-    ap.add_argument("--resume", action="store_true", help=f"refused: {CKPT_ITEM}")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    # JAX's flags the port refuses until the ROADMAP item lands
     ap.add_argument("--pipeline", type=int, default=0, help=f"refused: {MESH_ITEM}")
     ap.add_argument("--dp", type=int, default=1, help=f"refused: {MESH_ITEM}")
     ap.add_argument("--seq-parallel", action="store_true", help=f"refused: {MESH_ITEM}")

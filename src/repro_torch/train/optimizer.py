@@ -19,28 +19,46 @@ import torch
 Tree = Any
 
 
-def tree_leaves(tree: Tree) -> list:
-    """The tensor leaves of ``tree`` in a fixed order (dict keys as stored,
-    tuples in order; ``None`` leaves skipped)."""
+def tree_map_with_path(fn: Callable, tree: Tree, *rest: Tree, path: tuple = ()) -> Tree:
+    """``fn(path, leaf, *leaves of rest)`` over the tensor leaves of ``tree``
+    (nested NamedTuples, dicts, tuples and lists; the ``rest`` trees share
+    its shape), keeping its shape; ``None`` leaves stay None.  A leaf's
+    ``path`` is the tuple of its keys from the root: NamedTuple field
+    names, dict keys and sequence indices, as JAX's
+    ``tree_flatten_with_path`` names them.  Every walk of the port's trees
+    goes through here, so they all share one leaf order: fields and
+    sequences in order, dict keys as stored."""
     if tree is None:
-        return []
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
+        return type(tree)(*(tree_map_with_path(fn, v, *(r[i] for r in rest), path=path + (name,))
+                            for i, (name, v) in enumerate(zip(tree._fields, tree))))
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+        return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest), path=path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over the tensor leaves of ``tree`` (and the same leaves of the
     ``rest`` trees, which share its shape); ``None`` leaves stay None."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
-    return fn(tree, *rest)
+    return tree_map_with_path(lambda _, *leaves: fn(*leaves), tree, *rest)
+
+
+def tree_leaves_with_path(tree: Tree) -> list:
+    """(path, leaf) of every tensor leaf of ``tree``, in
+    ``tree_map_with_path``'s order (``None`` leaves skipped)."""
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def tree_leaves(tree: Tree) -> list:
+    """The tensor leaves of ``tree`` in ``tree_map_with_path``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
 def tree_unflatten(tree: Tree, leaves) -> Tree:

@@ -8,9 +8,8 @@ in f32 and divided by their number; ``plan.remat`` is the forward's), the
 gradient compression of ``plan.grad_compression`` (or of an explicit
 ``CompressionConfig``) with the state's error-feedback residual, then
 AdamW.  JAX jits this function; the port runs it eagerly, and on the card
-its forward and backward go through the flash-attention and RMSNorm kernels
-(``torch.autograd.Function``s).  An arch whose card path runs a kernel
-with no backward yet is refused on the card (``check_trainable``).
+its forward and backward go through the flash-attention, RMSNorm and WKV
+kernels (``torch.autograd.Function``s): every arch trains there.
 
 Left for ``dist/`` (ROADMAP queue 1, item 7): the pipeline plan
 (``pipeline_lm_loss``) and the compressed wire path (``compressed_psum``
@@ -43,18 +42,6 @@ def _split_micro(batch: dict, n: int) -> dict:
     return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise when ``cfg``'s card path runs a kernel that has no backward
-    yet: the WKV kernel (RWKV-6 layers, ROADMAP queue 1, item 5).  Flash
-    attention's backward takes every head dim its forward does, so the
-    attention archs, d_head 256 included (recurrentgemma-9b,
-    paligemma-3b), train on the card."""
-    if any(cfg.layer_kind(i) == "rwkv6" for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: the WKV kernel has no backward yet (ROADMAP queue 1, item 5); "
-            "train it on the plain path (fused=False) or on the CPU")
-
-
 def make_loss_fn(cfg: ArchConfig, plan: ExecutionPlan, fused: bool = True) -> Callable:
     def loss_fn(params, batch):
         return lm_loss(params, batch, cfg=cfg, plan=plan, fused=fused)
@@ -84,12 +71,9 @@ def make_train_step(
 ) -> Callable:
     """The step function for ``cfg`` on ``plan``.  ``device`` is where the
     step runs (the card by default; raises without one unless
-    ``device="cpu"``); on the card with the kernels (``fused``) an arch
-    whose kernels lack a backward raises (``check_trainable``).
-    ``fused=False`` runs every kernel's plain version (the oracle)."""
+    ``device="cpu"``).  ``fused=False`` runs every kernel's plain version
+    (the oracle)."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and fused:
-        check_trainable(cfg)
     loss_fn = make_loss_fn(cfg, plan, fused)
     n_micro = max(1, plan.microbatches)
     # plan.grad_compression is the control-plane knob; an explicit

@@ -15,12 +15,12 @@ PORT = ab_serve.port_kernels(str(ROOT))
 
 def test_port_kernels_name_every_global_function():
     sources = list((ROOT / "src/repro_torch/kernels").glob("*/csrc/*.cu"))
-    assert len(sources) == 7  # the five forward kernels' and the two backward sources
+    assert len(sources) == 8  # the five forward kernels' and the three backward sources
     n_global = sum(p.read_text().count("__global__") for p in sources)
     assert len(PORT) == n_global
     assert {"wkv_mma_kernel", "wkv_kernel", "paged_mma_kernel", "flash_attention_mma_kernel",
             "mm_pu_splitk_reduce", "rmsnorm_vec_kernel", "dkdv_kernel", "dq_kernel",
-            "bwd_vec_kernel", "dscale_sum_kernel"} <= PORT
+            "bwd_vec_kernel", "dscale_sum_kernel", "wkv_bwd_kernel", "du_sum_kernel"} <= PORT
 
 
 def test_port_kernels_of_some_sources():

@@ -1,8 +1,10 @@
 """The port's training launcher (``repro_torch.launch.train``): the JAX
 end-to-end descent tests (``tests/test_system.py``) through
-``run(..., device="cpu")``, the CLI, the flags the port refuses with their
-ROADMAP items, the card-only refusal of the arch whose kernels have no
-backward yet, and the step watchdog."""
+``run(..., device="cpu")``, the CLI with its checkpoint flags, the mesh
+flags the port refuses with their ROADMAP item, a step of every arch, and
+the step watchdog."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -10,8 +12,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.plan import derive_execution_plan
 from repro_torch.launch.train import StepWatchdog, main, run
-from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
-from repro_torch.train.train_step import check_trainable, make_train_step
+from repro_torch.models.params import init_params
+from repro_torch.train.optimizer import OptimizerConfig, init_state, tree_leaves
+from repro_torch.train.train_step import make_train_step
+from test_torch_train import numpy_batch
 
 
 def test_training_loss_descends():
@@ -38,8 +42,6 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"ckpt_dir": "/nonexistent"}, "item 6"), ({"ckpt_every": 5}, "item 6"),
-    ({"resume": True}, "item 6"),
     ({"pipeline": 2}, "item 7"), ({"dp": 2}, "item 7"), ({"seq_parallel": True}, "item 7"),
     ({"force_mode": "spatial"}, "item 7"),
 ])
@@ -49,8 +51,7 @@ def test_run_refuses_what_is_not_ported(kw, item):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "/nonexistent"], "item 6"), (["--ckpt-every", "5"], "item 6"),
-    (["--resume"], "item 6"), (["--pipeline", "2"], "item 7"), (["--dp", "2"], "item 7"),
+    (["--pipeline", "2"], "item 7"), (["--dp", "2"], "item 7"),
     (["--seq-parallel"], "item 7"), (["--force-mode", "temporal"], "item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item):
@@ -68,26 +69,58 @@ def test_run_defaults_to_the_card():
         make_train_step(cfg, derive_execution_plan(cfg), OptimizerConfig())
 
 
-@pytest.mark.parametrize("arch,trainable", [
-    ("qwen3-1.7b", True), ("smollm-135m", True), ("qwen3-moe-30b-a3b", True),
-    ("whisper-small", True), ("bert-base", True), ("vit-base", True),
-    ("rwkv6-1.6b", False), ("recurrentgemma-9b", True), ("paligemma-3b", True),
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-135m", "qwen3-moe-30b-a3b",
+                                  "whisper-small", "bert-base", "vit-base", "rwkv6-1.6b",
+                                  "recurrentgemma-9b", "paligemma-3b"])
+def test_every_arch_builds_and_takes_a_step(arch):
+    """No arch is refused (every kernel on the card has a backward since
+    the WKV one): each reduced arch builds its step and takes one on the
+    CPU, with finite loss and parameters and the step counted."""
+    cfg = get_config(arch + "-reduced")
+    plan = derive_execution_plan(cfg, training=True, batch=2, seq_len=16)
+    step = make_train_step(cfg, plan, OptimizerConfig(), device="cpu")
+    state = init_state(init_params(cfg, plan, torch.float32, device="cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in numpy_batch(cfg, batch=2, seq=16).items()}
+    state, metrics = step(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and int(state.step) == 1
+    assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
+
+
+def test_checkpoint_defaults_match_jax():
+    """``ckpt_every`` defaults to JAX's 50 in ``run`` and on the CLI."""
+    assert inspect.signature(run).parameters["ckpt_every"].default == 50
+    import repro.launch.train as jax_train
+
+    assert inspect.signature(jax_train.run).parameters["ckpt_every"].default == 50
+
+
+@pytest.mark.parametrize("first,second,saved,resumed", [
+    (["--steps", "4", "--ckpt-every", "2"], ["--steps", "6", "--ckpt-every", "2", "--resume"],
+     [2, 4, 6], 4),
+    (["--steps", "3", "--ckpt-every", "2"], ["--steps", "4", "--ckpt-every", "3", "--resume"],
+     [2, 3], 2),
+    (["--steps", "2"], ["--steps", "3", "--resume"], [], None),
 ])
-def test_card_refuses_archs_without_backward_kernels(arch, trainable):
-    """WKV has no backward kernel: on the card rwkv6-1.6b is refused with
-    the ROADMAP item; flash's backward takes d_head 256, so
-    recurrentgemma-9b and paligemma-3b pass; on the CPU (plain versions)
-    every arch trains."""
-    cfg = get_config(arch)
-    if trainable:
-        check_trainable(cfg)
+def test_cli_checkpoints_and_resumes(tmp_path, capsys, first, second, saved, resumed):
+    """``--ckpt-dir`` saves every ``--ckpt-every`` steps (the default, 50,
+    saves nothing in a few steps); ``--resume`` restarts from the latest
+    one, or from step 0 without one, and returns the steps it ran."""
+    from repro_torch.ckpt.checkpoint import latest_step
+
+    base = ["--arch", "smollm-135m-reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path)]
+    a = main(base + first)
+    b = main(base + second)
+    steps = [int(p.name.split("_")[1]) for p in tmp_path.iterdir() if p.name.startswith("step_")]
+    assert sorted(steps) == saved
+    assert latest_step(str(tmp_path)) == (saved[-1] if saved else None)
+    out = capsys.readouterr().out
+    n_second = int(second[1])
+    if resumed is None:
+        assert "resumed" not in out and len(b) == n_second
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            check_trainable(cfg)
-    reduced = get_config(arch + "-reduced")
-    step = make_train_step(reduced, derive_execution_plan(reduced, training=True),
-                           OptimizerConfig(), device="cpu")
-    assert callable(step)
+        assert f"resumed from step {resumed}" in out and len(b) == n_second - resumed
+    assert len(a) == int(first[1]) and all(np.isfinite(a + b))
 
 
 def test_rwkv_trains_on_the_cpu():
@@ -102,3 +135,20 @@ def test_watchdog_flags_a_straggler():
     flags = [dog.observe(i, dt) for i, dt in enumerate([5.0, 5.0, 1.0, 1.1, 0.9, 4.0, 1.0])]
     assert flags == [False, False, False, False, False, True, False]
     assert dog.flagged == [5]
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_run_resumes_where_it_stopped(tmp_path, compression):
+    """``run(resume=True)`` restores the latest state (the error-feedback
+    residual too, under compression) and replays the later steps with the
+    uninterrupted run's losses."""
+    import shutil
+
+    kw = dict(steps=4, batch=2, seq=16, log_every=0, compression=compression, device="cpu")
+    whole, end = run("smollm-135m-reduced", ckpt_dir=str(tmp_path), ckpt_every=2, **kw)
+    shutil.rmtree(tmp_path / "step_4")
+    tail, end2 = run("smollm-135m-reduced", ckpt_dir=str(tmp_path), resume=True, **kw)
+    assert tail == whole[2:] and int(end2.step) == 4
+    assert (end2.residual is None) == (compression == "none")
+    for a, b in zip(tree_leaves(end2), tree_leaves(end)):
+        assert torch.equal(a, b)
