@@ -124,12 +124,14 @@ microbatches and with int8 compression; paligemma-3b cut to 2 layers with
 its 256 prefix rows: loss and every gradient leaf); 33 the d_head-256
 archs trained in bf16: paligemma-3b at full width and depth through
 ``launch.train.run`` (B 8 x 2048, 3 steps) and recurrentgemma-9b at full
-width cut to 6 layers (B 2 x 4096, 2 steps); 34 the WKV backward kernel
-against its plain version (``ref.wkv_backward_ref``) and autograd of the
-plain ``wkv_chunked``: phase 7's cases in f32 and bf16 r/k/v, a state in
-and out, then the rwkv6-1.6b training shape (B 8 x 2048, H 32, D 64,
-bf16), every rerun bit-identical, ptxas registers and spills, times
-against the bound; 35 the rwkv6-1.6b training main path: ``run`` at full
+width cut to 6 layers (B 2 x 4096, 2 steps); 34 the WKV backward kernels
+against their plain version (``ref.wkv_backward_ref``) and autograd of the
+plain ``wkv_chunked``: phase 7's cases in f32 (the CUDA-core entry) and
+bf16 r/k/v (the tensor-core entry, also against its emulation
+``ref.wkv_backward_split_ref``), a state in and out, then the rwkv6-1.6b
+training shape (B 8 x 2048, H 32, D 64, bf16), every rerun bit-identical,
+ptxas registers and spills of both entries, both entries' times against
+the bound; 35 the rwkv6-1.6b training main path: ``run`` at full
 width and depth in bf16, B 8 x 2048, 3 AdamW steps (WKV 48 + backward 24
 launches a step under remat), 3 on one repeated batch, a profiled step
 (the WKV backward's ms a step); 36 kernel path vs plain path in f32,
@@ -606,6 +608,16 @@ def time_ms(fn, reps=25, warmup=3):
         b.synchronize()
         ts.append(a.elapsed_time(b) / n)
     return float(np.median(ts))
+
+
+def ab_times(fa, fb, reps=10, warmup=2):
+    """``time_ms`` of ``fa`` and ``fb`` in the order A B B A: ((A, A), (B,
+    B)), so that a drift of the card's clock weighs on both alike."""
+    a1 = time_ms(fa, reps=reps, warmup=warmup)
+    b1 = time_ms(fb, reps=reps, warmup=warmup)
+    b2 = time_ms(fb, reps=reps, warmup=warmup)
+    a2 = time_ms(fa, reps=reps, warmup=warmup)
+    return (a1, a2), (b1, b2)
 
 
 def bound(q, entry, lens, q_lens, window):
@@ -2758,7 +2770,7 @@ def ptxas_kernels(source):
         if m:
             mangled = m.group(1)
             base = re.search(r"(dkdv_mma|dq_mma|dkdv|dq|delta|bwd_vec|bwd_scalar|dscale_sum|"
-                             r"wkv_bwd|du_sum)_kernel", mangled)
+                             r"wkv_bwd_mma|wkv_bwd|du_sum)_kernel", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             dt = "bf16" if "bfloat16" in mangled else "f32"
             name = f"{base.group(0) if base else mangled}<{dt}{''.join(',' + a for a in args)}>"
@@ -3454,14 +3466,16 @@ def wkv_grad_errs(names, got, want, tol):
 
 def wkv_bwd_check(name, args, tol, *, chunk=32, state=None, dstate=None, seed=0,
                   autograd=False):
-    """The backward kernel against ``wkv_backward_ref`` on the same inputs
-    and a random f32 dO (and d(state out) when given), and with
-    ``autograd`` against autograd through the plain ``wkv_chunked`` too
-    (d(w) through ``ops.dw_from_dlogw``); a second launch must give the same
-    bits.  Returns (dO, the kernel's gradients, the plain ones, the largest
-    abs error)."""
+    """The backward kernel (the entry r's dtype picks) against
+    ``wkv_backward_ref`` on the same inputs and a random f32 dO (and
+    d(state out) when given), bf16 r/k/v against the tensor-core entry's
+    emulation ``wkv_backward_split_ref`` too, and with ``autograd`` against
+    autograd through the plain ``wkv_chunked`` (d(w) through
+    ``ops.dw_from_dlogw``); a second launch must give the same bits.
+    Returns (dO, the kernel's gradients, the plain ones, the largest abs
+    error)."""
     from repro_torch.kernels.rwkv6 import ops
-    from repro_torch.kernels.rwkv6.ref import wkv_backward_ref
+    from repro_torch.kernels.rwkv6.ref import wkv_backward_ref, wkv_backward_split_ref
     from repro_torch.models.rwkv6 import wkv_chunked
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -3474,7 +3488,11 @@ def wkv_bwd_check(name, args, tol, *, chunk=32, state=None, dstate=None, seed=0,
     torch.cuda.synchronize()
     want = wkv_backward_ref(*args, do, **kw)
     ok, errs, worst = wkv_grad_errs(WKV_GRADS, got, want, tol)
-    line = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    line = f"{ops.BWD_ENTRIES[args[0].dtype]}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    if args[0].dtype == torch.bfloat16:
+        ok_s, errs_s, _ = wkv_grad_errs(WKV_GRADS, got, wkv_backward_split_ref(*args, do, **kw), tol)
+        ok = ok and ok_s
+        line += "; vs wkv_backward_split_ref: " + ", ".join(f"{k} {v:.3g}" for k, v in errs_s.items())
     if autograd:
         leaves = [t.detach().clone().requires_grad_() for t in args]
         st = None if state is None else state.detach().clone().requires_grad_()
@@ -3553,13 +3571,16 @@ def wkv_bwd_bound(r, H, D):
 
 
 def phase_wkv_backward():
-    """Phase 34: the WKV backward kernel against ``wkv_backward_ref`` and
-    autograd through the plain ``wkv_chunked``: phase 7's cases in f32 and
-    bf16 r/k/v, then the rwkv6-1.6b training shape; every rerun
-    bit-identical; ptxas registers and spills; the planted controls (dS
-    not carried across chunks, d(state out) left out of d(log w), the
-    1e-12 clamp dropped at inputs below it, du summed over one batch row);
-    times against the bound.  Returns (largest abs error, times)."""
+    """Phase 34: the WKV backward kernels against ``wkv_backward_ref`` and
+    autograd through the plain ``wkv_chunked``: phase 7's cases in f32 (the
+    CUDA-core entry ``wkv_backward``) and bf16 r/k/v (the tensor-core entry
+    ``wkv_backward_mma``, also against ``wkv_backward_split_ref``), then the
+    rwkv6-1.6b training shape; every rerun bit-identical; ptxas registers
+    and spills of both entries; the planted controls (dS not carried across
+    chunks, d(state out) left out of d(log w), the 1e-12 clamp dropped at
+    inputs below it, du summed over one batch row); both entries' times at
+    the training shape against the bound.  Returns (largest abs error,
+    times)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6 import ops
@@ -3608,18 +3629,28 @@ def phase_wkv_backward():
     errs.append(e)
     del got, want
     torch.cuda.empty_cache()
-    ms = time_ms(lambda: ops.backward(*args, do, chunk=32), reps=10, warmup=2)
+    entry = ops.BWD_ENTRIES[args[0].dtype]
+    lib, stream = wkv_kernel.backward_library(), torch.cuda.current_stream().cuda_stream
+    core = lambda: ops.launch_backward(lib, *args, do, chunk=32, state=None, dstate=None,  # noqa: E731
+                                       stream=stream, entry="wkv_backward")
+    (a1, a2), (c1, c2) = ab_times(lambda: ops.backward(*args, do, chunk=32), core)
+    ms, core_ms = min(a1, a2), min(c1, c2)
     plain_ms = time_ms(lambda: wkv_backward_ref(*args, do, chunk=32), reps=3, warmup=1)
     b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bwd_bound(args[0], H, D)
-    log(f"  times at the training shape: kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of roofline; bytes {b_bytes:.4f} ms, 8 D^2 flops a token and head as "
-        f"3xTF32 tensor-core operations {b_ops:.4f} ms, at the f32 CUDA-core peak "
-        f"{b_f32:.4f} ms), plain {plain_ms:.2f} ms, library: none")
+    log(f"  times at the training shape (A B B A): {entry} {ms:.3f} ms ({a1:.3f} / {a2:.3f}), "
+        f"the CUDA-core entry (wkv_backward) on the same bf16 inputs {core_ms:.3f} ms ({c1:.3f} "
+        f"/ {c2:.3f}; {ms / core_ms:.2f} of it), bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} "
+        f"of roofline; bytes {b_bytes:.4f} ms, 8 D^2 flops a token and head as 3xTF32 "
+        f"tensor-core operations {b_ops:.4f} ms, at the f32 CUDA-core peak {b_f32:.4f} ms), "
+        f"plain {plain_ms:.2f} ms, library: none")
+    check(ms <= 0.5 * core_ms, f"{entry} takes {ms:.3f} ms, more than half the CUDA-core "
+          f"entry's {core_ms:.3f} ms")
     del args, do
     torch.cuda.empty_cache()
-    return max(errs), {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "bound_bytes_ms": b_bytes, "bound_operations_ms": b_ops,
-                       "bound_f32_cuda_core_ms": b_f32, "library_ms": None}
+    return max(errs), {"entry": entry, "ms": ms, "cuda_core_ms": core_ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": b_bytes,
+                       "bound_operations_ms": b_ops, "bound_f32_cuda_core_ms": b_f32,
+                       "library_ms": None}
 
 
 RWKV_TRAIN_STEPS = 3

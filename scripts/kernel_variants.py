@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 import subprocess
 import sys
 import time
@@ -419,8 +420,9 @@ RUNS = {
 
 def write_variant(source: Path, tag: str, subs) -> Path:
     """``source`` with ``subs`` applied, under build/kernel_variants/."""
-    common = ROOT / "src/repro_torch/kernels/csrc/common.cuh"
-    text = source.read_text().replace('#include "../../csrc/common.cuh"', f'#include "{common}"')
+    common = ROOT / "src/repro_torch/kernels/csrc"
+    text = re.sub(r'#include "\.\./\.\./csrc/(\w+\.cuh)"', lambda m: f'#include "{common / m[1]}"',
+                  source.read_text())
     for old, new in subs:
         if old not in text:
             raise ValueError(f"variant {tag!r}: {old!r} is not in {source.name}")

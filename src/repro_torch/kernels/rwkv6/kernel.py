@@ -3,7 +3,8 @@
 signature, ``wkv_forward`` (f32 r/k/v, CUDA cores) and ``wkv_forward_mma``
 (bf16 r/k/v, tensor cores); and the backward (``csrc/wkv_bwd.cu``, the
 kernel counterpart of JAX's autodiff of ``repro/models/rwkv6.py::
-wkv_chunked``), C entry ``wkv_backward`` (f32 or bf16 r/k/v, CUDA cores),
+wkv_chunked``), C entries ``wkv_backward`` (f32 r/k/v, CUDA cores; bf16
+too) and ``wkv_backward_mma`` (bf16 r/k/v, tensor cores) of one signature,
 in a library of its own.
 
 The library is compiled by ``nvcc`` at first use and loaded with ``ctypes``;
@@ -27,6 +28,7 @@ ENTRIES = ("wkv_forward", "wkv_forward_mma")
 # d(state in), chunk-state scratch, du partials; B, S, H, D, chunk, dtype;
 # stream
 BACKWARD_ARGTYPES = [_P] * 16 + [_I] * 6 + [_P]
+BACKWARD_ENTRIES = ("wkv_backward", "wkv_backward_mma")
 
 _lib = None
 _bwd_lib = None
@@ -51,7 +53,8 @@ def backward_library() -> ctypes.CDLL:
     global _bwd_lib
     if _bwd_lib is None:
         lib = _build.load(BACKWARD_SOURCE)
-        lib.wkv_backward.argtypes = BACKWARD_ARGTYPES
-        lib.wkv_backward.restype = ctypes.c_int
+        for name in BACKWARD_ENTRIES:
+            getattr(lib, name).argtypes = BACKWARD_ARGTYPES
+            getattr(lib, name).restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib

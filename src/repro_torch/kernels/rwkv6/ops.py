@@ -15,9 +15,11 @@ fallback.
 Training: when autograd would record the call (grad enabled, an input
 requiring grad), it goes through ``WKV``, a ``torch.autograd.Function``.
 On the card its forward launches the forward kernel and saves its inputs
-(nothing per chunk); its backward launches ``wkv_backward``
-(``csrc/wkv_bwd.cu``, CUDA cores, f32 or bf16 r/k/v), which recomputes the
-chunk-start states and returns dr, dk, dv, d(log w), du and d(state).  On
+(nothing per chunk); its backward launches the entry of
+``csrc/wkv_bwd.cu`` that r's dtype picks (``BWD_ENTRIES``: bf16 on the
+tensor cores, ``wkv_backward_mma``; f32 on the CUDA cores,
+``wkv_backward``), which recomputes the chunk-start states and returns
+dr, dk, dv, d(log w), du and d(state).  On
 the CPU the same Function runs the plain versions (``wkv_chunked``, then
 ``ref.wkv_backward_ref``).  d(w) follows from d(log w) as JAX's
 ``log(maximum(w, 1e-12))`` gives it (``dw_from_dlogw``).
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.rwkv6 import kernel
-from repro_torch.kernels.rwkv6.ref import wkv_backward_ref
+from repro_torch.kernels.rwkv6.ref import BWD_MMA_CHUNK, wkv_backward_ref
 
 # Kernel launches so far (forward; backward); a run resets them to show
 # which path it took.
@@ -42,6 +44,15 @@ BWD_LAUNCHES = 0
 ENTRIES = {torch.float32: "wkv_forward", torch.bfloat16: "wkv_forward_mma"}
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (16, 32, 64)
+# The backward's entry (csrc/wkv_bwd.cu) for each r/k/v dtype.
+BWD_ENTRIES = {torch.float32: "wkv_backward", torch.bfloat16: "wkv_backward_mma"}
+
+
+def scratch_chunk(entry: str, chunk: int) -> int:
+    """The chunk whose start states the backward ``entry`` keeps in its
+    scratch: ``wkv_backward_mma`` runs a 64-token chunk as two of 32
+    (``ref.BWD_MMA_CHUNK``)."""
+    return min(chunk, BWD_MMA_CHUNK) if entry == "wkv_backward_mma" else chunk
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -177,22 +188,28 @@ def launch(lib, r, k, v, w, u, *, chunk: int, state, return_state: bool, stream)
     return (out, s_out) if return_state else out
 
 
-def launch_backward(lib, r, k, v, w, u, dout, *, chunk: int, state, dstate, stream):
+def launch_backward(lib, r, k, v, w, u, dout, *, chunk: int, state, dstate, stream,
+                    entry: Optional[str] = None):
     """Check the operands, allocate dr, dk, dv (r's dtype), d(log w) (f32,
     the shape of w), du (H, D) f32, d(state) when ``state`` is given, and
-    the scratch (each chunk's start state, f32 (B, H, N, D, D), and du's
-    (B, H, D) partial sums), then call ``lib``'s ``wkv_backward`` on
-    ``stream``.  ``dout`` (f32, the forward output's shape) and ``dstate``
-    (f32 (B, H, D, D) or None) are made contiguous.  Raises on what the
-    kernel does not take or a failed launch."""
+    the scratch (each chunk's start state, f32 (B, H, N, D, D) with N chunks
+    of ``scratch_chunk`` tokens, and du's (B, H, D) partial sums), then
+    call ``lib``'s ``entry`` (by default the one for r's dtype,
+    ``BWD_ENTRIES``; ``wkv_backward`` takes bf16 too) on ``stream``.
+    ``dout`` (f32, the forward output's shape) and ``dstate`` (f32 (B, H,
+    D, D) or None) are made contiguous (and ``dout`` 16-byte aligned).
+    Raises on what the kernel does not take or a failed launch."""
     B, S, H, D = _check(r, k, v, w, u, chunk, state)
     dout = dout.float().contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
     _require(dout.shape == r.shape and dout.device == r.device, "dout must be r's shape")
     if dstate is not None:
         dstate = dstate.float().contiguous()
         _require(dstate.shape == (B, H, D, D) and dstate.device == r.device,
                  "d(state out) must be (B, H, D, D)")
-    N = -(-S // chunk)
+    entry = entry or BWD_ENTRIES[r.dtype]
+    N = -(-S // scratch_chunk(entry, chunk))
     dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=r.device) for _ in range(3))
     dlogw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty((H, D), dtype=torch.float32, device=r.device)
@@ -201,12 +218,12 @@ def launch_backward(lib, r, k, v, w, u, dout, *, chunk: int, state, dstate, stre
     states = torch.empty((B, H, N, D, D), dtype=torch.float32, device=r.device)
     du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.wkv_backward(
+    rc = getattr(lib, entry)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ptr(state),
         dout.data_ptr(), ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dlogw.data_ptr(), du.data_ptr(), ptr(dstate_in), states.data_ptr(), du_part.data_ptr(),
         B, S, H, D, chunk, _IN_CODES[r.dtype], stream,
     )
     if rc != 0:
-        raise RuntimeError(f"wkv backward kernel launch failed (wkv_backward, code {rc})")
+        raise RuntimeError(f"wkv backward kernel launch failed ({entry}, code {rc})")
     return dr, dk, dv, dlogw, du, dstate_in

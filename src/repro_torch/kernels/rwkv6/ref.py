@@ -265,3 +265,156 @@ def wkv_backward_ref(r, k, v, w, u, dout, *, chunk: int = 32, state: Optional[to
                          for g in grads)
     return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dlogw, du,
             G if state is not None else None)
+
+
+# The tensor-core backward's longest chunk: a 64-token chunk runs as two
+# 32-token chunks (its arrays would not fit one SM's shared memory; the
+# gradients do not depend on the chunk beyond rounding).
+BWD_MMA_CHUNK = 32
+
+
+def wkv_backward_split_ref(r, k, v, w, u, dout, *, chunk: int = 32,
+                           state: Optional[torch.Tensor] = None,
+                           dstate: Optional[torch.Tensor] = None, split: bool = True,
+                           drop_diagonal: bool = False, keep_adjacent: bool = False):
+    """The tensor-core backward entry's arithmetic (``csrc/wkv_bwd.cu``
+    ``wkv_backward_mma``) in plain PyTorch, with ``wkv_backward_ref``'s
+    contract and outputs.  Chunks of min(chunk, 32) tokens (a ragged last
+    one padded with r = k = v = dO = 0, log w = 0); L the inclusive cumsum of
+    log2 w, Lq_t = L_{t-1} (0 at the first token), Lc = L at the last.
+
+    * 16-token tiles factor at their edges as in ``wkv_split_ref``: with
+      P_T = Lq at tile T's first token, E_T = L at its last and Q_T = L at
+      its first half's last, rhat = r 2^(Lq - P_T), kbar = k 2^(E_T - L) and,
+      in each tile, rtil = r 2^(Lq - Q_T) (second half), ktil = k 2^(Q_T - L)
+      (first half);
+    * the state products on the tensor cores: the forward state pass S <-
+      2^Lc S + kfut^T v, X = dO S0^T, Y = v G^T, dv's kfut G and G <- 2^Lc
+      G + rdec^T dO (kfut = k 2^(Lc - L), rdec = rhat 2^P_T); M = dO v^T;
+    * the intra-chunk sums: dr's sum_{s<t} M_ts k_s 2^(Lq_t - L_s) as
+      2^(Lq_t - P_T) (M block) (kbar 2^(P_T - E_s)) against earlier tiles
+      and 2^(Lq_t - Q_T) (M block) ktil inside a tile; dk's with M^T, rhat
+      and rtil; the forward weights A (for dv's A^T dO) the same way, as
+      ``wkv_split_ref``; only the 8-token diagonal halves per element;
+    * the adjacent pairs (s = t - 1), whose decay is 2^0 = 1, stay out of
+      the products (M's first sub-diagonal is zeroed in the operand they
+      read) and out of d(log w)'s a and b, and go to dr and dk per element;
+    * d(log w) = 2^Lc sum_e G S0 + the suffix over t > i of a + the prefix
+      over s < i of k 2^(Lc - L) Y - the suffix over s >= i of b, with a =
+      r (dr's cross and intra sums) and b = k (dk's intra sums).
+    Every exponent is <= 0, and every product takes TF32 hi + lo operands
+    (``_mm``).  Controls: ``split=False`` rounds each operand once;
+    ``drop_diagonal`` leaves out the halves' per-element sums;
+    ``keep_adjacent`` counts the adjacent pairs in the products, a and b."""
+    B, S, H, D = r.shape
+    C = min(chunk, BWD_MMA_CHUNK)
+    assert C % TILE == 0, C
+    NT, N = C // TILE, -(-S // C)
+    pad = N * C - S
+    dtype, dev = r.dtype, r.device
+    r, k, v, w, dout = (t.float() for t in (r, k, v, w, dout))
+    lw = torch.log2(torch.clamp(w, min=1e-12))
+    if pad:
+        r, k, v, lw, dout = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                             for t in (r, k, v, lw, dout))
+    rr, kk, vv, lw, do = (_chunks(t, B, N, C, H, D) for t in (r, k, v, lw, dout))
+    uu = u.float()[None, :, None, :]  # (1, H, 1, D)
+    L = torch.cumsum(lw, dim=3)
+    Lq = torch.nn.functional.pad(L[:, :, :, :-1], (0, 0, 1, 0))
+    ex2 = torch.exp2
+    tiles = torch.arange(C, device=dev) // TILE
+    first, last = tiles * TILE, tiles * TILE + TILE - 1
+    mid = tiles * TILE + HALF - 1
+    second = (torch.arange(C, device=dev) % TILE) >= HALF  # rows of rtil; ktil elsewhere
+    halves = torch.arange(C, device=dev) // HALF
+    same_half = halves[:, None] == halves[None, :]
+    t_idx = torch.arange(C, device=dev)
+    gap = t_idx[:, None] - t_idx[None, :]  # t - s
+    in_half = same_half & (gap >= (1 if keep_adjacent else 2))  # per-element pairs of dr / dk
+    in_half_a = same_half & (gap >= 1)  # per-element pairs of A
+    mm = lambda eq, x, y: _mm(eq, x, y, split)  # noqa: E731
+
+    def decays(n):
+        Li, Lqi = L[:, :, n], Lq[:, :, n]
+        P, E, Q = Lqi[:, :, first], Li[:, :, last], Li[:, :, mid]
+        Lc = Li[:, :, -1]
+        ri, ki = rr[:, :, n], kk[:, :, n]
+        rhat, kbar = ri * ex2(Lqi - P), ki * ex2(E - Li)
+        til = torch.where(second[:, None], ri * ex2(Lqi - Q), ki * ex2(Q - Li))
+        return Li, Lqi, P, E, Q, Lc, rhat, kbar, til
+
+    # the forward state pass: each chunk's start state
+    st = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) if state is None
+          else state.float())
+    S0 = []
+    for n in range(N):
+        S0.append(st)
+        Li, Lc = L[:, :, n], L[:, :, n, -1]
+        kfut = kk[:, :, n] * ex2(Lc[:, :, None] - Li)
+        st = ex2(Lc)[..., None] * st + mm("bhsk,bhse->bhke", kfut, vv[:, :, n])
+    G = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) if dstate is None
+         else dstate.float())
+    grads = [torch.zeros_like(rr) for _ in range(4)]  # dr, dk, dv, dlogw
+    du = torch.zeros(u.shape, dtype=torch.float32, device=dev)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
+    sub = tri & (gap == 1)
+    excl_suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, [2]), 2), [2]) - x  # noqa: E731
+    for n in reversed(range(N)):
+        ri, ki, vi, doi = rr[:, :, n], kk[:, :, n], vv[:, :, n], do[:, :, n]
+        Li, Lqi, P, E, Q, Lc, rhat, kbar, til = decays(n)
+        rdec, kfut = rhat * ex2(P), ki * ex2(Lc[:, :, None] - Li)
+        M = mm("bhte,bhse->bhts", doi, vi)
+        Mdiag = torch.diagonal(M, dim1=-2, dim2=-1)[..., None]  # (B, H, C, 1)
+        Msub = torch.nn.functional.pad(torch.diagonal(M, -1, dim1=-2, dim2=-1), (1, 0))[..., None]
+        Mp = M.masked_fill(~tri if keep_adjacent else ~tri | sub, 0.0)
+        rb = ex2(Lqi) * mm("bhte,bhke->bhtk", doi, S0[n])  # dr's cross term
+        ky = ex2(Lc[:, :, None] - Li) * mm("bhse,bhke->bhsk", vi, G)  # dk's
+        fr, fk = torch.zeros_like(rb), torch.zeros_like(rb)
+        A = torch.zeros((B, H, C, C), dtype=torch.float32, device=dev)
+        for T in range(NT):
+            rows = slice(T * TILE, (T + 1) * TILE)
+            if T:  # tile T against every earlier token
+                cols = slice(0, T * TILE)
+                kk_T = kbar[:, :, cols] * ex2(P[:, :, T * TILE, None] - E[:, :, cols])
+                fr[:, :, rows] = ex2(Lqi[:, :, rows] - P[:, :, rows]) * mm(
+                    "bhts,bhsd->bhtd", Mp[:, :, rows, cols], kk_T)
+                A[:, :, rows, cols] = mm("bhtd,bhsd->bhts", rhat[:, :, rows], kk_T)
+            if T < NT - 1:  # tile T's tokens against every later one
+                later = slice((T + 1) * TILE, C)
+                rr_T = rhat[:, :, later] * ex2(P[:, :, later] - E[:, :, T * TILE, None])
+                fk[:, :, rows] = ex2(E[:, :, rows] - Li[:, :, rows]) * mm(
+                    "bhts,bhtd->bhsd", Mp[:, :, later, rows], rr_T)
+            lo, hi = slice(T * TILE, T * TILE + HALF), slice(T * TILE + HALF, (T + 1) * TILE)
+            mh = Mp[:, :, hi, lo]
+            fr[:, :, hi] += ex2(Lqi[:, :, hi] - Q[:, :, hi]) * mm("bhts,bhsd->bhtd", mh, til[:, :, lo])
+            fk[:, :, lo] += ex2(Q[:, :, lo] - Li[:, :, lo]) * mm("bhts,bhtd->bhsd", mh, til[:, :, hi])
+            A[:, :, hi, lo] = mm("bhtd,bhsd->bhts", til[:, :, hi], til[:, :, lo])
+        # the 8-token diagonal halves, per element (exponents <= 0 where masked in)
+        wgt = ex2((Lqi[:, :, :, None] - Li[:, :, None, :]).masked_fill(
+            ~same_half[None, None, :, :, None] | (gap <= 0)[None, None, :, :, None], -torch.inf))
+        dgr = dgk = torch.zeros_like(rb)
+        if not drop_diagonal:
+            Mh = M.masked_fill(~in_half, 0.0)
+            dgr = torch.einsum("bhts,bhsd,bhtsd->bhtd", Mh, ki, wgt)
+            dgk = torch.einsum("bhts,bhtd,bhtsd->bhsd", Mh, ri, wgt)
+            A = A + torch.einsum("bhtd,bhsd,bhtsd->bhts", ri, ki,
+                                 wgt * in_half_a[None, None, :, :, None])
+        A = A + torch.diag_embed(torch.einsum("bhtd,bhtd->bht", ri * uu, ki))
+        adj = adj2 = 0.0
+        if not keep_adjacent:
+            adj = Msub * torch.nn.functional.pad(ki[:, :, :-1], (0, 0, 1, 0))
+            adj2 = torch.nn.functional.pad(Msub[:, :, 1:] * ri[:, :, 1:], (0, 0, 0, 1))
+        r_sum, k_far = rb + fr + dgr, fk + dgk
+        grads[0][:, :, n] = r_sum + adj + uu * ki * Mdiag
+        grads[1][:, :, n] = ky + k_far + adj2 + uu * ri * Mdiag
+        grads[2][:, :, n] = mm("bhts,bhte->bhse", A, doi) + mm("bhsk,bhke->bhse", kfut, G)
+        du = du + (ri * ki * Mdiag).sum(dim=(0, 2))
+        whole = ex2(Lc) * (G * S0[n]).sum(-1)  # (B, H, D)
+        bc = ki * ky
+        grads[3][:, :, n] = (whole[:, :, None] + excl_suffix(ri * r_sum)
+                             + torch.cumsum(bc, 2) - bc - excl_suffix(ki * k_far) - ki * k_far)
+        G = ex2(Lc)[..., None] * G + mm("bhtk,bhte->bhke", rdec, doi)
+    dr, dk, dv, dlogw = (g.permute(0, 2, 3, 1, 4).reshape(B, N * C, H, D)[:, :S].contiguous()
+                         for g in grads)
+    return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dlogw, du,
+            G if state is not None else None)

@@ -50,6 +50,14 @@ def _plains(r, k, v, w, u, chunk):
     }
 
 
+def _worst(got, want):
+    """Where |got - want| is largest: the index, both values and the torch
+    threads in use (for a failure that does not repeat)."""
+    i = np.unravel_index(int(np.argmax(np.abs(got - want))), got.shape)
+    return (f"worst at {tuple(int(x) for x in i)}: got {got[i]!r}, want {want[i]!r}, "
+            f"torch threads {torch.get_num_threads()}")
+
+
 def _check(shape, chunk, tol, **kw):
     r, k, v, w, u = _mk(*shape, **kw)
     jargs = [jnp.asarray(x) for x in (r, k, v, w, u)]
@@ -58,7 +66,8 @@ def _check(shape, chunk, tol, **kw):
     for name, got in _plains(r, k, v, w, u, chunk).items():
         assert np.isfinite(got).all(), name
         for ref, x in want.items():
-            assert _rel(got, x) < tol, f"{name} vs {ref}: {_rel(got, x):.2e}"
+            assert _rel(got, x) < tol, (f"{name} vs {ref}: {_rel(got, x):.2e}; "
+                                        f"{_worst(got, x)}")
 
 
 @pytest.mark.parametrize("shape", [(2, 128, 2, 32), (1, 96, 3, 64), (1, 256, 1, 64)])

@@ -17,7 +17,7 @@ import torch
 
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
 from repro_torch.kernels.rwkv6 import ops
-from repro_torch.kernels.rwkv6.ref import wkv_backward_ref
+from repro_torch.kernels.rwkv6.ref import wkv_backward_ref, wkv_backward_split_ref
 
 TOL, STRONG_TOL = 1e-5, 1e-4
 NAMES = ("dr", "dk", "dv", "dw", "du", "dstate")
@@ -38,12 +38,16 @@ CASES = {
 
 
 @functools.lru_cache(maxsize=None)
-def case(name):
+def case(name, bf16_inputs=False):
     """(numpy inputs r, k, v, w, u, dO, state or None, d(state) or None,
-    chunk, tolerance, JAX's gradients dr, dk, dv, dw, du[, dstate])."""
+    chunk, tolerance, JAX's gradients dr, dk, dv, dw, du[, dstate]); with
+    ``bf16_inputs`` r/k/v are rounded to bf16 values first (the training
+    path's inputs, exact in TF32), for both packages."""
     B, S, H, D, chunk, (lo, hi), with_state, clamp = CASES[name]
     g = np.random.default_rng(list(CASES).index(name))
     r, k, v, do = (g.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(4))
+    if bf16_inputs:
+        r, k, v = (torch.from_numpy(x).bfloat16().float().numpy() for x in (r, k, v))
     w = (1 / (1 + np.exp(-g.standard_normal((B, S, H, D)))) * (hi - lo) + lo).astype(np.float32)
     if clamp:
         w[:, ::7, :, ::3] = 1e-14
@@ -63,8 +67,8 @@ def case(name):
     return (r, k, v, w, u, do, st, dst, chunk, tol, [np.asarray(x) for x in grads])
 
 
-def torch_inputs(name):
-    r, k, v, w, u, do, st, dst, chunk, *_ = case(name)
+def torch_inputs(name, bf16_inputs=False):
+    r, k, v, w, u, do, st, dst, chunk, *_ = case(name, bf16_inputs)
     t = lambda x: None if x is None else torch.from_numpy(x.copy())  # noqa: E731
     return [t(x) for x in (r, k, v, w, u)], t(do), t(st), t(dst), chunk
 
@@ -75,11 +79,12 @@ def rel_errs(got, want):
             for n, a, b in zip(NAMES, got, want)}
 
 
-def ref_grads(name, **controls):
-    """wkv_backward_ref's gradients with d(w) from d(log w), as numpy."""
-    (r, k, v, w, u), do, st, dst, chunk = torch_inputs(name)
-    dr, dk, dv, dlogw, du, dstate = wkv_backward_ref(r, k, v, w, u, do, chunk=chunk, state=st,
-                                                     dstate=dst, **controls)
+def ref_grads(name, fn=wkv_backward_ref, bf16_inputs=False, **controls):
+    """``fn``'s gradients (``wkv_backward_ref`` or ``wkv_backward_split_ref``)
+    with d(w) from d(log w), as numpy."""
+    (r, k, v, w, u), do, st, dst, chunk = torch_inputs(name, bf16_inputs)
+    dr, dk, dv, dlogw, du, dstate = fn(r, k, v, w, u, do, chunk=chunk, state=st, dstate=dst,
+                                       **controls)
     out = [dr, dk, dv, ops.dw_from_dlogw(dlogw, w), du] + ([dstate] if st is not None else [])
     return [x.numpy() for x in out]
 
@@ -96,6 +101,33 @@ def test_ref_matches_jax(name):
     if CASES[name][7]:
         below = case(name)[3] < 1e-12
         assert below.any() and (got[3][below] == 0).all() and (want[3][below] == 0).all()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_scheme_matches_jax(name):
+    """``wkv_backward_split_ref`` (the tensor-core entry's arithmetic: 16-token
+    tiles, per-element 8-token halves, adjacent pairs out of the products,
+    TF32 hi + lo operands) on r/k/v rounded to bf16 values, within the
+    tolerance of ``jax.grad`` on the same inputs."""
+    tol, want = case(name, True)[9], case(name, True)[10]
+    got = ref_grads(name, wkv_backward_split_ref, bf16_inputs=True)
+    errs = rel_errs(got, want)
+    assert all(np.isfinite(x).all() for x in got) and max(errs.values()) < tol, errs
+
+
+@pytest.mark.parametrize("control,name", [
+    ({"split": False}, "shape (1, 96, 3, 64)"),
+    ({"drop_diagonal": True}, "shape (1, 96, 3, 64)"),
+    ({"keep_adjacent": True}, "strong decay"),
+], ids=["split=False", "drop_diagonal", "keep_adjacent"])
+def test_split_scheme_controls_are_rejected(control, name):
+    """Operands rounded once to TF32, the diagonal halves' per-element sums
+    left out, or the adjacent pairs kept in the products and in d(log w)'s
+    a and b (under strong decay their suffixes then cancel to a small
+    difference): outside the tolerance."""
+    got = ref_grads(name, wkv_backward_split_ref, bf16_inputs=True, **control)
+    errs = rel_errs(got, case(name, True)[10])
+    assert max(errs.values()) >= case(name, True)[9], errs
 
 
 @pytest.mark.parametrize("name", ["shape (2, 128, 2, 32)", "ragged S=100", "state in and out",
