@@ -138,8 +138,25 @@ launches a step under remat), 3 on one repeated batch, a profiled step
 rwkv6-1.6b cut to 4 layers at B 2 x 2048 (loss, every gradient leaf,
 parameters after 3 steps); 37 checkpoints: smollm-135m at full width and
 depth, 4 steps against 2 saved + 2 resumed (losses within 1e-5), the
-restored leaves bit-identical, save and restore seconds and bytes.  Every
-main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35) checks the
+restored leaves bit-identical, save and restore seconds and bytes; then
+the trainer's mesh paths: 38 ``launch.train.run`` on qwen3-1.7b at full
+width and depth in bf16 (B 8 x 2048, 2 steps) without a process group and
+on a one-rank NCCL group (the mesh code, every collective the identity):
+bit-identical losses; 39 two ranks of this script on the card (NCCL
+refuses two ranks on one device, so gloo, every CUDA tensor staged through
+host memory), each path of qwen3-1.7b (``--dp 2``; ``--dp 2 --force-mode
+spatial --compression int8``, the int8 wire; ``--seq-parallel --force-mode
+spatial``, 8 / 4 heads a rank; ``--pipeline 2``, 8 microbatches) first in
+f32 cut to 4 layers against the one-rank run (1e-5; the wire 1e-3), then
+at full width and depth in bf16 against the one-rank bf16 run, every run
+through ``run``; as controls at both depths a ring that skips one chunk,
+a pipeline that drops its last microbatch, a data-parallel step that skips
+the gradient sum and a wire that skips its int32 sum; each rank checks its
+all-reduces took its path's route (f32 sums, or the wire's max and int32
+sums); step ms, collective seconds (the card synchronized first), bytes
+moved and wire bytes, each rank's peak memory and exact launches (flash
+and RMSNorm, forward and backward, on every rank).  Every
+main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-39) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -3964,6 +3981,425 @@ def phase_checkpoint():
     return res
 
 
+# ---------------------------------------------------------------- meshes
+MESH_STEPS = 2
+# Each path of phase 39 on two ranks sharing the card, with the global
+# batch that fits both ranks' memory: data parallelism keeps a whole
+# optimizer state on each rank (B 4); Megatron-SP and the pipeline shard
+# the layer stack (B 8, where the pipeline's plan fills 8 microbatches).
+MESH_PATHS = {
+    "dp": ({"dp": 2}, 4),
+    "wire": ({"dp": 2, "force_mode": "spatial", "compression": "int8"}, 4),
+    "sp": ({"seq_parallel": True, "force_mode": "spatial"}, 8),
+    "pipeline": ({"pipeline": 2}, 8),
+}
+# The planted controls, each a fault in one path's exchange, and the steps
+# it runs: a forward fault moves the first loss; a fault in the gradient
+# exchange shows first in the second loss (the first comes before any
+# update).
+MESH_CONTROLS = {
+    "skip_chunk": ("sp", 1),  # the SP ring never multiplies one rank's chunk
+    "drop_last_micro": ("pipeline", 1),  # the pipeline drops its last microbatch
+    "skip_grad_sum": ("dp", MESH_STEPS),  # each rank keeps its own gradients
+    "skip_int32_sum": ("wire", MESH_STEPS),  # the wire's int8 payloads are never summed
+}
+# The f32 comparison at reduced depth: qwen3-1.7b at full width cut to 4
+# layers, B 8 x S 512.  Each path's losses against the one-rank run's
+# within MESH_F32_TOL (f32; only the order of the sums differs: read 0 to
+# 9.5e-7 on the H100); the int8 wire against the uncompressed one-rank run
+# within MESH_WIRE_TOL (its shared-grid quantization moves the second
+# step: read 3.9e-4).  The bf16 full-depth runs against the one-rank bf16
+# run within MESH_BF16_TOL: the ranks' matmuls run on other shapes (half
+# the rows, half the heads, one microbatch a tick), so bf16 products round
+# in another order (read 8.3e-5 to 3.1e-4, six times under it or more);
+# the wire within MESH_WIRE_BF16_TOL (read 2.5e-3), below the smallest
+# control reading at that depth.  Every control must fall outside its
+# path's tolerance at both depths (read in f32 / bf16: the skipped ring
+# chunk 4.5e-3 / 4.9e-3, the dropped microbatch 5.2e-2 / 5.3e-2, the
+# skipped gradient sum 3.4e-3 / 1.05e-1, the skipped int32 sum 3.9e-3 /
+# 1.06e-1).
+MESH_F32 = {"n_layers": 4, "B": 8, "S": 512}
+MESH_F32_TOL = 1e-5
+MESH_WIRE_TOL = 1e-3
+MESH_BF16_TOL = 2e-3
+MESH_WIRE_BF16_TOL = 4e-3
+MESH_TIMEOUT_S = 900
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_launches(cfg, plan, steps: int, path: str) -> dict:
+    """One rank's kernel launches in ``steps`` steps of a mesh path.  Data
+    parallelism and Megatron-SP run every layer on each rank (SP on its
+    H/n heads and its sequence chunk), so ``training_launches`` counts
+    them.  A pipeline stage runs its n_layers / S layers on every one of
+    the M + S - 1 ticks, ramp ticks included, again in the backward under
+    remat, and the final norm once."""
+    if path != "pipeline":
+        return training_launches(cfg, plan, steps)
+    ticks = plan.microbatches + plan.pod_axis - 1
+    layers = cfg.n_layers // plan.pod_axis
+    norms = norms_per_forward(cfg)
+    per_layer, final = ((norms - 1) // cfg.n_layers, 1) if norms else (0, 0)
+    again = 1 + int(plan.remat)
+    return expect_counts(
+        flash_attention=steps * ticks * layers * again,
+        flash_attention_bwd=steps * ticks * layers,
+        rmsnorm=steps * (ticks * layers * per_layer * again + final),
+        rmsnorm_bwd=steps * (ticks * layers * per_layer + final))
+
+
+def mesh_run_args(path: str, depth: str) -> dict:
+    """``launch.train.run``'s arguments for one phase-39 path at one depth:
+    bf16 at full depth and the path's batch, or f32 at MESH_F32's."""
+    kw, B = MESH_PATHS[path]
+    if depth == "full":
+        return dict(kw, batch=B, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=None)
+    return dict(kw, batch=MESH_F32["B"], seq=MESH_F32["S"], dtype=torch.float32,
+                n_layers=MESH_F32["n_layers"])
+
+
+def mesh_plan(path: str, depth: str):
+    """(the config, the mesh extents, the plan) of a path on two ranks: the
+    launcher's own ``launch_plan``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import launch_plan
+
+    a = mesh_run_args(path, depth)
+    cfg = get_config(TRAIN_ARCH)
+    if a["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=a["n_layers"])
+    flags = {k: a[k] for k in MESH_PATHS[path][0]}
+    shape, plan = launch_plan(cfg, 2, batch=a["batch"], seq=a["seq"], **flags)
+    return cfg, shape, plan
+
+
+def plant_control(control):
+    """Plant one of MESH_CONTROLS in this rank's collectives; returns the
+    function that takes it out again."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import pipeline as PP
+
+    if control is None:
+        return lambda: None
+    if control == "skip_chunk":
+        orig = C.ring_gather_matmul
+
+        def skipping(xi, wi, axis, n, gather_dim=0, *, mesh):
+            out = orig(xi, wi, axis, n, gather_dim, mesh=mesh).clone()
+            c = xi.shape[gather_dim]
+            out.narrow(gather_dim, ((mesh.index(axis) + 1) % n) * c, c).zero_()
+            return out
+
+        C.ring_gather_matmul = skipping
+        return lambda: setattr(C, "ring_gather_matmul", orig)
+    if control == "drop_last_micro":
+        orig_pf = PP.pipeline_forward
+
+        def dropping(stage_fn, mesh, axis="pod", batch_axes=()):
+            pp = orig_pf(stage_fn, mesh, axis, batch_axes)
+            return lambda w, micro: torch.cat([pp(w, micro)[:-1],
+                                               torch.zeros_like(micro[-1:])])
+
+        PP.pipeline_forward = dropping
+        return lambda: setattr(PP, "pipeline_forward", orig_pf)
+    # the gradient exchanges: every all-reduce goes through C.all_reduce
+    # (the train step binds it when it is made, compressed_psum at each call)
+    if control == "skip_grad_sum":
+        def skip(x, op):  # the gradient leaves' f32 sums; the loss's mean still runs
+            return op == "sum" and x.is_floating_point() and x.numel() > 1
+    else:
+        check(control == "skip_int32_sum", f"no control {control}")
+
+        def skip(x, op):
+            return x.dtype == torch.int32
+    orig_ar = C.all_reduce
+
+    def partial(x, axes, mesh, op="sum"):
+        return x.clone() if skip(x, op) else orig_ar(x, axes, mesh, op)
+
+    C.all_reduce = partial
+    return lambda: setattr(C, "all_reduce", orig_ar)
+
+
+def mesh_job(job: dict, rank: int) -> dict:
+    """One job of a phase-39 rank: a path through ``launch.train.run`` at
+    full depth (bf16) or at reduced depth (f32), optionally with a planted
+    control.  Checks on this rank that the gradient exchange took its path's
+    route: f32 sums of every gradient leaf for data parallelism, a max and
+    an int32 sum a leaf (and no f32 gradient sum) for the int8 wire.
+    Returns the losses, rank 0's step ms, the collectives' calls / bytes /
+    seconds, the kernel launches, the peak memory and the gradient wire
+    bytes a step."""
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import local_device
+    from repro_torch.launch.train import run
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import wire_compression_axes
+
+    path, control = job["path"], job.get("control")
+    steps = job.get("steps", MESH_STEPS)
+    args = mesh_run_args(path, job["depth"])
+    _, shape, plan = mesh_plan(path, job["depth"])
+    dev = local_device("cuda")
+    undo = plant_control(control)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    C.reset_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            losses, state = run(TRAIN_ARCH, steps=steps, lr=3e-4, log_every=1, device="cuda",
+                                **args)
+    finally:
+        undo()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    leaves = tree_leaves(state.params)
+    n_grad, n_leaves = sum(p.numel() for p in leaves), len(leaves)
+    ops = dict(C.STATS["reduce_ops"])
+    tag = f"rank {rank}: {path} {job['depth']}"
+    wire = wire_compression_axes(plan, SimpleNamespace(shape=shape), args["batch"])
+    check((wire is not None) == (path == "wire"), f"{tag}: wire axes {wire}")
+    if control is None and path == "wire":
+        check(ops.get("max:float32") == ops.get("sum:int32") == steps * n_leaves
+              and ops.get("sum:float32", 0) < n_leaves,
+              f"{tag}: all-reduces {ops}, expected a max and an int32 sum a leaf and step")
+    if control is None and path == "dp":
+        check(ops.get("sum:float32", 0) >= steps * n_leaves and "sum:int32" not in ops,
+              f"{tag}: all-reduces {ops}, expected an f32 sum a leaf and step")
+    moved = sum(C.STATS["bytes"].values()) / steps
+    res = {"losses": losses, "step_ms": [r[2] for r in parse_step_log(out.getvalue())],
+           "log": out.getvalue(), "counts": read_counts(), "reduce_ops": ops,
+           "calls": dict(C.STATS["calls"]), "bytes": dict(C.STATS["bytes"]),
+           "coll_s": float(sum(C.STATS["seconds"].values())), "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "local_params": n_grad, "B": args["batch"], "S": args["seq"],
+           "moved_bytes_step": moved,
+           "wire_bytes_step": C.wire_bytes(n_grad, "int8") if path == "wire" else moved}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(spec_file: str) -> None:
+    """A phase-39 rank (``python3 chip_smoke.py --mesh-rank spec.json``,
+    started with torchrun's environment): every job of the spec in order,
+    the results written as JSON."""
+    from repro_torch.launch.mesh import init_distributed
+
+    spec = json.loads(Path(spec_file).read_text())
+    rank = int(os.environ["RANK"])
+    backend = init_distributed("cuda")  # torchrun's environment: gloo, two ranks a card
+    check(backend == "gloo", f"rank {rank}: backend {backend}")
+    results = [mesh_job(job, rank) for job in spec["jobs"]]
+    Path(spec["out"].format(rank=rank)).write_text(json.dumps(results))
+    torch.distributed.destroy_process_group()
+
+
+def phase_mesh_nccl():
+    """Phase 38: the mesh path at world size 1 over NCCL.  ``launch.train.
+    run`` trains qwen3-1.7b at full width and depth in bf16, B 8 x S 2048,
+    2 steps, first in a process without ``torch.distributed`` and then
+    after ``init_distributed`` starts a one-rank NCCL group (its all-reduce
+    probe on the card): the same mesh code, every collective the identity,
+    so the losses must be bit-identical, with the same kernel launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.train import run
+
+    log(f"phase 38: the mesh path at world size 1 over NCCL: {TRAIN_ARCH}, bf16, B={TRAIN_B} "
+        f"S={TRAIN_S}, {MESH_STEPS} steps, without and with a process group")
+    cfg = get_config(TRAIN_ARCH)
+    plan = derive_execution_plan(cfg, training=True, batch=TRAIN_B, seq_len=TRAIN_S, hw=H100_SXM)
+    kw = dict(steps=MESH_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=3e-4, dtype=torch.bfloat16,
+              log_every=1, device="cuda")
+    runs = {}
+    for tag in ("no process group", "nccl, world 1"):
+        if tag.startswith("nccl"):
+            backend = init_distributed("cuda", init_method=f"tcp://localhost:{free_port()}",
+                                       rank=0, world_size=1, backend="nccl")
+            check(backend == "nccl" and torch.distributed.get_world_size() == 1,
+                  f"process group {backend}")
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            losses, state = run(TRAIN_ARCH, **kw)
+        counts = read_counts()
+        del state
+        torch.cuda.empty_cache()
+        for line in out.getvalue().splitlines():
+            log(f"  {tag} | {line}")
+        runs[tag] = (losses, counts)
+    torch.distributed.destroy_process_group()
+    (la, ca), (lb, cb) = runs.values()
+    want = training_launches(cfg, plan, MESH_STEPS)
+    log(f"  losses {la} / {lb}: {'bit-identical' if la == lb else 'DIFFER'}; launches {cb}")
+    check(la == lb, "the one-rank NCCL mesh run's losses differ from the run without a group")
+    check(ca == cb == want, f"launches {ca} / {cb}, expected {want}")
+    return {"losses": lb, "counts": cb}
+
+
+def spawn_ranks(jobs: list, tag: str) -> list:
+    """Two ranks of this script on the card (``--mesh-rank``), with
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_PORT) and
+    expandable segments; joined within MESH_TIMEOUT_S, killed after it.
+    Returns each rank's job results."""
+    work = ROOT / "build" / "mesh_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    spec = work / f"{tag}.json"
+    spec.write_text(json.dumps({"jobs": jobs, "out": str(work / f"{tag}.rank{{rank}}.json")}))
+    port = free_port()
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", OMP_NUM_THREADS="4")
+        f = open(work / f"{tag}.rank{r}.log", "w")
+        logs.append(f)
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--mesh-rank", str(spec)], env=env, stdout=f,
+                                      stderr=subprocess.STDOUT))
+    deadline = time.time() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        text = (work / f"{tag}.rank{r}.log").read_text()
+        if p.returncode != 0:
+            for line in text.splitlines()[-30:]:
+                log(f"  rank {r} | {line}")
+        check(p.returncode == 0, f"{tag}: rank {r} exited with {p.returncode}")
+    return [json.loads((work / f"{tag}.rank{r}.json").read_text()) for r in range(2)]
+
+
+def phase_mesh_ranks(nccl_losses=None):
+    """Phase 39: two ranks on the one H100.  NCCL refuses two ranks on one
+    device, so the ranks use gloo and every CUDA tensor crosses through
+    host memory; each rank computes on the card with the flash and RMSNorm
+    kernels (forward and backward).  qwen3-1.7b: (a) ``--dp 2``, (b) ``--dp
+    2 --force-mode spatial --compression int8`` (the int8 wire), (c)
+    ``--seq-parallel --force-mode spatial`` (model axis 2: 8 / 4 heads a
+    rank), (d) ``--pipeline 2`` (8 microbatches, bubble 1/9).  Every run,
+    the one-rank baselines too, is ``launch.train.run``: first each path in
+    f32 at reduced depth against the one-rank run (tight), then each at full
+    width and depth in bf16 against the one-rank bf16 run (phase 38's run
+    where the batch and plan are the same); at both depths the planted
+    controls of MESH_CONTROLS must fail their path's tolerance.  For every
+    path: step ms, collective seconds (the card synchronized before each:
+    the copies and the transport), the bytes moved and the wire bytes, every
+    rank's launches (held to ``mesh_launches``) and peak memory.  Returns
+    the numbers."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import run
+
+    log("phase 39: two ranks on the one H100 over gloo (CUDA tensors cross through host "
+        f"memory): {TRAIN_ARCH}, {MESH_STEPS} steps a path; f32 at {MESH_F32['n_layers']} "
+        f"layers, then bf16 at full depth")
+
+    def baseline(path, depth):
+        """The one-rank run's key: depth, whether q, k and v stay fused (SP
+        plans unfuse them), batch."""
+        return depth, path != "sp", mesh_run_args(path, depth)["batch"]
+
+    one = {}
+    if nccl_losses is not None:  # phase 38's run: the same batch, plan and seed
+        one[("full", True, TRAIN_B)] = nccl_losses
+    for depth in ("f32", "full"):
+        for key in sorted({baseline(p, depth) for p in MESH_PATHS}):
+            if key in one:
+                continue
+            _, fuse, B = key
+            path = "dp" if fuse else "sp"
+            a = {k: v for k, v in mesh_run_args(path, depth).items()
+                 if k not in MESH_PATHS[path][0]}  # one rank: no mesh flags
+            with contextlib.redirect_stdout(io.StringIO()):
+                one[key] = run(TRAIN_ARCH, steps=MESH_STEPS, lr=3e-4, log_every=0, device="cuda",
+                               fuse_qkv=None if fuse else False, **dict(a, batch=B))[0]
+            torch.cuda.empty_cache()
+    log(f"  one-rank losses: {json.dumps({str(k): v for k, v in one.items()})}")
+    controls = [{"path": p, "control": c, "steps": n} for c, (p, n) in MESH_CONTROLS.items()]
+    jobs = []
+    for depth in ("f32", "full"):
+        jobs += [{"path": p, "depth": depth} for p in MESH_PATHS]
+        jobs += [{**c, "depth": depth} for c in controls]
+    t0 = time.time()
+    res = spawn_ranks(jobs, "phase39")
+    log(f"  two ranks ran {len(jobs)} jobs in {time.time() - t0:.1f} s")
+    out, readings = {}, {}
+    for i, job in enumerate(jobs):
+        path, depth, control = job["path"], job["depth"], job.get("control")
+        r0, r1 = res[0][i], res[1][i]
+        ref = one[baseline(path, depth)]
+        wire = path == "wire"
+        tol = (MESH_WIRE_TOL if wire else MESH_F32_TOL) if depth == "f32" \
+            else (MESH_WIRE_BF16_TOL if wire else MESH_BF16_TOL)
+        dev = max(abs(a - b) for a, b in zip(r0["losses"], ref))
+        tag = f"{path} {depth}" + (f" control {control}" if control else "")
+        readings[tag] = dev
+        cfg, _, plan = mesh_plan(path, depth)
+        want = mesh_launches(cfg, plan, job.get("steps", MESH_STEPS), path)
+        log(f"  {tag}: losses {r0['losses']} (rank 1 {r1['losses']}) vs one rank {ref}: "
+            f"|d| {dev:.3g} (tol {tol:g}); step ms {r0['step_ms']}; collectives "
+            f"{r0['coll_s']:.2f} / {r1['coll_s']:.2f} s ({json.dumps(r0['calls'])}; all-reduces "
+            f"{json.dumps(r0['reduce_ops'])}; {r0['moved_bytes_step'] / 1e9:.3f} GB a step); "
+            f"wire bytes a step {r0['wire_bytes_step'] / 1e9:.3f} GB; peak "
+            f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB; launches {r0['counts']} / "
+            f"{r1['counts']}; wall {r0['wall_s']:.1f} s")
+        check(r0["losses"] == r1["losses"], f"{tag}: the ranks' losses differ")
+        if control:
+            check(dev > tol, f"{tag}: the planted control passed ({dev:.3g} <= {tol:g})")
+            continue
+        check(dev <= tol, f"{tag}: losses {dev:.3g} from the one-rank run")
+        check(r0["counts"] == r1["counts"] == want,
+              f"{tag}: launches {r0['counts']} / {r1['counts']}, expected {want}")
+        if depth == "full":
+            out[path] = {"losses": r0["losses"], "one_rank_losses": ref, "step_ms": r0["step_ms"],
+                         "collective_s": [r0["coll_s"], r1["coll_s"]],
+                         "collective_calls": r0["calls"],
+                         "collective_gb": sum(r0["bytes"].values()) / 1e9,
+                         "moved_bytes_step": r0["moved_bytes_step"],
+                         "wire_bytes_step": r0["wire_bytes_step"],
+                         "peak_gib": [r0["peak_gib"], r1["peak_gib"]], "launches": r0["counts"],
+                         "wall_s": r0["wall_s"], "B": r0["B"]}
+            for line in r0["log"].splitlines():  # rank 0's launcher lines before its steps
+                if not line.startswith("step"):
+                    log(f"  | {line}")
+    out["loss_deviation"] = readings
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4082,6 +4518,10 @@ def main() -> None:
         f"{t1 - t0:.1f} s")
     log(f"  rwkv6-1.6b training: {json.dumps(rwkv_train_run)}; checkpoints: "
         f"{json.dumps(ckpt_run)}; phases 34-37 took {time.time() - t1:.1f} s")
+    t2 = time.time()
+    nccl_run = phase_mesh_nccl()
+    mesh_run = phase_mesh_ranks(nccl_run["losses"])
+    log(f"  mesh paths: {json.dumps(mesh_run)}; phases 38-39 took {time.time() - t2:.1f} s")
     end_phase()
     log(f"total {time.time() - t_start:.1f} s")
     records = [
@@ -4198,7 +4638,10 @@ def main() -> None:
 
 if __name__ == "__main__":
     try:
-        main()
+        if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+            mesh_rank(sys.argv[2])
+        else:
+            main()
     except SystemExit:
         raise
     except Exception:

@@ -10,9 +10,11 @@ paths JAX's ``tree_flatten_with_path`` gives a tree of the same shape (a
 NamedTuple's field names, dict keys, sequence indices, joined with "|";
 ``None`` subtrees have no leaves), and bf16/f16 leaves are stored as f32,
 so a checkpoint written by either package restores in the other.  Leaves
-are saved whole (one device); restoring onto a mesh (``shardings``) comes
-with ``dist/`` (ROADMAP queue 1, item 7).  Async: the save copies every
-leaf to the host first, then writes on a background thread.
+are saved whole: a run on a mesh gathers its shards first
+(``dist.sharding.gather``) and one rank writes.  ``restore_checkpoint(...,
+shardings=)`` restores onto a mesh: every rank reads the npz and keeps its
+local shard of each leaf.  Async: the save copies every leaf to the host
+first, then writes on a background thread.
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ def _key(path: tuple) -> str:
 
 
 def _host(leaf: torch.Tensor) -> np.ndarray:
-    t = leaf.detach()
-    if t.dtype in (torch.bfloat16, torch.float16):  # npz-unfriendly dtypes
-        t = t.float()
-    return t.cpu().numpy()
+    """A host copy of ``leaf`` that shares no storage with it, also when the
+    leaf is already on the CPU: the launcher donates its state, so the next
+    step writes the live tensors while an async save is still writing."""
+    wide = leaf.dtype in (torch.bfloat16, torch.float16)  # npz-unfriendly dtypes
+    return leaf.detach().to("cpu", torch.float32 if wide else leaf.dtype, copy=True).numpy()
 
 
 def _flatten(tree: Tree) -> dict:
@@ -101,23 +104,29 @@ def latest_step(directory: str) -> Optional[int]:
 def restore_checkpoint(directory: str, step: int, like: Tree,
                        shardings: Optional[Tree] = None) -> Tree:
     """Restore into the shape of ``like`` (a tree of tensors): each leaf
-    cast to the dtype of ``like``'s and placed on its device.  ``shardings`` (re-sharding onto a
-    mesh) is not ported yet and raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): restoring onto a mesh is ROADMAP queue 1, item 7 "
-            "(dist/)")
+    cast to the dtype of ``like``'s and placed on its device.  With
+    ``shardings`` (a tree of ``dist.sharding.NamedSharding`` shaped like
+    ``like``, whose leaves are this rank's shards) each saved leaf is cut to
+    this rank's shard first (the elastic restore: any layout reads any
+    checkpoint)."""
     d = pathlib.Path(directory) / f"step_{step}"
     with np.load(d / "arrays.npz") as z:
         flat = {k: z[k] for k in z.files}
 
-    def get(path, leaf):
+    def get(path, leaf, sharding=None):
         key = _key(path)
         if key not in flat:
             raise KeyError(f"checkpoint missing {key}")
-        arr = flat[key]
         with warnings.catch_warnings():  # npz members load read-only; .to copies
             warnings.simplefilter("ignore", UserWarning)
-            return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype, copy=True)
+            t = torch.from_numpy(flat[key])
+        if sharding is not None:
+            t = sharding.local(t)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"checkpoint leaf {key}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(leaf.shape)}")
+        return t.to(device=leaf.device, dtype=leaf.dtype, copy=True).contiguous()
 
-    return tree_map_with_path(get, like)
+    if shardings is None:
+        return tree_map_with_path(get, like)
+    return tree_map_with_path(get, like, shardings)

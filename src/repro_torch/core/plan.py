@@ -1,14 +1,23 @@
-"""The CAT planner's halves the port runs, copied from ``repro/core/plan.py``.
+"""The CAT planner, copied from ``repro/core/plan.py``: ``derive_plan``
+(the training and execution plan: stage modes, head sharding, remat,
+microbatches, the mesh layout) and the serving half (``ServePlan`` /
+``serve_feasible`` / ``derive_serve_plan``).  The parity tests hold both
+against the JAX package field for field, on the same hardware numbers.
 
-The port carries ``ServePlan`` / ``serve_feasible`` / ``derive_serve_plan``
-unchanged (the parity tests hold them field for field against the JAX
-package) and a small ``ExecutionPlan`` with the fields the forward and the
-train step read.  ``derive_execution_plan(training=True)`` copies the
-Factor2' outcome of ``derive_plan`` (remat and microbatches, from the
-activation bytes against device memory) for a 1 x 1 mesh, term for term;
-the rest of ``derive_plan`` is not ported: its MM-tile search is sized for
-the TPU's VMEM and finds no feasible tile for a 227 KB shared-memory
-budget, and its modes and shardings wait for ``dist/``.
+Two deliberate divergences (ROADMAP, "Deliberate divergences"):
+
+* ``StagePlan`` carries no ``pu``: the JAX plan picks each stage's Pallas
+  tile with ``core/pu.pick_pu``; the port's CUDA kernels choose their own
+  tiles, and the tile search, sized for a TPU's VMEM, finds no feasible
+  tile in the H100's shared memory.
+* Factor1's one-shot engine MM: the JAX plan takes the LARGE member of
+  ``derive_pu_family(hw)``; on a card with a hand-written MM kernel
+  (``ONE_SHOT_MM_TILES``, the H100) it is that kernel's CTA tile, 128 x 128
+  x 64 (``kernels/mm_pu/csrc/mm_pu.cu``).  On any other hardware (the TPU
+  numbers the parity tests hand both packages) the search decides, as in JAX.
+
+``derive_execution_plan`` is ``derive_plan`` on a 1 x 1 mesh with the
+serving defaults (``training=False``), which the serving paths call.
 """
 from __future__ import annotations
 
@@ -16,26 +25,310 @@ import dataclasses
 from typing import Mapping, Optional
 
 from repro_torch.core.hardware import DEFAULT_HARDWARE, HardwareSpec
+from repro_torch.core.pu import derive_pu_family
+
+# Paper constant: EDPU pipeline has at most 4 PRGs in flight per stage.
+PRG_MAX_PIPELINE_DEPTH = 4
+
+SPATIAL = "spatial"  # paper parallel mode (1): fully-pipelined, sliced fabric
+TEMPORAL = "temporal"  # paper parallel mode (2): serial PRGs, each uses all chips
+
+GRAD_COMPRESSION = ("none", "bf16", "int8")
+
+# The CTA tile (block_m, block_n, block_k) of the port's tensor-core MM
+# kernel (kernels/mm_pu/csrc/mm_pu.cu), by hardware name: Factor1's
+# one-shot engine MM on that card.
+H100_MM_CTA_TILE = (128, 128, 64)
+ONE_SHOT_MM_TILES = {"h100": H100_MM_CTA_TILE}
+
+MESH1 = {"data": 1, "model": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """Per-stage (MHA / FFN) decision record (JAX's, without ``pu``)."""
+
+    mode: str  # SPATIAL | TEMPORAL
+    factor1: float  # Eq.5/6 Factor1 analog (diagnostic, logged)
+    factor2_bytes: int  # Eq.5/6 Factor2 analog: activation bytes/chip, no remat
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """The model-side plan decisions the forward and the train step read."""
+    """The derived accelerator instance for one (arch x mesh x shape)."""
 
     arch: str
-    # C5 Independent-Linear: one fused (q | k | v) projection matrix.
+    mesh_axes: tuple  # e.g. (("data", 16), ("model", 16)), sorted by name
+    mha: StagePlan
+    ffn: StagePlan
+    # C5: Independent-Linear: one fused (q | k | v) projection matrix.
     fuse_qkv: bool
+    # C4/P_ATB: attention-block parallel degree (heads consumed in parallel).
+    p_atb: int
+    # Head sharding degree over the model axis.
+    head_shards: int
+    # Activation checkpointing of each stacked pattern-group (Factor2').
+    remat: bool
+    # Gradient accumulation over this many microbatches (Factor2').
+    microbatches: int
+    # Embedding partition dim: "vocab" | "embed" | "replicated".
+    embed_shard: str
+    # MoE execution mode: "ep" (experts sharded) | "tp" (d_ff sharded) | "none".
+    moe_mode: str
+    # Sequence sharding for long-context cells (batch < data axis).
+    seq_shard: bool
     # MoE dispatch algorithm: "gshard" grouped one-hot products | "sort".
     moe_dispatch: str = "gshard"
-    # Activation checkpointing of each stacked pattern-group (Factor2').
-    remat: bool = False
-    # Gradient accumulation over this many microbatches (Factor2').
-    microbatches: int = 1
-    # Gradient format at the accumulation boundary: "none" | "bf16" | "int8".
+    # TEMPORAL mode folds the model axis into data parallelism.
+    dp_over_model: bool = False
+    # ZeRO/FSDP hybrid: weights and optimizer state also sharded over `data`.
+    zero_weights: bool = False
+    # Megatron-style sequence parallelism of the residual stream over `model`.
+    seq_parallel_acts: bool = False
+    # Pod-axis role: "data" (extra DP) or "pipeline" (stages over `pod`).
+    pod_role: str = "data"
+    # Gradient wire format: "none" | "bf16" | "int8".
     grad_compression: str = "none"
 
+    @property
+    def model_axis(self) -> int:
+        return dict(self.mesh_axes).get("model", 1)
 
-GRAD_COMPRESSION = ("none", "bf16", "int8")
+    @property
+    def data_axis(self) -> int:
+        return dict(self.mesh_axes).get("data", 1)
+
+    @property
+    def pod_axis(self) -> int:
+        return dict(self.mesh_axes).get("pod", 1)
+
+    def mode_for(self, stage: str) -> str:
+        """Parallel mode the sharder executes for a stage ("mha" | "ffn"):
+        every stage TEMPORAL when ``dp_over_model`` folds the model axis into
+        data parallelism."""
+        if self.dp_over_model:
+            return TEMPORAL
+        if stage == "mha":
+            return self.mha.mode
+        if stage == "ffn":
+            return self.ffn.mode
+        raise KeyError(f"unknown stage {stage!r}; expected 'mha' or 'ffn'")
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for d in range(min(n, cap), 0, -1):
+        if n % d == 0 and cap % d == 0:
+            return d
+    return 1
+
+
+def one_shot_mm(hw: HardwareSpec, dtype_bytes: int = 2) -> tuple:
+    """(block_m, block_n, block_k) of the engine's one-shot MM, Factor1's
+    denominator: the named CTA tile of the card's own MM kernel where
+    ``ONE_SHOT_MM_TILES`` lists the hardware, else the LARGE member of the
+    tile search (the JAX plan's rule)."""
+    if hw.name in ONE_SHOT_MM_TILES:
+        return ONE_SHOT_MM_TILES[hw.name]
+    large = derive_pu_family(hw, dtype_bytes)["LARGE"]
+    return large.block_m, large.block_n, large.block_k
+
+
+def derive_plan(
+    cfg,
+    mesh_shape: Mapping[str, int],
+    hw: HardwareSpec = DEFAULT_HARDWARE,
+    *,
+    batch: int = 8,
+    seq_len: int = 2048,
+    training: bool = True,
+    fuse_qkv: Optional[bool] = None,
+    force_mode: Optional[str] = None,
+    pod_role: str = "data",
+    dtype_bytes: int = 2,
+    moe_dispatch: str = "gshard",
+    seq_parallel: Optional[bool] = None,
+    grad_compression: str = "none",
+) -> ExecutionPlan:
+    """Top-down derivation (paper section IV): hardware and model jointly
+    decide.  ``repro/core/plan.py::derive_plan`` term for term, but for the
+    stage tiles (``StagePlan.pu``) and the one-shot MM (``one_shot_mm``)."""
+    if moe_dispatch not in ("gshard", "sort"):
+        raise ValueError(f"moe_dispatch {moe_dispatch!r}: 'gshard' or 'sort'")
+    if grad_compression not in GRAD_COMPRESSION:
+        raise ValueError(f"grad_compression {grad_compression!r}: one of {GRAD_COMPRESSION}")
+    ma = mesh_shape.get("model", 1)
+    da = mesh_shape.get("data", 1)
+    bm, bn, bk = one_shot_mm(hw, dtype_bytes)
+
+    # ---- Eq.5 Factor1 (MHA): LB MM scale / engine one-shot MM scale. -------
+    lb_mm_volume = 4.0 * seq_len * cfg.d_model * cfg.n_heads * cfg.d_head
+    engine_volume = float(ma) * bm * bn * bk
+    mha_factor1 = lb_mm_volume / engine_volume
+
+    # ---- Eq.6 Factor1 (FFN). ------------------------------------------------
+    ffn_volume = 2.0 * seq_len * cfg.d_model * cfg.d_ff
+    ffn_factor1 = ffn_volume / engine_volume
+
+    # ---- divisibility (needed by Factor2' and the mode decision). ----------
+    heads_div = cfg.n_heads % ma == 0 and (cfg.n_kv_heads % ma == 0 or cfg.n_kv_heads < ma)
+    ffn_shard_w = cfg.effective_ff_width()
+    ffn_div = ffn_shard_w % ma == 0 and (ffn_shard_w // ma) >= hw.mxu_dim
+    tp_feasible = heads_div and cfg.d_model % ma == 0
+
+    # ---- Factor2': activation bytes per chip if nothing is rematerialized. --
+    tokens = batch * seq_len
+    tokens_per_chip = tokens / max(da, 1)
+    width_frac = 1.0 / ma  # hidden sharded over model axis in SPATIAL mode
+    qkv_width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
+    mha_act = tokens_per_chip * (cfg.d_model + qkv_width + cfg.n_heads * cfg.d_head)
+    ffn_act = tokens_per_chip * (cfg.d_model + 2 * cfg.effective_ff_width())
+    mha_factor2 = int(mha_act * dtype_bytes * width_frac * cfg.n_layers)
+    ffn_factor2 = int(ffn_act * dtype_bytes * width_frac * cfg.n_layers)
+    # the f32 attention probabilities, the big saved residual without remat
+    attn_layers = sum(
+        1 for i in range(cfg.n_layers) if cfg.layer_kind(i) in ("attn", "swa", "local")
+    )
+    eff_kv = min(seq_len, cfg.sliding_window or seq_len)
+    probs = tokens_per_chip * eff_kv * cfg.n_heads * 4.0
+    mha_factor2 += int(probs * attn_layers / (ma if tp_feasible else 1))
+
+    # The batch folds over the model axis (TEMPORAL -> FSDP, no duplicate
+    # compute) only when it divides the full dp extent.
+    can_fold = batch % max(da * ma, 1) == 0 and batch >= da
+
+    def decide(feasible: bool) -> str:
+        if force_mode:
+            return force_mode
+        return SPATIAL if feasible else TEMPORAL
+
+    mha_mode = decide(tp_feasible)
+    ffn_mode = decide(ffn_div and cfg.d_model % ma == 0)
+
+    # Eq.5/6: when the model's MM scale dwarfs the engine's one-shot scale
+    # (Factor1 >= PRG depth) training takes mode (2), serial PRGs each using
+    # all compute: the model axis folds into data parallelism.  MoE keeps its
+    # spatial FFN.
+    if (
+        training
+        and not cfg.is_moe
+        and can_fold
+        and force_mode is None
+        and max(mha_factor1, ffn_factor1) >= PRG_MAX_PIPELINE_DEPTH
+    ):
+        mha_mode = TEMPORAL
+        ffn_mode = TEMPORAL
+
+    seq_shard = batch % max(da, 1) != 0 or batch < da
+    dp_over_model = (
+        mha_mode == TEMPORAL
+        and ffn_mode == TEMPORAL
+        and not seq_shard
+        and batch % max(da * ma, 1) == 0
+    )
+
+    # ---- P_ATB (Eq.7/8): heads consumed in parallel per fused-QKV output. --
+    head_shards = _largest_divisor_leq(cfg.n_heads, ma) if mha_mode == SPATIAL else 1
+    if cfg.n_heads % max(head_shards, 1):
+        head_shards = 1
+    p_atb = max(1, cfg.n_heads // max(head_shards, 1))
+
+    # ---- Factor2' outcome: ZeRO weights + remat + microbatches. -------------
+    # Optimizer state (~12 B a parameter training, the weights serving)
+    # sharded over the model axis only can exceed device memory: shard the
+    # complementary weight dim over `data` too (ZeRO/FSDP hybrid).
+    bytes_per_param = 12.0 if training else float(dtype_bytes)
+    param_bytes_model_only = cfg.param_count() * bytes_per_param / ma
+    zero_weights = param_bytes_model_only > (0.35 if training else 1.0) * hw.hbm_bytes
+    param_bytes = param_bytes_model_only / (da if zero_weights else 1)
+    act_budget = max(hw.hbm_bytes - param_bytes, hw.hbm_bytes * 0.25)
+    total_act = mha_factor2 + ffn_factor2
+    remat = training and total_act > 0.25 * act_budget
+    # Megatron-SP stays opt-in (``seq_parallel=``) and engages only where the
+    # manual path runs: every projection column/row-shards evenly and the
+    # sequence splits over the model axis.
+    sp_feasible = (
+        ma > 1
+        and not cfg.is_moe
+        and not cfg.enc_dec
+        and all(k in ("attn", "swa", "local") for k in cfg.layer_pattern)
+        and mha_mode == SPATIAL
+        and ffn_mode == SPATIAL
+        and cfg.n_heads % ma == 0
+        and cfg.n_kv_heads % ma == 0
+        and seq_len % ma == 0
+        and cfg.effective_ff_width() % ma == 0
+        and not seq_shard
+        and not zero_weights  # the manual ring assumes whole column/row shards
+    )
+    seq_parallel_acts = bool(seq_parallel) and sp_feasible
+    if seq_parallel_acts:
+        # the ring needs per-projection column shards: a fused (q|k|v)
+        # column split would hand each rank a q/k/v mix
+        fuse_qkv = False
+    saved_per_layer = tokens_per_chip * cfg.d_model * dtype_bytes
+    resid = saved_per_layer * cfg.n_layers
+    # the per-microbatch global batch must stay divisible by the DP extent
+    dp_total = da * (ma if dp_over_model else 1)
+    micro_cap = max(1, batch // max(dp_total, 1))
+    microbatches = 1
+    while (
+        training
+        and resid / microbatches > 0.5 * act_budget
+        and microbatches * 2 <= micro_cap
+        and batch % (microbatches * 2) == 0
+    ):
+        microbatches *= 2
+
+    # Pipeline pods need the pipe full: the GPipe bubble is (S-1)/(M+S-1), so
+    # raise M to the largest batch divisor <= 4 S whose microbatch still
+    # folds over the data axis (an unfillable pipe fails loudly in
+    # check_pipeline_supported instead).
+    pa = mesh_shape.get("pod", 1)
+    if training and pod_role == "pipeline" and pa > 1:
+        for cand in range(min(batch, 4 * pa), microbatches, -1):
+            if batch % cand == 0 and cand >= pa and (batch // cand) % max(da, 1) == 0:
+                microbatches = cand
+                break
+
+    # ---- Embedding + MoE + sequence sharding. -------------------------------
+    if cfg.vocab_size % ma == 0:
+        embed_shard = "vocab"
+    elif cfg.d_model % ma == 0:
+        embed_shard = "embed"
+    else:
+        embed_shard = "replicated"
+    if cfg.n_experts > 1:
+        if cfg.n_experts % ma == 0:
+            moe_mode = "ep"
+        elif cfg.moe_d_ff % ma == 0 and cfg.moe_d_ff // ma >= hw.mxu_dim:
+            moe_mode = "tp"
+        else:
+            moe_mode = "none"
+    else:
+        moe_mode = "none"
+    if fuse_qkv is None:
+        fuse_qkv = cfg.fused_qkv_ok()
+
+    return ExecutionPlan(
+        arch=cfg.name,
+        mesh_axes=tuple(sorted(mesh_shape.items())),
+        mha=StagePlan(mha_mode, mha_factor1, mha_factor2),
+        ffn=StagePlan(ffn_mode, ffn_factor1, ffn_factor2),
+        fuse_qkv=bool(fuse_qkv),
+        p_atb=p_atb,
+        head_shards=head_shards,
+        remat=remat,
+        microbatches=max(1, microbatches),
+        embed_shard=embed_shard,
+        moe_mode=moe_mode,
+        moe_dispatch=moe_dispatch,
+        seq_shard=seq_shard,
+        dp_over_model=dp_over_model,
+        zero_weights=zero_weights,
+        seq_parallel_acts=seq_parallel_acts,
+        pod_role=pod_role,
+        grad_compression=grad_compression,
+    )
 
 
 def derive_execution_plan(cfg, fuse_qkv: Optional[bool] = None, *,
@@ -43,55 +336,14 @@ def derive_execution_plan(cfg, fuse_qkv: Optional[bool] = None, *,
                           batch: int = 8, seq_len: int = 2048,
                           hw: HardwareSpec = DEFAULT_HARDWARE, dtype_bytes: int = 2,
                           grad_compression: str = "none") -> ExecutionPlan:
-    """``fuse_qkv`` and ``moe_dispatch`` as ``repro.core.plan.derive_plan``
-    sets them: QKV fused wherever the arch has attention, unless the caller
-    decides; the dispatch the caller names, "gshard" by default (the JAX
-    serving launcher never names another).  With ``training``, ``remat``
-    and ``microbatches`` as ``derive_plan`` derives them on a 1 x 1 mesh
-    (``repro/core/plan.py:186-204, 266-278, 318-325``) for ``batch`` x
-    ``seq_len`` tokens on ``hw``, and ``grad_compression`` recorded."""
-    if fuse_qkv is None:
-        fuse_qkv = cfg.fused_qkv_ok()
-    if moe_dispatch not in ("gshard", "sort"):
-        raise ValueError(f"moe_dispatch {moe_dispatch!r}: 'gshard' or 'sort'")
-    if grad_compression not in GRAD_COMPRESSION:
-        raise ValueError(f"grad_compression {grad_compression!r}: one of {GRAD_COMPRESSION}")
-    remat, microbatches = False, 1
-    if training:
-        remat, microbatches = _factor2_outcome(cfg, hw, batch, seq_len, dtype_bytes)
-    return ExecutionPlan(arch=cfg.name, fuse_qkv=bool(fuse_qkv), moe_dispatch=moe_dispatch,
-                         remat=remat, microbatches=microbatches,
-                         grad_compression=grad_compression)
-
-
-def _factor2_outcome(cfg, hw: HardwareSpec, batch: int, seq_len: int,
-                     dtype_bytes: int) -> tuple[bool, int]:
-    """``derive_plan``'s training remat and microbatch count on a 1 x 1 mesh
-    (model and data axes 1: no width sharding, the whole batch on the
-    chip, the ZeRO split a no-op, and the microbatch cap the batch)."""
-    tokens = batch * seq_len
-    qkv_width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
-    mha_act = tokens * (cfg.d_model + qkv_width + cfg.n_heads * cfg.d_head)
-    ffn_act = tokens * (cfg.d_model + 2 * cfg.effective_ff_width())
-    mha_factor2 = int(mha_act * dtype_bytes * cfg.n_layers)
-    ffn_factor2 = int(ffn_act * dtype_bytes * cfg.n_layers)
-    # the f32 attention probabilities, the big saved residual without remat
-    attn_layers = sum(
-        1 for i in range(cfg.n_layers) if cfg.layer_kind(i) in ("attn", "swa", "local")
-    )
-    eff_kv = min(seq_len, cfg.sliding_window or seq_len)
-    probs = tokens * eff_kv * cfg.n_heads * 4.0
-    mha_factor2 += int(probs * attn_layers)
-    # parameters, gradients and f32 m / v: 12 bytes a parameter
-    param_bytes = cfg.param_count() * 12.0
-    act_budget = max(hw.hbm_bytes - param_bytes, hw.hbm_bytes * 0.25)
-    remat = mha_factor2 + ffn_factor2 > 0.25 * act_budget
-    resid = tokens * cfg.d_model * dtype_bytes * cfg.n_layers
-    microbatches = 1
-    while (resid / microbatches > 0.5 * act_budget and microbatches * 2 <= max(1, batch)
-           and batch % (microbatches * 2) == 0):
-        microbatches *= 2
-    return remat, microbatches
+    """``derive_plan`` on a 1 x 1 mesh, serving by default: ``fuse_qkv``
+    wherever the arch has attention unless the caller decides, the dispatch
+    the caller names ("gshard" by default, the JAX serving launcher's);
+    with ``training``, remat and microbatches for ``batch`` x ``seq_len``
+    tokens on ``hw``."""
+    return derive_plan(cfg, MESH1, hw, batch=batch, seq_len=seq_len, training=training,
+                       fuse_qkv=fuse_qkv, dtype_bytes=dtype_bytes, moe_dispatch=moe_dispatch,
+                       grad_compression=grad_compression)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,368 @@
+"""Manual collectives over a ``launch.mesh.Mesh`` (the port's
+``repro/dist/collectives.py``).
+
+JAX writes these inside ``shard_map`` and differentiates them through
+``lax.scan``.  Here every function runs on this rank's local shard, the
+view a ``shard_map`` body has, and each differentiable one is a
+``torch.autograd.Function`` with its backward written out:
+
+``ring_gather_matmul`` / ``overlap_all_gather_matmul``
+    The all-gather-then-matmul as a ring: each rank multiplies the chunk it
+    holds while it forwards it to its neighbour (``n - 1`` exchanges, no
+    all-gather).  The backward is a reverse ring of partial products
+    (``dout_j @ w^T`` summed as it travels, a reduce-scatter by ring) and a
+    local ``x^T @ dout`` for the weight.
+``seq_scatter``
+    The row-parallel partials summed and handed back as each rank's
+    sequence chunk (``reduce_scatter_tensor``); its backward is an
+    all-gather.
+``compressed_psum``
+    The gradient sum in a wire format: int8 on a shared ``pmax`` scale,
+    summed as int32 words as JAX does; bf16 summed in bf16; otherwise f32.
+
+Transport: over NCCL the tensors cross as they are.  Over gloo (ranks that
+share a card, or the CPU) a CUDA tensor is copied to host memory, moved,
+and copied back, in ``_staged``: that is the transport of ranks sharing
+one card, not a fallback, and the compute stays on the card.  ``STATS``
+counts every collective by kind (calls, payload bytes, host seconds) and
+every all-reduce by operation and word type (``reduce_ops``, e.g.
+``"sum:int32"``), for the tests' call counts, the chip script's check
+that the int8 wire ran and its collective time.  A staged collective
+first synchronizes the card (its host copy would wait for the queued
+kernels anyway), so its seconds are the copies and the transport, not the
+compute queued before it; over NCCL they are the host's enqueue time.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from collections import Counter
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.train.compression import quantize
+
+STATS = {"calls": Counter(), "bytes": Counter(), "seconds": Counter(), "reduce_ops": Counter()}
+
+
+def reset_stats() -> None:
+    for c in STATS.values():
+        c.clear()
+
+
+def _count(kind: str, x: torch.Tensor, seconds: float) -> None:
+    STATS["calls"][kind] += 1
+    STATS["bytes"][kind] += x.numel() * x.element_size()
+    STATS["seconds"][kind] += seconds
+
+
+def _start(mesh, x: torch.Tensor) -> float:
+    """A collective's start time, after the card has finished the kernels
+    queued before it when ``x`` is to be staged (see the module's note)."""
+    if mesh.backend == "gloo" and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return time.perf_counter()
+
+
+def _staged(mesh, x: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """The tensor the backend moves: over gloo a CUDA tensor is staged in
+    host memory (a copy; ``_arrive`` brings the result back).  ``copy``:
+    never ``x``'s own storage (the in-place collectives write it)."""
+    if mesh.backend == "gloo" and x.is_cuda:
+        return x.detach().to("cpu", copy=True).contiguous()
+    x = x.detach().contiguous()
+    return x.clone() if copy else x
+
+
+def _arrive(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return y if y.device == like.device else y.to(like.device)
+
+
+def _tensor_collective(fn, out, src, group) -> None:
+    """``fn(out, src, group=group)``; some torch releases mark the
+    ``*_tensor`` collectives deprecated, which is not this caller's news."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        fn(out, src, group=group)
+
+
+def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
+    """Sum (or max) of ``x`` over the ranks of ``axes``; a new tensor."""
+    g = mesh.group(axes)
+    if g is None:
+        return x.clone()
+    t0 = _start(mesh, x)
+    y = _staged(mesh, x, copy=True)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=g)
+    y = _arrive(y, x)
+    _count("all_reduce", x, time.perf_counter() - t0)
+    STATS["reduce_ops"][f"{op}:{str(x.dtype).removeprefix('torch.')}"] += 1
+    return y
+
+
+def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group order."""
+    g = mesh.group(axes)
+    if g is None:
+        return x.clone()
+    n = mesh.extent(axes)
+    t0 = _start(mesh, x)
+    src = _staged(mesh, x.movedim(dim, 0).contiguous())
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _tensor_collective(dist.all_gather_into_tensor, out, src, g)
+    y = _arrive(out, x).movedim(0, dim)
+    _count("all_gather", x, time.perf_counter() - t0)
+    return y
+
+
+def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` summed, this rank's chunk of ``dim`` returned."""
+    g = mesh.group(axes)
+    if g is None:
+        return x.clone()
+    n = mesh.extent(axes)
+    t0 = _start(mesh, x)
+    src = _staged(mesh, x.movedim(dim, 0).contiguous())
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _tensor_collective(dist.reduce_scatter_tensor, out, src, g)
+    y = _arrive(out, x).movedim(0, dim)
+    _count("reduce_scatter", x, time.perf_counter() - t0)
+    return y
+
+
+class _Exchange:
+    """One point-to-point step: send ``x`` to rank ``dst`` and receive a
+    tensor of its shape from rank ``src`` (either may be None), started
+    now and finished by ``wait`` so compute can run in between."""
+
+    def __init__(self, mesh, axes, x: torch.Tensor, dst, src):
+        self.mesh, self.like, self.t0 = mesh, x, _start(mesh, x)
+        g = mesh.group(axes)
+        self.out = _staged(mesh, x)
+        send = self.out
+        self.recv = torch.zeros_like(send) if src is not None else None
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, send, dst, g))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, self.recv, src, g))
+        self.reqs = dist.batch_isend_irecv(ops) if ops else []
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self):
+        t0 = _start(self.mesh, self.like)  # the compute queued since the start is not counted
+        for r in self.reqs:
+            r.wait()
+        got = None if self.recv is None else _arrive(self.recv, self.like)
+        _count("permute", self.like, self.seconds + time.perf_counter() - t0)
+        return got
+
+
+def permute(x: torch.Tensor, axes, mesh, dst, src):
+    """Send ``x`` to ``dst``, receive from ``src`` (global ranks, None for
+    neither); returns what arrived, zeros without a source (JAX's
+    ``ppermute`` leaves zeros where no pair sends)."""
+    got = _Exchange(mesh, axes, x, dst, src).wait()
+    return torch.zeros_like(x) if got is None else got
+
+
+def _ring_peers(mesh, axis: str, n: int):
+    idx, ranks = mesh.index(axis), mesh.ranks(axis)
+    return idx, ranks[(idx + 1) % n], ranks[(idx - 1) % n]
+
+
+class _RingGatherMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xi, wi, mesh, axis, n, gather_dim):
+        idx, nxt, prv = _ring_peers(mesh, axis, n)
+        c = xi.shape[gather_dim]
+        out_shape = list(xi.shape)
+        out_shape[gather_dim] = c * n
+        out_shape[-1] = wi.shape[1]
+        out = xi.new_empty(out_shape)
+        chunks = [None] * n
+        chunk = xi
+        for i in range(n):
+            src = (idx - i) % n  # origin of the chunk held now
+            ex = _Exchange(mesh, axis, chunk, nxt, prv) if i < n - 1 else None
+            out.narrow(gather_dim, src * c, c).copy_(chunk @ wi)
+            chunks[src] = chunk
+            if ex is not None:
+                chunk = ex.wait()
+        ctx.save_for_backward(wi, *chunks)
+        ctx.args = (mesh, axis, n, gather_dim, c)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        wi, *chunks = ctx.saved_tensors
+        mesh, axis, n, gather_dim, c = ctx.args
+        idx, nxt, prv = _ring_peers(mesh, axis, n)
+        dout = dout.contiguous()
+        K, N = wi.shape
+        x_full = torch.cat(chunks, dim=gather_dim)
+        dw = x_full.reshape(-1, K).T @ dout.reshape(-1, N)
+        wt = wi.T
+        acc, ex = None, None
+        for s in range(n):
+            # step s adds this rank's product into the partial of chunk
+            # idx - 1 - s; after n steps the partial of chunk idx is home
+            part = dout.narrow(gather_dim, ((idx - 1 - s) % n) * c, c) @ wt
+            acc = part if ex is None else ex.wait() + part
+            ex = _Exchange(mesh, axis, acc, nxt, prv) if s < n - 1 else None
+        return acc, dw, None, None, None, None
+
+
+def ring_gather_matmul(xi, wi, axis: str, n: int, gather_dim: int = 0, *, mesh):
+    """``xi`` (this rank's chunk of x along ``gather_dim``: 0 for (m, K)
+    rows, 1 for (B, s, K) sequence) gathered over ``axis`` while multiplied
+    by this rank's (K, N) weight shard ``wi``: after ``n`` steps every rank
+    holds the full ``x @ wi``, and no all-gather of x was made.  ``n - 1``
+    exchanges; differentiable."""
+    if n == 1:
+        return xi @ wi
+    return _RingGatherMatmul.apply(xi, wi, mesh, axis, n, gather_dim)
+
+
+def overlap_all_gather_matmul(mesh, x, w, axis: str = "model"):
+    """``x @ w`` with x row-sharded over ``axis`` (``x`` is this rank's
+    rows) and w replicated: the replicated (M, N) product on every rank."""
+    return ring_gather_matmul(x, w, axis, mesh.extent(axis), gather_dim=0, mesh=mesh)
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return reduce_scatter(partial, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim = ctx.args
+        return all_gather(dy.contiguous(), axis, mesh, dim), None, None, None
+
+
+def seq_scatter(partial, axis: str, scatter_dim: int = 1, *, mesh):
+    """Row-parallel partials summed over ``axis``, this rank's chunk of
+    ``scatter_dim`` returned (the Megatron-SP reduce-scatter)."""
+    if mesh.extent(axis) == 1:
+        return partial
+    return _SeqScatter.apply(partial, mesh, axis, scatter_dim)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The chunks of ``dim`` gathered; every rank's gradient of the whole is
+    the same (the loss after it is replicated), so its backward keeps this
+    rank's chunk."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim, x.shape[dim])
+        return all_gather(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim, c = ctx.args
+        return dy.narrow(dim, mesh.index(axis) * c, c).contiguous(), None, None, None
+
+
+class _SeqChunk(torch.autograd.Function):
+    """This rank's chunk of a replicated tensor; the backward gathers every
+    rank's chunk gradient, so the replicated producer gets the whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        n = mesh.extent(axis)
+        c = x.shape[dim] // n
+        ctx.args = (mesh, axis, dim)
+        return x.narrow(dim, mesh.index(axis) * c, c).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim = ctx.args
+        return all_gather(dy.contiguous(), axis, mesh, dim), None, None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A replicated input of a manual region: the identity, whose backward
+    sums the ranks' gradients (the transpose of JAX's implicit broadcast of
+    an unsharded ``shard_map`` input)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis = ctx.args
+        return all_reduce(dy, axis, mesh), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of a per-rank value over ``axes``; the same on every rank,
+    so each rank's backward passes 1/n of the gradient to its own term."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        n = mesh.extent(axes)
+        ctx.n = n
+        return all_reduce(x, axes, mesh) / n
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy / ctx.n, None, None
+
+
+def _manual(fn, x, mesh, *args):
+    return x if mesh is None or mesh.extent(args[0]) == 1 else fn.apply(x, mesh, *args)
+
+
+def seq_gather(x, axis: str, dim: int, *, mesh):
+    """The whole of ``dim`` from every rank's chunk (differentiable)."""
+    return _manual(_SeqGather, x, mesh, axis, dim)
+
+
+def seq_chunk(x, axis: str, dim: int, *, mesh):
+    """This rank's chunk of ``dim`` of a replicated ``x`` (differentiable)."""
+    return _manual(_SeqChunk, x, mesh, axis, dim)
+
+
+def replicated(x, axis, *, mesh):
+    """``x`` as a replicated input of a manual region over ``axis``: its
+    gradient is summed over the ranks."""
+    return _manual(_Replicated, x, mesh, axis)
+
+
+def mean_over(x, axes, *, mesh):
+    """The mean over the ranks of ``axes`` (differentiable)."""
+    if mesh is None or not axes or mesh.extent(axes) == 1:
+        return x
+    return _MeanOver.apply(x, mesh, axes)
+
+
+def compressed_psum(g, axis, mode: str = "int8", *, mesh):
+    """Cross-replica gradient sum with a compressed wire format; ``axis`` is
+    one name or a tuple.  int8: one scalar max over the ranks sets a shared
+    grid (``train/compression.quantize`` with that scale), the ranks' int8
+    payloads are summed as int32 words, and one multiply gives f32.  bf16:
+    the sum itself runs in bf16, then f32.  Otherwise an f32 sum."""
+    if mode == "bf16":
+        q, _ = quantize(g, mode)
+        return all_reduce(q, axis, mesh).float()
+    if mode == "int8":
+        g32 = g.float()
+        amax = all_reduce(g32.abs().max(), axis, mesh, op="max")  # shared grid scale
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        q, _ = quantize(g32, mode, scale=scale)
+        return all_reduce(q.to(torch.int32), axis, mesh).float() * scale
+    return all_reduce(g, axis, mesh)
+
+
+def wire_bytes(n_elements: int, mode: str) -> int:
+    """Bytes one replica puts on the wire per exchange for ``n_elements``
+    gradient values: int8 counts the narrow-wire payload (1 byte + the
+    amortized scale), not the int32 words the sum moves."""
+    per = {"bf16": 2, "int8": 1}.get(mode, 4)
+    return n_elements * per + (4 if mode == "int8" else 0)

@@ -1,27 +1,43 @@
-"""Training launcher (the port's ``repro/launch/train.py``, one device).
+"""Training launcher (the port's ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 4 --batch 8 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m-reduced \\
         --device cpu --steps 6 --batch 4 --seq 32
 
-The plan decides, this file executes: ``derive_execution_plan(training=
-True)`` sets remat and microbatches for the batch on the card (the H100
-entry), ``--compression`` quantizes the gradients at the accumulation
-boundary with an error-feedback residual in the train state.  A per-step
-watchdog flags stragglers.  On the card the forward and backward run
-through the flash-attention, RMSNorm and WKV kernels (every arch trains
-there).  ``--ckpt-dir`` saves the train state every ``--ckpt-every`` steps
-(on a background thread; ``repro_torch.ckpt``) and ``--resume`` restarts
-from the latest one, the data stream at the same step.
+    # the mesh paths over torch.distributed ranks (torchrun sets the ranks):
+    # data parallel, the int8 gradient wire, Megatron-SP, the GPipe pipeline
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch smollm-135m-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
+        --dp 2 --compression int8
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch bert-base-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
+        --seq-parallel --force-mode spatial
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch smollm-135m-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
+        --pipeline 2 --dp 2
 
-Not ported yet, and refused with the ROADMAP item that lists them: the
-mesh flags (``--pipeline``, ``--dp``, ``--seq-parallel``, ``--force-mode``:
-queue 1, item 7).
+The plan decides, this file executes: ``launch_plan`` maps the flags to
+the host mesh over the world's ranks, and ``derive_plan`` on it sets the stage
+modes, remat, microbatches, Megatron-SP and the pipeline for the batch on
+the card (the H100 entry); ``pod_role="pipeline"`` routes the step through
+``dist.pipeline`` (its bubble is printed at start), ``--compression``
+rides the ``compressed_psum`` wire on a pure data-parallel mesh and falls
+back to the accumulation-dtype quantization with an error-feedback
+residual otherwise.  Each rank holds its shards (``Shardings.
+manual_param_shardings``); a layout no manual path executes (tensor
+parallelism without SP, ZeRO weights) is refused with the ROADMAP item that
+lists it.  Ranks use NCCL when each has a card, gloo when they share one
+or run on the CPU (``launch.mesh.init_distributed``); rank r computes on
+``cuda:(LOCAL_RANK % device_count)``, and only rank 0 prints.  A per-step
+watchdog flags stragglers.  ``--ckpt-dir`` saves the train state (the
+shards gathered, written by rank 0) every ``--ckpt-every`` steps and
+``--resume`` restarts from the latest one onto the run's own layout.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -31,14 +47,19 @@ from repro_torch import resolve_device
 from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import H100_SXM
-from repro_torch.core.plan import derive_execution_plan
+from repro_torch.core.plan import derive_plan
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.dist.pipeline import bubble_fraction
+from repro_torch.dist.sharding import (NamedSharding, Shardings, gather, place,
+                                       unexecuted_layout)
+from repro_torch.launch.mesh import Mesh, host_mesh_shape, init_distributed, local_device
 from repro_torch.models.params import init_params
+from repro_torch.models.transformer import check_pipeline_supported
 from repro_torch.train.compression import CompressionConfig
-from repro_torch.train.optimizer import OptimizerConfig, init_state
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.optimizer import OptimizerConfig, TrainState, init_state, tree_leaves
+from repro_torch.train.train_step import make_train_step, wire_compression_axes
 
-MESH_ITEM = "meshes (pipeline, data and sequence parallelism) are ROADMAP queue 1, item 7"
+LAUNCH = "torchrun --nproc-per-node {n} -m repro_torch.launch.train ..."
 
 
 class StepWatchdog:
@@ -61,12 +82,30 @@ class StepWatchdog:
         return False
 
 
-def refuse_unported(*, pipeline=0, dp=1, seq_parallel=False, force_mode=None) -> None:
-    """Raise ``ValueError`` naming the ROADMAP item of any option the port
-    does not run yet."""
-    if pipeline > 1 or dp > 1 or seq_parallel or force_mode is not None:
-        raise ValueError(f"--pipeline / --dp / --seq-parallel / --force-mode: not ported "
-                         f"({MESH_ITEM})")
+def launch_plan(cfg, world: int, *, batch: int, seq: int, pipeline: int = 0, dp: int = 1,
+                seq_parallel: bool = False, compression: str = "none",
+                force_mode: Optional[str] = None, fuse_qkv: Optional[bool] = None):
+    """The launcher's flags on ``world`` ranks as (mesh extents, plan), as
+    JAX's launcher maps them: ``derive_plan`` on the host mesh for the H100
+    entry.  With ``pipeline > 1`` and ``dp == 1`` the data axis takes
+    ``world // pipeline``; raises, with the command to launch, when the
+    flags need more ranks than ``world``.  ``fuse_qkv`` overrides the
+    plan's fusion (None: the plan's own)."""
+    if pipeline > 1 and dp == 1:
+        # pipeline composes with DP, not TP: fold the spare ranks into the
+        # data axis instead of leaving a >1 model axis
+        dp = max(1, world // pipeline)
+    need = max(pipeline, 1) * dp
+    if need > world:
+        raise ValueError(f"--pipeline {pipeline} --dp {dp} need {need} ranks; the world has "
+                         f"{world}: launch {LAUNCH.format(n=need)}")
+    shape = host_mesh_shape(world, pod=pipeline if pipeline > 1 else 1, data=dp)
+    plan = derive_plan(
+        cfg, shape, H100_SXM, batch=batch, seq_len=seq, training=True,
+        pod_role="pipeline" if pipeline > 1 else "data", seq_parallel=seq_parallel,
+        grad_compression=compression, force_mode=force_mode, fuse_qkv=fuse_qkv,
+    )
+    return shape, plan
 
 
 def run(
@@ -88,34 +127,80 @@ def run(
     dtype=torch.float32,
     log_every: int = 10,
     device="cuda",
+    n_layers: Optional[int] = None,
+    fuse_qkv: Optional[bool] = None,
 ):
-    """Train ``arch`` up to step ``steps`` (AdamW, the synthetic stream);
-    returns (the losses of the steps this call ran, the final
-    ``TrainState``).  With ``ckpt_dir`` the state is saved after every
+    """Train ``arch`` up to step ``steps`` (AdamW, the synthetic stream)
+    over the world's ranks (one process without ``torch.distributed``);
+    returns (the losses of the steps this call ran, this rank's final
+    ``TrainState``).  ``pipeline`` / ``dp`` / ``seq_parallel`` /
+    ``force_mode`` shape the mesh and the plan as JAX's flags do; with
+    ``pipeline > 1`` and ``dp == 1`` the data axis takes ``world //
+    pipeline``.  With ``ckpt_dir`` the state is saved after every
     ``ckpt_every`` steps; with ``resume`` too, the run restarts from the
     latest saved step (a run resumed at 4 returns steps 4..steps - 1).
     ``device`` is the card unless the caller asks for ``"cpu"`` (plain
-    kernels)."""
-    refuse_unported(pipeline=pipeline, dp=dp, seq_parallel=seq_parallel, force_mode=force_mode)
+    kernels).  ``n_layers`` cuts the arch's depth (its widths stay) and
+    ``fuse_qkv`` overrides the plan's fusion: the chip script's reduced-depth
+    runs and its one-rank baselines of an SP plan (which keeps q, k and v
+    unfused)."""
     dev = resolve_device(device)
+    backend = init_distributed(dev.type)
+    dev = local_device(dev.type)
+    world = torch.distributed.get_world_size() if backend else 1
+    rank = torch.distributed.get_rank() if backend else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(arch)
-    plan = derive_execution_plan(cfg, training=True, batch=batch, seq_len=seq, hw=H100_SXM,
-                                 grad_compression=compression)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    shape, plan = launch_plan(cfg, world, batch=batch, seq=seq, pipeline=pipeline, dp=dp,
+                              seq_parallel=seq_parallel, compression=compression,
+                              force_mode=force_mode, fuse_qkv=fuse_qkv)
+    mesh = Mesh(shape)
+    if backend:
+        say(f"distributed: {world} ranks, backend {backend}, mesh {shape}"
+            + (f" (ranks share {dev}: CUDA tensors cross gloo through host memory)"
+               if backend == "gloo" and dev.type == "cuda" else ""))
+    reason = unexecuted_layout(plan)
+    if reason:
+        raise ValueError(f"mesh {dict(mesh.shape)}: {reason}")
+    pipelined = plan.pod_role == "pipeline" and plan.pod_axis > 1
+    if pipelined:
+        check_pipeline_supported(cfg, plan, batch)
+        n_groups = cfg.n_layers // len(cfg.layer_pattern)
+        if n_groups % plan.pod_axis:
+            raise ValueError(f"{n_groups} stacked layer-groups do not split into "
+                             f"{plan.pod_axis} pipeline stages")
+        say(f"pipeline: {plan.pod_axis} stages x {plan.microbatches} microbatches"
+            f" (bubble {bubble_fraction(plan.microbatches, plan.pod_axis):.1%})")
+    if seq_parallel and not plan.seq_parallel_acts:
+        say("seq-parallel requested but infeasible for this (arch, mesh); off")
+    sh = Shardings(mesh, plan, cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, plan, dtype, generator=gen, device=dev)
-    # the error-feedback residual serves the accumulation-boundary compression
-    state = init_state(params, with_residual=compression != "none")
+    full = init_params(cfg, plan, dtype, generator=gen, device=dev)
+    param_sh = sh.manual_param_shardings(full)
+    params = place(full, param_sh)
+    del full
+    # the error-feedback residual serves the accumulation-dtype fallback;
+    # the wire path quantizes on a shared grid instead
+    wire = wire_compression_axes(plan, mesh, batch) is not None
+    state = init_state(params, with_residual=compression != "none" and not wire)
     del params
     opt = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
+    # the state is donated to the step, as JAX's launcher donates it
     step_fn = make_train_step(cfg, plan, opt, compression=CompressionConfig(mode=compression),
-                              device=dev)
+                              device=dev, mesh=mesh, grad_shardings=param_sh, donate=True)
+    state_sh = TrainState(step=NamedSharding(mesh, ()), params=param_sh, m=param_sh, v=param_sh,
+                          residual=None if state.residual is None else param_sh)
+    sharded = any(any(e is not None for e in s.spec) for s in tree_leaves(param_sh))
     start = 0
     if resume and ckpt_dir:
         k = latest_step(ckpt_dir)
         if k is not None:
-            state = restore_checkpoint(ckpt_dir, k, state)
+            # elastic restore: each rank keeps its shard of the saved leaves
+            state = restore_checkpoint(ckpt_dir, k, state, shardings=state_sh)
             start = k
-            print(f"resumed from step {k}")
+            say(f"resumed from step {k}")
     data = DataIterator(DataConfig(cfg.vocab_size, seq, batch, seed=seed), start_step=start,
                         device=dev)
     dog = StepWatchdog()
@@ -129,15 +214,22 @@ def run(
         dt = time.time() - t0
         losses.append(loss)
         if dog.observe(step, dt):
-            print(f"[watchdog] step {step} took {dt:.2f}s (straggler)")
+            say(f"[watchdog] step {step} took {dt:.2f}s (straggler)")
         if log_every and step % log_every == 0:
-            print(f"step {step:5d} loss {loss:.4f} gnorm "
-                  f"{float(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms)")
+            say(f"step {step:5d} loss {loss:.4f} gnorm "
+                f"{float(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms)")
         if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
-            if pending is not None:
-                pending.join()
-            pending = save_checkpoint(ckpt_dir, step + 1, state, meta={"arch": arch},
-                                      async_save=True)
+            whole = gather(state, state_sh) if sharded else state
+            if rank == 0:
+                if pending is not None:
+                    pending.join()
+                pending = save_checkpoint(ckpt_dir, step + 1, whole, meta={"arch": arch},
+                                          async_save=True)
+            if backend:
+                if pending is not None:
+                    pending.join()  # every rank sees the step published before going on
+                    pending = None
+                torch.distributed.barrier()
     if pending is not None:
         pending.join()
     return losses, state
@@ -155,12 +247,12 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
-    # JAX's flags the port refuses until the ROADMAP item lands
-    ap.add_argument("--pipeline", type=int, default=0, help=f"refused: {MESH_ITEM}")
-    ap.add_argument("--dp", type=int, default=1, help=f"refused: {MESH_ITEM}")
-    ap.add_argument("--seq-parallel", action="store_true", help=f"refused: {MESH_ITEM}")
-    ap.add_argument("--force-mode", default=None, choices=["spatial", "temporal"],
-                    help=f"refused: {MESH_ITEM}")
+    ap.add_argument("--pipeline", type=int, default=0,
+                    help="pipeline the layer stack over this many pod stages (0/1: off)")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel axis extent of the mesh")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="Megatron-SP: seq-shard the residual over the model axis")
+    ap.add_argument("--force-mode", default=None, choices=["spatial", "temporal"])
     a = ap.parse_args(argv)
     losses, _ = run(
         a.arch, steps=a.steps, batch=a.batch, seq=a.seq, lr=a.lr, ckpt_dir=a.ckpt_dir,
@@ -168,7 +260,8 @@ def main(argv: Optional[list] = None):
         pipeline=a.pipeline, dp=a.dp, seq_parallel=a.seq_parallel, force_mode=a.force_mode,
         device=a.device,
     )
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

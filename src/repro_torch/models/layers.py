@@ -1,8 +1,9 @@
-"""Model building blocks (the port's ``repro/models/layers.py``, serve-path
-subset): norms, RoPE and sinusoidal positions, the MLPs, the blocked
-online-softmax attention of the prefill (the plain version of the flash
-kernel) and its cross-attention form, one-token attention over a dense
-cache, and the gather-path paged attention.
+"""Model building blocks (the port's ``repro/models/layers.py``): norms,
+RoPE and sinusoidal positions, the MLPs, the blocked online-softmax
+attention of the prefill (the plain version of the flash kernel) and its
+cross-attention form, one-token attention over a dense cache, the
+gather-path paged attention, and the Megatron-SP gather / scatter
+matmuls and MLP (``sp_*``, over ``dist.collectives``).
 
 Conventions carried over from the JAX package: norms compute in f32 and
 cast back, RoPE rotates split halves (not interleaved pairs), gelu is the
@@ -244,3 +245,48 @@ def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     else:
         raise ValueError(f"mlp does not handle activation={activation!r}")
     return h @ params["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Megatron-SP primitives (on this rank's shards; ``dist.collectives``).
+#
+# The sequence-parallel residual lives sequence-sharded over the `model`
+# axis; the pair below is each stage's collective envelope: one ring
+# gather-matmul on the way up, one reduce-scatter on the way down, so the
+# SP layer stack makes no all-gather.
+# ---------------------------------------------------------------------------
+def sp_gather_matmul(x_local: torch.Tensor, w_shard: torch.Tensor, axis: str, n_shards: int,
+                     *, mesh) -> torch.Tensor:
+    """Seq-sharded ``x_local`` (B, S/n, D) times the column shard ``w_shard``
+    (D, N/n) -> full-sequence (B, S, N/n), S gathered over the ring."""
+    from repro_torch.dist.collectives import ring_gather_matmul
+
+    return ring_gather_matmul(x_local, w_shard, axis, n_shards, gather_dim=1, mesh=mesh)
+
+
+def sp_scatter_matmul(x_full: torch.Tensor, w_shard: torch.Tensor, axis: str, *,
+                      mesh) -> torch.Tensor:
+    """Row-parallel tail: full-sequence partials ``x_full`` (B, S, K/n) times
+    ``w_shard`` (K/n, D), summed over ``axis`` and handed back as this rank's
+    sequence chunk (B, S/n, D) in one reduce-scatter."""
+    from repro_torch.dist.collectives import seq_scatter
+
+    return seq_scatter(x_full @ w_shard, axis, scatter_dim=1, mesh=mesh)
+
+
+def sp_mlp(params: dict, x_local: torch.Tensor, activation: str, axis: str, n_shards: int,
+           *, mesh) -> torch.Tensor:
+    """The FFN stage under Megatron-SP: one ring gather feeds the (w1 | w3)
+    column shards, one reduce-scatter returns the row-parallel w2 product to
+    the seq-sharded residual.  ``mlp`` up to the f32 reduction order."""
+    if activation in ("swiglu", "geglu"):
+        w13 = torch.cat([params["w1"], params["w3"]], dim=-1)
+        hg = sp_gather_matmul(x_local, w13, axis, n_shards, mesh=mesh)
+        h, g = torch.split(hg, [params["w1"].shape[-1], params["w3"].shape[-1]], dim=-1)
+        act = F.silu if activation == "swiglu" else _gelu_tanh
+        h = act(h) * g
+    elif activation == "gelu":
+        h = _gelu_tanh(sp_gather_matmul(x_local, params["w1"], axis, n_shards, mesh=mesh))
+    else:
+        raise ValueError(f"sp_mlp does not handle activation={activation!r}")
+    return sp_scatter_matmul(h, params["w2"], axis, mesh=mesh)

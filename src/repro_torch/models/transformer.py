@@ -359,6 +359,114 @@ def _run_stack(
     return x, {"stack": new_stack, "tail": tuple(new_tail)}, total_aux
 
 
+# ---------------------------------------------------------------------------
+# Megatron-SP layer stack (manual collectives, ``dist.collectives``).  The
+# residual is sequence-sharded over `model`; each stage is one ring
+# gather-matmul up and one reduce-scatter down, and the norms run on the
+# sequence chunk, so the stack makes no all-gather.
+# ---------------------------------------------------------------------------
+def sp_edpu_layer(
+    lp: dict,
+    x: torch.Tensor,
+    *,
+    cfg: ArchConfig,
+    plan: ExecutionPlan,
+    kind: str,
+    positions: torch.Tensor,
+    mesh,
+    axis: str = "model",
+    n_shards: int = 1,
+    fused: bool = True,
+) -> torch.Tensor:
+    """One EDPU layer on the sequence-parallel residual.
+
+    ``x`` is this rank's (B, S/n, d) sequence chunk; the weights are its
+    Megatron column / row shards (SP plans keep q, k and v unfused, so each
+    projection splits on head boundaries).  The norms (through the RMSNorm
+    kernel's wrapper) are token-local and run on the chunk; attention runs
+    through the flash kernel's wrapper on this rank's H/n query and KV/n KV
+    heads over the whole sequence, q / k / v being views of one gathered
+    product."""
+    ap = lp["attn"]
+    Dh = cfg.d_head
+    window = C.layer_window(cfg, kind)
+
+    # ---- MHA Stage: gather(seq) -> local heads -> scatter(seq) ------------
+    h = _norm(ap["ln"], x, cfg.norm, fused)
+    wq, wk, wv = ap["wq"], ap["wk"], ap["wv"]
+    qkv = L.sp_gather_matmul(h, torch.cat([wq, wk, wv], dim=-1), axis, n_shards, mesh=mesh)
+    q, k, v = torch.split(qkv, [wq.shape[-1], wk.shape[-1], wv.shape[-1]], dim=-1)
+    B, S = q.shape[0], q.shape[1]
+    q = q.reshape(B, S, wq.shape[-1] // Dh, Dh)  # local heads H/n
+    k = k.reshape(B, S, wk.shape[-1] // Dh, Dh)  # local KV heads KV/n
+    v = v.reshape(B, S, wv.shape[-1] // Dh, Dh)
+    if cfg.qk_norm:
+        q = _rmsnorm(q, ap["q_norm"], fused)
+        k = _rmsnorm(k, ap["k_norm"], fused)
+    if cfg.pos_embedding == "rope":
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    causal = False if cfg.encoder_only else cfg.causal
+    if fused:
+        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        c = flash_ops.plain_chunk(S)
+        o = L.blocked_attention(q, k, v, causal=causal, window=window, q_chunk=c, k_chunk=c)
+    o = o.reshape(B, S, o.shape[-2] * Dh)
+    x = x + L.sp_scatter_matmul(o, ap["wo"], axis, mesh=mesh)
+
+    # ---- FFN Stage --------------------------------------------------------
+    h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
+    return x + L.sp_mlp(lp["ffn"], h2, cfg.activation, axis, n_shards, mesh=mesh)
+
+
+def sp_stack_forward(
+    stack,
+    x: torch.Tensor,
+    *,
+    cfg: ArchConfig,
+    plan: ExecutionPlan,
+    mesh,
+    positions: torch.Tensor,
+    axis: str = "model",
+    fused: bool = True,
+) -> torch.Tensor:
+    """The stacked pattern-groups with the residual sequence-sharded over
+    ``axis`` (Megatron-SP).  ``stack`` holds this rank's shards (the
+    ``Shardings`` rules: every projection of an SP plan splits evenly, so a
+    leaf is a model shard exactly when it is column- or row-parallel);
+    ``x`` is the replicated (B, S, d) input, of which this rank takes its
+    sequence chunk, and the chunk after the stack is returned (JAX's
+    ``out_specs``).  The replicated leaves (the norms' scales) have their
+    gradients summed over ``axis``, as the transpose of ``shard_map``'s
+    replicated inputs.  With ``plan.remat`` each group runs under
+    ``torch.utils.checkpoint``: its collectives are issued again, in the
+    same order on every rank, in the backward."""
+    from repro_torch.dist.collectives import replicated, seq_chunk
+    from repro_torch.dist.sharding import COLUMN_PARALLEL, ROW_PARALLEL
+    from repro_torch.train.optimizer import tree_map_with_path
+
+    n_shards = mesh.extent(axis)
+    sharded = COLUMN_PARALLEL | ROW_PARALLEL
+    stack = tree_map_with_path(
+        lambda p, w: w if str(p[-1]) in sharded else replicated(w, axis, mesh=mesh), stack)
+    x = seq_chunk(x, axis, 1, mesh=mesh)
+    pattern = cfg.layer_pattern
+    n = stack[0]["attn"]["ln"]["scale"].shape[0]
+    for gp in _unbind(stack, n):
+        def group(xx, gp=gp):
+            for i, kind in enumerate(pattern):
+                xx = sp_edpu_layer(gp[i], xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
+                                   mesh=mesh, axis=axis, n_shards=n_shards, fused=fused)
+            return xx
+
+        if plan.remat and torch.is_grad_enabled():
+            x = checkpoint(group, x, use_reentrant=False)
+        else:
+            x = group(x)
+    return x
+
+
 def _compute_dtype(params: dict) -> torch.dtype:
     """The dtype activations run in: the token embedding's, or, with no
     token embedding (ViT: patches come precomputed), the first layer's FFN
@@ -436,6 +544,7 @@ def forward(
     page_state: Optional[dict] = None,
     fused: bool = True,
     with_aux: bool = False,
+    mesh=None,
 ):
     """The model over ``batch``: ``"tokens"`` (B, S), optional
     ``"prefix_embeds"`` (B, P, d) in front of them, and an encoder-decoder's
@@ -460,7 +569,14 @@ def forward(
       per-slot (B,) count of positions already cached, and ``page_state =
       {"table": (B, MB), "block_size", "q_lens": (B,) live rows per slot,
       "fused": bool[, "max_blocks"]}``: one continuous-batching serve step;
-      the pools are updated in place and ``t`` advances by S."""
+      the pools are updated in place and ``t`` advances by S.
+
+    With ``plan.seq_parallel_acts`` and a ``mesh`` (a pass from position 0
+    without a prefix or a harvest), the stacked groups run through the
+    Megatron-SP path (:func:`sp_stack_forward`) on this rank's shards, and
+    their output is gathered back to the whole sequence; the tail layers,
+    the final norm and what follows run replicated on every rank of the
+    model axis.  ``batch`` is this rank's rows (``lm_loss`` cuts them)."""
     dtype = _compute_dtype(params)
     t = None if cache is None else cache["t"]
     x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype)
@@ -481,8 +597,27 @@ def forward(
         )
 
     layers = None if cache is None else cache["layers"]
-    x, new_layers, aux = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers,
-                                    remat=plan.remat)
+    use_sp = (
+        plan.seq_parallel_acts
+        and mesh is not None
+        and cache is None
+        and not collect_cache
+        and prefix_len == 0
+        and params["blocks"]["stack"] is not None
+    )
+    if use_sp:
+        from repro_torch.dist.collectives import seq_gather
+
+        x = sp_stack_forward(params["blocks"]["stack"], x, cfg=cfg, plan=plan, mesh=mesh,
+                             positions=positions, fused=fused)
+        x = seq_gather(x, "model", 1, mesh=mesh)
+        # tail layers (if any) run replicated
+        x, _, aux = _run_stack({"stack": None, "tail": params["blocks"]["tail"]}, x, layer_fn,
+                               cfg.layer_pattern, None, remat=plan.remat)
+        new_layers = None
+    else:
+        x, new_layers, aux = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers,
+                                        remat=plan.remat)
     x = _norm(params["final_norm"], x, cfg.norm, fused)
     if cache is not None:
         out = x, {**cache, "layers": new_layers, "t": cache["t"] + S}
@@ -570,9 +705,111 @@ def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux)
 
 
 def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
-            fused: bool = True) -> torch.Tensor:
+            fused: bool = True, mesh=None) -> torch.Tensor:
     """The training loss (the port's ``repro.models.transformer.lm_loss``):
     the no-cache forward, then ``_head_loss``.  ``fused=False`` runs every
-    kernel's plain version (the oracle)."""
-    x, _, aux = forward(params, batch, cfg=cfg, plan=plan, fused=fused, with_aux=True)
-    return _head_loss(params, x, batch, cfg, aux)
+    kernel's plain version (the oracle).
+
+    With a ``mesh``, ``batch`` is the global batch: this rank takes its rows
+    (``Shardings.local_batch``: dim 0 over the axes that split the batch),
+    runs the forward on them (Megatron-SP under ``plan.seq_parallel_acts``)
+    and returns the loss averaged over those axes, whose backward gives each
+    rank 1/n of its rows' gradient: the train step sums the gradients over
+    the same axes."""
+    if mesh is None:
+        x, _, aux = forward(params, batch, cfg=cfg, plan=plan, fused=fused, with_aux=True)
+        return _head_loss(params, x, batch, cfg, aux)
+    from repro_torch.dist.collectives import mean_over
+    from repro_torch.dist.sharding import Shardings
+
+    sh = Shardings(mesh, plan, cfg)
+    axes = sh.batch_axes_for(next(iter(batch.values())).shape[0])
+    local = sh.local_batch(batch)
+    x, _, aux = forward(params, local, cfg=cfg, plan=plan, fused=fused, with_aux=True, mesh=mesh)
+    return mean_over(_head_loss(params, x, local, cfg, aux), axes, mesh=mesh)
+
+
+def check_pipeline_supported(cfg: ArchConfig, plan: ExecutionPlan, batch: int):
+    """Raise with every reason a ``pod_role="pipeline"`` plan cannot route
+    through ``pipeline_lm_loss``; return (n_stage, n_micro) when it can."""
+    n_stage = plan.pod_axis
+    n_micro = plan.microbatches
+    reasons = []
+    if n_stage <= 1:
+        reasons.append("pod axis has a single stage")
+    if plan.model_axis > 1:
+        # the stage weights are sliced over `pod` only: a >1 model axis
+        # would duplicate the stage compute across it
+        reasons.append(
+            f"model axis {plan.model_axis} > 1 (pipeline composes with DP, "
+            "not TP; put the spare devices on 'data')"
+        )
+    if cfg.is_moe:
+        reasons.append("MoE aux losses do not cross stage boundaries yet")
+    if cfg.enc_dec or cfg.frontend != "none":
+        reasons.append("enc-dec/frontends keep non-stack state")
+    if batch % max(n_micro, 1):
+        reasons.append(f"batch {batch} not divisible by microbatches {n_micro}")
+    elif (batch // max(n_micro, 1)) % max(plan.data_axis, 1):
+        # replication across DP replicas must fail loudly, never run silently
+        reasons.append(
+            f"microbatch {batch // max(n_micro, 1)} does not fold over "
+            f"data axis {plan.data_axis}"
+        )
+    if n_micro < n_stage:
+        reasons.append(f"microbatches {n_micro} < stages {n_stage}")
+    if reasons:
+        raise ValueError("pod_role='pipeline' plan cannot execute: " + "; ".join(reasons))
+    return n_stage, n_micro
+
+
+def pipeline_lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
+                     mesh, fused: bool = True) -> torch.Tensor:
+    """LM loss with the stacked layer-groups run as pipeline stages over the
+    ``pod`` axis (``dist.pipeline.pipeline_forward``).
+
+    ``batch`` is the global batch; this rank takes its rows of each
+    microbatch (JAX's layout: (n_micro, B / n_micro) with dim 1 over the
+    data axes).  ``params["blocks"]["stack"]`` is this stage's slice of the
+    groups (``n_groups / n_stage`` of them: the launcher checks that they
+    split).  The embedding, tail layers, final norm and loss head run on
+    every stage, on the same tokens, so the result is the data-parallel
+    loss: only the schedule changes.  Returns the loss averaged over the
+    data axes, as ``lm_loss``."""
+    from repro_torch.dist.collectives import mean_over
+    from repro_torch.dist.pipeline import pipeline_forward
+    from repro_torch.dist.sharding import Shardings, local_shard
+
+    B = next(iter(batch.values())).shape[0]
+    n_stage, n_micro = check_pipeline_supported(cfg, plan, B)
+    stack = params["blocks"]["stack"]
+    sh = Shardings(mesh, plan, cfg)
+    batch_axes = sh.batch_axes_for(B // n_micro) or ()
+    entry = sh._entry(batch_axes)
+
+    def rows(v):
+        m = v.reshape(n_micro, B // n_micro, *v.shape[1:])
+        m = local_shard(m, (None, entry), mesh)
+        return m.reshape(-1, *v.shape[1:])
+
+    local = {k: rows(v) for k, v in batch.items()}
+    x, positions, prefix_len = _embed_inputs(params, local, cfg, None, _compute_dtype(params))
+    Bl, S, D = x.shape
+    micro = x.reshape(n_micro, Bl // n_micro, S, D)
+    pattern = cfg.layer_pattern
+    causal_override = False if cfg.encoder_only else None
+
+    def layer_fn(lp, xx, kind, c):
+        return edpu_layer(lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
+                          prefix_len=prefix_len, causal_override=causal_override, fused=fused)
+
+    def stage_fn(wl, xm):
+        xm, _, _ = _run_stack({"stack": wl, "tail": ()}, xm, layer_fn, pattern, remat=plan.remat)
+        return xm
+
+    pp = pipeline_forward(stage_fn, mesh, axis="pod", batch_axes=tuple(batch_axes))
+    x = pp(stack, micro).reshape(Bl, S, D)
+    x, _, aux = _run_stack({"stack": None, "tail": params["blocks"]["tail"]}, x, layer_fn,
+                           pattern, remat=plan.remat)
+    x = _norm(params["final_norm"], x, cfg.norm, fused)
+    return mean_over(_head_loss(params, x, local, cfg, aux), batch_axes, mesh=mesh)

@@ -2,8 +2,9 @@
 ``repro/train/compression.py``, its dtype path): each gradient leaf is
 quantized to the wire format and back, and the quantization error is
 carried to the next step in an f32 residual (error feedback), so the
-noise is unbiased over steps.  The wire path (JAX's ``compressed_psum``
-over a data-parallel mesh) waits for ``dist/`` (ROADMAP queue 1, item 7).
+noise is unbiased over steps.  ``quantize(..., scale=)`` is also the grid
+of the wire path (``dist.collectives.compressed_psum``, a shared scale over
+the data-parallel ranks; JAX's grid bit for bit), which needs no residual.
 """
 from __future__ import annotations
 

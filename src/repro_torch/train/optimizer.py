@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,9 +27,12 @@ def tree_map_with_path(fn: Callable, tree: Tree, *rest: Tree, path: tuple = ()) 
     names, dict keys and sequence indices, as JAX's
     ``tree_flatten_with_path`` names them.  Every walk of the port's trees
     goes through here, so they all share one leaf order: fields and
-    sequences in order, dict keys as stored."""
+    sequences in order, dict keys as stored.  A class with a true
+    ``tree_leaf`` attribute is a leaf whatever it subclasses."""
     if tree is None:
         return None
+    if getattr(type(tree), "tree_leaf", False):  # a leaf that is a tuple (a spec)
+        return fn(path, tree, *rest)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
         return type(tree)(*(tree_map_with_path(fn, v, *(r[i] for r in rest), path=path + (name,))
                             for i, (name, v) in enumerate(zip(tree._fields, tree))))
@@ -121,12 +124,18 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in leaves))
 
 
-def adamw_update(state: TrainState, grads: Tree, opt: OptimizerConfig) -> tuple:
+def adamw_update(state: TrainState, grads: Tree, opt: OptimizerConfig,
+                 grad_norm: Optional[torch.Tensor] = None, donate: bool = False) -> tuple:
     """One AdamW step: clip by the global norm, bias-correct, decoupled
     weight decay on matrices.  Returns (new state, {"grad_norm", "lr"});
-    the residual is carried unchanged."""
+    the residual is carried unchanged.  ``grad_norm`` is the global norm
+    when the caller computes it (a mesh's shards: ``train_step``), else
+    ``global_norm(grads)``.  ``donate``: the given state's parameters and
+    moments are updated in place and returned (JAX's launcher donates the
+    state to its step), so no second copy of them is made; the values are
+    the same to the bit."""
     if opt.clip_norm > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     else:
         gnorm = torch.zeros((), device=state.step.device)
@@ -139,12 +148,15 @@ def adamw_update(state: TrainState, grads: Tree, opt: OptimizerConfig) -> tuple:
 
     def upd(p, g, m, v):
         g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g.square()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+        m_new = b1 * m + (1 - b1) * g
+        v_new = b2 * v + (1 - b2) * g.square()
+        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + opt.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             delta = delta + opt.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        new = (p.float() - lr * delta).to(p.dtype)
+        if donate:
+            return p.copy_(new), m.copy_(m_new), v.copy_(v_new)
+        return new, m_new, v_new
 
     out = [upd(*leaf) for leaf in zip(tree_leaves(state.params), tree_leaves(grads),
                                        tree_leaves(state.m), tree_leaves(state.v))]

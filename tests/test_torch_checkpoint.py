@@ -1,9 +1,11 @@
 """The port's checkpoints (``repro_torch.ckpt.checkpoint``) against the JAX
 package's (``repro.ckpt.checkpoint``): a checkpoint written by either
 restores in the other with identical leaves (bf16 included, the key
-strings equal), manifests published last, async saves, the refused
-``shardings``, and the launcher's stop-and-resume run reproducing the
-uninterrupted one bit for bit on the CPU (the counterpart of
+strings equal), manifests published last, async saves (which keep the
+values they were given while the state is updated in place), the restore
+onto a mesh (``shardings``: each rank keeps its shard), and the launcher's
+stop-and-resume run reproducing the uninterrupted one bit for bit on the
+CPU (the counterpart of
 ``tests/test_checkpoint.py::test_train_resume_bitexact``)."""
 import json
 import shutil
@@ -123,11 +125,61 @@ def test_async_save_joins(tmp_path):
     assert not (tmp_path / "_tmp_step_3").exists()
 
 
-def test_restore_onto_a_mesh_is_refused(tmp_path):
+def test_async_save_keeps_the_values_it_was_given(tmp_path, monkeypatch):
+    """An async save holds the values the state had when it was called,
+    also when the caller updates that state in place (the launcher donates
+    its state to the step) before the writer thread reads it: the host
+    copies share no storage with the live CPU tensors.  The writer is held
+    back until the update is done, so the order is fixed."""
+    import threading
+
+    st = port_like(jax_state("smollm-135m"))
+    want = {k: np.array(v, copy=True) for k, v in ckpt._flatten(st).items()}
+    go, savez = threading.Event(), np.savez
+
+    def held(*args, **kw):
+        assert go.wait(timeout=60)
+        savez(*args, **kw)
+
+    monkeypatch.setattr(ckpt.np, "savez", held)
+    thread = ckpt.save_checkpoint(str(tmp_path), 1, st, async_save=True)
+    for leaf in tree_leaves(st):
+        leaf.add_(1)  # what the next donated step does to every leaf
+    go.set()
+    thread.join()
+    with np.load(tmp_path / "step_1" / "arrays.npz") as z:
+        assert set(z.files) == set(want)
+        for key, value in want.items():
+            np.testing.assert_array_equal(z[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("coords", [{"data": 0, "model": 0}, {"data": 1, "model": 1}])
+def test_restore_onto_a_mesh_keeps_local_shards(tmp_path, coords):
+    """``restore_checkpoint(shardings=)``: each rank of a (data 2, model 2)
+    mesh reads the whole leaves and keeps the block its spec and
+    coordinates give; a leaf whose shard does not match ``like`` raises."""
+    from repro_torch.dist.sharding import NamedSharding, local_shard
+    from test_torch_dist_ranks import ShapeMesh
+    from repro_torch.train.optimizer import tree_map
+
     st = port_like(jax_state("smollm-135m"))
     ckpt.save_checkpoint(str(tmp_path), 1, st)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ckpt.restore_checkpoint(str(tmp_path), 1, st, shardings={"params": None})
+    mesh = ShapeMesh({"data": 2, "model": 2}, coords)
+
+    def spec(x):  # the last dim over model where it splits, else replicated
+        return NamedSharding(mesh, (None,) * (x.dim() - 1) + ("model",)
+                             if x.dim() and x.shape[-1] % 2 == 0 else (None,) * x.dim())
+
+    shardings = tree_map(spec, st)
+    like = tree_map(lambda x, s: s.local(x).contiguous(), st, shardings)
+    got = ckpt.restore_checkpoint(str(tmp_path), 1, like, shardings=shardings)
+    n_cut = 0
+    for x, s, g in zip(tree_leaves(st), tree_leaves(shardings), tree_leaves(got)):
+        assert torch.equal(g, local_shard(x, s.spec, mesh))
+        n_cut += g.numel() < x.numel()
+    assert n_cut > 0
+    with pytest.raises(ValueError, match="shape"):
+        ckpt.restore_checkpoint(str(tmp_path), 1, st, shardings=shardings)
 
 
 def test_restore_missing_key_raises(tmp_path):

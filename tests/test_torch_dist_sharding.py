@@ -1,0 +1,231 @@
+"""The port's ``Shardings`` (``repro_torch.dist.sharding``) against the JAX
+package's, spec for spec, on shape-only meshes (JAX's ``FakeMesh``):
+``param_spec`` of every leaf of each reduced arch's bridged tree,
+``stack_specs``, ``cache_spec``, ``batch_spec``, ``act_spec`` for each
+activation name, ``batch_axes_for`` and ``_fit``'s drops and warnings,
+over data-parallel, tensor-parallel, Megatron-SP, production and pipeline
+layouts.  Then the port's own part: cutting and gathering local shards, the
+layout its manual paths execute, and the layouts it refuses."""
+import dataclasses
+
+import jax
+import jax.tree_util as jtu
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import get_config as jax_get_config
+from repro.core.hardware import TPU_V5E
+from repro.core.plan import derive_plan as jax_derive_plan
+from repro.dist.sharding import ACT_NAMES as JAX_ACT_NAMES
+from repro.dist.sharding import Shardings as JaxShardings
+from repro.models.params import init_params as jax_init_params
+from repro_torch.bridge import from_jax
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.hardware import H100_SXM, HardwareSpec
+from repro_torch.core.plan import derive_plan
+from repro_torch.dist.sharding import (ACT_NAMES, LAYOUT_ITEM, NamedSharding, Shardings,
+                                       gather_shard, local_shard, unexecuted_layout)
+from repro_torch.train.optimizer import tree_leaves_with_path
+from test_torch_dist_ranks import ShapeMesh
+
+
+class FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+class Leaf:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+V5E = HardwareSpec(
+    **{f.name: getattr(TPU_V5E, f.name) for f in dataclasses.fields(HardwareSpec)}
+)
+LAYOUTS = [
+    ({"data": 2, "model": 2}, {"batch": 8, "seq_len": 32, "force_mode": "spatial"}),
+    ({"data": 1, "model": 2}, {"batch": 8, "seq_len": 32, "seq_parallel": True,
+                               "force_mode": "spatial"}),
+    ({"data": 4, "model": 1}, {"batch": 8, "seq_len": 32}),
+    ({"data": 16, "model": 16}, {"batch": 256, "seq_len": 4096}),
+    ({"data": 16, "model": 16}, {"batch": 128, "seq_len": 32768, "training": False}),
+    ({"pod": 2, "data": 2, "model": 1}, {"batch": 8, "seq_len": 32, "pod_role": "pipeline"}),
+    ({"pod": 2, "data": 16, "model": 16}, {"batch": 512, "seq_len": 4096}),
+    ({"data": 2, "model": 24}, {"batch": 96, "seq_len": 4096}),
+]
+
+
+def _pair(arch, mesh, kw):
+    """Both packages' Shardings on a shape-only mesh, the TPU numbers
+    handed to both planners."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    jplan = jax_derive_plan(jcfg, mesh, TPU_V5E, **kw)
+    plan = derive_plan(cfg, mesh, V5E, **kw)
+    return (JaxShardings(FakeMesh(dict(mesh)), jplan, jcfg),
+            Shardings(ShapeMesh(dict(mesh)), plan, cfg), jplan, plan)
+
+
+def _spec(p) -> tuple:
+    return tuple(p)
+
+
+def _trees(arch, jplan):
+    """JAX's parameter tree (shapes only, zeros) and its bridged copy."""
+    shapes = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0), jax_get_config(arch),
+                                                    jplan))
+    jtree = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    return jtree, from_jax(jtree, device="cpu")
+
+
+def _jkey(path) -> str:
+    from repro.dist.sharding import _key_names
+
+    return "|".join(_key_names(path))
+
+
+@pytest.mark.parametrize("arch", [a + "-reduced" for a in ALL_ARCHS])
+def test_param_specs_match_jax(arch):
+    for mesh, kw in LAYOUTS:
+        jsh, sh, jplan, plan = _pair(arch, mesh, kw)
+        jtree, tree = _trees(arch, jplan)
+        want = {_jkey(p): _spec(jsh.param_spec(p, x))
+                for p, x in jtu.tree_flatten_with_path(jtree)[0]}
+        got = {"|".join(map(str, p)): sh.param_spec(p, x) for p, x in tree_leaves_with_path(tree)}
+        assert got == want, (mesh, kw)
+        jstack, stack = jtree["blocks"]["stack"], tree["blocks"]["stack"]
+        if stack is not None:
+            jflat = jtu.tree_flatten_with_path(jsh.stack_specs(jstack),
+                                               is_leaf=lambda s: isinstance(s, JP))[0]
+            jspecs = {_jkey(p): _spec(s) for p, s in jflat}
+            specs = {"|".join(map(str, p)): s
+                     for p, s in tree_leaves_with_path(sh.stack_specs(stack))}
+            assert specs == jspecs, (mesh, kw)
+
+
+CACHE_LEAVES = [
+    (("layers", "stack", "attn", "k"), (28, 128, 32768, 8, 128)),
+    (("layers", "stack", "attn", "v"), (4, 8, 64, 3, 16)),
+    (("layers", "tail", "0", "attn", "k"), (128, 32768, 8, 128)),
+    (("layers", "stack", "cross_kv", "k"), (4, 8, 64, 8, 16)),
+    (("layers", "stack", "rwkv", "S"), (4, 8, 4, 16, 16)),
+    (("layers", "stack", "rwkv", "shift"), (4, 8, 64)),
+    (("layers", "stack", "cmix"), (4, 8, 64)),
+    (("layers", "stack", "rglru", "h"), (4, 16, 64)),
+    (("layers", "stack", "rglru", "conv"), (4, 16, 3, 64)),
+    (("memory",), (16, 1500, 768)),
+    (("layers", "paged", "k"), (28, 1025, 16, 8, 128)),
+    (("layers", "paged", "k_scale"), (28, 1025, 16, 8, 1)),
+    (("t",), ()),
+]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-135m", "whisper-small", "rwkv6-1.6b"])
+def test_cache_batch_act_specs_match_jax(arch):
+    for mesh, kw in LAYOUTS:
+        jsh, sh, _, _ = _pair(arch, mesh, kw)
+        for names, shape in CACHE_LEAVES:
+            jpath = [jtu.DictKey(n) for n in names]
+            assert sh.cache_spec(names, Leaf(shape)) == _spec(jsh.cache_spec(jpath, Leaf(shape)))
+        for shape in [(8, 32), (3, 32), (256, 4096, 7), (16,), (), (128, 32768)]:
+            assert sh.batch_spec(Leaf(shape)) == _spec(jsh.batch_spec(Leaf(shape))), shape
+        assert ACT_NAMES == JAX_ACT_NAMES
+        for name in ACT_NAMES + ("other",):
+            for shape in [(8, 32, 64), (8, 32, 16, 8), (3, 32, 4, 8), (256, 4096, 2048), ()]:
+                assert sh.act_spec(name, shape) == _spec(jsh.act_spec(name, shape)), (name, shape)
+        for b in (0, 1, 2, 3, 4, 8, 16, 48, 96, 256, 512, 1024):
+            assert sh.batch_axes_for(b) == jsh.batch_axes_for(b), b
+
+
+def test_megatron_orientation_and_fold_as_jax():
+    """The cases of ``tests/test_sharding.py`` and ``tests/test_dist_extra.py``."""
+    jsh, sh, _, plan = _pair("qwen3-1.7b", {"data": 16, "model": 16},
+                             {"batch": 256, "seq_len": 4096, "force_mode": "spatial"})
+    wqkv = ("blocks", "stack", 0, "attn", "wqkv")
+    assert sh.param_spec(wqkv, Leaf((28, 2048, 4096)))[-1] == "model"  # column
+    assert sh.param_spec(("attn", "wo"), Leaf((2048, 2048)))[0] == "model"  # row
+    assert all(a is None for a in sh.param_spec(("blocks", "stack", 0, "attn", "ln", "scale"),
+                                                Leaf((28, 2048))))
+    _, sh, _, plan = _pair("smollm-135m", {"data": 16, "model": 16},
+                           {"batch": 256, "seq_len": 4096})
+    assert plan.dp_over_model
+    assert sh.batch_axes_for(512) == ("data", "model")
+    assert sh.batch_axes_for(48) == ("data",) and sh.batch_axes_for(3) is None
+    assert sh._fit(("model", None), (100, 64))[0] is None
+    assert sh._fit((("data", "model"), None), (256, 64))[0] == ("data", "model")
+    assert sh._fit(("pod", None), (64, 64))[0] is None  # axis not in the mesh
+    for arch, mesh, idx in (("qwen3-moe-30b-a3b", {"data": 16, "model": 16}, 1),
+                            ("mixtral-8x7b", {"data": 16, "model": 16}, -1)):
+        _, sh, _, plan = _pair(arch, mesh, {"batch": 256, "seq_len": 4096})
+        w1 = sh.param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((32, 8 if idx < 0 else 128,
+                                                                     2048, 768 * 8)))
+        assert w1[idx] == "model"
+    _, sh, _, plan = _pair("smollm-135m-reduced", {"pod": 2, "data": 2, "model": 1},
+                           {"batch": 8, "seq_len": 32, "pod_role": "pipeline"})
+    assert sh.param_spec(("blocks", "stack", 0, "attn", "wqkv"), Leaf((2, 64, 128)))[0] == "pod"
+    assert sh.param_spec(("embed",), Leaf((512, 64)))[0] != "pod"
+
+
+def test_fit_warns_once_per_dim_and_axes(caplog):
+    jsh, sh, _, _ = _pair("smollm-135m", {"data": 16, "model": 16},
+                          {"batch": 256, "seq_len": 4096})
+    for shardings, logger in ((jsh, "repro.dist.sharding"), (sh, "repro_torch.dist.sharding")):
+        caplog.clear()
+        with caplog.at_level("WARNING", logger=logger):
+            assert shardings._fit((None, "model"), (256, 100))[1] is None
+            assert shardings._fit((None, "model"), (256, 100))[1] is None
+            shardings._fit(("data", "model"), (3, 100))
+        msgs = [r.getMessage() for r in caplog.records if r.name == logger]
+        assert len(msgs) == 2 and "100" in msgs[0] and "model" in msgs[0], msgs
+    assert len(sh._fit_warned) == len(jsh._fit_warned) == 2
+
+
+def test_local_shards_reassemble():
+    """``local_shard`` at every coordinate of a (pod 2, data 2, model 2)
+    shape mesh cuts the block of its coordinates: concatenating the blocks
+    in mesh order gives the tensor back, grouped entries included."""
+    x = torch.arange(8 * 6 * 4, dtype=torch.float32).reshape(8, 6, 4)
+    shape = {"pod": 2, "data": 2, "model": 2}
+
+    def at(p, d, m, spec):
+        return local_shard(x, spec, ShapeMesh(shape, {"pod": p, "data": d, "model": m}))
+
+    spec = ("pod", None, "model")
+    rows = [torch.cat([at(p, 0, m, spec) for m in range(2)], dim=2) for p in range(2)]
+    assert torch.equal(torch.cat(rows, dim=0), x)
+    assert torch.equal(at(1, 0, 1, spec), at(1, 1, 1, spec))  # replicated over data
+    spec = (("data", "model"), None, None)
+    assert torch.equal(torch.cat([at(0, d, m, spec) for d in range(2) for m in range(2)]), x)
+    one = ShapeMesh({"data": 1, "model": 1})
+    assert gather_shard(x, ("data", "model", None), one) is x
+    assert NamedSharding(one, (None,)).local(x) is x
+
+
+def test_manual_layout_and_refusals():
+    """The port executes SP's model shards and the pipeline's stage slices
+    of the stack; everything else is replicated.  TP without SP and ZeRO are
+    refused, naming the ROADMAP item."""
+    _, sh, jplan, plan = _pair("bert-base-reduced", {"data": 1, "model": 2},
+                               {"batch": 8, "seq_len": 32, "seq_parallel": True,
+                                "force_mode": "spatial"})
+    assert plan.seq_parallel_acts and unexecuted_layout(plan) is None
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wq"), Leaf((2, 64, 64))) == (
+        None, None, "model")
+    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == (None, None)
+    _, sh, _, plan = _pair("smollm-135m-reduced", {"pod": 2, "data": 2, "model": 1},
+                           {"batch": 8, "seq_len": 32, "pod_role": "pipeline"})
+    assert sh.manual_param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((2, 64, 128))) == (
+        "pod", None, None)
+    _, _, _, tp = _pair("bert-base-reduced", {"data": 1, "model": 2},
+                        {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
+    assert "without sequence parallelism" in unexecuted_layout(tp) and LAYOUT_ITEM in \
+        unexecuted_layout(tp)
+    _, _, _, zero = _pair("mistral-large-123b", {"data": 16, "model": 16},
+                          {"batch": 256, "seq_len": 4096})
+    assert zero.zero_weights and "ZeRO" in unexecuted_layout(zero)
+    # on the H100 entry qwen3-1.7b's --dp 2 plan folds the model axis into
+    # data parallelism, which runs as replicated data parallelism
+    fold = derive_plan(get_config("qwen3-1.7b"), {"data": 2, "model": 1}, H100_SXM, batch=8,
+                       seq_len=2048)
+    assert fold.dp_over_model and not fold.zero_weights and unexecuted_layout(fold) is None

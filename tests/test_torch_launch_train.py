@@ -1,8 +1,8 @@
 """The port's training launcher (``repro_torch.launch.train``): the JAX
 end-to-end descent tests (``tests/test_system.py``) through
 ``run(..., device="cpu")``, the CLI with its checkpoint flags, the mesh
-flags the port refuses with their ROADMAP item, a step of every arch, and
-the step watchdog."""
+flags on one rank (the multi-rank runs are ``test_torch_dist_launch.py``'s),
+a step of every arch, and the step watchdog."""
 import inspect
 
 import numpy as np
@@ -41,22 +41,30 @@ def test_cli_trains_on_the_cpu(capsys):
     assert "step     0 loss" in out and "final loss" in out
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"pipeline": 2}, "item 7"), ({"dp": 2}, "item 7"), ({"seq_parallel": True}, "item 7"),
-    ({"force_mode": "spatial"}, "item 7"),
+@pytest.mark.parametrize("kw,flags", [
+    ({"pipeline": 2}, "--pipeline 2 --dp 1 need 2 ranks"),
+    ({"dp": 2}, "--pipeline 0 --dp 2 need 2 ranks"),
+    ({"pipeline": 2, "dp": 2}, "--pipeline 2 --dp 2 need 4 ranks"),
 ])
-def test_run_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(ValueError, match=item):
-        run("smollm-135m-reduced", steps=1, batch=2, seq=16, device="cpu", **kw)
+def test_run_asks_for_the_ranks_it_needs(kw, flags):
+    """One process is a world of one rank: a mesh flag that needs more
+    raises and says how to launch them."""
+    n = flags.split("need ")[1].split()[0]
+    with pytest.raises(ValueError, match=f"{flags}.*torchrun --nproc-per-node {n}"):
+        run("smollm-135m-reduced", steps=1, batch=4, seq=16, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--pipeline", "2"], "item 7"), (["--dp", "2"], "item 7"),
-    (["--seq-parallel"], "item 7"), (["--force-mode", "temporal"], "item 7"),
-])
-def test_cli_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(ValueError, match=item):
-        main(["--arch", "smollm-135m-reduced", "--device", "cpu", "--steps", "1", *flags])
+@pytest.mark.parametrize("flags", [["--seq-parallel"], ["--force-mode", "temporal"],
+                                   ["--force-mode", "spatial"], ["--pipeline", "1"]])
+def test_cli_mesh_flags_train_on_one_rank(flags, capsys):
+    """On one rank the mesh flags train as JAX's do on one device: SP is
+    infeasible and off (said so), a forced mode and a one-stage pipeline
+    change no layout."""
+    losses = main(["--arch", "smollm-135m-reduced", "--device", "cpu", "--steps", "2",
+                   "--batch", "2", "--seq", "16", *flags])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    out = capsys.readouterr().out
+    assert ("seq-parallel requested but infeasible" in out) == (flags == ["--seq-parallel"])
 
 
 def test_run_defaults_to_the_card():
@@ -152,3 +160,64 @@ def test_run_resumes_where_it_stopped(tmp_path, compression):
     assert (end2.residual is None) == (compression == "none")
     for a, b in zip(tree_leaves(end2), tree_leaves(end)):
         assert torch.equal(a, b)
+
+
+def test_donated_state_steps_to_the_same_bits():
+    """``make_train_step(donate=True)`` (the launcher's: JAX donates the
+    state to its step) updates the parameters and moments in place, to the
+    same bits as the step that builds new ones, and returns the tensors it
+    was given."""
+    cfg = get_config("smollm-135m-reduced")
+    plan = derive_execution_plan(cfg, training=True, batch=2, seq_len=16)
+    opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    batches = [{k: torch.from_numpy(v) for k, v in numpy_batch(cfg, seed=s, batch=2,
+                                                                seq=16).items()}
+               for s in range(2)]
+    out = {}
+    for donate in (False, True):
+        step = make_train_step(cfg, plan, opt, device="cpu", donate=donate)
+        state = init_state(init_params(cfg, plan, torch.float32, device="cpu"))
+        first = tree_leaves(state.params)[0]
+        for b in batches:
+            state, _ = step(state, b)
+        assert (tree_leaves(state.params)[0] is first) == donate
+        out[donate] = state
+    for a, b in zip(tree_leaves(out[True]), tree_leaves(out[False])):
+        assert torch.equal(a, b)
+
+
+def test_a_held_async_save_keeps_its_step(tmp_path, monkeypatch):
+    """The launcher donates its state to the step, so the step after a save
+    writes the live tensors in place while the save's writer may still be
+    running.  With the writer of step 2's checkpoint held back until step 2
+    has updated the state, the checkpoint still holds the state a 2-step run
+    ends with (both runs are in warm-up, where the learning rate does not
+    depend on the run's length)."""
+    import threading
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import train as launcher
+
+    go, savez, batches = threading.Event(), np.savez, []
+
+    def held(*args, **kw):
+        assert go.wait(timeout=60)
+        savez(*args, **kw)
+
+    class Counted(launcher.DataIterator):
+        def __next__(self):
+            batches.append(1)
+            if len(batches) == 4:  # step 2 (the third) has updated the state
+                go.set()
+            return super().__next__()
+
+    kw = dict(batch=2, seq=16, log_every=0, device="cpu")
+    _, two = run("smollm-135m-reduced", steps=2, **kw)
+    monkeypatch.setattr(ckpt.np, "savez", held)
+    monkeypatch.setattr(launcher, "DataIterator", Counted)
+    run("smollm-135m-reduced", steps=4, ckpt_dir=str(tmp_path), ckpt_every=2, **kw)
+    want = ckpt._flatten(two)
+    with np.load(tmp_path / "step_2" / "arrays.npz") as z:
+        assert set(z.files) == set(want)
+        for key, value in want.items():
+            np.testing.assert_array_equal(z[key], value, err_msg=key)
