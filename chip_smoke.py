@@ -155,8 +155,23 @@ the gradient sum and a wire that skips its int32 sum; each rank checks its
 all-reduces took its path's route (f32 sums, or the wire's max and int32
 sums); step ms, collective seconds (the card synchronized first), bytes
 moved and wire bytes, each rank's peak memory and exact launches (flash
-and RMSNorm, forward and backward, on every rank).  Every
-main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-39) checks the
+and RMSNorm, forward and backward, on every rank); then tensor parallelism
+without SP on the same two ranks: 40 training qwen3-1.7b with Megatron's
+column / row shards and all-reduce pair (8 / 4 heads a rank): f32 cut to 4
+layers through the flag-free launch (B 3 x 512, whose plan keeps the model
+axis), then bf16 at full width and depth (B 4 x 2048, SPATIAL forced),
+against the one-rank run (losses and grad norms), with g skipped after
+the first layer's ``wo`` and the replicated leaves' gradients summed over
+``model`` as controls; 41 sharded continuous serving of qwen3-1.7b
+(``ServingEngine(shardings=)``, 16 slots x 64 slab rows, pools of 4 KV
+heads a rank), the kernel route and the gather path, f32 at 4 layers
+(identical tokens, first-dispatch logits against the one-rank engine)
+and bf16 at full depth (first-dispatch logits within phase 18's rule,
+the tokens' agreement share), the skip-g control at both; 42
+qwen3-moe-30b-a3b's expert split (64 of 128 experts and 2 of 4 KV heads
+a rank, int8 pages, drop-free) cut to 12 layers, against the one-rank
+engine.  Every
+main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-42) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -4207,7 +4222,8 @@ def mesh_rank(spec_file: str) -> None:
     rank = int(os.environ["RANK"])
     backend = init_distributed("cuda")  # torchrun's environment: gloo, two ranks a card
     check(backend == "gloo", f"rank {rank}: backend {backend}")
-    results = [mesh_job(job, rank) for job in spec["jobs"]]
+    kinds = {"mesh": mesh_job, "tp_train": tp_train_job, "tp_serve": tp_serve_job}
+    results = [kinds[job.get("kind", "mesh")](job, rank) for job in spec["jobs"]]
     Path(spec["out"].format(rank=rank)).write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
 
@@ -4400,6 +4416,509 @@ def phase_mesh_ranks(nccl_losses=None):
     return out
 
 
+# ---------------------------------------------------------------- tensor parallelism
+# Phases 40-42: tensor parallelism without SP on two ranks sharing the card
+# (phase 39's harness: gloo, every all-reduce staged through host memory).
+TP_MESH = {"data": 1, "model": 2}
+TP_STEPS = 2
+# (a) training.  bf16 at full width and depth, B 4 x 2048 with SPATIAL
+# forced: on the H100 entry the flag-free plan at B 4 (or the CLI's B 8)
+# folds the model axis into data parallelism (dp_over_model, run as
+# replicated data parallelism), so the flag-free launch is held at a batch
+# that does not fold: f32, 4 layers, B 3 x 512, where derive_plan keeps the
+# model axis SPATIAL.  Each against the one-rank run of the same batch.
+TP_TRAIN_B = 4
+TP_F32 = {"n_layers": 4, "B": 3, "S": 512}
+# Limits, set before the first reading (PERF.md, PR 26): the losses within
+# TP_F32_TOL / TP_BF16_TOL of the one-rank run (phase 39's f32 and bf16
+# bounds: only the order of the sums differs, and in bf16 the partial
+# outputs round before g sums them), and the grad norm each step reports
+# within TP_GNORM_F32 / TP_GNORM_BF16 of it, relative.  The controls: g
+# skipped after the first layer's wo (each rank keeps its partial; 1 step),
+# and the replicated leaves' gradients summed over model (doubled; Adam is
+# blind to the scale, so the first step's gradient norm shows it; 1 step).
+# Each must fall outside: its loss or its grad norm past the limit.
+TP_F32_TOL, TP_BF16_TOL = 1e-5, 2e-3
+TP_GNORM_F32, TP_GNORM_BF16 = 1e-4, 2e-2
+TP_TRAIN_CONTROLS = {"skip_g": 1, "sum_replicated": 1}
+# (b) serving: a small plan, 16 slots x 64 slab rows (1,024 rows: ~4 MB a
+# bf16 all-reduce, two a layer), 16 requests of 100-300 prompt tokens and
+# 8 new each, kernel and gather routes; f32 weights and pages cut to 4
+# layers, then bf16 at full depth.  The first dispatch's logits, each live
+# slot's row, against the one-rank kernel engine's, as the deviation's norm
+# over the row's: in f32 (only the order of the sums differs) the largest
+# within TP_LOGITS_F32 and the greedy tokens identical; in bf16 the mean
+# over the rows within TP_ROUNDING_MARGIN times the one-rank bf16 engine's
+# own rounding error (its mean deviation from the same bf16 weights served
+# in f32 with f32 pages: tensor parallelism moves where bf16 rounds, so it
+# may move the result about as far as rounding does), and the tokens'
+# agreement share logged.  (The first bf16 limit, phase 18's 2^-7
+# sqrt(L + 1) on the largest row, was set before any reading and missed:
+# 0.057 against 0.042 on qwen3-1.7b, 0.122 against 0.028 on
+# qwen3-moe-30b-a3b, PERF.md PR 26; this rule's margin was set before its
+# floor was read.)  The control (g skipped after the first layer's wo)
+# must fall outside.
+TP_SERVE = {"decode_batch": 16, "mixed_slab_width": 64, "max_seq_len": 2048}
+TP_SERVE_STREAM = {"n": 16, "prompt": (100, 300), "gen": 8}
+TP_LOGITS_F32 = 1e-4
+TP_ROUNDING_MARGIN = 2.0
+# (c) expert parallelism: qwen3-moe-30b-a3b at full width, int8 pages, cut
+# to TP_MOE_LAYERS of 48 (each rank draws the whole cut model, 1.25 GB a
+# layer in bf16, then keeps its shard, 0.64 GB a layer: 64 of 128 experts,
+# 2 of 4 KV heads), drop-free capacity (E / K) so a bf16 difference cannot
+# move a choice into or out of capacity.
+TP_MOE_LAYERS = 12
+MOE_LAYER_GB, MOE_SHARD_GB, MOE_EMBED_GB = 1.258, 0.64, 1.24
+
+
+def tp_controls_plant(control, mesh=None):
+    """Plant one of the tensor-parallel controls in this process (a rank of
+    ``mesh``, by default TP_MESH's); returns the undo.  ``skip_g``: the
+    first layer's attention output is not summed over ``model`` (every
+    pass over that layer, remat's too); ``sum_replicated``: the train
+    step's gradients of the replicated leaves are summed over ``model``.
+    ``tests/test_torch_tp_train.py`` plants the same on the CPU."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    if control is None:
+        return lambda: None
+    if control == "skip_g":
+        orig, orig_sum = T.attention_stage, C.row_sum
+        first = {}
+
+        def skipping(ap, h, **kw):
+            if ap["wo"].data_ptr() != first.setdefault("wo", ap["wo"].data_ptr()):
+                return orig(ap, h, **kw)
+            C.row_sum = lambda x, axis="model", *, mesh: x
+            try:
+                return orig(ap, h, **kw)
+            finally:
+                C.row_sum = orig_sum
+
+        T.attention_stage = skipping
+        return lambda: setattr(T, "attention_stage", orig)
+    check(control == "sum_replicated", f"no control {control}")
+    from repro_torch.dist.sharding import COLUMN_PARALLEL, ROW_PARALLEL
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.optimizer import tree_map_with_path
+
+    orig_vg = TS.value_and_grad
+    mesh = Mesh(TP_MESH) if mesh is None else mesh
+    sharded = COLUMN_PARALLEL | ROW_PARALLEL
+
+    def doubled(loss_fn, params, batch):
+        loss, grads = orig_vg(loss_fn, params, batch)
+        return loss, tree_map_with_path(
+            lambda p, g: g if str(p[-1]) in sharded else C.all_reduce(g, "model", mesh), grads)
+
+    TS.value_and_grad = doubled
+    return lambda: setattr(TS, "value_and_grad", orig_vg)
+
+
+def tp_grad_norms():
+    """(the grad norms list, the undo): every train step's global gradient
+    norm as the step computed it (the launcher's log rounds it to 3
+    places), recorded from ``train_step.adamw_update``'s argument."""
+    from repro_torch.train import train_step as TS
+
+    orig, norms = TS.adamw_update, []
+
+    def recording(state, grads, opt, grad_norm=None, **kw):
+        new, metrics = orig(state, grads, opt, grad_norm=grad_norm, **kw)
+        norms.append(float(metrics["grad_norm"]))
+        return new, metrics
+
+    TS.adamw_update = recording
+    return norms, lambda: setattr(TS, "adamw_update", orig)
+
+
+def tp_train_args(depth: str) -> dict:
+    """``launch.train.run``'s arguments for a phase-40 run: bf16 at full
+    depth, B 4 x 2048, SPATIAL forced; or the flag-free f32 run."""
+    if depth == "full":
+        return dict(batch=TP_TRAIN_B, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=None,
+                    force_mode="spatial")
+    return dict(batch=TP_F32["B"], seq=TP_F32["S"], dtype=torch.float32,
+                n_layers=TP_F32["n_layers"], force_mode=None)
+
+
+def tp_train_plan(depth: str):
+    """(the config, the plan) of a phase-40 run on two ranks: the launcher's
+    own ``launch_plan``; it must be tensor-parallel and executed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import tensor_parallel, unexecuted_layout
+    from repro_torch.launch.train import launch_plan
+
+    a = tp_train_args(depth)
+    cfg = get_config(TRAIN_ARCH)
+    if a["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=a["n_layers"])
+    shape, plan = launch_plan(cfg, 2, batch=a["batch"], seq=a["seq"], force_mode=a["force_mode"])
+    check(shape == TP_MESH and tensor_parallel(plan) and unexecuted_layout(plan, cfg) is None,
+          f"phase 40 {depth}: mesh {shape}, plan not tensor-parallel")
+    return cfg, plan
+
+
+def tp_train_job(job: dict, rank: int) -> dict:
+    """A phase-40 rank's job: ``launch.train.run`` with the job's flags
+    (none but ``force_mode`` at full depth), optionally a planted control.
+    Returns the losses and grad norms, step ms, the collectives' calls /
+    bytes / seconds, launches and peak memory."""
+    import contextlib
+    import io
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import local_device
+    from repro_torch.launch.train import run
+
+    depth, control = job["depth"], job.get("control")
+    a = tp_train_args(depth)
+    steps = job.get("steps", TP_STEPS)
+    dev = local_device("cuda")
+    undo = tp_controls_plant(control)
+    gnorms, undo_norms = tp_grad_norms()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    C.reset_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            losses, state = run(TRAIN_ARCH, steps=steps, lr=3e-4, log_every=1, device="cuda",
+                                **{k: v for k, v in a.items() if v is not None})
+    finally:
+        undo()
+        undo_norms()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    rows = parse_step_log(out.getvalue())
+    res = {"losses": losses, "gnorms": gnorms, "step_ms": [r[2] for r in rows],
+           "log": out.getvalue(), "counts": read_counts(), "calls": dict(C.STATS["calls"]),
+           "bytes": dict(C.STATS["bytes"]), "seconds": dict(C.STATS["seconds"]),
+           "coll_s": float(sum(C.STATS["seconds"].values())), "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_serve_setup(arch: str, depth: str, kv: str):
+    """(config, plan on the two-rank mesh, serve plan, dtype) of a phase-41
+    or 42 run; the one-rank engine takes the same serve plan.  ``kv`` is
+    the bf16 runs' page type; f32 runs keep f32 pages."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.plan import derive_plan, derive_serve_plan
+
+    cfg = get_config(arch)
+    if arch == MOE_ARCH:  # drop-free capacity, the cut depth
+        cfg = dataclasses.replace(cfg, n_layers=TP_MOE_LAYERS,
+                                  moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    elif depth == "f32":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    dtype = torch.float32 if depth == "f32" else torch.bfloat16
+    plan = derive_plan(cfg, TP_MESH, H100_SXM, batch=TP_SERVE["decode_batch"],
+                       seq_len=TP_SERVE["mixed_slab_width"], training=False)
+    serve = derive_serve_plan(cfg, TP_MESH, H100_SXM, kv_dtype="fp32" if depth == "f32" else kv,
+                              **TP_SERVE)
+    return cfg, plan, serve, dtype
+
+
+def tp_stream(cfg):
+    from repro_torch.serve import random_stream
+
+    s = TP_SERVE_STREAM
+    return random_stream(cfg, s["n"], s["prompt"], s["gen"], stagger=0, seed=1)
+
+
+def tp_engine_run(engine, cfg):
+    """Drive ``engine`` over ``tp_stream``: the first dispatch's logits at
+    its live slots (recorded from the engine's ``logits_fn``), then the
+    rest of the stream.  Returns (logits (n, V) f32 on the host, tokens)."""
+    from repro_torch.serve import engine as engine_mod
+
+    for r in tp_stream(cfg):
+        engine.submit(r)
+    orig, seen = engine_mod.logits_fn, []
+
+    def recording(params, x, c):
+        out = orig(params, x, c)
+        if not seen:
+            seen.append(out.float().cpu())
+        return out
+
+    engine_mod.logits_fn = recording
+    try:
+        engine.step()
+    finally:
+        engine_mod.logits_fn = orig
+    live = np.array([s is not None for s in engine.sched.slots])
+    tokens = engine.run()
+    return seen[0][torch.from_numpy(live)], tokens
+
+
+def tp_one_rank_serve(arch: str, depth: str, kv: str, exact: bool = False):
+    """The one-rank kernel engine of a phase-41 / 42 run (the same weights,
+    seed 0, and serve plan): its first-dispatch logits and tokens.
+    ``exact``: the same weights widened to f32, served with f32 pages."""
+    import dataclasses
+
+    from repro_torch.core.plan import derive_execution_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServingEngine
+    from repro_torch.train.optimizer import tree_map
+
+    cfg, _, serve, dtype = tp_serve_setup(arch, depth, kv)
+    plan1 = derive_execution_plan(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, plan1, dtype, generator=gen, device="cuda")
+    if exact:
+        params = tree_map(lambda x: x.float(), params)
+        serve = dataclasses.replace(serve, kv_dtype="fp32")
+    engine = ServingEngine(params, cfg, plan1, serve, fused=True, device="cuda")
+    logits, tokens = tp_engine_run(engine, cfg)
+    del engine, params
+    torch.cuda.empty_cache()
+    return logits, tokens
+
+
+def tp_serve_job(job: dict, rank: int) -> dict:
+    """A phase-41 / 42 rank's job: this rank's tensor-parallel shards (the
+    whole tree drawn from seed 0, then cut), ``ServingEngine(shardings=)``
+    over the stream, optionally with the skip-g control.  Compares the
+    first dispatch's logits with the one-rank run's (``job["want"]``, a
+    file) and returns the row deviations, tokens, launches (held to the
+    engine's device iterations), collectives and peak memory."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import Shardings, place, tensor_parallel, unexecuted_layout
+    from repro_torch.launch.mesh import Mesh, local_device
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServingEngine
+
+    dev = local_device("cuda")
+    cfg, plan, serve, dtype = tp_serve_setup(job["arch"], job["depth"], job["kv"])
+    mesh = Mesh(TP_MESH)
+    sh = Shardings(mesh, plan, cfg)
+    tag = f"rank {rank}: {job['arch']} {job['depth']}"
+    check(tensor_parallel(plan) and unexecuted_layout(plan, cfg) is None and
+          sh.attention_sharded(), f"{tag}: plan not tensor-parallel on local heads")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = init_params(cfg, plan, dtype, generator=gen, device=dev)
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    params = place(full, sh.manual_param_shardings(full))
+    del full
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    undo = tp_controls_plant(job.get("control"))
+    engine = ServingEngine(params, cfg, plan, serve, shardings=sh, fused=job["fused"],
+                           device=dev,
+                           check_replicas=job["depth"] == "f32" and job.get("control") is None)
+    reset_counts()
+    C.reset_stats()
+    t0 = time.perf_counter()
+    try:
+        logits, tokens = tp_engine_run(engine, cfg)
+    finally:
+        undo()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts, s = read_counts(), engine.summary()
+    want = torch.load(job["want"])
+    dev_rows = row_dev(logits, want["logits"])
+    spread = want["spread"]
+    steps = s["steps"]
+    launches = (expect_counts(paged_attention=cfg.n_layers * steps,
+                              rmsnorm=norms_per_forward(cfg) * steps) if job["fused"]
+                else expect_counts())
+    if job.get("control") is None:
+        check(counts == launches, f"{tag}: launches {counts}, expected {launches}")
+    kv_heads = engine.pools["layers"]["stack"][0]["paged"]["k"].shape[-2]
+    check(kv_heads == cfg.n_kv_heads // 2, f"{tag}: pools hold {kv_heads} KV heads")
+    same = sum(tokens[r] == want["tokens"][r] for r in tokens) / max(len(want["tokens"]), 1)
+    res = {"max_row_dev": float(dev_rows.max()), "mean_row_dev": float(dev_rows.mean()),
+           "spread_mean": spread["mean"], "spread_max": spread["max"],
+           "tokens": tokens, "agree": same, "counts": counts, "steps": steps,
+           "dispatches": s["dispatches"], "calls": dict(C.STATS["calls"]),
+           "bytes": dict(C.STATS["bytes"]), "coll_s": float(sum(C.STATS["seconds"].values())),
+           "wall_s": wall, "mean_dispatch_ms": s["mean_dispatch_ms"], "kv_heads": kv_heads,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "init_peak_gib": init_peak,
+           "held_gib": held, "summary_mesh": s["mesh"], "fused": s["fused_attention"]}
+    del engine, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tp_train():
+    """Phase 40: tensor parallelism without SP in training, qwen3-1.7b on two
+    ranks sharing the card.  f32 cut to 4 layers through the flag-free
+    launch (B 3 x 512: the model axis stays SPATIAL), then bf16 at full
+    width and depth, B 4 x 2048 (SPATIAL forced), each against the one-rank
+    run of the same batch (losses and grad norms within the limits), with
+    the controls at both depths; every rank's launches (flash and RMSNorm,
+    forward and backward, on its 8 / 4 heads), collective seconds and GB,
+    peak memory.  Returns the numbers."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import run
+
+    log(f"phase 40: tensor parallelism without SP, {TRAIN_ARCH} on two ranks of the card "
+        f"(gloo): f32 at {TP_F32['n_layers']} layers through the flag-free launch (B "
+        f"{TP_F32['B']} x {TP_F32['S']}), then bf16 at full depth (B {TP_TRAIN_B} x {TRAIN_S}, "
+        f"--force-mode spatial), {TP_STEPS} steps")
+    one = {}
+    for depth in ("f32", "full"):
+        a = tp_train_args(depth)
+        buf = io.StringIO()
+        gnorms, undo_norms = tp_grad_norms()
+        try:
+            with contextlib.redirect_stdout(buf):
+                losses, state = run(TRAIN_ARCH, steps=TP_STEPS, lr=3e-4, log_every=1,
+                                    device="cuda", **{k: v for k, v in a.items()
+                                                      if v is not None and k != "force_mode"})
+        finally:
+            undo_norms()
+        del state
+        torch.cuda.empty_cache()
+        one[depth] = {"losses": losses, "gnorms": gnorms,
+                      "step_ms": [r[2] for r in parse_step_log(buf.getvalue())]}
+    log(f"  one-rank runs: {json.dumps(one)}")
+    jobs = []
+    for depth in ("f32", "full"):
+        jobs.append({"kind": "tp_train", "depth": depth})
+        jobs += [{"kind": "tp_train", "depth": depth, "control": c, "steps": n}
+                 for c, n in TP_TRAIN_CONTROLS.items()]
+    t0 = time.time()
+    res = spawn_ranks(jobs, "phase40")
+    log(f"  two ranks ran {len(jobs)} jobs in {time.time() - t0:.1f} s")
+    out = {}
+    for i, job in enumerate(jobs):
+        depth, control = job["depth"], job.get("control")
+        r0, r1 = res[0][i], res[1][i]
+        ref = one[depth]
+        tol, gtol = (TP_F32_TOL, TP_GNORM_F32) if depth == "f32" else (TP_BF16_TOL, TP_GNORM_BF16)
+        dl = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+        dg = max(abs(a - b) / b for a, b in zip(r0["gnorms"], ref["gnorms"]))
+        tag = f"{depth}" + (f" control {control}" if control else "")
+        cfg, plan = tp_train_plan(depth)
+        want = training_launches(cfg, plan, job.get("steps", TP_STEPS))
+        gb = sum(r0["bytes"].values()) / 1e9 / job.get("steps", TP_STEPS)
+        log(f"  {tag}: losses {r0['losses']} (rank 1 {r1['losses']}) vs one rank "
+            f"{ref['losses'][:len(r0['losses'])]}: |d| {dl:.3g} (tol {tol:g}); grad norms "
+            f"{r0['gnorms']} vs {ref['gnorms'][:len(r0['gnorms'])]}: rel {dg:.3g} (tol {gtol:g}); "
+            f"step ms {r0['step_ms']}; collectives {r0['coll_s']:.2f} / {r1['coll_s']:.2f} s "
+            f"({json.dumps(r0['calls'])}; {gb:.3f} GB a step a rank); peak {r0['peak_gib']:.2f} "
+            f"/ {r1['peak_gib']:.2f} GiB; launches {r0['counts']} / {r1['counts']}; wall "
+            f"{r0['wall_s']:.1f} s")
+        if control:
+            check(dl > tol or dg > gtol, f"phase 40 {tag}: the planted control passed "
+                  f"(loss {dl:.3g} <= {tol:g}, grad norm {dg:.3g} <= {gtol:g})")
+            continue
+        check(r0["losses"] == r1["losses"], f"phase 40 {tag}: the ranks' losses differ")
+        check(dl <= tol and dg <= gtol, f"phase 40 {tag}: loss {dl:.3g} / grad norm {dg:.3g} "
+              "from the one-rank run")
+        check(r0["counts"] == r1["counts"] == want,
+              f"phase 40 {tag}: launches {r0['counts']} / {r1['counts']}, expected {want}")
+        check(r0["calls"].get("tp_row_sum", 0) > 0 and r0["calls"].get("tp_grad_sum", 0) > 0,
+              f"phase 40 {tag}: collectives {r0['calls']}")
+        out[depth] = {"losses": r0["losses"], "one_rank_losses": ref["losses"],
+                      "loss_dev": dl, "gnorm_rel_dev": dg, "step_ms": r0["step_ms"],
+                      "one_rank_step_ms": ref["step_ms"], "collective_s": [r0["coll_s"],
+                                                                           r1["coll_s"]],
+                      "collective_calls": r0["calls"], "collective_gb_step": gb,
+                      "wall_s": r0["wall_s"], "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
+                      "launches": r0["counts"]}
+        for line in r0["log"].splitlines():
+            if not line.startswith("step"):
+                log(f"  | {line}")
+    return out
+
+
+def phase_tp_serve(arch: str, phase: int, runs: list, kv: str):
+    """Phases 41 and 42: sharded continuous serving on two ranks sharing the
+    card.  ``runs``: (depth, fused, control) of each rank job.  The one-rank
+    engine of each depth runs first (the same weights and serve plan);
+    each rank job compares its first dispatch's logits with it.  Returns
+    the numbers."""
+    log(f"phase {phase}: sharded continuous serving, {arch} on two ranks of the card (gloo), "
+        f"{TP_SERVE['decode_batch']} slots x {TP_SERVE['mixed_slab_width']} slab rows, "
+        f"{kv} pages; runs {runs}")
+    work = ROOT / "build" / "mesh_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    wants = {}
+    for depth in sorted({d for d, _, _ in runs}):
+        cfg, plan, serve, _ = tp_serve_setup(arch, depth, kv)
+        log(f"  {depth}: {cfg.n_layers} layers; {serve.describe()}")
+        t0 = time.time()
+        logits, tokens = tp_one_rank_serve(arch, depth, kv)
+        floor = {"mean": 0.0, "max": 0.0, "agree": 1.0}
+        if depth != "f32":  # the one-rank bf16 engine's own rounding error
+            xlogits, xtokens = tp_one_rank_serve(arch, depth, kv, exact=True)
+            d = row_dev(logits, xlogits)
+            floor = {"mean": float(d.mean()), "max": float(d.max()),
+                     "agree": sum(xtokens[r] == tokens[r] for r in tokens) / len(tokens)}
+            del xlogits
+        path = work / f"phase{phase}.{depth}.want.pt"
+        torch.save({"logits": logits, "tokens": tokens, "spread": floor}, path)
+        wants[depth] = (str(path), tokens)
+        log(f"  one-rank {depth} engine{'s (and the same weights in f32)' if depth != 'f32' else ''}"
+            f": {len(tokens)} requests in {time.time() - t0:.1f} s; its rounding error, first-"
+            f"dispatch logits against f32: mean row dev {floor['mean']:.3g}, max "
+            f"{floor['max']:.3g}, tokens agree on {floor['agree']:.0%} of requests")
+    jobs = [{"kind": "tp_serve", "arch": arch, "depth": d, "fused": f, "control": c, "kv": kv,
+             "want": wants[d][0]} for d, f, c in runs]
+    t0 = time.time()
+    res = spawn_ranks(jobs, f"phase{phase}")
+    log(f"  two ranks ran {len(jobs)} jobs in {time.time() - t0:.1f} s")
+    out = {}
+    for i, (depth, fused, control) in enumerate(runs):
+        r0, r1 = res[0][i], res[1][i]
+        # f32: the largest row; bf16: the mean row against the rounding floor
+        stat = "max_row_dev" if depth == "f32" else "mean_row_dev"
+        limit = TP_LOGITS_F32 if depth == "f32" else TP_ROUNDING_MARGIN * r0["spread_mean"]
+        tag = f"{depth} {'kernel' if fused else 'gather'}" + (f" control {control}" if control
+                                                              else "")
+        gb = sum(r0["bytes"].values()) / 1e9 / max(r0["dispatches"], 1)
+        log(f"  {tag}: first-dispatch logits row dev max {r0['max_row_dev']:.3g}, mean "
+            f"{r0['mean_row_dev']:.3g} (rank 1 {r1[stat]:.3g}; limit on the {stat.split('_')[0]} "
+            f"{limit:.3g}); tokens "
+            f"agree with one rank on {r0['agree']:.0%} of requests; {r0['dispatches']} dispatches "
+            f"({r0['steps']} device iterations), mean {r0['mean_dispatch_ms']:.1f} ms, wall "
+            f"{r0['wall_s']:.1f} s; collectives {r0['coll_s']:.2f} / {r1['coll_s']:.2f} s "
+            f"({json.dumps(r0['calls'])}; {gb:.3f} GB a dispatch); pools {r0['kv_heads']} KV "
+            f"heads a rank; peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB (drawing the "
+            f"whole tree {r0['init_peak_gib']:.2f}, shards held {r0['held_gib']:.2f}); launches "
+            f"{r0['counts']} / {r1['counts']}")
+        if control:
+            check(r0[stat] > limit, f"phase {phase} {tag}: the planted control passed "
+                  f"({r0[stat]:.3g} <= {limit:.3g})")
+            continue
+        check(r0["tokens"] == r1["tokens"], f"phase {phase} {tag}: the ranks' tokens differ")
+        check(r0["summary_mesh"] == TP_MESH and r0["fused"] == fused,
+              f"phase {phase} {tag}: summary {r0['summary_mesh']} fused {r0['fused']}")
+        check(r0[stat] <= limit, f"phase {phase} {tag}: first-dispatch logits "
+              f"{r0[stat]:.3g} from the one-rank engine's")
+        if depth == "f32":
+            check(r0["agree"] == 1.0, f"phase {phase} {tag}: greedy tokens differ from one rank")
+        out[tag] = {k: r0[k] for k in ("max_row_dev", "mean_row_dev", "spread_mean",
+                                       "spread_max", "agree", "counts", "steps", "dispatches",
+                                       "mean_dispatch_ms", "wall_s", "coll_s", "peak_gib",
+                                       "init_peak_gib", "held_gib", "kv_heads", "calls")}
+        out[tag]["collective_gb_dispatch"] = gb
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4522,11 +5041,28 @@ def main() -> None:
     nccl_run = phase_mesh_nccl()
     mesh_run = phase_mesh_ranks(nccl_run["losses"])
     log(f"  mesh paths: {json.dumps(mesh_run)}; phases 38-39 took {time.time() - t2:.1f} s")
+    t3 = time.time()
+    tp_run = phase_tp_train()
+    tp_served = phase_tp_serve(SERVE_ARCH, 41, [("f32", True, None), ("f32", False, None),
+                                                ("f32", True, "skip_g"), ("full", True, None),
+                                                ("full", False, None), ("full", True, "skip_g")],
+                               "bf16")
+    ep_served = phase_tp_serve(MOE_ARCH, 42, [("full", True, None)], "int8")
+    log(f"  tensor parallelism: {json.dumps(tp_run)}; served: {json.dumps(tp_served)}; "
+        f"experts split: {json.dumps(ep_served)}; phases 40-42 took {time.time() - t3:.1f} s")
+    tp_launches = {"phase 40 (a rank, 2 steps)": tp_run["full"]["launches"],
+                   "phase 41 (a rank)": tp_served["full kernel"]["counts"],
+                   "phase 42 (a rank)": ep_served["full kernel"]["counts"]}
+
+    def per_rank(name):
+        return {k: v[name] for k, v in tp_launches.items()}
+
     end_phase()
     log(f"total {time.time() - t_start:.1f} s")
     records = [
         {
             "name": "paged_attention",
+            "tp_launches_per_rank": per_rank("paged_attention"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
@@ -4545,6 +5081,7 @@ def main() -> None:
         },
         {
             "name": "flash_attention",
+            "tp_launches_per_rank": per_rank("flash_attention"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
@@ -4554,6 +5091,7 @@ def main() -> None:
         },
         {
             "name": "rmsnorm",
+            "tp_launches_per_rank": per_rank("rmsnorm"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
@@ -4572,6 +5110,7 @@ def main() -> None:
         },
         {
             "name": "paged_attention_int8",
+            "tp_launches_per_rank": per_rank("paged_attention"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
@@ -4601,6 +5140,7 @@ def main() -> None:
         },
         {
             "name": "flash_attention_bwd",
+            "tp_launches_per_rank": per_rank("flash_attention_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/backward.py:69",
@@ -4610,6 +5150,7 @@ def main() -> None:
         },
         {
             "name": "rmsnorm_bwd",
+            "tp_launches_per_rank": per_rank("rmsnorm_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",

@@ -11,9 +11,11 @@ NamedTuple's field names, dict keys, sequence indices, joined with "|";
 ``None`` subtrees have no leaves), and bf16/f16 leaves are stored as f32,
 so a checkpoint written by either package restores in the other.  Leaves
 are saved whole: a run on a mesh gathers its shards first
-(``dist.sharding.gather``) and one rank writes.  ``restore_checkpoint(...,
+(``dist.sharding.gather``; a head-aligned ``wqkv`` shard goes back to JAX's
+(q | k | v) column order there) and one rank writes.  ``restore_checkpoint(...,
 shardings=)`` restores onto a mesh: every rank reads the npz and keeps its
-local shard of each leaf.  Async: the save copies every leaf to the host
+local shard of each leaf (``wqkv`` cut head-aligned), so any layout reads
+any checkpoint.  Async: the save copies every leaf to the host
 first, then writes on a background thread.
 """
 from __future__ import annotations

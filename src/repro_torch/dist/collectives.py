@@ -19,6 +19,13 @@ view a ``shard_map`` body has, and each differentiable one is a
 ``compressed_psum``
     The gradient sum in a wire format: int8 on a shared ``pmax`` scale,
     summed as int32 words as JAX does; bf16 summed in bf16; otherwise f32.
+``column_input`` / ``row_sum``
+    Megatron's all-reduce pair for tensor parallelism without SP ("f" and
+    "g"): ``column_input`` marks a replicated tensor entering a
+    column-parallel block (the identity; its backward sums the ranks'
+    partial gradients), ``row_sum`` sums a row-parallel block's partial
+    outputs (its backward is the identity).  Both are no-ops on a model
+    axis of extent 1.
 
 Transport: over NCCL the tensors cross as they are.  Over gloo (ranks that
 share a card, or the CPU) a CUDA tensor is copied to host memory, moved,
@@ -26,7 +33,9 @@ and copied back, in ``_staged``: that is the transport of ranks sharing
 one card, not a fallback, and the compute stays on the card.  ``STATS``
 counts every collective by kind (calls, payload bytes, host seconds) and
 every all-reduce by operation and word type (``reduce_ops``, e.g.
-``"sum:int32"``), for the tests' call counts, the chip script's check
+``"sum:int32"``); the pair's all-reduces count under kinds of their own,
+``"tp_row_sum"`` (g's forward) and ``"tp_grad_sum"`` (f's backward), for the
+tests' call counts, the chip script's check
 that the int8 wire ran and its collective time.  A staged collective
 first synchronizes the card (its host copy would wait for the queued
 kernels anyway), so its seconds are the copies and the transport, not the
@@ -87,8 +96,10 @@ def _tensor_collective(fn, out, src, group) -> None:
         fn(out, src, group=group)
 
 
-def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
-    """Sum (or max) of ``x`` over the ranks of ``axes``; a new tensor."""
+def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum",
+               kind: str = "all_reduce") -> torch.Tensor:
+    """Sum (or max) of ``x`` over the ranks of ``axes``; a new tensor,
+    counted in ``STATS`` under ``kind``."""
     g = mesh.group(axes)
     if g is None:
         return x.clone()
@@ -96,7 +107,7 @@ def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
     y = _staged(mesh, x, copy=True)
     dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=g)
     y = _arrive(y, x)
-    _count("all_reduce", x, time.perf_counter() - t0)
+    _count(kind, x, time.perf_counter() - t0)
     STATS["reduce_ops"][f"{op}:{str(x.dtype).removeprefix('torch.')}"] += 1
     return y
 
@@ -287,17 +298,31 @@ class _SeqChunk(torch.autograd.Function):
 class _Replicated(torch.autograd.Function):
     """A replicated input of a manual region: the identity, whose backward
     sums the ranks' gradients (the transpose of JAX's implicit broadcast of
-    an unsharded ``shard_map`` input)."""
+    an unsharded ``shard_map`` input).  Megatron's "f"."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.args = (mesh, axis)
+    def forward(ctx, x, mesh, axis, kind="all_reduce"):
+        ctx.args = (mesh, axis, kind)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
-        mesh, axis = ctx.args
-        return all_reduce(dy, axis, mesh), None, None
+        mesh, axis, kind = ctx.args
+        return all_reduce(dy.contiguous(), axis, mesh, kind=kind), None, None, None
+
+
+class _RowSum(torch.autograd.Function):
+    """Row-parallel partial outputs summed over the ranks; the sum is
+    replicated, so each rank's gradient of its partial is the gradient of
+    the whole: the identity going back.  Megatron's "g", f's transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, axis, mesh, kind="tp_row_sum")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
 
 
 class _MeanOver(torch.autograd.Function):
@@ -332,7 +357,24 @@ def seq_chunk(x, axis: str, dim: int, *, mesh):
 def replicated(x, axis, *, mesh):
     """``x`` as a replicated input of a manual region over ``axis``: its
     gradient is summed over the ranks."""
-    return _manual(_Replicated, x, mesh, axis)
+    return _manual(_Replicated, x, mesh, axis, "all_reduce")
+
+
+def column_input(x, axis: str = "model", *, mesh):
+    """f: ``x`` (replicated over ``axis``) entering a column-parallel block;
+    the backward sums the ranks' partial gradients of ``x`` (``STATS`` kind
+    ``"tp_grad_sum"``)."""
+    if mesh is None or mesh.extent(axis) == 1:
+        return x
+    return _Replicated.apply(x, mesh, axis, "tp_grad_sum")
+
+
+def row_sum(x, axis: str = "model", *, mesh):
+    """g: a row-parallel block's partial output summed over ``axis``
+    (``STATS`` kind ``"tp_row_sum"``); the backward is the identity."""
+    if mesh is None or mesh.extent(axis) == 1:
+        return x
+    return _RowSum.apply(x, mesh, axis)
 
 
 def mean_over(x, axes, *, mesh):

@@ -13,12 +13,21 @@ has no global arrays: each rank holds its local shard, and ``NamedSharding``
 / ``place`` / ``gather`` cut and reassemble those shards by spec and mesh
 coordinates (the counterpart of ``jax.device_put`` on ``NamedSharding``s).
 The port's manual paths execute a subset of the layouts
-(``manual_param_spec``): the Megatron-SP stack's model shards and the
-pipeline's per-stage slices of the stack; every other leaf is replicated.
+(``manual_param_spec``): the Megatron-SP stack's model shards, the
+pipeline's per-stage slices of the stack, and tensor parallelism without SP
+(every layer's column / row shards and MoE's expert or width split, with
+Megatron's all-reduce pair, ``dist.collectives.column_input`` /
+``row_sum``); every other leaf is replicated.  Under tensor parallelism a
+layer's attention runs on this rank's heads only where the query and KV
+heads both divide over ``model``; elsewhere it runs replicated (JAX's
+``_fit`` cuts mid-head there and GSPMD repairs it).  The fused ``wqkv``
+is cut head-aligned (``QKVSharding``): each rank holds its own heads' q, k
+and v columns, not GSPMD's contiguous column block.
 ``unexecuted_layout`` names the plans whose layout needs GSPMD (tensor
-parallelism without SP, ZeRO weights): those are ROADMAP queue 1, item 7b.
-``constrain`` has nothing to do here: there is no compiler to hint, each
-activation already lives where the manual path put it.
+parallelism of recurrent or encoder-decoder layers, ZeRO weights): those
+are ROADMAP queue 1, item 7b.  ``constrain`` has nothing to do here: there
+is no compiler to hint, each activation already lives where the manual path
+put it.
 """
 from __future__ import annotations
 
@@ -120,6 +129,53 @@ class NamedSharding:
         return f"NamedSharding({self.spec})"
 
 
+def qkv_cut(x: torch.Tensor, heads: tuple, n: int, r: int) -> torch.Tensor:
+    """Rank ``r`` of ``n``'s head-aligned columns of a fused (..., (H + 2 KV)
+    Dh) ``wqkv``: its q heads ``[r H/n, (r + 1) H/n)`` and the matching KV
+    heads of k and v, side by side (a copy)."""
+    H, KV, Dh = heads
+    qw, kw = H * Dh // n, KV * Dh // n
+    return torch.cat([x[..., r * qw:(r + 1) * qw],
+                      x[..., H * Dh + r * kw:H * Dh + (r + 1) * kw],
+                      x[..., (H + KV) * Dh + r * kw:(H + KV) * Dh + (r + 1) * kw]], dim=-1)
+
+
+def qkv_join(blocks: torch.Tensor, heads: tuple, n: int) -> torch.Tensor:
+    """The inverse of ``qkv_cut``: the ranks' blocks, concatenated in rank
+    order along the last dim, back in JAX's (q | k | v) column order."""
+    H, KV, Dh = heads
+    qw, kw = H * Dh // n, KV * Dh // n
+    parts = torch.split(blocks, qw + 2 * kw, dim=-1)
+    return torch.cat([p[..., :qw] for p in parts] + [p[..., qw:qw + kw] for p in parts]
+                     + [p[..., qw + kw:] for p in parts], dim=-1)
+
+
+class QKVSharding(NamedSharding):
+    """A fused ``wqkv`` under tensor parallelism: its last dim over
+    ``model`` (the spec says so, for the gradient norm and the tests), cut
+    head-aligned by ``qkv_cut`` (GSPMD's contiguous block would give rank 0
+    all of q at model 2).  ``heads`` is (H, KV, Dh)."""
+
+    def __init__(self, mesh, spec: tuple, heads: tuple):
+        super().__init__(mesh, spec)
+        self.heads = heads
+        self.n = _entry_extent(self.spec[-1], mesh)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        x = local_shard(x, (*self.spec[:-1], None), self.mesh)
+        return qkv_cut(x, self.heads, self.n, _entry_index(self.spec[-1], self.mesh))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.dist.collectives import all_gather
+
+        x = gather_shard(x, (*self.spec[:-1], None), self.mesh)
+        blocks = all_gather(x.contiguous(), _entry_axes(self.spec[-1]), self.mesh, dim=x.ndim - 1)
+        return qkv_join(blocks, self.heads, self.n)
+
+    def __repr__(self) -> str:
+        return f"QKVSharding({self.spec}, heads={self.heads})"
+
+
 def place(tree: Tree, shardings: Tree) -> Tree:
     """Each leaf of ``tree`` (whole tensors) cut to this rank's shard of its
     ``NamedSharding`` (contiguous copies: the shard is the rank's own)."""
@@ -131,19 +187,42 @@ def gather(tree: Tree, shardings: Tree) -> Tree:
     return tree_map(lambda x, s: s.gather(x), tree, shardings)
 
 
-def unexecuted_layout(plan: ExecutionPlan) -> Optional[str]:
-    """Why no manual path of the port executes ``plan``'s parameter layout,
-    or None.  The port runs the Megatron-SP stack's model shards and the
-    pipeline's stage slices; it runs ``dp_over_model``'s weight split over
-    the data axes as replicated data parallelism (the same step, whole
-    weights on every rank).  GSPMD-only layouts are refused."""
+def tensor_parallel(plan: ExecutionPlan) -> bool:
+    """Whether ``plan`` runs Megatron tensor parallelism without SP: a model
+    axis > 1 that neither SP, nor ``dp_over_model``'s fold into data
+    parallelism, nor the pipeline takes, with a SPATIAL stage or an MoE
+    split."""
+    if plan.model_axis <= 1 or plan.seq_parallel_acts or plan.dp_over_model:
+        return False
+    if plan.pod_role == "pipeline" and plan.pod_axis > 1:
+        return False
+    return (any(plan.mode_for(s) == SPATIAL for s in ("mha", "ffn"))
+            or plan.moe_mode in ("ep", "tp"))
+
+
+def unexecuted_layout(plan: ExecutionPlan, cfg) -> Optional[str]:
+    """Why no manual path of the port executes ``plan``'s parameter layout
+    for ``cfg``, or None.  The port runs the Megatron-SP stack's model
+    shards, the pipeline's stage slices and tensor parallelism without SP
+    for attention-only, decoder or encoder layers (every arch SP reaches,
+    MoE included); it runs ``dp_over_model``'s weight split over the data
+    axes as replicated data parallelism (the same step, whole weights on
+    every rank).  GSPMD-only layouts are refused."""
     if plan.zero_weights and plan.data_axis > 1:
         return (f"ZeRO weights (zero_weights: weights sharded over data axis {plan.data_axis}) "
                 f"need GSPMD ({LAYOUT_ITEM})")
-    spatial = [s for s in ("mha", "ffn") if plan.mode_for(s) == SPATIAL]
-    if plan.model_axis > 1 and spatial and not plan.seq_parallel_acts:
-        return (f"tensor parallelism without sequence parallelism (model axis "
-                f"{plan.model_axis}, {'/'.join(spatial)} SPATIAL) needs GSPMD ({LAYOUT_ITEM})")
+    if tensor_parallel(plan):
+        spatial = [s for s in ("mha", "ffn") if plan.mode_for(s) == SPATIAL]
+        what = "/".join(spatial) + " SPATIAL" if spatial else f"MoE {plan.moe_mode}"
+        recurrent = sorted({k for k in cfg.layer_pattern if k not in ("attn", "swa", "local")})
+        if recurrent:
+            return (f"tensor parallelism without sequence parallelism (model axis "
+                    f"{plan.model_axis}, {what}) of the recurrent layers ({', '.join(recurrent)}) "
+                    f"of {cfg.name} needs GSPMD ({LAYOUT_ITEM})")
+        if cfg.enc_dec:
+            return (f"tensor parallelism without sequence parallelism (model axis "
+                    f"{plan.model_axis}, {what}) of the encoder-decoder {cfg.name} needs GSPMD "
+                    f"({LAYOUT_ITEM})")
     return None
 
 
@@ -280,25 +359,46 @@ class Shardings:
         return tree_map_with_path(lambda p, leaf: self.param_spec(p, leaf), stack,
                                   path=("blocks", "stack"))
 
+    def attention_sharded(self) -> bool:
+        """Whether tensor parallelism runs attention on this rank's heads:
+        the MHA stage SPATIAL and the query and KV heads both dividing over
+        ``model`` (otherwise attention runs replicated).  The paged pools
+        then hold this rank's KV heads, ``cache_spec``'s split."""
+        n = self._axis("model")
+        return (tensor_parallel(self.plan) and self.plan.mode_for("mha") == SPATIAL
+                and self.cfg.n_heads % n == 0 and self.cfg.n_kv_heads % n == 0)
+
     def manual_param_spec(self, path: Sequence, leaf) -> tuple:
         """The spec the port's manual paths execute: in ``blocks.stack``,
         ``param_spec``'s model shards under Megatron-SP and its pod slice
-        under the pipeline; everything else replicated (the embedding, the
-        head, the tail layers and the final norm run on every rank)."""
+        under the pipeline; under tensor parallelism without SP, its model
+        shards in every layer (``blocks``), attention's only where
+        ``attention_sharded``; everything else replicated (the embedding,
+        the head and the final norm run on every rank, and so do the tail
+        layers under SP and the pipeline)."""
         names = _key_names(path)
-        keep = set()
-        if self.plan.seq_parallel_acts:
-            keep.add("model")
-        if self.plan.pod_role == "pipeline" and self._axis("pod") > 1:
-            keep.add("pod")
         spec = self.param_spec(path, leaf)
-        if not keep or len(names) < 2 or names[:2] != ["blocks", "stack"]:
-            return P(*([None] * len(spec)))
+        keep = set()
+        if names[:2] == ["blocks", "stack"]:
+            if self.plan.seq_parallel_acts:
+                keep.add("model")
+            if self.plan.pod_role == "pipeline" and self._axis("pod") > 1:
+                keep.add("pod")
+        if names[:1] == ["blocks"] and tensor_parallel(self.plan):
+            if "attn" not in names or self.attention_sharded():
+                keep.add("model")
         return P(*(e if e in keep else None for e in spec))
 
     def manual_param_shardings(self, params: Tree) -> Tree:
-        return tree_map_with_path(
-            lambda p, leaf: self._ns(self.manual_param_spec(p, leaf)), params)
+        heads = (self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.d_head)
+
+        def one(path, leaf):
+            spec = self.manual_param_spec(path, leaf)
+            if _key_names(path)[-1:] == ["wqkv"] and spec and spec[-1] is not None:
+                return QKVSharding(self.mesh, spec, heads)
+            return self._ns(spec)
+
+        return tree_map_with_path(one, params)
 
     # ------------------------------------------------------------ decode cache
     def cache_spec(self, path: Sequence, leaf) -> tuple:

@@ -19,6 +19,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --chaos-seed 3 --chaos-transient 0.05 --chaos-burst 2 --chaos-nan 0.02 \
         --metrics-out m.prom --trace-out trace.json
+    # sharded continuous serving under torchrun: the host mesh (data 1,
+    # model N), tensor-parallel shards on every rank, rank 0 prints
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch qwen3-1.7b --requests 8 --prompt-len 128 --gen 16
     # the eager path: one prefill of the batch, then lockstep greedy decode
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --engine eager --batch 8 --prompt-len 2048 --gen 32
@@ -44,6 +48,15 @@ batched engine prints the execution and serve plans, the engine's health
 after a chaos run, the drift meter's verdict, then its summary as JSON
 (with ``classes``, the per-class report, when a trace is replayed); the
 eager path prints the tokens' shape and tok/s.
+
+Under ``torchrun`` the batched engine runs on the host mesh over the
+world's ranks, (data 1, model N) as JAX's ``make_host_mesh`` gives it:
+``derive_plan`` and ``derive_serve_plan`` on that mesh, each rank's
+tensor-parallel shards of the weights (``Shardings.
+manual_param_shardings``), pools of its KV heads, the paged-attention
+kernel on them, and only rank 0 prints; ``--check-replicas`` makes the
+engine compare the ranks' tokens once a step.  The eager path stays
+replicated, as JAX's ``run_eager`` places no shardings.
 """
 from __future__ import annotations
 
@@ -57,11 +70,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import get_hardware
-from repro_torch.core.plan import derive_execution_plan, derive_serve_plan, serve_feasible
+from repro_torch.core.plan import (derive_execution_plan, derive_plan, derive_serve_plan,
+                                   serve_feasible)
+from repro_torch.dist.sharding import Shardings, place, unexecuted_layout
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.rmsnorm import kernel as rmsnorm_kernel
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from repro_torch.launch.mesh import Mesh, host_mesh_shape, init_distributed, local_device
 from repro_torch.models.params import init_params
 from repro_torch.obs import Observability
 from repro_torch.serve import (
@@ -152,6 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bf16", choices=sorted(_DTYPES))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--check-replicas", action="store_true",
+                    help="on a mesh: compare the ranks' sampled tokens once a step (debug)")
     return ap
 
 
@@ -204,50 +222,72 @@ def request_stream(a: argparse.Namespace, cfg) -> list:
 
 
 def run(a: argparse.Namespace) -> dict:
+    """The batched engine over the request stream; under ``torchrun``, on
+    the host mesh of the world's ranks with each rank's tensor-parallel
+    shards (JAX's ``run_batched``).  Returns the engine's summary."""
     device = resolve_device(a.device)
+    backend = init_distributed(device.type)
+    world = torch.distributed.get_world_size() if backend else 1
+    rank = torch.distributed.get_rank() if backend else 0
+    if backend:
+        device = local_device(device.type)
+    say = print if rank == 0 else (lambda *x, **k: None)
     cfg = get_config(a.arch)
-    plan = derive_execution_plan(cfg)
     hw = get_hardware(a.hardware)
-    serve = derive_serve_plan(cfg, {"data": 1, "model": 1}, hw, **plan_overrides(a))
-    print(plan)
-    print(serve.describe())
+    shape = host_mesh_shape(world)
+    if world == 1:
+        plan = derive_execution_plan(cfg)
+    else:
+        plan = derive_plan(cfg, shape, hw, batch=a.batch, seq_len=a.prompt_len, training=False)
+        reason = unexecuted_layout(plan, cfg)
+        if reason:
+            raise ValueError(f"mesh {shape}: {reason}")
+    serve = derive_serve_plan(cfg, shape, hw, **plan_overrides(a))
+    say(plan)
+    say(serve.describe())
     gen = torch.Generator(device=device).manual_seed(a.seed)
     params = init_params(cfg, plan, _DTYPES[a.dtype], generator=gen, device=device)
+    sh = None
+    if world > 1:
+        sh = Shardings(Mesh(shape), plan, cfg)
+        params = place(params, sh.manual_param_shardings(params))
+        say(f"distributed: {world} ranks, backend {backend}, mesh {shape}, tensor-parallel "
+            f"shards (attention on {'local' if sh.attention_sharded() else 'all'} heads)")
     draft = None
     if a.draft and serve.spec_len == 0:
-        print("roofline slack leaves no free verification rows at this decode batch:"
-              " speculation stays off (gamma = 0)")
+        say("roofline slack leaves no free verification rows at this decode batch:"
+            " speculation stays off (gamma = 0)")
     elif a.draft:
         draft = make_draft_source(a.draft, cfg, serve, hw=hw, seed=2, device=device,
                                   dtype=_DTYPES[a.dtype])
     injector = make_injector(a)
     if injector is not None:
-        print(f"chaos injection on: {injector.to_record()}")
+        say(f"chaos injection on: {injector.to_record()}")
     obs = Observability(tracing=a.trace_out is not None, trace_buffer=a.trace_buffer)
     engine = ServingEngine(params, cfg, plan, serve, draft=draft, injector=injector, obs=obs,
-                           hw=hw, device=device)
+                           hw=hw, device=device, shardings=sh, check_replicas=a.check_replicas)
     out = engine.run(request_stream(a, cfg))
     summary = engine.summary()
     if injector is not None:
-        print(f"engine health after chaos: {json.dumps(engine.health())}")
+        say(f"engine health after chaos: {json.dumps(engine.health())}")
     first = next(iter(out))
-    print(f"served {len(out)} requests; {first} -> {out[first]}")
+    say(f"served {len(out)} requests; {first} -> {out[first]}")
     if a.replay_trace:
         summary["classes"] = per_class_report(engine.sched.finished)
-    if a.trace_out:
+    if a.trace_out and rank == 0:
         n = obs.tracer.write(a.trace_out)
-        print(f"wrote {n} trace events to {a.trace_out}")
-    if a.metrics_out:
+        say(f"wrote {n} trace events to {a.trace_out}")
+    if a.metrics_out and rank == 0:
         with open(a.metrics_out, "w") as f:
             if a.metrics_out.endswith((".prom", ".txt")):
                 f.write(obs.metrics.to_prometheus())
             else:
                 json.dump(obs.metrics.snapshot(), f, indent=1)
-        print(f"wrote metrics to {a.metrics_out}")
+        say(f"wrote metrics to {a.metrics_out}")
     cal = summary["calibration"]
     if cal.get("overall_ratio"):
-        print(f"planner calibration: {cal['note']}")
-    print(json.dumps(summary, indent=1, default=str))
+        say(f"planner calibration: {cal['note']}")
+    say(json.dumps(summary, indent=1, default=str))
     return summary
 
 

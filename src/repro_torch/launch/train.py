@@ -16,6 +16,10 @@
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-135m-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
         --pipeline 2 --dp 2
+    # Megatron tensor parallelism without SP (column / row shards, MoE's
+    # expert or width split) on the mesh (data 1, model N)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --steps 4 --batch 4 --seq 2048 --force-mode spatial
 
 The plan decides, this file executes: ``launch_plan`` maps the flags to
 the host mesh over the world's ranks, and ``derive_plan`` on it sets the stage
@@ -24,11 +28,16 @@ the card (the H100 entry); ``pod_role="pipeline"`` routes the step through
 ``dist.pipeline`` (its bubble is printed at start), ``--compression``
 rides the ``compressed_psum`` wire on a pure data-parallel mesh and falls
 back to the accumulation-dtype quantization with an error-feedback
-residual otherwise.  Each rank holds its shards (``Shardings.
-manual_param_shardings``); a layout no manual path executes (tensor
-parallelism without SP, ZeRO weights) is refused with the ROADMAP item that
-lists it.  Ranks use NCCL when each has a card, gloo when they share one
-or run on the CPU (``launch.mesh.init_distributed``); rank r computes on
+residual otherwise.  Without layout flags the mesh is (data 1, model N), as
+JAX's ``make_host_mesh`` gives it: a SPATIAL model axis that SP does not
+take runs Megatron tensor parallelism, and one that ``derive_plan`` folds
+into data parallelism (``dp_over_model``: qwen3-1.7b at B 4 or 8 on the
+H100 entry) runs replicated.  Each rank holds its shards
+(``Shardings.manual_param_shardings``); a layout no manual path executes
+(tensor parallelism of recurrent or encoder-decoder layers, ZeRO weights)
+is refused with the ROADMAP item that lists it.  Ranks use NCCL when each
+has a card, gloo when they share one or run on the CPU
+(``launch.mesh.init_distributed``); rank r computes on
 ``cuda:(LOCAL_RANK % device_count)``, and only rank 0 prints.  A per-step
 watchdog flags stragglers.  ``--ckpt-dir`` saves the train state (the
 shards gathered, written by rank 0) every ``--ckpt-every`` steps and
@@ -51,7 +60,7 @@ from repro_torch.core.plan import derive_plan
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.dist.pipeline import bubble_fraction
 from repro_torch.dist.sharding import (NamedSharding, Shardings, gather, place,
-                                       unexecuted_layout)
+                                       tensor_parallel, unexecuted_layout)
 from repro_torch.launch.mesh import Mesh, host_mesh_shape, init_distributed, local_device
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import check_pipeline_supported
@@ -161,7 +170,7 @@ def run(
         say(f"distributed: {world} ranks, backend {backend}, mesh {shape}"
             + (f" (ranks share {dev}: CUDA tensors cross gloo through host memory)"
                if backend == "gloo" and dev.type == "cuda" else ""))
-    reason = unexecuted_layout(plan)
+    reason = unexecuted_layout(plan, cfg)
     if reason:
         raise ValueError(f"mesh {dict(mesh.shape)}: {reason}")
     pipelined = plan.pod_role == "pipeline" and plan.pod_axis > 1
@@ -176,6 +185,9 @@ def run(
     if seq_parallel and not plan.seq_parallel_acts:
         say("seq-parallel requested but infeasible for this (arch, mesh); off")
     sh = Shardings(mesh, plan, cfg)
+    if tensor_parallel(plan):
+        say(f"tensor parallelism: model axis {plan.model_axis}, attention on "
+            f"{'local' if sh.attention_sharded() else 'all'} heads, MoE {plan.moe_mode}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     full = init_params(cfg, plan, dtype, generator=gen, device=dev)
     param_sh = sh.manual_param_shardings(full)

@@ -54,8 +54,8 @@ def _quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
-def _paged_layer_entry(cfg, serve, lead: tuple, device) -> dict:
-    shape = lead + (serve.n_blocks, serve.block_size, cfg.n_kv_heads, cfg.d_head)
+def _paged_layer_entry(cfg, serve, lead: tuple, device, kv_heads: int) -> dict:
+    shape = lead + (serve.n_blocks, serve.block_size, kv_heads, cfg.d_head)
     if serve.kv_dtype == "int8":
         sshape = shape[:-1] + (1,)
         return {
@@ -75,22 +75,27 @@ def _paged_layer_entry(cfg, serve, lead: tuple, device) -> dict:
     }
 
 
-def init_paged_cache(cfg, plan, serve, device="cuda") -> dict:
+def init_paged_cache(cfg, plan, serve, device="cuda", shardings=None) -> dict:
     """Zero block pools mirroring the layer tree ({"stack": ..., "tail": ...}).
 
     ``serve`` is a :class:`repro_torch.core.plan.ServePlan`; only
     attention-kind layers are supported (``serve_feasible`` gates the rest).
     ``device`` defaults to the card and raises without one unless it is
-    ``"cpu"``."""
+    ``"cpu"``.  ``shardings`` (``dist.sharding.Shardings``): this rank's
+    pools, on n_kv_heads / n heads where tensor-parallel attention runs on
+    this rank's heads (``cache_spec``'s KV heads over ``model``)."""
     device = resolve_device(device)
+    kv = cfg.n_kv_heads
+    if shardings is not None and shardings.attention_sharded():
+        kv //= shardings.axis_sizes["model"]
     pattern = cfg.layer_pattern
     n_full, rem = divmod(cfg.n_layers, len(pattern))
     stack = (
-        tuple(_paged_layer_entry(cfg, serve, (n_full,), device) for _ in pattern)
+        tuple(_paged_layer_entry(cfg, serve, (n_full,), device, kv) for _ in pattern)
         if n_full
         else None
     )
-    tail = tuple(_paged_layer_entry(cfg, serve, (), device) for _ in range(rem))
+    tail = tuple(_paged_layer_entry(cfg, serve, (), device, kv) for _ in range(rem))
     return {"layers": {"stack": stack, "tail": tail}}
 
 

@@ -13,6 +13,20 @@ Two dispatch implementations, selected by ``ExecutionPlan.moe_dispatch``:
   buffers (MegaBlocks-style dropping, C over the whole T), the expert
   outputs scattered back with their gates in f32.
 
+Under tensor parallelism without SP (``tp=(mesh, split)``, the plan's
+``moe_mode``) the router, its top-k and the aux loss run whole on every
+rank, on the replicated tokens, so the aux loss is the same everywhere:
+
+* ``ep``: this rank holds E/n experts.  GShard dispatches to its slice of
+  the combine tensor, runs those experts and combines their outputs into a
+  partial (T, d), which Megatron's g (``dist.collectives.row_sum``) sums;
+  the tokens and the combine tensor enter through f (``column_input``).
+  The sort dispatch fills the whole (E, C, d) buffer, runs its experts' rows
+  and sums the zero-padded outputs with g.
+* ``tp``: every expert's ``w1`` / ``w3`` are column shards and ``w2`` a
+  row shard: the dispatched (E, C, d) inputs enter through f, g sums the
+  experts' partial outputs after ``w2``, and the combine runs whole.
+
 The module holds no Pallas kernel: its products are ``torch`` matmuls, as
 the JAX package leaves them to XLA.  JAX's three-operand combine einsum
 (moe.py:93) has one non-zero term per (token, expert, slot), since a
@@ -129,18 +143,50 @@ def gshard_combine(combine: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
         G * g, d)
 
 
-def moe_gshard(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
+def _tp_ops(tp):
+    """(f, g, this rank's index, ranks) of a ``tp`` pair over ``model``."""
+    from repro_torch.dist.collectives import column_input, row_sum
+
+    mesh = tp[0]
+    return (lambda t: column_input(t, mesh=mesh), lambda t: row_sum(t, mesh=mesh),
+            mesh.index("model"), mesh.extent("model"))
+
+
+def _split_experts(params: dict, xe: torch.Tensor, activation: str, tp) -> torch.Tensor:
+    """The experts on (E, C, d) inputs, whole or, under ``tp``'s split,
+    summed over the ranks: ``ep`` runs this rank's experts' rows and sums
+    the zero-padded outputs, ``tp`` its slice of every expert's width."""
+    if tp is None:
+        return _expert_ffn(params, xe, activation)
+    f, g, r, n = _tp_ops(tp)
+    xe = f(xe)
+    if tp[1] == "tp":
+        return g(_expert_ffn(params, xe, activation))
+    El = params["w1"].shape[-3]
+    ye = _expert_ffn(params, xe.narrow(0, r * El, El), activation)
+    return g(torch.cat([ye.new_zeros((r * El,) + ye.shape[1:]), ye,
+                        ye.new_zeros(((n - r - 1) * El,) + ye.shape[1:])]))
+
+
+def moe_gshard(params: dict, x: torch.Tensor, st: MoESettings, activation: str, tp=None):
     """x: (T, d) -> ((T, d) in x's dtype, aux).  Groups of g tokens dispatch
-    independently (bounds the one-hot size and the products' flops)."""
+    independently (bounds the one-hot size and the products' flops).  With
+    ``tp`` (mesh, "ep" | "tp"): the module's tensor-parallel splits."""
     combine, aux = gshard_route(x, params["router"], st)
-    ye = _expert_ffn(params, gshard_dispatch(combine, x), activation)
+    if tp is not None and tp[1] == "ep":
+        f, g, r, _ = _tp_ops(tp)
+        El = params["w1"].shape[-3]
+        local = f(combine).narrow(2, r * El, El)  # this rank's experts' slots
+        ye = _expert_ffn(params, gshard_dispatch(local, f(x)), activation)
+        return g(gshard_combine(local, ye)).to(x.dtype), aux
+    ye = _split_experts(params, gshard_dispatch(combine, x), activation, tp)
     return gshard_combine(combine, ye).to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------
 # Sort-based dispatch
 # ---------------------------------------------------------------------------
-def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
+def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str, tp=None):
     T, d = x.shape
     E, K = st.n_experts, st.top_k
     N = T * K
@@ -160,7 +206,7 @@ def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
 
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = x[token_of]  # the drop bin's row is never read
-    ye = _expert_ffn(params, buf[:-1].reshape(E, C, d), activation)
+    ye = _split_experts(params, buf[:-1].reshape(E, C, d), activation, tp)
     y_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     contrib = y_flat[slot].float() * (flat_gate[order] * valid)[:, None]
     out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
@@ -168,9 +214,10 @@ def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
     return out.to(x.dtype), aux
 
 
-def moe_ffn(params: dict, x: torch.Tensor, st: MoESettings, activation: str):
-    """x: (..., d) -> (..., d), plus the aux loss (f32 scalar)."""
+def moe_ffn(params: dict, x: torch.Tensor, st: MoESettings, activation: str, tp=None):
+    """x: (..., d) -> (..., d), plus the aux loss (f32 scalar).  ``tp``:
+    (mesh, "ep" | "tp"), this rank's shards of the experts."""
     shape = x.shape
     fn = moe_sort if st.dispatch == "sort" else moe_gshard
-    y, aux = fn(params, x.reshape(-1, shape[-1]), st, activation)
+    y, aux = fn(params, x.reshape(-1, shape[-1]), st, activation, tp)
     return y.reshape(shape), aux

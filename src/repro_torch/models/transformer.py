@@ -34,6 +34,12 @@ it; with ``plan.remat`` every stacked pattern-group runs under
 kernels launch again in the backward; the LM head's cross-entropy is taken
 512 positions at a time, each chunk's logits recomputed in the backward.
 
+Tensor parallelism without SP (``forward(mesh=)`` on a plan that
+``dist.sharding.tensor_parallel`` accepts): every layer runs on this rank's
+Megatron shards, with f (``dist.collectives.column_input``) where a
+replicated tensor enters a column-parallel block and g (``row_sum``) after
+the row-parallel product; GSPMD derives the same from JAX's shardings.
+
 The JAX package scans the stacked pattern-groups with ``lax.scan``; here
 that is a Python loop over their leading dimension, then the tail layers.
 Caches and pools are written in place (JAX returned new ones or took them
@@ -70,10 +76,21 @@ def _norm(p: dict, x: torch.Tensor, kind: str, fused: bool) -> torch.Tensor:
     return L.apply_norm(p, x, kind)
 
 
+def local_heads(ap: dict, cfg: ArchConfig) -> tuple:
+    """(query heads, KV heads) of this rank's attention weights: all of them,
+    or H/n and KV/n under tensor parallelism (read off ``wo``'s rows)."""
+    H = ap["wo"].shape[-2] // cfg.d_head
+    return H, cfg.n_kv_heads * H // cfg.n_heads
+
+
 def _project_qkv(ap: dict, h: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan,
                  fused: bool):
+    """q, k, v (B, S, heads, Dh) on this rank's heads; a head-aligned fused
+    ``wqkv`` shard (``dist.sharding.QKVSharding``) splits by the local
+    widths as the whole one does."""
     B, S, _ = h.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, KV = local_heads(ap, cfg)
+    Dh = cfg.d_head
     if plan.fuse_qkv and "wqkv" in ap:
         qkv = h @ ap["wqkv"]  # C5: one large MM instead of 3 narrow ones
         q, k, v = torch.split(qkv, [H * Dh, KV * Dh, KV * Dh], dim=-1)
@@ -103,9 +120,19 @@ def attention_stage(
     fused: bool = True,
     prefix_len: int = 0,
     causal: Optional[bool] = None,
+    tp=None,
 ):
     """Returns ``(out, kv_out)``: ``kv_out`` is this pass's (k, v) with no
     cache (the prefill harvests it), else None.
+
+    ``tp`` (a mesh) runs tensor parallelism without SP: with this rank's
+    column / row shards (``local_heads`` < H) the stage input enters through
+    Megatron's f (``column_input``), q, k and v, their norms, RoPE, the
+    pages and the kernels are this rank's H/n and KV/n heads (the qk-norm
+    scales, replicated but applied to those heads only, enter through f as
+    well), and ``wo``'s partial output is summed by g (``row_sum``); with
+    whole weights (heads that do not divide) the stage runs replicated,
+    with neither.
 
     * paged cache: write this step's KV at each slot's own positions, then
       attend off the block table, through the CUDA kernel
@@ -119,8 +146,16 @@ def attention_stage(
       layers) or ``min(t, Sc - 1)``, in place, then attend over the
       ``min(t + 1, Sc)`` filled slots."""
     B, S, _ = h.shape
-    H, Dh = cfg.n_heads, cfg.d_head
+    H, Dh = local_heads(ap, cfg)[0], cfg.d_head
     window = C.layer_window(cfg, kind)
+    sharded = tp is not None and H < cfg.n_heads
+    if sharded:
+        from repro_torch.dist.collectives import column_input
+
+        h = column_input(h, mesh=tp)
+        # the qk-norm scales are replicated but act on this rank's heads only:
+        # their gradients are partial too, and f sums them
+        ap = {**ap, **{n: column_input(ap[n], mesh=tp) for n in ("q_norm", "k_norm") if n in ap}}
     q, k, v = _project_qkv(ap, h, cfg, plan, fused)
     if cfg.pos_embedding == "rope":
         q = L.rope(q, positions, cfg.rope_theta)
@@ -157,7 +192,12 @@ def attention_stage(
         cache["v"][:, idx] = v[:, 0].to(cache["v"].dtype)
         cache["t"] += 1
         o = L.decode_attention(q, cache["k"], cache["v"], min(t + 1, Sc))
-    return o.reshape(B, S, H * Dh) @ ap["wo"], kv_out
+    out = o.reshape(B, S, H * Dh) @ ap["wo"]
+    if sharded:
+        from repro_torch.dist.collectives import row_sum
+
+        out = row_sum(out, mesh=tp)
+    return out, kv_out
 
 
 def cross_attention_stage(cp: dict, h: torch.Tensor, memory_kv, cfg: ArchConfig,
@@ -198,6 +238,7 @@ def edpu_layer(
     collect: bool = False,
     page_state: Optional[dict] = None,
     fused: bool = True,
+    tp=None,
 ):
     """One layer: MHA (or RWKV-6 time-mix, or RG-LRU) stage, the
     cross-attention sub-stage when the layer has ``cross`` leaves (over
@@ -208,7 +249,15 @@ def edpu_layer(
     the same cache updated in place; with ``collect`` (prefill), a new entry
     of what the decode cache needs (``kv_out`` for attention layers, the
     states for RWKV-6 and RG-LRU, ``cross_kv``); else None.  ``aux`` is the
-    MoE layer's load-balancing loss (an f32 scalar), 0.0 on other layers."""
+    MoE layer's load-balancing loss (an f32 scalar), 0.0 on other layers.
+
+    ``tp`` (a mesh): tensor parallelism without SP on this rank's shards
+    (``attention_stage``; the dense FFN's f, column-parallel ``w1`` /
+    ``w3``, row-parallel ``w2`` and g; MoE's expert or width split,
+    ``moe.moe_ffn``).  A stage whose weights are whole runs replicated.  The
+    residual, the norms and their scales stay replicated, and their
+    gradients are whole on every rank: f sums the partial gradients where a
+    replicated tensor enters a sharded block."""
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rglru":
@@ -230,7 +279,7 @@ def edpu_layer(
         a, kv_out = attention_stage(
             lp["attn"], h, cfg=cfg, plan=plan, kind=kind, positions=positions,
             cache=ac, page_state=page_state, fused=fused, prefix_len=prefix_len,
-            causal=causal_override,
+            causal=causal_override, tp=tp,
         )
         if cache is not None:
             new_cache = cache
@@ -255,14 +304,24 @@ def edpu_layer(
             n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.moe_capacity_factor, dispatch=plan.moe_dispatch,
         )
+        split = None
+        if tp is not None:
+            w1 = lp["ffn"]["w1"]
+            split = ("ep" if w1.shape[-3] < cfg.n_experts
+                     else "tp" if w1.shape[-1] < cfg.moe_d_ff else None)
         # the aux loss is for training (lm_loss); no serving path reads it
-        f, aux = M.moe_ffn(lp["ffn"], h2, st, cfg.activation)
+        f, aux = M.moe_ffn(lp["ffn"], h2, st, cfg.activation,
+                           tp=None if split is None else (tp, split))
     elif kind == "rwkv6":
         f, nc = R.rwkv6_channel_mix(
             lp["ffn"], h2, cache=None if cache is None else cache["cmix"], collect=collect,
         )
         if nc is not None:
             new_cache["cmix"] = nc
+    elif tp is not None and lp["ffn"]["w2"].shape[-2] < cfg.d_ff:
+        from repro_torch.dist.collectives import column_input, row_sum
+
+        f = row_sum(L.mlp(lp["ffn"], column_input(h2, mesh=tp), cfg.activation), mesh=tp)
     else:
         f = L.mlp(lp["ffn"], h2, cfg.activation)
     return x + f, (new_cache or None), aux
@@ -576,7 +635,12 @@ def forward(
     Megatron-SP path (:func:`sp_stack_forward`) on this rank's shards, and
     their output is gathered back to the whole sequence; the tail layers,
     the final norm and what follows run replicated on every rank of the
-    model axis.  ``batch`` is this rank's rows (``lm_loss`` cuts them)."""
+    model axis.  Under tensor parallelism without SP
+    (``dist.sharding.tensor_parallel``) every layer runs on this rank's
+    shards (``edpu_layer``'s ``tp``), with no cache or over the paged pools
+    of this rank's KV heads; the embedding, the final norm and the head
+    run replicated.  ``batch`` is this rank's rows (``lm_loss`` cuts
+    them)."""
     dtype = _compute_dtype(params)
     t = None if cache is None else cache["t"]
     x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype)
@@ -588,12 +652,21 @@ def forward(
         else:
             memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused)
     causal_override = False if cfg.encoder_only else None
+    tp = None
+    if mesh is not None:
+        from repro_torch.dist.sharding import tensor_parallel
+
+        if tensor_parallel(plan):
+            if collect_cache or (cache is not None and page_state is None):
+                raise ValueError("tensor parallelism runs the no-cache pass and the paged "
+                                 "serving step; the dense-cache path runs replicated")
+            tp = mesh
 
     def layer_fn(lp, xx, kind, c):
         return edpu_layer(
             lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions, cache=c,
             memory=memory, prefix_len=prefix_len, causal_override=causal_override,
-            collect=collect_cache, page_state=page_state, fused=fused,
+            collect=collect_cache, page_state=page_state, fused=fused, tp=tp,
         )
 
     layers = None if cache is None else cache["layers"]

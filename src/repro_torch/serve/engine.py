@@ -18,6 +18,19 @@ path and the continuous-batching engine over the paged KV cache.
   the chaos injector in ``serve/faults.py``; metrics, tracing and the drift
   meter in ``repro_torch.obs``.
 
+Sharded serving (``ServingEngine(shardings=)``, as JAX's engine takes
+them): every rank of the mesh runs the same host scheduler on its
+tensor-parallel shards (``models.transformer``'s TP layer: this rank's
+heads, pools of this rank's KV heads, ``Shardings.attention_sharded``),
+and after g the logits are replicated, so every rank reaches the same
+argmax with no collective on the path (``check_replicas`` compares the
+ranks' tokens once a step, for debug runs and the tests).  JAX's engine
+runs the gather path on a multi-device mesh because GSPMD cannot partition
+its Pallas call; the port's paged-attention kernel runs per rank on that
+rank's KV-head pages, so ``fused`` keeps the plan's default there, and
+``fused=False`` (the gather path) gives the same tokens (ROADMAP,
+deliberate divergences).
+
 PyTorch runs eagerly, so there is no compile to count: the JAX engine's
 ``trace_counts`` has no counterpart.  ``dispatch_counts`` takes its place in
 the step-time calibration: the first dispatch of each step function (the
@@ -150,7 +163,7 @@ def _upload(x: np.ndarray, device) -> torch.Tensor:
 
 
 def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, fused: bool,
-                    spec_width: int = 1):
+                    spec_width: int = 1, mesh=None):
     """The unified mixed prefill/decode step (JAX engine.py:112-179).
 
     ``step(params, pools, tokens (B, W), tables (B, MB), lens (B,),
@@ -167,7 +180,8 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
     check; ``None`` or all zeros adds nothing.
 
     Shared by :class:`ServingEngine` and the model drafter
-    (``serve/speculative.ModelDraft``)."""
+    (``serve/speculative.ModelDraft``).  ``mesh``: the parameters and pools
+    are this rank's tensor-parallel shards (``forward``'s ``mesh``)."""
 
     @torch.no_grad()
     def step(params, pools, tokens, tables, lens, kinds, poison=None):
@@ -177,7 +191,7 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
         x, _ = forward(
             params, {"tokens": _upload(tokens, dev)}, cfg=cfg, plan=plan,
             cache={"layers": pools["layers"], "t": _upload(lens, dev)},
-            page_state=page_state, fused=fused,
+            page_state=page_state, fused=fused, mesh=mesh,
         )
         # poison is data the host holds: skip the add when it is all zero
         pz = None
@@ -213,7 +227,8 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
     return step
 
 
-def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, fused: bool):
+def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, fused: bool,
+                     mesh=None):
     """The rolled decode loop: up to K decode iterations for one host
     dispatch, without reading anything back between them.
 
@@ -231,7 +246,8 @@ def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, 
     iterations, and an iteration with no live slot changes nothing.
 
     Returns device tensors ``(out (B, K), lens (B,))`` with
-    ``out[b, :steps_left[b]]`` slot b's tokens (-1 past the end)."""
+    ``out[b, :steps_left[b]]`` slot b's tokens (-1 past the end).  ``mesh``
+    as ``make_mixed_step``'s."""
     K = int(serve.rolled_steps)
 
     @torch.no_grad()
@@ -250,6 +266,7 @@ def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, 
                 params, {"tokens": tok[:, None]}, cfg=cfg, plan=plan,
                 cache={"layers": pools["layers"], "t": lens},
                 page_state={**page_state, "q_lens": live.to(torch.int32)}, fused=fused,
+                mesh=mesh,
             )
             logits = logits_fn(params, x[:, -1], cfg).float()
             if poison is not None and np.any(poison == i):
@@ -331,7 +348,16 @@ class ServingEngine:
     the drift meter prices dispatches on.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card; the
-    parameters are moved there if they are not already."""
+    parameters are moved there if they are not already.
+
+    ``shardings`` (``dist.sharding.Shardings`` on a mesh of this process
+    group's ranks): ``params`` are this rank's shards
+    (``manual_param_shardings``, ``dist.sharding.place``), the pools hold
+    this rank's KV heads, and every step runs the tensor-parallel layer.
+    The kernel path stays the default (JAX falls back to the gather path on
+    a multi-device mesh).  ``check_replicas``: once a step, all-gather the
+    sampled tokens over ``model`` and raise unless every rank has the
+    same (a debug check, off on the main path)."""
 
     def __init__(
         self,
@@ -346,6 +372,8 @@ class ServingEngine:
         obs: Optional[Observability] = None,
         hw: Optional[HardwareSpec] = None,
         device="cuda",
+        shardings=None,
+        check_replicas: bool = False,
     ):
         ok, reason = serve_feasible(cfg)
         if not ok:
@@ -354,8 +382,11 @@ class ServingEngine:
         self.cfg, self.plan, self.serve = cfg, plan, serve
         self.obs = obs if obs is not None else Observability()
         self.hw = hw if hw is not None else DEFAULT_HARDWARE
+        self.shardings = shardings
+        self.mesh = None if shardings is None else shardings.mesh
+        self.check_replicas = bool(check_replicas)
         self.params = _tree_to(params, self.device)
-        self.pools = init_paged_cache(cfg, plan, serve, self.device)
+        self.pools = init_paged_cache(cfg, plan, serve, self.device, shardings=shardings)
         self.sched = Scheduler(serve, obs=self.obs)
         self.injector = injector
         if injector is not None:
@@ -369,8 +400,11 @@ class ServingEngine:
             for k in kernels:
                 k.library()
         # planner drift meter: the roofline constants of this (arch, plan,
-        # device) frozen once, so pricing a dispatch is O(1)
-        self._cost = step_time_model(cfg, serve, self.hw, fused=self.fused)
+        # device, TP degree) frozen once, so pricing a dispatch is O(1); on a
+        # mesh it prices the kernel path where JAX's prices the gather path
+        self.mesh_model = 1 if self.mesh is None else self.mesh.extent("model")
+        self._cost = step_time_model(cfg, serve, self.hw, mesh_model=self.mesh_model,
+                                     fused=self.fused)
         self.draft = draft
         if draft is not None:
             draft.bind_obs(self.obs)
@@ -380,12 +414,12 @@ class ServingEngine:
         # verify rows follow the engine's draft-gated depth, not the plan's
         self._spec_width = self.spec_len + 1 if self.spec_len > 0 else 1
         self._step = make_mixed_step(cfg, plan, serve, fused=self.fused,
-                                     spec_width=self._spec_width)
+                                     spec_width=self._spec_width, mesh=self.mesh)
         # the rolled loop is off under speculation: draft accept/rollback is
         # a host event every iteration
         self.rolled_cap = int(serve.rolled_steps) if self.spec_len == 0 else 1
         self._rolled = (
-            make_rolled_step(cfg, plan, serve, fused=self.fused)
+            make_rolled_step(cfg, plan, serve, fused=self.fused, mesh=self.mesh)
             if self.rolled_cap > 1
             else None
         )
@@ -460,6 +494,19 @@ class ServingEngine:
         self.sched.shed = []
         self.iteration = 0
 
+    def _same_on_every_rank(self, *tokens: torch.Tensor) -> None:
+        """The debug check of ``check_replicas``: the ranks of ``model``
+        sampled the same tokens (one all-gather a step)."""
+        if not self.check_replicas or self.mesh_model == 1:
+            return
+        from repro_torch.dist.collectives import all_gather
+
+        mine = torch.cat([t.reshape(-1).to(torch.int32) for t in tokens])
+        every = all_gather(mine[None], "model", self.mesh).cpu()
+        if not bool((every == every[:1]).all()):
+            raise RuntimeError(f"iteration {self.iteration}: the ranks of the model axis "
+                               "sampled different tokens")
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -488,7 +535,7 @@ class ServingEngine:
         if self._gather is None:
             self.dispatch_counts.setdefault("fallback_step", 0)
             self._gather = make_mixed_step(self.cfg, self.plan, self.serve, fused=False,
-                                           spec_width=self._spec_width)
+                                           spec_width=self._spec_width, mesh=self.mesh)
         return self._gather
 
     def _escalate(self) -> bool:
@@ -623,6 +670,7 @@ class ServingEngine:
             self._spike()
             tok, vtok, finite = step_fn(self.params, self.pools, tokens, tables, lens, kinds,
                                         poison)
+            self._same_on_every_rank(tok, vtok, finite)
             sampled = tok.cpu().numpy()  # waits for the device: honest step time
             vtok, finite = vtok.cpu().numpy(), finite.cpu().numpy()
             t1 = time.perf_counter()
@@ -678,6 +726,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         self._spike()
         out, _ = self._rolled(self.params, self.pools, tok0, s.table, s.lens, steps, k, poison)
+        self._same_on_every_rank(out)
         out = out.cpu().numpy()  # waits for the device
         t1 = time.perf_counter()
         dt_ms = (t1 - t0) * 1e3
@@ -891,6 +940,10 @@ class ServingEngine:
             "evictions": self.sched.n_evictions,
             "dispatch_counts": dict(self.dispatch_counts),
             "fused_attention": self.fused,
+            # a sharded engine keeps the kernel on each rank's KV-head pages
+            # (JAX's falls back to the gather path); the drift meter prices
+            # this TP degree and route
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             "wall_s": st.get("wall_s"),
             "device_s": st["device_s"],
             "step_ms": self.sched.step_ms,

@@ -286,7 +286,9 @@ def make_draft_source(
     H100's shared memory): the draft step reads only ``fuse_qkv`` and
     ``moe_dispatch`` from it, which both derive alike.  Its serve plan is
     the target's geometry (batch, blocks, chunk, slab, page dtype) for the
-    draft config."""
+    draft config.  Both plans are the 1 x 1 mesh's, as JAX's: under a
+    sharded target (``ServingEngine(shardings=)``) every rank holds and runs
+    the whole drafter, which proposes the same drafts on every rank."""
     if name in (None, "", "none"):
         return None
     if name == "ngram":

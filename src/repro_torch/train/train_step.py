@@ -28,7 +28,10 @@ the control plane, as in JAX:
   loss's mean over the batch axes) are summed over the axes that split the
   batch, never over an axis that does not: a replicated parameter's
   gradient is then the data-parallel mean, a model or stage shard's its
-  own.
+  own.  Under tensor parallelism without SP the model axis takes no sum:
+  every model rank sees the same rows, and f's backward already summed
+  the partial gradients where a replicated tensor enters a sharded block,
+  so each rank's gradient of a replicated leaf is the whole one.
 """
 from __future__ import annotations
 

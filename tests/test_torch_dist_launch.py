@@ -100,7 +100,7 @@ def _refusals_rank(rank):
     out = {}
     for name, arch, kw in [("moe", "qwen3-moe-30b-a3b-reduced", {"pipeline": 2}),
                            ("enc_dec", "whisper-small-reduced", {"pipeline": 2}),
-                           ("tp", "bert-base-reduced", {"force_mode": "spatial"}),
+                           ("tp", "rwkv6-1.6b-reduced", {"force_mode": "spatial"}),
                            ("zero", "mistral-large-123b", {"dp": 2})]:
         try:
             run(arch, steps=1, batch=8, seq=32, device="cpu", log_every=0, **kw)
@@ -116,6 +116,7 @@ def test_refusals_that_remain(tmp_path):
         assert "MoE aux losses do not cross stage boundaries" in r["moe"]
         assert "enc-dec/frontends keep non-stack state" in r["enc_dec"]
         assert "tensor parallelism without sequence parallelism" in r["tp"]
+        assert "recurrent layers" in r["tp"]
         assert "ZeRO weights" in r["zero"]
         assert all("item 7b" in r[k] for k in ("tp", "zero"))
 

@@ -203,13 +203,14 @@ def test_local_shards_reassemble():
 
 
 def test_manual_layout_and_refusals():
-    """The port executes SP's model shards and the pipeline's stage slices
-    of the stack; everything else is replicated.  TP without SP and ZeRO are
-    refused, naming the ROADMAP item."""
+    """The port executes SP's model shards, the pipeline's stage slices of
+    the stack and, since tensor parallelism without SP runs, every layer's
+    model shards; everything else is replicated.  TP of recurrent layers
+    and ZeRO are refused, naming the ROADMAP item."""
     _, sh, jplan, plan = _pair("bert-base-reduced", {"data": 1, "model": 2},
                                {"batch": 8, "seq_len": 32, "seq_parallel": True,
                                 "force_mode": "spatial"})
-    assert plan.seq_parallel_acts and unexecuted_layout(plan) is None
+    assert plan.seq_parallel_acts and unexecuted_layout(plan, sh.cfg) is None
     assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wq"), Leaf((2, 64, 64))) == (
         None, None, "model")
     assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == (None, None)
@@ -217,15 +218,26 @@ def test_manual_layout_and_refusals():
                            {"batch": 8, "seq_len": 32, "pod_role": "pipeline"})
     assert sh.manual_param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((2, 64, 128))) == (
         "pod", None, None)
-    _, _, _, tp = _pair("bert-base-reduced", {"data": 1, "model": 2},
-                        {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
-    assert "without sequence parallelism" in unexecuted_layout(tp) and LAYOUT_ITEM in \
-        unexecuted_layout(tp)
-    _, _, _, zero = _pair("mistral-large-123b", {"data": 16, "model": 16},
-                          {"batch": 256, "seq_len": 4096})
-    assert zero.zero_weights and "ZeRO" in unexecuted_layout(zero)
+    # TP without SP on bert-base-reduced now executes its model shards
+    _, sh, _, tp = _pair("bert-base-reduced", {"data": 1, "model": 2},
+                         {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
+    assert not tp.seq_parallel_acts and unexecuted_layout(tp, sh.cfg) is None
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wq"), Leaf((2, 64, 64))) == (
+        None, None, "model")
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wo"), Leaf((2, 64, 64))) == (
+        None, "model", None)
+    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == (None, None)
+    # a recurrent arch under TP stays refused
+    _, sh, _, rec = _pair("rwkv6-1.6b-reduced", {"data": 1, "model": 2},
+                          {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
+    why = unexecuted_layout(rec, sh.cfg)
+    assert "without sequence parallelism" in why and "recurrent" in why and LAYOUT_ITEM in why
+    _, sh, _, zero = _pair("mistral-large-123b", {"data": 16, "model": 16},
+                           {"batch": 256, "seq_len": 4096})
+    assert zero.zero_weights and "ZeRO" in unexecuted_layout(zero, sh.cfg)
+    assert LAYOUT_ITEM in unexecuted_layout(zero, sh.cfg)
     # on the H100 entry qwen3-1.7b's --dp 2 plan folds the model axis into
     # data parallelism, which runs as replicated data parallelism
-    fold = derive_plan(get_config("qwen3-1.7b"), {"data": 2, "model": 1}, H100_SXM, batch=8,
-                       seq_len=2048)
-    assert fold.dp_over_model and not fold.zero_weights and unexecuted_layout(fold) is None
+    cfg = get_config("qwen3-1.7b")
+    fold = derive_plan(cfg, {"data": 2, "model": 1}, H100_SXM, batch=8, seq_len=2048)
+    assert fold.dp_over_model and not fold.zero_weights and unexecuted_layout(fold, cfg) is None
