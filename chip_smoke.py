@@ -170,8 +170,16 @@ and bf16 at full depth (first-dispatch logits within phase 18's rule,
 the tokens' agreement share), the skip-g control at both; 42
 qwen3-moe-30b-a3b's expert split (64 of 128 experts and 2 of 4 KV heads
 a rank, int8 pages, drop-free) cut to 12 layers, against the one-rank
-engine.  Every
-main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-42) checks the
+engine; then FSDP on the same two ranks through the flag-free launch,
+whose plan folds the model axis into data parallelism (the weights and
+their AdamW moments sharded, each layer gathering its weights where it
+reads them, the gradients reduce-scattered; phase 39's ``--dp 2`` is such a
+plan too): 43 phi4-mini-3.8b at full width, f32 cut to 4 layers and bf16
+at full depth, 44 rwkv6-1.6b in bf16 at 4 layers (no remat: the WKV
+kernels on every rank), each against the one-rank run (losses, grad
+norms, state and peak a rank), with the embedding's gradient scatter
+skipped and a rank gathering its neighbour's shard as controls.  Every
+main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-44) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -1923,8 +1931,8 @@ def first_dispatch(params, cfg, plan, serve, reqs, *, fused, routing=None):
         rows.append(x.reshape(-1, x.shape[-1])[live[-1]])
         return x, cache
 
-    def recording_router(x, w, k):
-        own = router(x, w, k)
+    def recording_router(x, w, k, dp=None):
+        own = router(x, w, k, dp)
         out = own if routing is None else routing[len(handed)]
         seen.append((x[live[-1]], own[1][live[-1]]))
         handed.append(out)
@@ -4008,6 +4016,11 @@ MESH_PATHS = {
     "sp": ({"seq_parallel": True, "force_mode": "spatial"}, 8),
     "pipeline": ({"pipeline": 2}, 8),
 }
+# The bf16 runs of the int8 wire and of Megatron-SP are cut to 8 of 28
+# layers at full width, to keep the script within its time limit beside
+# the FSDP phases (their full-depth readings are in PERF.md); the others
+# run at full depth.
+MESH_FULL_LAYERS = {"wire": 8, "sp": 8}
 # The planted controls, each a fault in one path's exchange, and the steps
 # it runs: a forward fault moves the first loss; a fault in the gradient
 # exchange shows first in the second loss (the first comes before any
@@ -4075,7 +4088,8 @@ def mesh_run_args(path: str, depth: str) -> dict:
     bf16 at full depth and the path's batch, or f32 at MESH_F32's."""
     kw, B = MESH_PATHS[path]
     if depth == "full":
-        return dict(kw, batch=B, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=None)
+        return dict(kw, batch=B, seq=TRAIN_S, dtype=torch.bfloat16,
+                    n_layers=MESH_FULL_LAYERS.get(path))
     return dict(kw, batch=MESH_F32["B"], seq=MESH_F32["S"], dtype=torch.float32,
                 n_layers=MESH_F32["n_layers"])
 
@@ -4128,6 +4142,7 @@ def plant_control(control):
         return lambda: setattr(PP, "pipeline_forward", orig_pf)
     # the gradient exchanges: every all-reduce goes through C.all_reduce
     # (the train step binds it when it is made, compressed_psum at each call)
+    # and, for FSDP shards, every gradient scatter through C.reduce_scatter
     if control == "skip_grad_sum":
         def skip(x, op):  # the gradient leaves' f32 sums; the loss's mean still runs
             return op == "sum" and x.is_floating_point() and x.numel() > 1
@@ -4136,13 +4151,23 @@ def plant_control(control):
 
         def skip(x, op):
             return x.dtype == torch.int32
-    orig_ar = C.all_reduce
+    orig_ar, orig_rs = C.all_reduce, C.reduce_scatter
 
-    def partial(x, axes, mesh, op="sum"):
-        return x.clone() if skip(x, op) else orig_ar(x, axes, mesh, op)
+    def partial(x, axes, mesh, op="sum", kind="all_reduce"):
+        return x.clone() if skip(x, op) else orig_ar(x, axes, mesh, op, kind)
 
-    C.all_reduce = partial
-    return lambda: setattr(C, "all_reduce", orig_ar)
+    def own_chunk(x, axes, mesh, dim=0, kind="reduce_scatter"):
+        if kind != "fsdp_scatter" or control != "skip_grad_sum":
+            return orig_rs(x, axes, mesh, dim, kind)
+        c = x.shape[dim] // mesh.extent(axes)
+        return x.narrow(dim, mesh.index(axes) * c, c).clone()  # this rank's, unsummed
+
+    C.all_reduce, C.reduce_scatter = partial, own_chunk
+
+    def undo():
+        C.all_reduce, C.reduce_scatter = orig_ar, orig_rs
+
+    return undo
 
 
 def mesh_job(job: dict, rank: int) -> dict:
@@ -4196,8 +4221,17 @@ def mesh_job(job: dict, rank: int) -> dict:
               and ops.get("sum:float32", 0) < n_leaves,
               f"{tag}: all-reduces {ops}, expected a max and an int32 sum a leaf and step")
     if control is None and path == "dp":
-        check(ops.get("sum:float32", 0) >= steps * n_leaves and "sum:int32" not in ops,
-              f"{tag}: all-reduces {ops}, expected an f32 sum a leaf and step")
+        # --dp 2 folds the model axis into data parallelism (dp_over_model):
+        # the projections are FSDP shards whose gradients their gathers'
+        # backward reduce-scatters; every other leaf takes an f32 sum
+        calls = C.STATS["calls"]
+        n_fsdp = sum(s is not None for s in tree_leaves(state_gather_specs(plan, shape, state)))
+        check(plan.dp_over_model and n_fsdp > 0 and calls["fsdp_scatter"] > 0
+              and calls["fsdp_gather"] >= calls["fsdp_scatter"]
+              and ops.get("sum:float32", 0) >= steps * (n_leaves - n_fsdp)
+              and "sum:int32" not in ops,
+              f"{tag}: collectives {dict(calls)}, all-reduces {ops}: expected FSDP gathers and "
+              "scatters and an f32 sum of every other leaf a step")
     moved = sum(C.STATS["bytes"].values()) / steps
     res = {"losses": losses, "step_ms": [r[2] for r in parse_step_log(out.getvalue())],
            "log": out.getvalue(), "counts": read_counts(), "reduce_ops": ops,
@@ -4212,6 +4246,19 @@ def mesh_job(job: dict, rank: int) -> dict:
     return res
 
 
+def state_gather_specs(plan, shape, state):
+    """The FSDP gather spec of each leaf of a rank's trained parameters, on
+    a shape-only copy of its mesh (the specs read only the mesh's shape)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Shardings
+
+    mesh = SimpleNamespace(shape=dict(shape), coords={a: 0 for a in shape})
+    sh = Shardings(mesh, plan, get_config(plan.arch))
+    return sh.gather_specs(sh.manual_param_shardings(state.params))
+
+
 def mesh_rank(spec_file: str) -> None:
     """A phase-39 rank (``python3 chip_smoke.py --mesh-rank spec.json``,
     started with torchrun's environment): every job of the spec in order,
@@ -4222,7 +4269,8 @@ def mesh_rank(spec_file: str) -> None:
     rank = int(os.environ["RANK"])
     backend = init_distributed("cuda")  # torchrun's environment: gloo, two ranks a card
     check(backend == "gloo", f"rank {rank}: backend {backend}")
-    kinds = {"mesh": mesh_job, "tp_train": tp_train_job, "tp_serve": tp_serve_job}
+    kinds = {"mesh": mesh_job, "tp_train": tp_train_job, "tp_serve": tp_serve_job,
+             "fsdp": fsdp_job}
     results = [kinds[job.get("kind", "mesh")](job, rank) for job in spec["jobs"]]
     Path(spec["out"].format(rank=rank)).write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
@@ -4328,8 +4376,9 @@ def phase_mesh_ranks(nccl_losses=None):
     rank), (d) ``--pipeline 2`` (8 microbatches, bubble 1/9).  Every run,
     the one-rank baselines too, is ``launch.train.run``: first each path in
     f32 at reduced depth against the one-rank run (tight), then each at full
-    width and depth in bf16 against the one-rank bf16 run (phase 38's run
-    where the batch and plan are the same); at both depths the planted
+    width in bf16, at full depth but for MESH_FULL_LAYERS, against the
+    one-rank bf16 run (phase 38's run where the batch and plan are the
+    same); ``--dp 2`` folds into FSDP (``dp_over_model``); at both depths the planted
     controls of MESH_CONTROLS must fail their path's tolerance.  For every
     path: step ms, collective seconds (the card synchronized before each:
     the copies and the transport), the bytes moved and the wire bytes, every
@@ -4342,27 +4391,29 @@ def phase_mesh_ranks(nccl_losses=None):
 
     log("phase 39: two ranks on the one H100 over gloo (CUDA tensors cross through host "
         f"memory): {TRAIN_ARCH}, {MESH_STEPS} steps a path; f32 at {MESH_F32['n_layers']} "
-        f"layers, then bf16 at full depth")
+        f"layers, then bf16 at full depth (layers cut: {json.dumps(MESH_FULL_LAYERS)})")
 
     def baseline(path, depth):
         """The one-rank run's key: depth, whether q, k and v stay fused (SP
-        plans unfuse them), batch."""
-        return depth, path != "sp", mesh_run_args(path, depth)["batch"]
+        plans unfuse them), batch, layers."""
+        a = mesh_run_args(path, depth)
+        return depth, path != "sp", a["batch"], a["n_layers"] or 0
 
     one = {}
     if nccl_losses is not None:  # phase 38's run: the same batch, plan and seed
-        one[("full", True, TRAIN_B)] = nccl_losses
+        one[("full", True, TRAIN_B, 0)] = nccl_losses
     for depth in ("f32", "full"):
         for key in sorted({baseline(p, depth) for p in MESH_PATHS}):
             if key in one:
                 continue
-            _, fuse, B = key
+            _, fuse, B, layers = key
             path = "dp" if fuse else "sp"
             a = {k: v for k, v in mesh_run_args(path, depth).items()
                  if k not in MESH_PATHS[path][0]}  # one rank: no mesh flags
             with contextlib.redirect_stdout(io.StringIO()):
                 one[key] = run(TRAIN_ARCH, steps=MESH_STEPS, lr=3e-4, log_every=0, device="cuda",
-                               fuse_qkv=None if fuse else False, **dict(a, batch=B))[0]
+                               fuse_qkv=None if fuse else False,
+                               **dict(a, batch=B, n_layers=layers or None))[0]
             torch.cuda.empty_cache()
     log(f"  one-rank losses: {json.dumps({str(k): v for k, v in one.items()})}")
     controls = [{"path": p, "control": c, "steps": n} for c, (p, n) in MESH_CONTROLS.items()]
@@ -4517,6 +4568,47 @@ def tp_controls_plant(control, mesh=None):
     return lambda: setattr(TS, "value_and_grad", orig_vg)
 
 
+def fsdp_controls_plant(control, cfg):
+    """Plant one of the FSDP controls in this rank (training ``cfg``);
+    returns the undo.  ``skip_scatter``: the embedding's gradient scatter
+    (its FSDP gather's backward) leaves each rank its own partial chunk,
+    unsummed; ``neighbour_shard``: rank 0 gathers its neighbour's shard in
+    place of its own for every gathered weight.
+    ``tests/test_torch_fsdp_train.py`` plants the same on the CPU."""
+    from repro_torch.dist import collectives as C
+
+    if control is None:
+        return lambda: None
+    if control == "skip_scatter":
+        orig = C.reduce_scatter
+        embed = cfg.vocab_size * cfg.d_model
+
+        def keeping(x, axes, mesh_, dim=0, kind="reduce_scatter"):
+            if kind != "fsdp_scatter" or x.numel() != embed:
+                return orig(x, axes, mesh_, dim, kind)
+            n = mesh_.extent(axes)
+            c = x.shape[dim] // n
+            return x.narrow(dim, mesh_.index(axes) * c, c).clone()
+
+        C.reduce_scatter = keeping
+        return lambda: setattr(C, "reduce_scatter", orig)
+    check(control == "neighbour_shard", f"no control {control}")
+    orig_ag = C.all_gather
+
+    def neighbours(x, axes, mesh_, dim=0, kind="all_gather"):
+        y = orig_ag(x, axes, mesh_, dim, kind)
+        if kind != "fsdp_gather" or torch.distributed.get_rank() != 0:
+            return y
+        n = mesh_.extent(axes)
+        i, c = mesh_.index(axes), x.shape[dim]
+        y = y.clone()
+        y.narrow(dim, i * c, c).copy_(y.narrow(dim, ((i + 1) % n) * c, c))
+        return y
+
+    C.all_gather = neighbours
+    return lambda: setattr(C, "all_gather", orig_ag)
+
+
 def tp_grad_norms():
     """(the grad norms list, the undo): every train step's global gradient
     norm as the step computed it (the launcher's log rounds it to 3
@@ -4649,8 +4741,8 @@ def tp_engine_run(engine, cfg):
         engine.submit(r)
     orig, seen = engine_mod.logits_fn, []
 
-    def recording(params, x, c):
-        out = orig(params, x, c)
+    def recording(params, x, c, mesh=None):
+        out = orig(params, x, c, mesh)
         if not seen:
             seen.append(out.float().cpu())
         return out
@@ -4920,6 +5012,229 @@ def phase_tp_serve(arch: str, phase: int, runs: list, kv: str):
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- FSDP
+# Phases 43-44: the weights and their AdamW moments sharded over the
+# data-parallel axes (FSDP: each layer gathers its weights where it reads
+# them, their gradients reduce-scattered in the backward), on two ranks
+# sharing the card (phase 39's harness: gloo, every collective staged
+# through host memory).  Both are the flag-free two-rank launch, which on
+# the H100 entry folds the model axis into data parallelism
+# (dp_over_model).  Phase 43: phi4-mini-3.8b at full width (d_model 3072,
+# 24 / 8 heads, vocab 200,064, tied), (i) f32 cut to 4 layers, B 8 x 512,
+# with the planted controls, (ii) bf16 at full depth, B 8 x 2048 (remat:
+# each group's gathers repeat in the backward).  No replicated two-rank run
+# is made: two whole states with gradients (~2 x 46 GB) do not fit the
+# card.  Phase 44: rwkv6-1.6b, bf16, 4 layers, B 8 x 2048, no remat (the
+# gathered weights are kept as shards for the backward and gathered again
+# there), the WKV kernels forward and backward on every rank, with the
+# controls.  Each against the one-rank run of the same arguments.  Limits,
+# set before the first reading (PERF.md): phase 39's loss bounds
+# (MESH_F32_TOL, MESH_BF16_TOL) and phase 40's grad-norm bounds
+# (TP_GNORM_F32, TP_GNORM_BF16, relative); every rank's launches those of
+# one rank's run; the state a rank at most FSDP_STATE_SHARE of the one-rank
+# run's.  The controls (1 step: the first step's grad norm or loss shows
+# either): the embedding's (and an untied head's) gradient scatter skipped,
+# each rank keeping its own partial chunk; rank 0 gathering its
+# neighbour's shard in place of its own.  Each must fall outside.
+# rwkv6-1.6b's second-step grad norm missed TP_GNORM_BF16 in the first
+# reading (0.105; the first step's 2.3e-4, the loss 1.1e-4: PERF.md):
+# its f32 gradients at init are ill-conditioned (phase 36), and Adam's
+# first step, a sign step, turns rounding differences into whole-lr moves.
+# So phase 44 also runs replicated data parallelism (``--dp 2 --force-mode
+# spatial``: the f32 all-reduce, the same exchange unsharded) and, by a
+# rule set before its reading, holds FSDP's first-step grad norm to
+# TP_GNORM_BF16 and both steps' to the larger of that and FSDP_DP_MARGIN
+# times the replicated run's own deviation from one rank.
+FSDP_STEPS = 2
+FSDP_RUNS = {
+    "phi4 f32": ("phi4-mini-3.8b", dict(batch=8, seq=512, dtype=torch.float32, n_layers=4)),
+    "phi4 full": ("phi4-mini-3.8b", dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16,
+                                         n_layers=None)),
+    "rwkv6 bf16": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4)),
+    "rwkv6 bf16 dp": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4,
+                                      dp=2, force_mode="spatial")),
+}
+FSDP_REFERENCE = {"rwkv6 bf16": "rwkv6 bf16 dp"}
+FSDP_CONTROLS = ("skip_scatter", "neighbour_shard")
+FSDP_STATE_SHARE = 0.55
+FSDP_DP_MARGIN = 2.0
+
+
+def fsdp_plan(run: str):
+    """(the config, the plan) of a phase-43 / 44 run on two ranks: the
+    launcher's ``launch_plan``; with no flags it must fold into FSDP, a
+    replicated reference must not."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import unexecuted_layout
+    from repro_torch.launch.train import launch_plan
+
+    arch, a = FSDP_RUNS[run]
+    cfg = get_config(arch)
+    if a["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=a["n_layers"])
+    flags = {k: a[k] for k in ("dp", "force_mode") if k in a}
+    shape, plan = launch_plan(cfg, 2, batch=a["batch"], seq=a["seq"], **flags)
+    check(unexecuted_layout(plan, cfg) is None
+          and (shape == TP_MESH and plan.dp_over_model) != bool(flags),
+          f"{run}: mesh {shape}, plan folded {plan.dp_over_model}")
+    return cfg, plan
+
+
+def fsdp_run(run: str, steps: int, control=None) -> dict:
+    """One ``launch.train.run`` of a phase-43 / 44 run in this process (one
+    rank, or a rank of the spawned pair), optionally with a planted
+    control: losses, grad norms, step ms, the collectives by kind, launches,
+    peak memory and the state's bytes (weights and AdamW moments)."""
+    import contextlib
+    import io
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import local_device
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.train.optimizer import tree_leaves
+
+    from repro_torch.configs import get_config
+
+    arch, a = FSDP_RUNS[run]
+    dev = local_device("cuda")
+    undo = fsdp_controls_plant(control, get_config(arch))
+    gnorms, undo_norms = tp_grad_norms()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    C.reset_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            losses, state = train_run(arch, steps=steps, lr=3e-4, log_every=1, device="cuda",
+                                      **{k: v for k, v in a.items() if v is not None})
+    finally:
+        undo()
+        undo_norms()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves((state.params, state.m, state.v)))
+    res = {"losses": losses, "gnorms": gnorms,
+           "step_ms": [r[2] for r in parse_step_log(out.getvalue())], "log": out.getvalue(),
+           "counts": read_counts(), "calls": dict(C.STATS["calls"]),
+           "bytes": dict(C.STATS["bytes"]), "seconds": dict(C.STATS["seconds"]),
+           "coll_s": float(sum(C.STATS["seconds"].values())), "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "state_gb": state_bytes / 1e9}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def fsdp_job(job: dict, rank: int) -> dict:
+    """A phase-43 / 44 rank's job (``mesh_rank`` kind ``"fsdp"``)."""
+    return fsdp_run(job["run"], job.get("steps", FSDP_STEPS), job.get("control"))
+
+
+def phase_fsdp(phase: int, runs: list, controls_on: list) -> dict:
+    """Phase 43 or 44: each of ``runs`` (keys of FSDP_RUNS) on one rank,
+    then on two ranks sharing the card, with FSDP_CONTROLS on the runs of
+    ``controls_on``; checks and readings as the FSDP_RUNS note says.
+    Returns the numbers of the unplanted runs."""
+    log(f"phase {phase}: FSDP on two ranks of the card (gloo; the flag-free launch folds the "
+        f"model axis into data parallelism): " + "; ".join(
+            f"{r}: {FSDP_RUNS[r][0]}, {FSDP_RUNS[r][1]['n_layers'] or 'all'} layers, B "
+            f"{FSDP_RUNS[r][1]['batch']} x {FSDP_RUNS[r][1]['seq']}" for r in runs)
+        + f", {FSDP_STEPS} steps")
+    one = {}
+    for r in runs:
+        if FSDP_RUNS[r][1].get("dp"):
+            continue  # a replicated reference: held to the one-rank run of its FSDP run
+        one[r] = fsdp_run(r, FSDP_STEPS)
+        log(f"  one rank, {r}: losses {one[r]['losses']}, grad norms {one[r]['gnorms']}, step "
+            f"ms {one[r]['step_ms']}, state {one[r]['state_gb']:.2f} GB, peak "
+            f"{one[r]['peak_gib']:.2f} GiB")
+    jobs = [{"kind": "fsdp", "run": r} for r in runs]
+    jobs += [{"kind": "fsdp", "run": r, "control": c, "steps": 1}
+             for r in controls_on for c in FSDP_CONTROLS]
+    t0 = time.time()
+    res = spawn_ranks(jobs, f"phase{phase}")
+    log(f"  two ranks ran {len(jobs)} jobs in {time.time() - t0:.1f} s")
+    out, devs = {}, {}
+    refs = {v: k for k, v in FSDP_REFERENCE.items()}
+    for i, job in enumerate(jobs):  # references first: their deviation sets a margin
+        run, control = job["run"], job.get("control")
+        r0, r1 = res[0][i], res[1][i]
+        ref = one[refs.get(run, run)]
+        f32 = FSDP_RUNS[run][1]["dtype"] == torch.float32
+        tol, gtol = (MESH_F32_TOL, TP_GNORM_F32) if f32 else (MESH_BF16_TOL, TP_GNORM_BF16)
+        dl = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+        dg1 = abs(r0["gnorms"][0] - ref["gnorms"][0]) / ref["gnorms"][0]
+        dg = max(abs(a - b) / b for a, b in zip(r0["gnorms"], ref["gnorms"]))
+        if not control:
+            devs[run] = dg
+        gtol_all = gtol
+        if run in FSDP_REFERENCE and not control:
+            gtol_all = max(gtol, FSDP_DP_MARGIN * devs[FSDP_REFERENCE[run]])
+        steps = job.get("steps", FSDP_STEPS)
+        cfg, plan = fsdp_plan(run)
+        want = training_launches(cfg, plan, steps)
+        gb = {k: v / 1e9 / steps for k, v in r0["bytes"].items()}
+        secs = {k: v / steps for k, v in r0["seconds"].items()}
+        tag = run + (f" control {control}" if control else "")
+        log(f"  {tag}: losses {r0['losses']} (rank 1 {r1['losses']}) vs one rank "
+            f"{ref['losses'][:steps]}: |d| {dl:.3g} (tol {tol:g}); grad norms {r0['gnorms']} vs "
+            f"{ref['gnorms'][:steps]}: rel {dg:.3g}, first step {dg1:.3g} (tol {gtol:g}"
+            + (f", both steps {gtol_all:.3g}" if gtol_all != gtol else "")
+            + f"); step ms {r0['step_ms']} "
+            f"(one rank {ref['step_ms']}); collectives a step a rank: GB {json.dumps(gb)}, s "
+            f"{json.dumps(secs)} ({r0['coll_s']:.1f} / {r1['coll_s']:.1f} s of {r0['wall_s']:.1f} "
+            f"s); state {r0['state_gb']:.2f} / {r1['state_gb']:.2f} GB a rank (one rank "
+            f"{ref['state_gb']:.2f}); peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB, "
+            f"summed {r0['peak_gib'] + r1['peak_gib']:.2f} (one rank {ref['peak_gib']:.2f}); "
+            f"launches {r0['counts']} / {r1['counts']}")
+        if control:
+            check(dl > tol or dg > gtol, f"phase {phase} {tag}: the planted control passed "
+                  f"(loss {dl:.3g} <= {tol:g}, grad norm {dg:.3g} <= {gtol:g})")
+            continue
+        check(r0["losses"] == r1["losses"], f"phase {phase} {tag}: the ranks' losses differ")
+        # a replicated reference is held to its first step only: its second
+        # step's deviation is what it measures
+        check(dl <= tol and dg1 <= gtol and (run in refs or dg <= gtol_all),
+              f"phase {phase} {tag}: loss {dl:.3g} / grad norm {dg1:.3g}, {dg:.3g} from the "
+              "one-rank run")
+        check(r0["counts"] == r1["counts"] == want,
+              f"phase {phase} {tag}: launches {r0['counts']} / {r1['counts']}, expected {want}")
+        calls = r0["calls"]
+        if run in refs:  # replicated: whole weights, every gradient an f32 sum
+            check("fsdp_gather" not in calls and calls.get("all_reduce", 0) > 0,
+                  f"phase {phase} {tag}: collectives {calls}")
+            out[run] = {"losses": r0["losses"], "loss_dev": dl, "gnorm_rel_dev": dg,
+                        "step_ms": r0["step_ms"], "collective_gb_step": gb,
+                        "collective_s_step": secs, "state_gb": [r0["state_gb"], r1["state_gb"]],
+                        "peak_gib": [r0["peak_gib"], r1["peak_gib"]]}
+            continue
+        check(calls.get("fsdp_gather", 0) > 0 and calls.get("fsdp_scatter", 0) > 0
+              and (plan.remat or calls.get("fsdp_regather", 0) > 0),
+              f"phase {phase} {tag}: collectives {calls}")
+        check(max(r0["state_gb"], r1["state_gb"]) <= FSDP_STATE_SHARE * ref["state_gb"],
+              f"phase {phase} {tag}: state {r0['state_gb']:.2f} / {r1['state_gb']:.2f} GB a rank "
+              f"against one rank's {ref['state_gb']:.2f}")
+        out[run] = {"losses": r0["losses"], "one_rank_losses": ref["losses"], "loss_dev": dl,
+                    "gnorm_rel_dev": dg, "step_ms": r0["step_ms"],
+                    "one_rank_step_ms": ref["step_ms"], "collective_gb_step": gb,
+                    "collective_s_step": secs, "collective_s": [r0["coll_s"], r1["coll_s"]],
+                    "collective_calls": calls, "wall_s": r0["wall_s"],
+                    "state_gb": [r0["state_gb"], r1["state_gb"]],
+                    "one_rank_state_gb": ref["state_gb"],
+                    "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
+                    "one_rank_peak_gib": ref["peak_gib"], "launches": r0["counts"]}
+        for line in r0["log"].splitlines():
+            if not line.startswith("step"):
+                log(f"  | {line}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible; this script needs one GPU")
@@ -5053,9 +5368,22 @@ def main() -> None:
     tp_launches = {"phase 40 (a rank, 2 steps)": tp_run["full"]["launches"],
                    "phase 41 (a rank)": tp_served["full kernel"]["counts"],
                    "phase 42 (a rank)": ep_served["full kernel"]["counts"]}
+    t4 = time.time()
+    fsdp_phi = phase_fsdp(43, ["phi4 f32", "phi4 full"], ["phi4 f32"])
+    fsdp_rwkv = phase_fsdp(44, ["rwkv6 bf16 dp", "rwkv6 bf16"], ["rwkv6 bf16"])
+    log(f"  FSDP: {json.dumps({**fsdp_phi, **fsdp_rwkv})}; phases 43-44 took "
+        f"{time.time() - t4:.1f} s")
+    fsdp_launches = {"phase 39 (a) qwen3-1.7b (a rank, 2 steps)": mesh_run["dp"]["launches"],
+                     "phase 43 phi4-mini-3.8b (a rank, 2 steps)":
+                         fsdp_phi["phi4 full"]["launches"],
+                     "phase 44 rwkv6-1.6b, 4 layers (a rank, 2 steps)":
+                         fsdp_rwkv["rwkv6 bf16"]["launches"]}
 
     def per_rank(name):
         return {k: v[name] for k, v in tp_launches.items()}
+
+    def fsdp_per_rank(name):
+        return {k: v[name] for k, v in fsdp_launches.items()}
 
     end_phase()
     log(f"total {time.time() - t_start:.1f} s")
@@ -5072,6 +5400,7 @@ def main() -> None:
         },
         {
             "name": "wkv",
+            "fsdp_launches_per_rank": fsdp_per_rank("wkv"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:32",
@@ -5082,6 +5411,7 @@ def main() -> None:
         {
             "name": "flash_attention",
             "tp_launches_per_rank": per_rank("flash_attention"),
+            "fsdp_launches_per_rank": fsdp_per_rank("flash_attention"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
@@ -5092,6 +5422,7 @@ def main() -> None:
         {
             "name": "rmsnorm",
             "tp_launches_per_rank": per_rank("rmsnorm"),
+            "fsdp_launches_per_rank": fsdp_per_rank("rmsnorm"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
@@ -5141,6 +5472,7 @@ def main() -> None:
         {
             "name": "flash_attention_bwd",
             "tp_launches_per_rank": per_rank("flash_attention_bwd"),
+            "fsdp_launches_per_rank": fsdp_per_rank("flash_attention_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/backward.py:69",
@@ -5151,6 +5483,7 @@ def main() -> None:
         {
             "name": "rmsnorm_bwd",
             "tp_launches_per_rank": per_rank("rmsnorm_bwd"),
+            "fsdp_launches_per_rank": fsdp_per_rank("rmsnorm_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
@@ -5162,6 +5495,7 @@ def main() -> None:
         },
         {
             "name": "wkv_bwd",
+            "fsdp_launches_per_rank": fsdp_per_rank("wkv_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv_bwd.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:32",

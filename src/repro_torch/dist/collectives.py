@@ -19,6 +19,13 @@ view a ``shard_map`` body has, and each differentiable one is a
 ``compressed_psum``
     The gradient sum in a wire format: int8 on a shared ``pmax`` scale,
     summed as int32 words as JAX does; bf16 summed in bf16; otherwise f32.
+``fsdp_gather``
+    FSDP's gather on use: a weight sharded over data-parallel axes (ZeRO,
+    ``dp_over_model``'s split) all-gathered where a layer reads it; its
+    backward reduce-scatters the gradient in f32 over the axes that split
+    the batch (the data-parallel sum of that leaf, taken here instead of
+    after the backward) and keeps this rank's chunk over the others, where
+    every rank computed the same gradient.
 ``column_input`` / ``row_sum``
     Megatron's all-reduce pair for tensor parallelism without SP ("f" and
     "g"): ``column_input`` marks a replicated tensor entering a
@@ -28,13 +35,20 @@ view a ``shard_map`` body has, and each differentiable one is a
     axis of extent 1.
 
 Transport: over NCCL the tensors cross as they are.  Over gloo (ranks that
-share a card, or the CPU) a CUDA tensor is copied to host memory, moved,
-and copied back, in ``_staged``: that is the transport of ranks sharing
-one card, not a fallback, and the compute stays on the card.  ``STATS``
+share a card, or the CPU) a CUDA tensor is copied to pinned host memory,
+moved, and copied back, in ``_staged``: that is the transport of ranks
+sharing one card, not a fallback, and the compute stays on the card.  A
+large collective over gloo is cut into chunks carried by all of the
+slice's process groups at once (``Mesh.lanes``; a reduce-scatter as an
+in-place all-reduce of which each rank keeps its chunk).  ``STATS``
 counts every collective by kind (calls, payload bytes, host seconds) and
 every all-reduce by operation and word type (``reduce_ops``, e.g.
 ``"sum:int32"``); the pair's all-reduces count under kinds of their own,
-``"tp_row_sum"`` (g's forward) and ``"tp_grad_sum"`` (f's backward), for the
+``"tp_row_sum"`` (g's forward) and ``"tp_grad_sum"`` (f's backward), FSDP's
+under ``"fsdp_gather"``, ``"fsdp_regather"`` (a saved weight gathered
+again in the backward) and ``"fsdp_scatter"``, the vocab-parallel
+cross-entropy's under ``"vocab_max"`` and ``"vocab_sum"`` and the serving
+logits' under ``"vocab_gather"``, for the
 tests' call counts, the chip script's check
 that the int8 wire ran and its collective time.  A staged collective
 first synchronizes the card (its host copy would wait for the queued
@@ -43,9 +57,12 @@ compute queued before it; over NCCL they are the host's enqueue time.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 import warnings
 from collections import Counter
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -76,69 +93,123 @@ def _start(mesh, x: torch.Tensor) -> float:
 
 def _staged(mesh, x: torch.Tensor, copy: bool = False) -> torch.Tensor:
     """The tensor the backend moves: over gloo a CUDA tensor is staged in
-    host memory (a copy; ``_arrive`` brings the result back).  ``copy``:
-    never ``x``'s own storage (the in-place collectives write it)."""
+    pinned host memory (a copy; ``_arrive`` brings the result back).
+    ``copy``: never ``x``'s own storage (the in-place collectives write
+    it)."""
     if mesh.backend == "gloo" and x.is_cuda:
-        return x.detach().to("cpu", copy=True).contiguous()
+        return _host(x.shape, x.dtype, pinned=True).copy_(x.detach())
     x = x.detach().contiguous()
     return x.clone() if copy else x
+
+
+def _host(shape, dtype, pinned: bool) -> torch.Tensor:
+    """A host buffer; pinned for a staged CUDA tensor (the copies then run
+    at the bus's rate: ~28 against ~2 GB/s pageable on the H100's host,
+    PERF.md)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pinned)
 
 
 def _arrive(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y if y.device == like.device else y.to(like.device)
 
 
-def _tensor_collective(fn, out, src, group) -> None:
+# A collective of at least this many bytes over gloo is cut into chunks
+# carried by all of the slice's groups at once (``Mesh.lanes``).
+LANE_BYTES = 4 << 20
+
+
+def _lanes(mesh, axes, x: torch.Tensor) -> list:
+    lanes = mesh.lanes(axes)
+    if mesh.backend != "gloo" or x.numel() * x.element_size() < LANE_BYTES:
+        return lanes[:1]
+    return lanes
+
+
+def _wait_all(works) -> None:
+    for w in works:
+        w.wait()
+
+
+def _tensor_collective(fn, out, src, group, async_op: bool = False):
     """``fn(out, src, group=group)``; some torch releases mark the
     ``*_tensor`` collectives deprecated, which is not this caller's news."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        fn(out, src, group=group)
+        return fn(out, src, group=group, async_op=async_op)
+
+
+def _sum_in_place(y: torch.Tensor, lanes: list, op) -> None:
+    """``y`` (contiguous, on the host over gloo) reduced in place over the
+    groups of ``lanes``, one chunk a group, all at once."""
+    if len(lanes) == 1:
+        dist.all_reduce(y, op=op, group=lanes[0])
+        return
+    _wait_all([dist.all_reduce(c, op=op, group=g, async_op=True)
+               for c, g in zip(y.view(-1).chunk(len(lanes)), lanes)])
 
 
 def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum",
                kind: str = "all_reduce") -> torch.Tensor:
     """Sum (or max) of ``x`` over the ranks of ``axes``; a new tensor,
     counted in ``STATS`` under ``kind``."""
-    g = mesh.group(axes)
-    if g is None:
+    if mesh.group(axes) is None:
         return x.clone()
     t0 = _start(mesh, x)
     y = _staged(mesh, x, copy=True)
-    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=g)
+    _sum_in_place(y, _lanes(mesh, axes, y),
+                  dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
     y = _arrive(y, x)
     _count(kind, x, time.perf_counter() - t0)
     STATS["reduce_ops"][f"{op}:{str(x.dtype).removeprefix('torch.')}"] += 1
     return y
 
 
-def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0,
+               kind: str = "all_gather") -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group order."""
-    g = mesh.group(axes)
-    if g is None:
+    if mesh.group(axes) is None:
         return x.clone()
     n = mesh.extent(axes)
     t0 = _start(mesh, x)
     src = _staged(mesh, x.movedim(dim, 0).contiguous())
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    _tensor_collective(dist.all_gather_into_tensor, out, src, g)
+    lanes = _lanes(mesh, axes, src)
+    shape = (n * src.shape[0],) + tuple(src.shape[1:])
+    if len(lanes) == 1:
+        out = src.new_empty(shape)
+        _tensor_collective(dist.all_gather_into_tensor, out, src, lanes[0])
+    else:  # each group gathers one chunk of every rank's x; then (rank, chunk) order
+        parts = src.view(-1).chunk(len(lanes))
+        outs = [p.new_empty(n * p.numel()) for p in parts]
+        _wait_all([_tensor_collective(dist.all_gather_into_tensor, o, p, g, async_op=True)
+                   for o, p, g in zip(outs, parts, lanes)])
+        out = _host((n, src.numel()), src.dtype, pinned=x.is_cuda)
+        torch.cat([o.view(n, -1) for o in outs], dim=1, out=out)
+        out = out.view(shape)
     y = _arrive(out, x).movedim(0, dim)
-    _count("all_gather", x, time.perf_counter() - t0)
+    _count(kind, x, time.perf_counter() - t0)
     return y
 
 
-def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
-    """The ranks' ``x`` summed, this rank's chunk of ``dim`` returned."""
-    g = mesh.group(axes)
-    if g is None:
+def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0,
+                   kind: str = "reduce_scatter") -> torch.Tensor:
+    """The ranks' ``x`` summed, this rank's chunk of ``dim`` returned.  A
+    large one over gloo sums the whole in place over the slice's groups and
+    keeps this rank's chunk (gloo's all-reduce outruns its reduce-scatter)."""
+    if mesh.group(axes) is None:
         return x.clone()
     n = mesh.extent(axes)
     t0 = _start(mesh, x)
-    src = _staged(mesh, x.movedim(dim, 0).contiguous())
-    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    _tensor_collective(dist.reduce_scatter_tensor, out, src, g)
+    src = _staged(mesh, x.movedim(dim, 0).contiguous(), copy=True)
+    lanes = _lanes(mesh, axes, src)
+    c = src.shape[0] // n
+    if mesh.backend != "gloo" or len(lanes) == 1:
+        out = src.new_empty((c,) + tuple(src.shape[1:]))
+        _tensor_collective(dist.reduce_scatter_tensor, out, src, lanes[0])
+    else:
+        _sum_in_place(src, lanes, dist.ReduceOp.SUM)
+        out = src.narrow(0, mesh.index(axes) * c, c)
     y = _arrive(out, x).movedim(0, dim)
-    _count("reduce_scatter", x, time.perf_counter() - t0)
+    _count(kind, x, time.perf_counter() - t0)
     return y
 
 
@@ -325,6 +396,155 @@ class _RowSum(torch.autograd.Function):
         return dy, None, None
 
 
+class _PSum(torch.autograd.Function):
+    """A sum over the ranks whose consumers each hold a share of the loss
+    (JAX's ``psum``): its transpose is a sum over the ranks too."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return all_reduce(x, axes, mesh, kind="batch_mean")
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axes = ctx.args
+        return all_reduce(dy.contiguous(), axes, mesh, kind="batch_mean"), None, None
+
+
+def _spec_dims(spec: tuple, ndim: int) -> tuple:
+    """(dim, axes) of every sharded entry of ``spec``, which indexes the last
+    ``len(spec)`` dims of an ``ndim``-dim tensor."""
+    off = ndim - len(spec)
+    return tuple((off + i, e if isinstance(e, tuple) else (e,))
+                 for i, e in enumerate(spec) if e is not None)
+
+
+def gather_whole(w: torch.Tensor, spec: tuple, mesh, kind: str = "fsdp_gather") -> torch.Tensor:
+    """The whole of ``w`` (this rank's shard under ``spec``), not recorded by
+    autograd: FSDP's gather, and its repeat in the backward."""
+    for d, axes in _spec_dims(spec, w.ndim):
+        w = all_gather(w.contiguous(), axes, mesh, dim=d, kind=kind)
+    return w
+
+
+def _scatter_entry(g: torch.Tensor, d: int, axes: tuple, summed, mesh) -> torch.Tensor:
+    """This rank's chunk of dim ``d`` of the whole gradient ``g``, cut over
+    ``axes`` as ``local_shard`` cuts it: summed over the axes in ``summed``
+    (a reduce-scatter), taken as it is over the others."""
+    n = [mesh.extent(a) for a in axes]
+    g = g.unflatten(d, (*n, g.shape[d] // math.prod(n)))
+    for j in reversed(range(len(axes))):
+        if axes[j] not in summed:
+            g = g.select(d + j, mesh.coords[axes[j]])
+    keep = tuple(a for a in axes if a in summed)
+    g = g.flatten(d, d + len(keep))
+    return reduce_scatter(g.contiguous(), keep, mesh, dim=d, kind="fsdp_scatter") if keep else g
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, spec, mesh, summed):
+        ctx.args = (spec, mesh, summed)
+        return gather_whole(w, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, dw):
+        spec, mesh, summed = ctx.args
+        g = dw.float()  # summed in f32, as the replicated path sums
+        for d, axes in reversed(_spec_dims(spec, g.ndim)):
+            g = _scatter_entry(g, d, axes, summed, mesh)
+        return g.contiguous(), None, None, None
+
+
+def fsdp_gather(w: torch.Tensor, spec: Optional[tuple], mesh, summed=()) -> torch.Tensor:
+    """FSDP's gather on use: ``w`` (this rank's shard, cut over ``spec``'s
+    data-parallel axes) made whole for the layer that reads it
+    (``STATS`` kind ``"fsdp_gather"``).  The backward reduce-scatters the
+    gradient in f32 over the axes of ``summed`` (those that split the batch:
+    the data-parallel sum of this leaf) and keeps this rank's chunk over the
+    spec's other axes (``"fsdp_scatter"``); autograd hands the leaf its own
+    dtype.  The identity where ``spec`` shards nothing."""
+    if spec is None or all(mesh.extent(axes) == 1 for _, axes in _spec_dims(spec, w.ndim)):
+        return w
+    return _FSDPGather.apply(w, tuple(spec), mesh, frozenset(summed))
+
+
+class FSDPGathers:
+    """FSDP's gathers for one pass of the model (``models.transformer``):
+    ``specs`` is shaped like the parameters, each leaf's gather spec
+    (``Shardings.gather_spec``) or None, and ``summed`` the axes that split
+    the pass's batch (``fsdp_gather``'s backward sums over those).
+
+    ``tree`` gathers a subtree where its leaves are read (a stacked group at
+    its entry, a tail layer, the embedding and head before the pass).
+    Inside ``saved_as_shards`` autograd keeps a gathered weight that a
+    product saves for its backward as the shard it came from and gathers
+    it again when the backward reads it (a saved-tensor hook pair), so a
+    pass without remat does not hold every whole weight until the
+    backward; under remat ``torch.utils.checkpoint`` already drops them."""
+
+    def __init__(self, mesh, specs, summed=()):
+        self.mesh, self.specs, self.summed = mesh, specs, tuple(summed or ())
+        self._live: Optional[dict] = None
+
+    def tree(self, tree, specs):
+        from repro_torch.train.optimizer import tree_map
+
+        def one(w, spec):
+            if spec is None:
+                return w
+            whole = fsdp_gather(w, spec, self.mesh, self.summed)
+            if self._live is not None and whole is not w:
+                self._live[whole.untyped_storage().data_ptr()] = (w, spec)
+            return whole
+
+        return tree if specs is None else tree_map(one, tree, specs)
+
+    def top(self, params: dict) -> dict:
+        """``params`` with every leaf outside the layer stacks (the
+        embedding, the head) gathered."""
+        return {k: v if k in ("blocks", "encoder") else self.tree(v, self.specs[k])
+                for k, v in params.items()}
+
+    @contextlib.contextmanager
+    def saved_as_shards(self):
+        if not torch.is_grad_enabled():
+            yield
+            return
+        live = self._live = {}
+
+        def pack(t):
+            src = live.get(t.untyped_storage().data_ptr()) if t.numel() else None
+            if src is None:
+                return t
+            return _Regather(*src, t.size(), t.stride(), t.storage_offset())
+
+        def unpack(saved):
+            if not isinstance(saved, _Regather):
+                return saved
+            whole = gather_whole(saved.shard.detach(), saved.spec, self.mesh,
+                                 kind="fsdp_regather")
+            return whole.as_strided(saved.size, saved.stride, saved.offset)
+
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+                yield
+        finally:
+            self._live = None
+            live.clear()
+
+
+class _Regather(NamedTuple):
+    """A saved gathered weight, kept as its shard: the view the backward
+    reads is rebuilt on the gathered tensor's storage layout."""
+
+    shard: torch.Tensor
+    spec: tuple
+    size: torch.Size
+    stride: tuple
+    offset: int
+
+
 class _MeanOver(torch.autograd.Function):
     """The mean of a per-rank value over ``axes``; the same on every rank,
     so each rank's backward passes 1/n of the gradient to its own term."""
@@ -375,6 +595,17 @@ def row_sum(x, axis: str = "model", *, mesh):
     if mesh is None or mesh.extent(axis) == 1:
         return x
     return _RowSum.apply(x, mesh, axis)
+
+
+def batch_mean(x, axes, *, mesh):
+    """The mean over the ranks of ``axes`` of a per-rank statistic of their
+    rows (an MoE layer's mean router probabilities): the whole batch's, on
+    every rank.  Each rank's loss carries 1/n of what is computed from it,
+    so the backward sums the ranks' gradients (``STATS`` kind
+    ``"batch_mean"``, both ways)."""
+    if mesh is None or not axes or mesh.extent(axes) == 1:
+        return x
+    return _PSum.apply(x, mesh, axes) / mesh.extent(axes)
 
 
 def mean_over(x, axes, *, mesh):

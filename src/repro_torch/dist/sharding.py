@@ -12,22 +12,36 @@ JAX hands the specs to GSPMD, which places and moves the arrays.  The port
 has no global arrays: each rank holds its local shard, and ``NamedSharding``
 / ``place`` / ``gather`` cut and reassemble those shards by spec and mesh
 coordinates (the counterpart of ``jax.device_put`` on ``NamedSharding``s).
-The port's manual paths execute a subset of the layouts
-(``manual_param_spec``): the Megatron-SP stack's model shards, the
-pipeline's per-stage slices of the stack, and tensor parallelism without SP
-(every layer's column / row shards and MoE's expert or width split, with
-Megatron's all-reduce pair, ``dist.collectives.column_input`` /
-``row_sum``); every other leaf is replicated.  Under tensor parallelism a
-layer's attention runs on this rank's heads only where the query and KV
-heads both divide over ``model``; elsewhere it runs replicated (JAX's
-``_fit`` cuts mid-head there and GSPMD repairs it).  The fused ``wqkv``
-is cut head-aligned (``QKVSharding``): each rank holds its own heads' q, k
-and v columns, not GSPMD's contiguous column block.
-``unexecuted_layout`` names the plans whose layout needs GSPMD (tensor
-parallelism of recurrent or encoder-decoder layers, ZeRO weights): those
-are ROADMAP queue 1, item 7b.  ``constrain`` has nothing to do here: there
-is no compiler to hint, each activation already lives where the manual path
-put it.
+The port's manual paths execute ``param_spec``'s layout
+(``manual_param_spec``), but for the exceptions ROADMAP lists by name
+(below).  Its shards are of two kinds:
+
+* model shards that a layer computes on: the Megatron-SP stack's, tensor
+  parallelism without SP (every layer's column / row shards and MoE's
+  expert or width split, with Megatron's all-reduce pair,
+  ``dist.collectives.column_input`` / ``row_sum``) and, under both, the
+  embedding's and LM head's ``vocab`` split (a vocab-parallel lookup and
+  cross-entropy, ``models/transformer.py``); the pipeline's per-stage
+  slices of the stack;
+* shards over the data-parallel axes (``fsdp_axes``: ZeRO's ``data`` on the
+  complementary dim, TEMPORAL's dp axes on the last dim, the embedding and
+  head over ``model`` where ``dp_over_model`` folds it into data
+  parallelism): FSDP, each gathered where a layer reads it
+  (``dist.collectives.fsdp_gather``, ``gather_spec``) and its gradient
+  reduce-scattered in the backward.
+
+Under tensor parallelism a layer's attention runs on this rank's heads only
+where the query and KV heads both divide over ``model``; elsewhere it runs
+replicated (JAX's ``_fit`` cuts mid-head there and GSPMD repairs it).  The
+fused ``wqkv`` is cut head-aligned (``QKVSharding``): each rank holds its
+own heads' q, k and v columns, not GSPMD's contiguous column block; a data
+split of its rows composes with that cut.  Megatron-SP's tail layers and
+the pipeline's data axes run replicated.  ``unexecuted_layout`` names the
+plans whose layout needs GSPMD (tensor parallelism of recurrent or
+encoder-decoder layers, ZeRO weights under the pipeline): those are ROADMAP
+queue 1, item 7b.  ``constrain`` has nothing to do here: there is no
+compiler to hint, each activation already lives where the manual path put
+it.
 """
 from __future__ import annotations
 
@@ -203,13 +217,16 @@ def tensor_parallel(plan: ExecutionPlan) -> bool:
 def unexecuted_layout(plan: ExecutionPlan, cfg) -> Optional[str]:
     """Why no manual path of the port executes ``plan``'s parameter layout
     for ``cfg``, or None.  The port runs the Megatron-SP stack's model
-    shards, the pipeline's stage slices and tensor parallelism without SP
-    for attention-only, decoder or encoder layers (every arch SP reaches,
-    MoE included); it runs ``dp_over_model``'s weight split over the data
-    axes as replicated data parallelism (the same step, whole weights on
-    every rank).  GSPMD-only layouts are refused."""
-    if plan.zero_weights and plan.data_axis > 1:
-        return (f"ZeRO weights (zero_weights: weights sharded over data axis {plan.data_axis}) "
+    shards, the pipeline's stage slices, tensor parallelism without SP for
+    attention-only, decoder or encoder layers (every arch SP reaches, MoE
+    included) and FSDP over the data-parallel axes (ZeRO, ``dp_over_model``)
+    outside the pipeline.  GSPMD-only layouts are refused."""
+    zero = plan.zero_weights and plan.data_axis > 1
+    if zero and plan.pod_role == "pipeline" and plan.pod_axis > 1:
+        return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under the GPipe "
+                f"pipeline need GSPMD ({LAYOUT_ITEM})")
+    if zero and plan.seq_parallel_acts:
+        return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under Megatron-SP "
                 f"need GSPMD ({LAYOUT_ITEM})")
     if tensor_parallel(plan):
         spatial = [s for s in ("mha", "ffn") if plan.mode_for(s) == SPATIAL]
@@ -368,17 +385,31 @@ class Shardings:
         return (tensor_parallel(self.plan) and self.plan.mode_for("mha") == SPATIAL
                 and self.cfg.n_heads % n == 0 and self.cfg.n_kv_heads % n == 0)
 
+    def model_parallel(self) -> bool:
+        """Whether the ``model`` axis splits the compute (tensor parallelism
+        without SP, or Megatron-SP) rather than the batch or nothing."""
+        return tensor_parallel(self.plan) or self.plan.seq_parallel_acts
+
+    def fsdp_axes(self) -> tuple:
+        """The data-parallel axes the weights are sharded over and gathered
+        where used (FSDP); none under the pipeline, whose stages hold their
+        slices whole over the data axes (ROADMAP, deliberate divergences)."""
+        if self.plan.pod_role == "pipeline" and self._axis("pod") > 1:
+            return ()
+        return self._dp_axes()
+
     def manual_param_spec(self, path: Sequence, leaf) -> tuple:
-        """The spec the port's manual paths execute: in ``blocks.stack``,
-        ``param_spec``'s model shards under Megatron-SP and its pod slice
-        under the pipeline; under tensor parallelism without SP, its model
-        shards in every layer (``blocks``), attention's only where
-        ``attention_sharded``; everything else replicated (the embedding,
-        the head and the final norm run on every rank, and so do the tail
-        layers under SP and the pipeline)."""
+        """The spec the port's manual paths execute: ``param_spec``'s entries
+        over the FSDP axes (``fsdp_axes``); in ``blocks.stack``, its model
+        shards under Megatron-SP and its pod slice under the pipeline; under
+        tensor parallelism without SP, its model shards in every layer
+        (``blocks``), attention's only where ``attention_sharded``; under
+        both, the embedding's and head's ``vocab`` split.  Every other entry
+        is dropped: the final norm, Megatron-SP's tail layers and attention
+        whose heads do not divide run replicated."""
         names = _key_names(path)
         spec = self.param_spec(path, leaf)
-        keep = set()
+        keep = set(self.fsdp_axes())
         if names[:2] == ["blocks", "stack"]:
             if self.plan.seq_parallel_acts:
                 keep.add("model")
@@ -387,14 +418,30 @@ class Shardings:
         if names[:1] == ["blocks"] and tensor_parallel(self.plan):
             if "attn" not in names or self.attention_sharded():
                 keep.add("model")
-        return P(*(e if e in keep else None for e in spec))
+        if (names[-1:] in (["embed"], ["lm_head"]) and self.plan.embed_shard == "vocab"
+                and self.model_parallel()):
+            keep.add("model")
+        return P(*(e if e is not None and set(_entry_axes(e)) <= keep else None for e in spec))
+
+    def gather_spec(self, spec: tuple) -> Optional[tuple]:
+        """The part of a manual spec that a layer gathers where it reads the
+        leaf (the FSDP axes' entries), or None when there is none."""
+        fsdp = set(self.fsdp_axes())
+        out = tuple(e if e is not None and set(_entry_axes(e)) <= fsdp
+                    and _entry_extent(e, self.mesh) > 1 else None for e in spec)
+        return P(*out) if any(e is not None for e in out) else None
+
+    def gather_specs(self, shardings: Tree) -> Tree:
+        """``gather_spec`` of every leaf of a tree of manual shardings."""
+        return tree_map(lambda s: self.gather_spec(s.spec), shardings)
 
     def manual_param_shardings(self, params: Tree) -> Tree:
         heads = (self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.d_head)
+        tp = tensor_parallel(self.plan)
 
         def one(path, leaf):
             spec = self.manual_param_spec(path, leaf)
-            if _key_names(path)[-1:] == ["wqkv"] and spec and spec[-1] is not None:
+            if tp and _key_names(path)[-1:] == ["wqkv"] and spec and spec[-1] == "model":
                 return QKVSharding(self.mesh, spec, heads)
             return self._ns(spec)
 

@@ -31,11 +31,14 @@ back to the accumulation-dtype quantization with an error-feedback
 residual otherwise.  Without layout flags the mesh is (data 1, model N), as
 JAX's ``make_host_mesh`` gives it: a SPATIAL model axis that SP does not
 take runs Megatron tensor parallelism, and one that ``derive_plan`` folds
-into data parallelism (``dp_over_model``: qwen3-1.7b at B 4 or 8 on the
-H100 entry) runs replicated.  Each rank holds its shards
-(``Shardings.manual_param_shardings``); a layout no manual path executes
-(tensor parallelism of recurrent or encoder-decoder layers, ZeRO weights)
-is refused with the ROADMAP item that lists it.  Ranks use NCCL when each
+into data parallelism (``dp_over_model``: qwen3-1.7b and phi4-mini-3.8b at
+B 4 or 8 on the H100 entry) shards the weights and their AdamW moments
+over the data-parallel axes (FSDP: gathered where a layer reads them), as
+ZeRO's ``zero_weights`` does.  Each rank holds its shards
+(``Shardings.manual_param_shardings``) and prints the layout and its state
+bytes against the replicated figure; a layout no manual path executes
+(tensor parallelism of recurrent or encoder-decoder layers, ZeRO weights
+under the pipeline) is refused with the ROADMAP item that lists it.  Ranks use NCCL when each
 has a card, gloo when they share one or run on the CPU
 (``launch.mesh.init_distributed``); rank r computes on
 ``cuda:(LOCAL_RANK % device_count)``, and only rank 0 prints.  A per-step
@@ -115,6 +118,28 @@ def launch_plan(cfg, world: int, *, batch: int, seq: int, pipeline: int = 0, dp:
         grad_compression=compression, force_mode=force_mode, fuse_qkv=fuse_qkv,
     )
     return shape, plan
+
+
+def layout_line(sh: Shardings, param_sh, state: TrainState) -> str:
+    """Which axes shard the weights (FSDP, gathered where used; model shards
+    a layer computes on), and the train state's bytes a rank against the
+    replicated figure."""
+    def axes(spec):
+        return {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))
+                if sh.mesh.extent(a) > 1}
+
+    fsdp, model, mine, whole = set(), set(), 0, 0
+    for (p, m, v), s in zip(zip(*(tree_leaves(t) for t in (state.params, state.m, state.v))),
+                            tree_leaves(param_sh)):
+        g = sh.gather_spec(s.spec)
+        fsdp |= axes(g or ())
+        model |= axes(s.spec) - axes(g or ())
+        per = p.element_size() + m.element_size() + v.element_size()
+        mine += p.numel() * per
+        whole += p.numel() * sh.mesh.extent(tuple(axes(s.spec))) * per
+    return (f"weights: FSDP over {sorted(fsdp) or 'none'} (gathered where used), model shards "
+            f"over {sorted(model) or 'none'}; state (weights + AdamW moments) "
+            f"{mine / 1e9:.3g} GB a rank, {whole / 1e9:.3g} GB replicated")
 
 
 def run(
@@ -198,6 +223,8 @@ def run(
     wire = wire_compression_axes(plan, mesh, batch) is not None
     state = init_state(params, with_residual=compression != "none" and not wire)
     del params
+    if backend:
+        say(layout_line(sh, param_sh, state))
     opt = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
     # the state is donated to the step, as JAX's launcher donates it
     step_fn = make_train_step(cfg, plan, opt, compression=CompressionConfig(mode=compression),

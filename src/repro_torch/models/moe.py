@@ -13,9 +13,12 @@ Two dispatch implementations, selected by ``ExecutionPlan.moe_dispatch``:
   buffers (MegaBlocks-style dropping, C over the whole T), the expert
   outputs scattered back with their gates in f32.
 
-Under tensor parallelism without SP (``tp=(mesh, split)``, the plan's
-``moe_mode``) the router, its top-k and the aux loss run whole on every
-rank, on the replicated tokens, so the aux loss is the same everywhere:
+Under data parallelism (``MoESettings.dp``: mesh, axes) each rank routes its own
+rows and the aux loss's statistics are averaged over the ranks, so the aux
+loss is the whole batch's, as in JAX.  Under tensor parallelism without SP
+(``tp=(mesh, split)``, the plan's ``moe_mode``) the router, its top-k and
+the aux loss run whole on every rank, on the replicated tokens, so the aux
+loss is the same everywhere:
 
 * ``ep``: this rank holds E/n experts.  GShard dispatches to its slice of
   the combine tensor, runs those experts and combines their outputs into a
@@ -37,6 +40,7 @@ gives the same values without the (G, g, K, E, C) product.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,13 +53,19 @@ class MoESettings:
     capacity_factor: float = 1.25
     group_size: int = 1024  # gshard dispatch group (tokens)
     dispatch: str = "gshard"  # gshard | sort
+    # (mesh, the axes that split the batch): the aux loss's statistics are
+    # taken over every rank's tokens (``router_topk``)
+    dp: Optional[tuple] = None
 
 
-def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int, dp=None):
     """x: (T, d) -> (gates (T, k) f32, idx (T, k) int64, aux load-balance
     loss f32).  The top k in descending order, the lower expert first on a
     tie (``lax.top_k``'s order; ``torch.topk`` leaves ties unspecified, a
-    stable descending sort does not)."""
+    stable descending sort does not).  ``dp`` (mesh, the axes that split
+    the batch): the aux loss's mean probabilities and expert shares are
+    taken over every rank's tokens, as JAX takes them over the whole
+    batch."""
     logits = x.float() @ w_router.float()  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -65,6 +75,10 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
     E = w_router.shape[-1]
     me = probs.mean(dim=0)
     ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    if dp is not None:
+        from repro_torch.dist.collectives import batch_mean
+
+        me, ce = batch_mean(me, dp[1], mesh=dp[0]), batch_mean(ce, dp[1], mesh=dp[0])
     aux = E * torch.sum(me * ce)
     return gates, idx, aux
 
@@ -112,7 +126,7 @@ def gshard_route(x: torch.Tensor, w_router: torch.Tensor, st: MoESettings):
     T = x.shape[0]
     E, K = st.n_experts, st.top_k
     g, G, cap = gshard_groups(T, st)
-    gates, idx, aux = router_topk(x, w_router, K)
+    gates, idx, aux = router_topk(x, w_router, K, st.dp)
     idxg = idx.reshape(G, g, K)
     pos = queue_ranks(idxg, E)
     in_cap = pos < cap
@@ -192,7 +206,7 @@ def moe_sort(params: dict, x: torch.Tensor, st: MoESettings, activation: str, tp
     N = T * K
     C = max(1, int(T * K * st.capacity_factor / E))
 
-    gates, idx, aux = router_topk(x, params["router"], K)
+    gates, idx, aux = router_topk(x, params["router"], K, st.dp)
     flat_e = idx.reshape(N)
     flat_gate = gates.reshape(N)
     order = torch.argsort(flat_e, stable=True)

@@ -39,6 +39,13 @@ Tensor parallelism without SP (``forward(mesh=)`` on a plan that
 Megatron shards, with f (``dist.collectives.column_input``) where a
 replicated tensor enters a column-parallel block and g (``row_sum``) after
 the row-parallel product; GSPMD derives the same from JAX's shardings.
+Under it and under Megatron-SP an embedding cut over the vocabulary is
+looked up vocab-parallel and the cross-entropy takes its logsumexp and
+target logit across the ranks (``_VocabXentChunk``).  FSDP (ZeRO,
+``dp_over_model``: ``lm_loss(shardings=)``): each stacked group gathers
+its weights at its entry and the embedding and head are gathered before
+the pass (``dist.collectives.FSDPGathers``); their gradients are
+reduce-scattered in the backward.
 
 The JAX package scans the stacked pattern-groups with ``lax.scan``; here
 that is a Python loop over their leading dimension, then the tail layers.
@@ -47,6 +54,7 @@ donated).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -239,6 +247,7 @@ def edpu_layer(
     page_state: Optional[dict] = None,
     fused: bool = True,
     tp=None,
+    dp=None,
 ):
     """One layer: MHA (or RWKV-6 time-mix, or RG-LRU) stage, the
     cross-attention sub-stage when the layer has ``cross`` leaves (over
@@ -257,7 +266,9 @@ def edpu_layer(
     ``moe.moe_ffn``).  A stage whose weights are whole runs replicated.  The
     residual, the norms and their scales stay replicated, and their
     gradients are whole on every rank: f sums the partial gradients where a
-    replicated tensor enters a sharded block."""
+    replicated tensor enters a sharded block.  ``dp`` (mesh, the axes that
+    split the batch): an MoE layer's aux loss covers every rank's tokens
+    (``moe.router_topk``)."""
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rglru":
@@ -302,7 +313,7 @@ def edpu_layer(
     if cfg.is_moe:
         st = M.MoESettings(
             n_experts=cfg.n_experts, top_k=cfg.top_k,
-            capacity_factor=cfg.moe_capacity_factor, dispatch=plan.moe_dispatch,
+            capacity_factor=cfg.moe_capacity_factor, dispatch=plan.moe_dispatch, dp=dp,
         )
         split = None
         if tp is not None:
@@ -370,6 +381,8 @@ def _run_stack(
     pattern: tuple,
     caches: Optional[dict] = None,
     remat: bool = False,
+    gathers=None,
+    specs: Optional[dict] = None,
 ):
     """The stacked pattern-groups in order, then the tail layers.
     ``layer_fn(lp, x, kind, cache) -> (x, new_cache, aux)``; ``caches``
@@ -380,10 +393,29 @@ def _run_stack(
     (no caches, grad enabled) each stacked group runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward, as JAX's ``jax.checkpoint(group_body)``; the tail layers are
-    not."""
+    not.
+
+    ``gathers`` (``dist.collectives.FSDPGathers``) with ``specs`` (the gather
+    specs of ``blocks``): FSDP.  Each group gathers its sharded leaves at its
+    entry, inside the checkpoint, so under remat the backward gathers them
+    again instead of keeping every whole weight alive; without remat the
+    group runs under ``gathers.saved_as_shards`` to the same end.  Each tail
+    layer gathers its own."""
     stack = blocks["stack"]
     new_stack = None
     total_aux = 0.0
+    fsdp = gathers is not None
+    stack_specs = tail_specs = None
+    if fsdp:
+        from repro_torch.train.optimizer import tree_map
+
+        # a stacked leaf's group dim is never gathered: drop its entry
+        stack_specs = tree_map(lambda sp: type(sp)(sp[1:]), specs["stack"])
+        tail_specs = specs["tail"]
+
+    def shards_saved():
+        return gathers.saved_as_shards() if fsdp else contextlib.nullcontext()
+
     if stack is not None:
         n = stack[0]["attn"]["ln"]["scale"].shape[0]
         groups = _unbind(stack, n)
@@ -393,6 +425,8 @@ def _run_stack(
             gc = None if caches is None else _index(caches["stack"], g)
 
             def group(xx, gp=gp, gc=gc):
+                if fsdp:
+                    gp = gathers.tree(gp, stack_specs)
                 outs, aux = [], 0.0
                 for i, kind in enumerate(pattern):
                     xx, nc, a = layer_fn(gp[i], xx, kind, None if gc is None else gc[i])
@@ -403,14 +437,18 @@ def _run_stack(
             if remat and caches is None and torch.is_grad_enabled():
                 x, outs, aux = checkpoint(group, x, use_reentrant=False)
             else:
-                x, outs, aux = group(x)
+                with shards_saved():
+                    x, outs, aux = group(x)
             total_aux = total_aux + aux
             per_group.append(outs)
         new_stack = None if caches is not None else _stack(per_group)
     new_tail = []
     for i, lp in enumerate(blocks["tail"]):
-        x, nc, a = layer_fn(lp, x, pattern[i % len(pattern)],
-                            None if caches is None else caches["tail"][i])
+        with shards_saved():
+            if fsdp:
+                lp = gathers.tree(lp, tail_specs[i])
+            x, nc, a = layer_fn(lp, x, pattern[i % len(pattern)],
+                                None if caches is None else caches["tail"][i])
         new_tail.append(nc)
         total_aux = total_aux + a
     if caches is not None:
@@ -538,7 +576,27 @@ def _compute_dtype(params: dict) -> torch.dtype:
     return first["ffn"]["w2"].dtype
 
 
-def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype):
+def _vocab_split(params: dict, cfg: ArchConfig, plan: ExecutionPlan, mesh):
+    """(mesh, this rank's first vocab row) where the embedding and the LM
+    head hold this rank's slice of the vocabulary (``embed_shard ==
+    "vocab"`` under tensor parallelism or Megatron-SP: every model rank sees
+    the same rows, so the lookup and the cross-entropy run vocab-parallel),
+    else None.  Read off the leaves' shapes."""
+    w = params.get("embed")
+    rows = (w.shape[0] if w is not None
+            else params["lm_head"].shape[-1] if "lm_head" in params else cfg.vocab_size)
+    if mesh is None or rows == cfg.vocab_size:
+        return None
+    from repro_torch.dist.sharding import tensor_parallel
+
+    if not (tensor_parallel(plan) or plan.seq_parallel_acts):
+        raise ValueError(f"a {rows}-row slice of the {cfg.vocab_size}-row vocabulary outside "
+                         "tensor or sequence parallelism: gather the FSDP shards first "
+                         "(lm_loss(shardings=))")
+    return mesh, mesh.index("model") * rows
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype, vocab=None):
     """Prefix + token embeddings and positions: (x, positions, prefix_len).
 
     ``batch["prefix_embeds"]`` (B, P, d), when given, goes in front of the
@@ -548,14 +606,26 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype):
     length: positions (1, S) from t) or a (B,) tensor (the paged cache's
     per-slot lengths: positions (B, S)).  Learned and sinusoidal positions
     are added to x from position t (the sinusoids computed at their offset,
-    not sliced from a ``max_seq_len`` table)."""
+    not sliced from a ``max_seq_len`` table).  ``vocab`` (``_vocab_split``):
+    each rank looks its tokens up in its own rows, zeroes the rest, and g
+    (``row_sum``) sums the ranks' parts."""
     parts = []
     prefix_len = 0
     if "prefix_embeds" in batch:
         parts.append(batch["prefix_embeds"].to(dtype))
         prefix_len = batch["prefix_embeds"].shape[1]
     if "tokens" in batch and "embed" in params:
-        emb = params["embed"].to(dtype)[batch["tokens"].long()]
+        table, tokens = params["embed"].to(dtype), batch["tokens"].long()
+        if vocab is None:
+            emb = table[tokens]
+        else:
+            from repro_torch.dist.collectives import row_sum
+
+            mesh, v0 = vocab
+            local = tokens - v0
+            inside = (local >= 0) & (local < table.shape[0])
+            emb = table[local.clamp(0, table.shape[0] - 1)].masked_fill(~inside[..., None], 0)
+            emb = row_sum(emb, mesh=mesh)
         if cfg.activation == "geglu":  # gemma family scales embeddings
             emb = emb * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
         parts.append(emb)
@@ -575,7 +645,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype):
 
 
 def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan,
-            dtype, fused: bool) -> torch.Tensor:
+            dtype, fused: bool, gathers=None) -> torch.Tensor:
     """The encoder of an encoder-decoder: sinusoidal positions, the
     ``params["encoder"]`` stack with bidirectional attention, its final
     norm.  Returns the memory (B, Se, d) and the stack's aux loss."""
@@ -588,7 +658,9 @@ def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: Execu
         return edpu_layer(lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
                           causal_override=False, fused=fused)
 
-    enc, _, aux = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",), remat=plan.remat)
+    specs = None if gathers is None else gathers.specs["encoder"]
+    enc, _, aux = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",), remat=plan.remat,
+                             gathers=gathers, specs=specs)
     return _norm(params["encoder"]["final_norm"], enc, cfg.norm, fused), aux
 
 
@@ -604,6 +676,8 @@ def forward(
     fused: bool = True,
     with_aux: bool = False,
     mesh=None,
+    gathers=None,
+    batch_axes: tuple = (),
 ):
     """The model over ``batch``: ``"tokens"`` (B, S), optional
     ``"prefix_embeds"`` (B, P, d) in front of them, and an encoder-decoder's
@@ -638,19 +712,26 @@ def forward(
     model axis.  Under tensor parallelism without SP
     (``dist.sharding.tensor_parallel``) every layer runs on this rank's
     shards (``edpu_layer``'s ``tp``), with no cache or over the paged pools
-    of this rank's KV heads; the embedding, the final norm and the head
-    run replicated.  ``batch`` is this rank's rows (``lm_loss`` cuts
-    them)."""
+    of this rank's KV heads; the final norm runs replicated.  Under both,
+    an embedding cut over ``vocab`` is looked up vocab-parallel
+    (``_vocab_split``).  ``batch`` is this rank's rows (``lm_loss`` cuts
+    them).  ``gathers`` (``dist.collectives.FSDPGathers``): the layer
+    stacks' leaves are FSDP shards, gathered where they are read
+    (``_run_stack``); the caller gathers the embedding and the head
+    (``FSDPGathers.top``: ``lm_loss`` does).  ``batch_axes``: the mesh axes
+    that split the batch (``lm_loss``'s), over which MoE layers take their
+    aux loss's statistics."""
     dtype = _compute_dtype(params)
     t = None if cache is None else cache["t"]
-    x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype)
+    vocab = _vocab_split(params, cfg, plan, mesh)
+    x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype, vocab)
     S = x.shape[1]
     memory = None
     if cfg.enc_dec:
         if cache is not None and "memory" in cache:
             memory = cache["memory"]
         else:
-            memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused)
+            memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused, gathers)
     causal_override = False if cfg.encoder_only else None
     tp = None
     if mesh is not None:
@@ -662,14 +743,17 @@ def forward(
                                  "serving step; the dense-cache path runs replicated")
             tp = mesh
 
+    dp = (mesh, batch_axes) if mesh is not None and batch_axes else None
+
     def layer_fn(lp, xx, kind, c):
         return edpu_layer(
             lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions, cache=c,
             memory=memory, prefix_len=prefix_len, causal_override=causal_override,
-            collect=collect_cache, page_state=page_state, fused=fused, tp=tp,
+            collect=collect_cache, page_state=page_state, fused=fused, tp=tp, dp=dp,
         )
 
     layers = None if cache is None else cache["layers"]
+    specs = None if gathers is None else gathers.specs["blocks"]
     use_sp = (
         plan.seq_parallel_acts
         and mesh is not None
@@ -686,11 +770,12 @@ def forward(
         x = seq_gather(x, "model", 1, mesh=mesh)
         # tail layers (if any) run replicated
         x, _, aux = _run_stack({"stack": None, "tail": params["blocks"]["tail"]}, x, layer_fn,
-                               cfg.layer_pattern, None, remat=plan.remat)
+                               cfg.layer_pattern, None, remat=plan.remat, gathers=gathers,
+                               specs=specs)
         new_layers = None
     else:
         x, new_layers, aux = _run_stack(params["blocks"], x, layer_fn, cfg.layer_pattern, layers,
-                                        remat=plan.remat)
+                                        remat=plan.remat, gathers=gathers, specs=specs)
     x = _norm(params["final_norm"], x, cfg.norm, fused)
     if cache is not None:
         out = x, {**cache, "layers": new_layers, "t": cache["t"] + S}
@@ -704,15 +789,23 @@ def forward(
     return (*out, aux) if with_aux else out
 
 
-def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig, mesh=None) -> torch.Tensor:
     """Token logits (B, S, V), or, for a classifier (``n_classes``), class
-    logits (B, n_classes) of the mean over positions."""
+    logits (B, n_classes) of the mean over positions.  A head cut over
+    ``vocab`` (tensor parallelism, ``mesh`` given) computes this rank's
+    columns, and the ranks' columns are gathered (serving reads the whole
+    row; not differentiable)."""
     if cfg.n_classes:
         return x.mean(dim=1) @ params["cls_head"]
     w: Optional[torch.Tensor] = params.get("lm_head")
     if w is None:
         w = params["embed"].T
-    return x @ w
+    logits = x @ w
+    if mesh is not None and logits.shape[-1] < cfg.vocab_size:
+        from repro_torch.dist.collectives import all_gather
+
+        logits = all_gather(logits, "model", mesh, dim=logits.ndim - 1, kind="vocab_gather")
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -727,12 +820,54 @@ def _xent_chunk(xc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor,
     return ((lse - tl) * mc).sum()
 
 
+class _VocabXentChunk(torch.autograd.Function):
+    """``_xent_chunk`` with ``w`` this rank's (d, V/n) vocab columns: the
+    logsumexp from the ranks' maxima (one all-reduce max) and sums of
+    exponentials, and the target logit from the rank that holds it (one
+    all-reduce sum of both).  The f32 logits are recomputed in the backward,
+    as the plain chunk's checkpoint recomputes them; ``dx`` is this rank's
+    partial (f's backward on x sums it over the ranks), ``dw`` this rank's
+    columns' whole gradient."""
+
+    @staticmethod
+    def forward(ctx, xc, w, tc, mc, mesh, v0):
+        from repro_torch.dist.collectives import all_reduce
+
+        logits = (xc @ w).float()
+        m = all_reduce(logits.amax(dim=-1), "model", mesh, op="max", kind="vocab_max")
+        t = tc.long() - v0
+        inside = (t >= 0) & (t < logits.shape[-1])
+        tl = torch.gather(logits, -1, t.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        parts = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                             torch.where(inside, tl, torch.zeros_like(tl))])
+        s, tl = all_reduce(parts, "model", mesh, kind="vocab_sum").unbind(0)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(xc, w, tc, mc, lse)
+        ctx.v0 = v0
+        return ((lse - tl) * mc).sum()
+
+    @staticmethod
+    def backward(ctx, dl):
+        xc, w, tc, mc, lse = ctx.saved_tensors
+        logits = (xc @ w).float()
+        p = torch.exp(logits - lse[..., None])
+        t = tc.long() - ctx.v0
+        inside = (t >= 0) & (t < logits.shape[-1])
+        p.scatter_add_(-1, t.clamp(0, logits.shape[-1] - 1)[..., None],
+                       -inside.to(p.dtype)[..., None])
+        g = (p * (mc * dl)[..., None]).to(xc.dtype)
+        dx = g @ w.T
+        dw = xc.reshape(-1, xc.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return dx, dw.to(w.dtype), None, None, None, None
+
+
 def chunked_softmax_xent(
     x: torch.Tensor,
     w: torch.Tensor,
     targets: torch.Tensor,
     loss_mask: Optional[torch.Tensor] = None,
     chunk: int = 512,
+    vocab=None,
 ):
     """Cross-entropy without materializing the whole (B, S, V) logits.
 
@@ -741,7 +876,9 @@ def chunked_softmax_xent(
     into chunks of ``chunk`` positions (halved until it divides S, as in
     JAX); with autograd recording, each chunk runs under
     ``torch.utils.checkpoint``, so its f32 logits are recomputed in the
-    backward instead of saved (B 8 x 512 x 151,936 f32 is 2.5 GB a chunk)."""
+    backward instead of saved (B 8 x 512 x 151,936 f32 is 2.5 GB a chunk).
+    ``vocab`` (``_vocab_split``): ``w`` holds this rank's vocab columns and
+    each chunk runs vocab-parallel (``_VocabXentChunk``)."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -752,16 +889,21 @@ def chunked_softmax_xent(
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, c):
         args = (x[:, i:i + c], w, targets[:, i:i + c], mask[:, i:i + c])
-        total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
-                         else _xent_chunk(*args))
+        if vocab is not None:
+            total = total + _VocabXentChunk.apply(*args, *vocab)
+        else:
+            total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                             else _xent_chunk(*args))
     return total, torch.clamp(mask.sum(), min=1.0)
 
 
-def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux):
+def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux, vocab=None):
     """The loss from the final hidden states: a classifier's (``n_classes``,
     over ``batch["label"]``) or the LM's over ``batch["targets"]`` (the
     prefix embeddings' positions dropped, ``batch["loss_mask"]`` applied),
-    plus 0.01 x the aux loss."""
+    plus 0.01 x the aux loss.  ``vocab``: the head holds this rank's vocab
+    columns; the replicated hidden states enter it through f
+    (``column_input``), whose backward sums the ranks' partial gradients."""
     if cfg.n_classes:
         logits = logits_fn(params, x, cfg).float()
         lse = torch.logsumexp(logits, dim=-1)
@@ -773,12 +915,16 @@ def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux)
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
         x = x[:, prefix.shape[1]:]  # the prefix carries no targets
-    total, n = chunked_softmax_xent(x, w, batch["targets"], batch.get("loss_mask"))
+    if vocab is not None:
+        from repro_torch.dist.collectives import column_input
+
+        x = column_input(x, mesh=vocab[0])
+    total, n = chunked_softmax_xent(x, w, batch["targets"], batch.get("loss_mask"), vocab=vocab)
     return total / n + 0.01 * aux
 
 
 def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
-            fused: bool = True, mesh=None) -> torch.Tensor:
+            fused: bool = True, mesh=None, shardings=None) -> torch.Tensor:
     """The training loss (the port's ``repro.models.transformer.lm_loss``):
     the no-cache forward, then ``_head_loss``.  ``fused=False`` runs every
     kernel's plain version (the oracle).
@@ -788,18 +934,35 @@ def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
     runs the forward on them (Megatron-SP under ``plan.seq_parallel_acts``)
     and returns the loss averaged over those axes, whose backward gives each
     rank 1/n of its rows' gradient: the train step sums the gradients over
-    the same axes."""
+    the same axes.  ``shardings`` (the parameters' manual shardings,
+    ``Shardings.manual_param_shardings``) names the FSDP shards: the
+    embedding and head are gathered before the pass, each layer's leaves in
+    it, and their gradients reduce-scattered in the backward; a plan that
+    shards weights over the data axes needs it."""
     if mesh is None:
         x, _, aux = forward(params, batch, cfg=cfg, plan=plan, fused=fused, with_aux=True)
         return _head_loss(params, x, batch, cfg, aux)
-    from repro_torch.dist.collectives import mean_over
+    from repro_torch.dist.collectives import FSDPGathers, mean_over
     from repro_torch.dist.sharding import Shardings
+    from repro_torch.train.optimizer import tree_leaves
 
     sh = Shardings(mesh, plan, cfg)
     axes = sh.batch_axes_for(next(iter(batch.values())).shape[0])
     local = sh.local_batch(batch)
-    x, _, aux = forward(params, local, cfg=cfg, plan=plan, fused=fused, with_aux=True, mesh=mesh)
-    return mean_over(_head_loss(params, x, local, cfg, aux), axes, mesh=mesh)
+    gathers = None
+    if shardings is not None:
+        specs = sh.gather_specs(shardings)
+        if any(s is not None for s in tree_leaves(specs)):
+            gathers = FSDPGathers(mesh, specs, axes)
+            params = gathers.top(params)
+    elif ((plan.zero_weights or plan.dp_over_model) and sh.fsdp_axes()
+          and mesh.extent(sh.fsdp_axes()) > 1):
+        raise ValueError("this plan shards the weights over the data axes (FSDP): pass "
+                         "shardings= (Shardings.manual_param_shardings)")
+    x, _, aux = forward(params, local, cfg=cfg, plan=plan, fused=fused, with_aux=True, mesh=mesh,
+                        gathers=gathers, batch_axes=axes or ())
+    loss = _head_loss(params, x, local, cfg, aux, _vocab_split(params, cfg, plan, mesh))
+    return mean_over(loss, axes, mesh=mesh)
 
 
 def check_pipeline_supported(cfg: ArchConfig, plan: ExecutionPlan, batch: int):

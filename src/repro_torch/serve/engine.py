@@ -21,10 +21,11 @@ path and the continuous-batching engine over the paged KV cache.
 Sharded serving (``ServingEngine(shardings=)``, as JAX's engine takes
 them): every rank of the mesh runs the same host scheduler on its
 tensor-parallel shards (``models.transformer``'s TP layer: this rank's
-heads, pools of this rank's KV heads, ``Shardings.attention_sharded``),
-and after g the logits are replicated, so every rank reaches the same
-argmax with no collective on the path (``check_replicas`` compares the
-ranks' tokens once a step, for debug runs and the tests).  JAX's engine
+heads, pools of this rank's KV heads, ``Shardings.attention_sharded``;
+the embedding and head cut over ``vocab``: a vocab-parallel lookup, and
+each rank's logit columns gathered, so every rank reaches the same argmax
+(``check_replicas`` compares the ranks' tokens once a step, for debug runs
+and the tests).  JAX's engine
 runs the gather path on a multi-device mesh because GSPMD cannot partition
 its Pallas call; the port's paged-attention kernel runs per rank on that
 rank's KV-head pages, so ``fused`` keeps the plan's default there, and
@@ -201,7 +202,7 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
         # token on a last prefill chunk
         idx = torch.clamp(kinds_d.long() - 1, min=0)
         xl = x[torch.arange(x.shape[0], device=dev), idx]
-        logits = logits_fn(params, xl, cfg).float()
+        logits = logits_fn(params, xl, cfg, mesh).float()
         if pz is not None:
             logits += pz[:, None]
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -215,7 +216,7 @@ def make_mixed_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, f
             # batched one that reads the vocab matrix once a slot
             B, d = x.shape[0], x.shape[-1]
             rows = x[:, :spec_width].reshape(B * spec_width, d)
-            vlog = logits_fn(params, rows, cfg).float().view(B, spec_width, -1)
+            vlog = logits_fn(params, rows, cfg, mesh).float().view(B, spec_width, -1)
             if pz is not None:
                 vlog += pz[:, None, None]
             vtok = torch.argmax(vlog, dim=-1).to(torch.int32)
@@ -268,7 +269,7 @@ def make_rolled_step(cfg: ArchConfig, plan: ExecutionPlan, serve: ServePlan, *, 
                 page_state={**page_state, "q_lens": live.to(torch.int32)}, fused=fused,
                 mesh=mesh,
             )
-            logits = logits_fn(params, x[:, -1], cfg).float()
+            logits = logits_fn(params, x[:, -1], cfg, mesh).float()
             if poison is not None and np.any(poison == i):
                 pz = np.where(np.asarray(poison) == i, np.float32(np.nan), np.float32(0))
                 logits += torch.from_numpy(pz).to(dev)[:, None]

@@ -97,6 +97,9 @@ def _zeros32(p: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: Tree, with_residual: bool = False) -> TrainState:
+    """Step 0 with f32 zero moments (and residual) shaped like ``params``:
+    on a mesh, this rank's shards, so the moments are sharded as the
+    weights are (ZeRO / FSDP)."""
     device = tree_leaves(params)[0].device
     return TrainState(
         step=torch.zeros((), dtype=torch.int32, device=device),

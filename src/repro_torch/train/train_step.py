@@ -31,7 +31,11 @@ the control plane, as in JAX:
   own.  Under tensor parallelism without SP the model axis takes no sum:
   every model rank sees the same rows, and f's backward already summed
   the partial gradients where a replicated tensor enters a sharded block,
-  so each rank's gradient of a replicated leaf is the whole one.
+  so each rank's gradient of a replicated leaf is the whole one.  An FSDP
+  shard (ZeRO, ``dp_over_model``) takes no sum over the axes it is sharded
+  over: its gather's backward reduce-scattered its gradient over them
+  (``dist.collectives.fsdp_gather``), so the sum after the backward covers
+  only the batch axes it is not sharded over.
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ def _split_micro(batch: dict, n: int) -> dict:
 
 
 def make_loss_fn(cfg: ArchConfig, plan: ExecutionPlan, fused: bool = True,
-                 mesh=None) -> Callable:
+                 mesh=None, shardings=None) -> Callable:
     if plan.pod_role == "pipeline" and plan.pod_axis > 1:
         if mesh is None:
             raise ValueError("plan.pod_role == 'pipeline' needs a mesh to execute; "
@@ -73,7 +77,8 @@ def make_loss_fn(cfg: ArchConfig, plan: ExecutionPlan, fused: bool = True,
         return loss_fn
 
     def loss_fn(params, batch):
-        return lm_loss(params, batch, cfg=cfg, plan=plan, fused=fused, mesh=mesh)
+        return lm_loss(params, batch, cfg=cfg, plan=plan, fused=fused, mesh=mesh,
+                       shardings=shardings)
 
     return loss_fn
 
@@ -136,8 +141,9 @@ def make_train_step(
     without one unless ``device="cpu"``).  ``fused=False`` runs every
     kernel's plain version (the oracle).  ``grad_shardings`` is the
     parameters' layout (``Shardings.manual_param_shardings`` of the whole
-    tree), which the global gradient norm reads: a shard's squares are
-    summed over its axes; without it every leaf is replicated.  ``donate``:
+    tree), which the global gradient norm reads (a shard's squares are
+    summed over its axes) and the loss's FSDP gathers follow; without it
+    every leaf is replicated.  ``donate``:
     each step updates the state it is given in place (JAX's
     ``donate_argnums``)."""
     from repro_torch.dist.collectives import all_reduce, compressed_psum, mean_over
@@ -145,7 +151,7 @@ def make_train_step(
 
     dev = resolve_device(device)
     pipelined = plan.pod_role == "pipeline" and plan.pod_axis > 1
-    loss_fn = make_loss_fn(cfg, plan, fused, mesh)
+    loss_fn = make_loss_fn(cfg, plan, fused, mesh, grad_shardings)
     # the pipeline schedules its own microbatches: no outer accumulation
     n_micro = 1 if pipelined else max(1, plan.microbatches)
     # plan.grad_compression is the control-plane knob; an explicit
@@ -153,6 +159,12 @@ def make_train_step(
     cc = compression or CompressionConfig(mode=plan.grad_compression)
     wire_axes = wire_compression_axes(plan, mesh)
     sh = None if mesh is None else Shardings(mesh, plan, cfg)
+    # per leaf, the axes its FSDP gather's backward already summed over
+    gathered = (None if sh is None or grad_shardings is None else
+                tree_map(lambda s: frozenset(a for e in (sh.gather_spec(s.spec) or ())
+                                             if e is not None
+                                             for a in (e if isinstance(e, tuple) else (e,))),
+                         grad_shardings))
     if wire_axes:
         local_loss = make_loss_fn(cfg, plan, fused)  # this rank's rows, no mesh
         n_dp = math.prod(dict(mesh.shape)[a] for a in wire_axes)
@@ -211,7 +223,14 @@ def make_train_step(
             loss, grads = accumulate(loss_fn, state.params, batch)
             axes = None if mesh is None else batch_axes(batch)
             if axes and mesh.extent(axes) > 1:
-                grads = tree_map(lambda g: all_reduce(g.float(), axes, mesh), grads)  # f32 sums
+                def dp_sum(g, done=frozenset()):  # f32 sums
+                    rest = tuple(a for a in axes if a not in done)
+                    # an FSDP shard summed whole by its scatter stays as it is
+                    # (AdamW widens each leaf in turn): no f32 copy of the tree
+                    return all_reduce(g.float(), rest, mesh) if mesh.extent(rest) > 1 else g
+
+                grads = (tree_map(dp_sum, grads) if gathered is None
+                         else tree_map(dp_sum, grads, gathered))
             if residual is not None:
                 grads, residual = compress_grads(grads, residual, cc)
             elif cc.mode != "none":

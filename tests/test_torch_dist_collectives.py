@@ -223,3 +223,44 @@ def test_one_rank_meshes_need_no_process_group():
         make_production_mesh()
     with pytest.raises(ValueError, match="needs 512 ranks"):
         make_production_mesh(multi_pod=True)
+
+
+def _lanes_rank(rank, shape):
+    """Collectives above ``LANE_BYTES`` (carried by all of a slice's gloo
+    groups at once) against the same on one group, on every axis subset."""
+    mesh = Mesh(shape)
+    g = torch.Generator().manual_seed(rank)
+    x = torch.randn(1024, 1536, generator=g)  # 6 MiB: above LANE_BYTES
+    assert x.numel() * 4 >= C.LANE_BYTES and len(mesh.lanes("data")) == 4
+    out = {}
+    for axes in ("data", "model", ("data", "model")):
+        if mesh.group(axes) is None:
+            continue
+        n = mesh.extent(axes)
+        out[str(axes)] = {
+            "sum": C.all_reduce(x, axes, mesh),
+            "max": C.all_reduce(x, axes, mesh, op="max"),
+            "gather1": C.all_gather(x, axes, mesh, dim=1),
+            "scatter0": C.reduce_scatter(x, axes, mesh, dim=0),
+            "one": [torch.randn(1024, 1536, generator=torch.Generator().manual_seed(r))
+                    for r in mesh.ranks(axes)],
+            "index": mesh.index(axes), "n": n}
+    return out
+
+
+@pytest.mark.parametrize("shape", [{"data": 2, "model": 1}, {"data": 2, "model": 2}])
+def test_large_collectives_on_several_groups(tmp_path, shape):
+    """Each rank's results equal the sums, maxima, concatenations and chunks
+    of the ranks' tensors (the exact ones for two ranks; four sum in another
+    order, within f32 rounding)."""
+    world = shape["data"] * shape["model"]
+    for r in run_ranks(_lanes_rank, world, tmp_path, shape):
+        for got in r.values():
+            xs, i, n = got["one"], got["index"], got["n"]
+            whole = torch.stack(xs).sum(0)
+            tol = 0 if n == 2 else 1e-5
+            torch.testing.assert_close(got["sum"], whole, rtol=0, atol=tol)
+            assert torch.equal(got["max"], torch.stack(xs).amax(0))
+            assert torch.equal(got["gather1"], torch.cat(xs, dim=1))
+            c = whole.shape[0] // n
+            torch.testing.assert_close(got["scatter0"], whole[i * c:(i + 1) * c], rtol=0, atol=tol)

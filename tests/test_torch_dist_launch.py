@@ -95,13 +95,20 @@ def test_gradient_exchange_takes_its_route(tmp_path, flags, route):
 
 
 def _refusals_rank(rank):
-    from repro_torch.launch.train import run
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import unexecuted_layout
+    from repro_torch.launch.train import launch_plan, run
 
     out = {}
     for name, arch, kw in [("moe", "qwen3-moe-30b-a3b-reduced", {"pipeline": 2}),
                            ("enc_dec", "whisper-small-reduced", {"pipeline": 2}),
                            ("tp", "rwkv6-1.6b-reduced", {"force_mode": "spatial"}),
-                           ("zero", "mistral-large-123b", {"dp": 2})]:
+                           ("zero", "mistral-large-123b", {"pipeline": 2, "dp": 2})]:
+        if name == "zero":  # a full-size arch: only ever run into its refusal
+            _, plan = launch_plan(get_config(arch), 4, batch=8, seq=32, **kw)
+            if unexecuted_layout(plan, get_config(arch)) is None:
+                out[name] = "not refused"
+                continue
         try:
             run(arch, steps=1, batch=8, seq=32, device="cpu", log_every=0, **kw)
             out[name] = None
@@ -111,13 +118,16 @@ def _refusals_rank(rank):
 
 
 def test_refusals_that_remain(tmp_path):
-    res = run_ranks(_refusals_rank, 2, tmp_path)
+    """On 4 ranks: the pipeline refuses MoE and encoder-decoder archs, TP of
+    recurrent layers is refused, and so is ZeRO under the pipeline (ZeRO
+    elsewhere now runs as FSDP)."""
+    res = run_ranks(_refusals_rank, 4, tmp_path)
     for r in res:
         assert "MoE aux losses do not cross stage boundaries" in r["moe"]
         assert "enc-dec/frontends keep non-stack state" in r["enc_dec"]
         assert "tensor parallelism without sequence parallelism" in r["tp"]
         assert "recurrent layers" in r["tp"]
-        assert "ZeRO weights" in r["zero"]
+        assert "ZeRO weights" in r["zero"] and "pipeline" in r["zero"]
         assert all("item 7b" in r[k] for k in ("tp", "zero"))
 
 

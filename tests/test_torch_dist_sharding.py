@@ -204,21 +204,25 @@ def test_local_shards_reassemble():
 
 def test_manual_layout_and_refusals():
     """The port executes SP's model shards, the pipeline's stage slices of
-    the stack and, since tensor parallelism without SP runs, every layer's
-    model shards; everything else is replicated.  TP of recurrent layers
-    and ZeRO are refused, naming the ROADMAP item."""
+    the stack, every layer's model shards under tensor parallelism without
+    SP, the embedding's and head's vocab split under both, and the FSDP
+    shards over the data axes (ZeRO, dp_over_model's fold); the final norm
+    and SP's tail layers are replicated.  TP of recurrent layers is refused,
+    naming the ROADMAP item; ZeRO is not."""
     _, sh, jplan, plan = _pair("bert-base-reduced", {"data": 1, "model": 2},
                                {"batch": 8, "seq_len": 32, "seq_parallel": True,
                                 "force_mode": "spatial"})
     assert plan.seq_parallel_acts and unexecuted_layout(plan, sh.cfg) is None
     assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wq"), Leaf((2, 64, 64))) == (
         None, None, "model")
-    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == (None, None)
+    assert plan.embed_shard == "vocab"
+    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == ("model", None)
+    assert sh.manual_param_spec(("final_norm", "scale"), Leaf((64,))) == (None,)
     _, sh, _, plan = _pair("smollm-135m-reduced", {"pod": 2, "data": 2, "model": 1},
                            {"batch": 8, "seq_len": 32, "pod_role": "pipeline"})
     assert sh.manual_param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((2, 64, 128))) == (
         "pod", None, None)
-    # TP without SP on bert-base-reduced now executes its model shards
+    # TP without SP on bert-base-reduced executes its model shards
     _, sh, _, tp = _pair("bert-base-reduced", {"data": 1, "model": 2},
                          {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
     assert not tp.seq_parallel_acts and unexecuted_layout(tp, sh.cfg) is None
@@ -226,18 +230,42 @@ def test_manual_layout_and_refusals():
         None, None, "model")
     assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "wo"), Leaf((2, 64, 64))) == (
         None, "model", None)
-    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == (None, None)
+    assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == ("model", None)
+    assert sh.gather_spec(("model", None)) is None  # computed on vocab-parallel, not gathered
     # a recurrent arch under TP stays refused
     _, sh, _, rec = _pair("rwkv6-1.6b-reduced", {"data": 1, "model": 2},
                           {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
     why = unexecuted_layout(rec, sh.cfg)
     assert "without sequence parallelism" in why and "recurrent" in why and LAYOUT_ITEM in why
+    # mistral-large-123b's production plan: ZeRO with the model axis folded
+    # into data parallelism, now executed as FSDP over (data, model)
     _, sh, _, zero = _pair("mistral-large-123b", {"data": 16, "model": 16},
                            {"batch": 256, "seq_len": 4096})
-    assert zero.zero_weights and "ZeRO" in unexecuted_layout(zero, sh.cfg)
-    assert LAYOUT_ITEM in unexecuted_layout(zero, sh.cfg)
+    assert zero.zero_weights and zero.dp_over_model and unexecuted_layout(zero, sh.cfg) is None
+    wq = sh.manual_param_spec(("blocks", "stack", 0, "attn", "wq"), Leaf((88, 12288, 12288)))
+    assert wq == (None, None, ("data", "model")) and sh.gather_spec(wq) == wq
+    emb = sh.manual_param_spec(("embed",), Leaf((32768, 12288)))
+    assert emb == ("model", None) and sh.gather_spec(emb) == emb  # model carries the batch
+    # ZeRO with TP: the data split on the complementary dim, gathered; the
+    # model split computed on (attention replicated: 8 KV heads over 16)
+    _, sh, _, ztp = _pair("mistral-large-123b", {"data": 16, "model": 16},
+                          {"batch": 256, "seq_len": 4096, "force_mode": "spatial"})
+    assert ztp.zero_weights and unexecuted_layout(ztp, sh.cfg) is None
+    w1 = sh.manual_param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((88, 12288, 28672)))
+    assert w1 == (None, "data", "model") and sh.gather_spec(w1) == (None, "data", None)
+    wo = sh.manual_param_spec(("blocks", "stack", 0, "attn", "wo"), Leaf((88, 12288, 12288)))
+    assert wo == (None, None, "data")
+    # under the pipeline ZeRO stays refused
+    _, sh, _, pz = _pair("mistral-large-123b", {"pod": 2, "data": 16, "model": 1},
+                         {"batch": 256, "seq_len": 4096, "pod_role": "pipeline"})
+    if pz.zero_weights:
+        assert "pipeline" in unexecuted_layout(pz, sh.cfg) and LAYOUT_ITEM in unexecuted_layout(
+            pz, sh.cfg)
     # on the H100 entry qwen3-1.7b's --dp 2 plan folds the model axis into
-    # data parallelism, which runs as replicated data parallelism
+    # data parallelism: the weights are FSDP shards over the data axes
     cfg = get_config("qwen3-1.7b")
     fold = derive_plan(cfg, {"data": 2, "model": 1}, H100_SXM, batch=8, seq_len=2048)
     assert fold.dp_over_model and not fold.zero_weights and unexecuted_layout(fold, cfg) is None
+    fsh = Shardings(ShapeMesh({"data": 2, "model": 1}), fold, cfg)
+    w1 = fsh.manual_param_spec(("blocks", "stack", 0, "ffn", "w1"), Leaf((28, 2048, 6144)))
+    assert w1 == (None, None, ("data", "model")) and fsh.gather_spec(w1) == w1

@@ -83,7 +83,9 @@ def _sp_rank(rank, cfg, np_params, np_batch):
     batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     with torch.no_grad():
         x, _ = T.forward(params, batch, cfg=cfg, plan=plan, mesh=mesh)
-        emb, pos, _ = T._embed_inputs(params, batch, cfg, None, torch.float32)
+        # the embedding is cut over the vocabulary: looked up vocab-parallel
+        emb, pos, _ = T._embed_inputs(params, batch, cfg, None, torch.float32,
+                                      T._vocab_split(params, cfg, plan, mesh))
         C.reset_stats()
         T.sp_stack_forward(params["blocks"]["stack"], emb, cfg=cfg, plan=plan, mesh=mesh,
                            positions=pos)

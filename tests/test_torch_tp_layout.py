@@ -1,7 +1,8 @@
 """The layout of tensor parallelism without SP in the port: the fused
 ``wqkv``'s head-aligned cut and its inverse, the specs the manual path
 executes (attention on local heads only where the heads divide; the
-embedding, the head and the norms replicated; MoE's expert split), the
+embedding and the head cut over the vocabulary, the norms replicated;
+MoE's expert split), the
 pools of each rank's KV heads, what ``unexecuted_layout`` still refuses, a
 checkpoint written under TP restored on one rank and the other way round,
 and the flag-free two-rank launch, which now trains with TP."""
@@ -79,13 +80,15 @@ def _flat(tree):
 
 def test_manual_specs_follow_the_heads(monkeypatch):
     # qwen3-1.7b: 16 / 8 heads divide over 2, so attention runs on local
-    # heads (the fused wqkv head-aligned); norms, embedding, head replicated
+    # heads (the fused wqkv head-aligned); the tied embedding cut over the
+    # vocabulary (vocab-parallel lookup and head); the norms replicated
     cfg, plan, sh, specs = _specs("qwen3-1.7b", {"data": 1, "model": 2}, monkeypatch)
     assert tensor_parallel(plan) and sh.attention_sharded()
     assert isinstance(specs["blocks|stack|0|attn|wqkv"], QKVSharding)
     assert specs["blocks|stack|0|attn|wo"].spec == (None, "model", None)
     assert specs["blocks|stack|0|ffn|w2"].spec == (None, "model", None)
-    for k in ("embed", "final_norm|scale", "blocks|stack|0|attn|q_norm",
+    assert plan.embed_shard == "vocab" and specs["embed"].spec == ("model", None)
+    for k in ("final_norm|scale", "blocks|stack|0|attn|q_norm",
               "blocks|stack|0|attn|ln|scale"):
         assert all(e is None for e in specs[k].spec), k
     # smollm-135m: 9 / 3 heads do not divide over 2: attention replicated,

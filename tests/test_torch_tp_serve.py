@@ -9,7 +9,8 @@ its plain version) and by the gather path (``fused=False``, JAX's route on
 a mesh), and through the fault ladder's gather rung and back.
 smollm-135m-reduced is JAX's own case (one KV head: attention runs
 replicated); qwen3-1.7b-reduced widened to 4 query / 2 KV heads runs
-attention on local heads.  Then the launcher under the ranks: the host
+attention on local heads; both hold the embedding cut over the vocabulary.
+Then the launcher under the ranks: the host
 mesh, rank 0 alone printing, the same tokens as one process."""
 import contextlib
 import dataclasses
@@ -132,10 +133,10 @@ def test_sharded_engine_matches_jax_sharded_engine(tmp_path, arch):
                                                                             "model": 2}
             assert run["kv_heads"] == (cfg.n_kv_heads // 2 if sharded_heads else cfg.n_kv_heads)
             # the debug check ran once a dispatch, and nothing else crossed
-            # the ranks but g's sums
-            assert set(run["calls"]) <= {"all_gather", "tp_row_sum"}
-            if sharded_heads:
-                assert run["calls"]["tp_row_sum"] > 0
+            # the ranks but g's sums (the vocab-parallel lookup's among them)
+            # and the logit columns of the head cut over the vocabulary
+            assert set(run["calls"]) <= {"all_gather", "tp_row_sum", "vocab_gather"}
+            assert run["calls"]["tp_row_sum"] > 0 and run["calls"]["vocab_gather"] > 0
         lad = r["ladder"]
         assert lad["tokens"] == jx["tokens"]
         assert lad["fallback"] > 0 and lad["down"] >= 1 and lad["up"] >= 1, lad

@@ -1,0 +1,217 @@
+"""Shared set-up for the FSDP tests (``tests/test_torch_fsdp_*.py``): the
+weight layouts with a data-parallel axis (ZeRO, ``dp_over_model``'s split)
+and the vocab-split embedding and head under TP and SP.  JAX's GSPMD runs on
+fake host devices in a subprocess, the port on gloo ranks on the CPU
+(``test_torch_dist_ranks``), both from the same weights (JAX's
+``init_params`` at key 0) and the same numpy batches, f32, three AdamW
+steps (``tests/torch_tp.py``'s recipe and bounds: losses within 1e-5,
+parameters within 1e-4).
+
+Not a test module.  The reduced archs are too small for ``derive_plan`` to
+choose ZeRO or the fold, so a case sets ``dp_over_model`` / ``zero_weights``
+(and ``remat``) with ``dataclasses.replace`` on the same plan in both
+packages.  The JAX subprocess also reports each leaf's shard shape
+(``NamedSharding.shard_shape`` of ``Shardings.param_shardings``), which each
+port rank's local leaves must equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from torch_tp import B, OPT, S, keyed, port_cfg, v5e
+
+_JAX_STEPS = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=" + sys.argv[1]
+import dataclasses, json
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config
+from repro.core.hardware import TPU_V5E
+from repro.core.plan import derive_plan
+from repro.dist.sharding import Shardings, _key_names
+from repro.launch.mesh import make_host_mesh
+from repro.models.params import init_params
+from repro.train.optimizer import OptimizerConfig, init_state
+from repro.train.train_step import make_train_step
+spec = json.loads(sys.argv[2])
+cfg = dataclasses.replace(get_config(spec["arch"]).reduced(), **spec["replace"])
+mesh = make_host_mesh(data=spec["data"])
+plan = derive_plan(cfg, dict(mesh.shape), TPU_V5E, batch=spec["batch"], seq_len=spec["seq"],
+                   training=True, **spec["derive"])
+plan = dataclasses.replace(plan, **spec["plan"])
+sh = Shardings(mesh, plan, cfg)
+params = init_params(jax.random.PRNGKey(0), cfg, plan, dtype=jnp.float32)
+param_sh = sh.param_shardings(params)
+key = lambda p: "|".join(_key_names(p))
+shapes = {key(p): list(s.shard_shape(x.shape)) for (p, x), s in zip(
+    jax.tree_util.tree_flatten_with_path(params)[0], jax.tree_util.tree_leaves(param_sh))}
+params = jax.device_put(params, param_sh)
+step = jax.jit(make_train_step(cfg, plan, OptimizerConfig(**spec["opt"]), shard=sh.constrain,
+                               grad_shardings=param_sh, mesh=mesh))
+state = init_state(params)
+z = np.load(spec["batches"])
+losses = []
+for i in range(spec["steps"]):
+    b = {k: jnp.asarray(z[f"{k}{i}"]) for k in spec["keys"]}
+    state, m = step(state, jax.device_put(b, sh.batch_shardings(b)))
+    losses.append(float(m["loss"]))
+flat = {key(p): np.asarray(x) for p, x in jax.tree_util.tree_flatten_with_path(state.params)[0]}
+np.savez(spec["batches"] + ".params.npz", **flat)
+print(json.dumps({"losses": losses, "shard_shapes": shapes, "remat": plan.remat,
+                  "microbatches": plan.microbatches, "dp_over_model": plan.dp_over_model,
+                  "zero_weights": plan.zero_weights, "embed_shard": plan.embed_shard,
+                  "seq_parallel_acts": plan.seq_parallel_acts}))
+"""
+
+
+def batches(cfg, seed, n=3):
+    """``n`` numpy batches of B x S: tokens and targets, and an
+    encoder-decoder's frames."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "targets")}
+        if cfg.enc_dec:
+            b["enc_embeds"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(
+                np.float32)
+        out.append(b)
+    return out
+
+
+def fsdp_plan(cfg, shape: dict, derive: dict, plan: dict):
+    """The port's training plan on ``shape`` with the TPU entry's numbers and
+    ``derive``'s flags, then ``plan``'s fields replaced (as the JAX
+    subprocess does)."""
+    from repro_torch.core.plan import derive_plan
+
+    p = derive_plan(cfg, shape, v5e(), batch=B, seq_len=S, training=True, **derive)
+    return dataclasses.replace(p, **plan)
+
+
+def jax_params(arch: str, replace: dict, fuse_qkv: bool):
+    """JAX's initial weights at key 0 as numpy (the subprocess draws the
+    same), with the case's q / k / v fusion."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.core.plan import derive_plan
+    from repro.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    plan = derive_plan(cfg, {"data": 1, "model": 1}, batch=B, seq_len=S, fuse_qkv=fuse_qkv)
+    return jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(0), cfg, plan,
+                                                dtype=jnp.float32))
+
+
+def jax_steps(tmp_path, arch: str, replace: dict, shape: dict, derive: dict, plan: dict,
+              batch_list: list):
+    """Start JAX's GSPMD steps on ``shape``'s fake devices in a subprocess;
+    the returned function waits for them and gives (the JSON record, the
+    parameters after the steps keyed as ``keyed``)."""
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    path = tmp_path / "batches.npz"
+    np.savez(path, **{f"{k}{i}": v for i, b in enumerate(batch_list) for k, v in b.items()})
+    spec = {"arch": arch, "replace": replace, "data": shape["data"], "derive": derive,
+            "plan": plan, "batch": B, "seq": S, "steps": len(batch_list), "opt": OPT,
+            "keys": sorted(batch_list[0]), "batches": str(path)}
+    n = shape["data"] * shape["model"]
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_STEPS, str(n), json.dumps(spec)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=".",
+                            env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+
+    def finish():
+        try:
+            out, err = proc.communicate(timeout=400)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        assert proc.returncode == 0, err[-3000:]
+        return (json.loads(out.strip().splitlines()[-1]),
+                dict(np.load(str(path) + ".params.npz")))
+
+    return finish
+
+
+def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None):
+    """This rank's steps on its shards (``make_train_step`` over the mesh,
+    the manual shardings handed to it); returns the losses, the whole
+    parameters after them, the collectives' calls, each local leaf's shape
+    and the state's bytes on this rank.  ``control`` plants one of
+    ``chip_smoke.fsdp_controls_plant``'s faults."""
+    from chip_smoke import fsdp_controls_plant  # the chip script's own controls
+    from repro_torch.bridge import from_jax
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import Shardings, gather, place
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.optimizer import OptimizerConfig, init_state, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+
+    mesh = Mesh(shape)
+    full = from_jax(np_params, device="cpu")
+    shard = Shardings(mesh, plan, cfg).manual_param_shardings(full)
+    state = init_state(place(full, shard), with_residual=False)
+    local = {k: list(v.shape) for k, v in keyed(state.params).items()}
+    step = make_train_step(cfg, plan, OptimizerConfig(**OPT), device="cpu", mesh=mesh,
+                           grad_shardings=shard)
+    undo = fsdp_controls_plant(control, cfg)
+    C.reset_stats()
+    losses = []
+    try:
+        for b in batch_list:
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    finally:
+        undo()
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves((state.params, state.m, state.v)))
+    return {"losses": losses, "params": keyed(gather(state.params, shard)),
+            "calls": dict(C.STATS["calls"]), "local_shapes": local, "state_bytes": state_bytes}
+
+
+def fsdp_control_rank(rank, cfg, plan, shape, np_params, batch_list, control):
+    """``fsdp_train_rank`` without and then with ``control``, in one process
+    group."""
+    return [fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, c)
+            for c in (None, control)]
+
+
+def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, seed=80):
+    """Three steps on the port's ranks and on JAX's fake devices: losses
+    within 1e-5, every parameter within 1e-4, every rank's local leaf shapes
+    equal to JAX's shard shapes, and the ranks' losses equal.  Returns the
+    port's rank records and JAX's record."""
+    from test_torch_dist_ranks import run_ranks
+
+    cfg = port_cfg(arch, replace)
+    plan = fsdp_plan(cfg, shape, derive, plan_fields)
+    from repro_torch.dist.sharding import unexecuted_layout
+
+    assert unexecuted_layout(plan, cfg) is None
+    batch_list = batches(cfg, seed)
+    done = jax_steps(tmp_path / "jax", arch, replace, shape, derive, plan_fields, batch_list)
+    world = shape["data"] * shape["model"]
+    res = run_ranks(fsdp_train_rank, world, tmp_path, cfg, plan, shape,
+                    jax_params(arch, replace, plan.fuse_qkv), batch_list)
+    jx, jp = done()
+    assert (jx["remat"], jx["microbatches"], jx["dp_over_model"], jx["zero_weights"],
+            jx["embed_shard"], jx["seq_parallel_acts"]) == (
+        plan.remat, plan.microbatches, plan.dp_over_model, plan.zero_weights, plan.embed_shard,
+        plan.seq_parallel_acts)
+    for r in res:
+        assert max(abs(a - b) for a, b in zip(r["losses"], jx["losses"])) < 1e-5, (
+            r["losses"], jx["losses"])
+        assert r["params"].keys() == jp.keys()
+        for k, p in r["params"].items():
+            np.testing.assert_allclose(p.numpy(), jp[k], rtol=0, atol=1e-4, err_msg=k)
+        assert r["local_shapes"] == jx["shard_shapes"]
+        assert r["losses"][0] != r["losses"][-1]
+    assert all(r["losses"] == res[0]["losses"] for r in res)
+    return res, jx
