@@ -148,7 +148,7 @@ host memory), each path of qwen3-1.7b (``--dp 2``; ``--dp 2 --force-mode
 spatial --compression int8``, the int8 wire; ``--seq-parallel --force-mode
 spatial``, 8 / 4 heads a rank; ``--pipeline 2``, 8 microbatches) first in
 f32 cut to 4 layers against the one-rank run (1e-5; the wire 1e-3), then
-at full width and depth in bf16 against the one-rank bf16 run, every run
+at full width in bf16, cut to 8 layers, against the one-rank bf16 run, every run
 through ``run``; as controls at both depths a ring that skips one chunk,
 a pipeline that drops its last microbatch, a data-parallel step that skips
 the gradient sum and a wire that skips its int32 sum; each rank checks its
@@ -159,27 +159,38 @@ and RMSNorm, forward and backward, on every rank); then tensor parallelism
 without SP on the same two ranks: 40 training qwen3-1.7b with Megatron's
 column / row shards and all-reduce pair (8 / 4 heads a rank): f32 cut to 4
 layers through the flag-free launch (B 3 x 512, whose plan keeps the model
-axis), then bf16 at full width and depth (B 4 x 2048, SPATIAL forced),
-against the one-rank run (losses and grad norms), with g skipped after
+axis), then bf16 at full width cut to 8 layers (B 4 x 2048, SPATIAL
+forced), against the one-rank run (losses and grad norms), with g skipped after
 the first layer's ``wo`` and the replicated leaves' gradients summed over
 ``model`` as controls; 41 sharded continuous serving of qwen3-1.7b
 (``ServingEngine(shardings=)``, 16 slots x 64 slab rows, pools of 4 KV
 heads a rank), the kernel route and the gather path, f32 at 4 layers
 (identical tokens, first-dispatch logits against the one-rank engine)
-and bf16 at full depth (first-dispatch logits within phase 18's rule,
+and bf16 at 8 layers (first-dispatch logits within the rounding rule,
 the tokens' agreement share), the skip-g control at both; 42
 qwen3-moe-30b-a3b's expert split (64 of 128 experts and 2 of 4 KV heads
-a rank, int8 pages, drop-free) cut to 12 layers, against the one-rank
+a rank, int8 pages, drop-free) cut to 6 layers, against the one-rank
 engine; then FSDP on the same two ranks through the flag-free launch,
 whose plan folds the model axis into data parallelism (the weights and
 their AdamW moments sharded, each layer gathering its weights where it
 reads them, the gradients reduce-scattered; phase 39's ``--dp 2`` is such a
 plan too): 43 phi4-mini-3.8b at full width, f32 cut to 4 layers and bf16
-at full depth, 44 rwkv6-1.6b in bf16 at 4 layers (no remat: the WKV
+cut to 8, 44 rwkv6-1.6b in bf16 at 4 layers (no remat: the WKV
 kernels on every rank), each against the one-rank run (losses, grad
 norms, state and peak a rank), with the embedding's gradient scatter
-skipped and a rank gathering its neighbour's shard as controls.  Every
-main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-44) checks the
+skipped and a rank gathering its neighbour's shard as controls; then
+tensor parallelism of the recurrent and encoder-decoder layers on the same
+two ranks, SPATIAL forced: 45 rwkv6-1.6b (the time-mix's WKV on 16 of 32
+heads a rank, the channel-mix's gate gathered), f32 cut to 4 layers and
+bf16 at full depth, 46 recurrentgemma-9b (the RG-LRU on 2,048 of 4,096
+channels a rank, the local attention whole) f32 at 3 and bf16 at 6
+layers, 47 whisper-small (encoder, decoder and cross-attention on 6 of 12
+heads a rank, one f on the encoder memory) f32 and bf16 at full depth,
+each against the one-rank run (losses, grad norms, the norm of the
+gradients of the whole leaves read per head or channel and of the
+encoder's norms), with those leaves' gradients left as each rank's block,
+the neighbour's block read and the memory's f left out as controls.  Every
+main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-47) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
 every forward too: 408 at 32 new tokens), the RMSNorm kernel once a norm
@@ -3099,16 +3110,21 @@ def training_launches(cfg, plan, steps: int) -> dict:
     again with remat; the final norm and the tail layers sit outside the
     groups), backward once a norm.  qwen3-1.7b with remat: 56, 28, 225, 113
     a step; recurrentgemma-9b counts only its local layers; rwkv6-1.6b:
-    WKV 48 + 24 a step."""
+    WKV 48 + 24 a step; an encoder-decoder adds each decoder layer's
+    cross-attention and its encoder's layers, all in stacked groups
+    (whisper-small: 36 + 36 a step without remat)."""
     stacked = cfg.n_layers // len(cfg.layer_pattern) * len(cfg.layer_pattern)
     attn = [cfg.layer_kind(i) in ("attn", "swa", "local") for i in range(cfg.n_layers)]
     rwkv = [cfg.layer_kind(i) == "rwkv6" for i in range(cfg.n_layers)]
     norms = norms_per_forward(cfg)
     layer_norms = (norms - 1) // cfg.n_layers if norms else 0
     again = int(plan.remat) * plan.microbatches
+    enc_dec = cfg.n_layers + cfg.n_enc_layers if cfg.enc_dec else 0
+    stacked_attn = sum(attn[:stacked]) + enc_dec
     return expect_counts(
-        flash_attention=steps * (sum(attn) * plan.microbatches + sum(attn[:stacked]) * again),
-        flash_attention_bwd=steps * sum(attn) * plan.microbatches,
+        flash_attention=steps * ((sum(attn) + enc_dec) * plan.microbatches
+                                 + stacked_attn * again),
+        flash_attention_bwd=steps * (sum(attn) + enc_dec) * plan.microbatches,
         wkv=steps * (sum(rwkv) * plan.microbatches + sum(rwkv[:stacked]) * again),
         wkv_bwd=steps * sum(rwkv) * plan.microbatches,
         rmsnorm=steps * (norms * plan.microbatches + layer_norms * stacked * again),
@@ -4016,11 +4032,10 @@ MESH_PATHS = {
     "sp": ({"seq_parallel": True, "force_mode": "spatial"}, 8),
     "pipeline": ({"pipeline": 2}, 8),
 }
-# The bf16 runs of the int8 wire and of Megatron-SP are cut to 8 of 28
-# layers at full width, to keep the script within its time limit beside
-# the FSDP phases (their full-depth readings are in PERF.md); the others
-# run at full depth.
-MESH_FULL_LAYERS = {"wire": 8, "sp": 8}
+# The bf16 runs are cut to 8 of 28 layers at full width, to keep the script
+# within its time limit beside the FSDP and recurrent-TP phases (their
+# full-depth readings are in PERF.md).
+MESH_FULL_LAYERS = {"dp": 8, "wire": 8, "sp": 8, "pipeline": 8}
 # The planted controls, each a fault in one path's exchange, and the steps
 # it runs: a forward fault moves the first loss; a fault in the gradient
 # exchange shows first in the second loss (the first comes before any
@@ -4270,7 +4285,7 @@ def mesh_rank(spec_file: str) -> None:
     backend = init_distributed("cuda")  # torchrun's environment: gloo, two ranks a card
     check(backend == "gloo", f"rank {rank}: backend {backend}")
     kinds = {"mesh": mesh_job, "tp_train": tp_train_job, "tp_serve": tp_serve_job,
-             "fsdp": fsdp_job}
+             "fsdp": fsdp_job, "tp_arch": tp_arch_job}
     results = [kinds[job.get("kind", "mesh")](job, rank) for job in spec["jobs"]]
     Path(spec["out"].format(rank=rank)).write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
@@ -4366,7 +4381,7 @@ def spawn_ranks(jobs: list, tag: str) -> list:
     return [json.loads((work / f"{tag}.rank{r}.json").read_text()) for r in range(2)]
 
 
-def phase_mesh_ranks(nccl_losses=None):
+def phase_mesh_ranks():
     """Phase 39: two ranks on the one H100.  NCCL refuses two ranks on one
     device, so the ranks use gloo and every CUDA tensor crosses through
     host memory; each rank computes on the card with the flash and RMSNorm
@@ -4376,9 +4391,8 @@ def phase_mesh_ranks(nccl_losses=None):
     rank), (d) ``--pipeline 2`` (8 microbatches, bubble 1/9).  Every run,
     the one-rank baselines too, is ``launch.train.run``: first each path in
     f32 at reduced depth against the one-rank run (tight), then each at full
-    width in bf16, at full depth but for MESH_FULL_LAYERS, against the
-    one-rank bf16 run (phase 38's run where the batch and plan are the
-    same); ``--dp 2`` folds into FSDP (``dp_over_model``); at both depths the planted
+    width in bf16, cut to MESH_FULL_LAYERS, against the one-rank bf16 run;
+    ``--dp 2`` folds into FSDP (``dp_over_model``); at both depths the planted
     controls of MESH_CONTROLS must fail their path's tolerance.  For every
     path: step ms, collective seconds (the card synchronized before each:
     the copies and the transport), the bytes moved and the wire bytes, every
@@ -4391,7 +4405,7 @@ def phase_mesh_ranks(nccl_losses=None):
 
     log("phase 39: two ranks on the one H100 over gloo (CUDA tensors cross through host "
         f"memory): {TRAIN_ARCH}, {MESH_STEPS} steps a path; f32 at {MESH_F32['n_layers']} "
-        f"layers, then bf16 at full depth (layers cut: {json.dumps(MESH_FULL_LAYERS)})")
+        f"layers, then bf16 at full width (layers: {json.dumps(MESH_FULL_LAYERS)})")
 
     def baseline(path, depth):
         """The one-rank run's key: depth, whether q, k and v stay fused (SP
@@ -4400,8 +4414,6 @@ def phase_mesh_ranks(nccl_losses=None):
         return depth, path != "sp", a["batch"], a["n_layers"] or 0
 
     one = {}
-    if nccl_losses is not None:  # phase 38's run: the same batch, plan and seed
-        one[("full", True, TRAIN_B, 0)] = nccl_losses
     for depth in ("f32", "full"):
         for key in sorted({baseline(p, depth) for p in MESH_PATHS}):
             if key in one:
@@ -4472,13 +4484,16 @@ def phase_mesh_ranks(nccl_losses=None):
 # (phase 39's harness: gloo, every all-reduce staged through host memory).
 TP_MESH = {"data": 1, "model": 2}
 TP_STEPS = 2
-# (a) training.  bf16 at full width and depth, B 4 x 2048 with SPATIAL
-# forced: on the H100 entry the flag-free plan at B 4 (or the CLI's B 8)
+# (a) training.  bf16 at full width, B 4 x 2048 with SPATIAL forced, cut
+# to TP_BF16_LAYERS of 28 layers (to keep the script within its time
+# limit; the full-depth reading is in PERF.md): on the H100
+# entry the flag-free plan at B 4 (or the CLI's B 8)
 # folds the model axis into data parallelism (dp_over_model, run as
 # replicated data parallelism), so the flag-free launch is held at a batch
 # that does not fold: f32, 4 layers, B 3 x 512, where derive_plan keeps the
 # model axis SPATIAL.  Each against the one-rank run of the same batch.
 TP_TRAIN_B = 4
+TP_BF16_LAYERS = 8
 TP_F32 = {"n_layers": 4, "B": 3, "S": 512}
 # Limits, set before the first reading (PERF.md, PR 26): the losses within
 # TP_F32_TOL / TP_BF16_TOL of the one-rank run (phase 39's f32 and bf16
@@ -4495,8 +4510,10 @@ TP_TRAIN_CONTROLS = {"skip_g": 1, "sum_replicated": 1}
 # (b) serving: a small plan, 16 slots x 64 slab rows (1,024 rows: ~4 MB a
 # bf16 all-reduce, two a layer), 16 requests of 100-300 prompt tokens and
 # 8 new each, kernel and gather routes; f32 weights and pages cut to 4
-# layers, then bf16 at full depth.  The first dispatch's logits, each live
-# slot's row, against the one-rank kernel engine's, as the deviation's norm
+# layers, then bf16 cut to TP_BF16_LAYERS (the full-depth reading is in
+# PERF.md).  The
+# first dispatch's logits, each live slot's row, against the one-rank
+# kernel engine's, as the deviation's norm
 # over the row's: in f32 (only the order of the sums differs) the largest
 # within TP_LOGITS_F32 and the greedy tokens identical; in bf16 the mean
 # over the rows within TP_ROUNDING_MARGIN times the one-rank bf16 engine's
@@ -4518,7 +4535,7 @@ TP_ROUNDING_MARGIN = 2.0
 # layer in bf16, then keeps its shard, 0.64 GB a layer: 64 of 128 experts,
 # 2 of 4 KV heads), drop-free capacity (E / K) so a bf16 difference cannot
 # move a choice into or out of capacity.
-TP_MOE_LAYERS = 12
+TP_MOE_LAYERS = 6
 MOE_LAYER_GB, MOE_SHARD_GB, MOE_EMBED_GB = 1.258, 0.64, 1.24
 
 
@@ -4527,14 +4544,36 @@ def tp_controls_plant(control, mesh=None):
     ``mesh``, by default TP_MESH's); returns the undo.  ``skip_g``: the
     first layer's attention output is not summed over ``model`` (every
     pass over that layer, remat's too); ``sum_replicated``: the train
-    step's gradients of the replicated leaves are summed over ``model``.
-    ``tests/test_torch_tp_train.py`` plants the same on the CPU."""
+    step's gradients of the replicated leaves are summed over ``model``;
+    ``slice_grad_chunk``: every whole leaf a sharded recurrent block reads
+    in part (RWKV-6's ``u``, ``w0``, group norm and ``lora_b``; the
+    RG-LRU's conv, gates and ``lam``) keeps its gradient as this rank's
+    block, not gathered; ``neighbour_slice``: each rank reads its
+    neighbour's block of those leaves; ``skip_memory_f``: the encoder
+    memory enters the sharded cross-attention without f, so the encoder
+    takes each rank's partial gradient.  ``tests/test_torch_tp_train.py``,
+    ``_recurrent.py`` and ``_encdec.py`` plant the same on the CPU."""
     from repro_torch.dist import collectives as C
     from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
 
     if control is None:
         return lambda: None
+    if control in ("slice_grad_chunk", "neighbour_slice"):
+        orig_slice = C.tp_slice
+
+        def faulty(x, dim, axis="model", *, mesh):
+            n, i = mesh.extent(axis), mesh.index(axis)
+            c = x.shape[dim] // n
+            j = (i + 1) % n if control == "neighbour_slice" else i
+            return x.narrow(dim % x.ndim, j * c, c)  # its gradient: this block's, ungathered
+
+        C.tp_slice = faulty
+        return lambda: setattr(C, "tp_slice", orig_slice)
+    if control == "skip_memory_f":
+        orig_memory = T.memory_input
+        T.memory_input = lambda params, memory, cfg, tp: memory
+        return lambda: setattr(T, "memory_input", orig_memory)
     if control == "skip_g":
         orig, orig_sum = T.attention_stage, C.row_sum
         first = {}
@@ -4609,15 +4648,47 @@ def fsdp_controls_plant(control, cfg):
     return lambda: setattr(C, "all_gather", orig_ag)
 
 
-def tp_grad_norms():
+# The whole leaves a sharded recurrent block reads per head or per channel
+# (``dist.collectives.tp_slice``), whose gradients the ranks gather.
+TP_SLICED = frozenset({"u", "w0", "gn_scale", "gn_bias", "lora_b", "conv_w", "w_gate_a",
+                       "b_gate_a", "w_gate_x", "b_gate_x", "lam"})
+
+
+def tp_watched(names: list) -> bool:
+    """The replicated leaves whose gradients phases 45-47 hold apart (each
+    rank's is the whole): the TP_SLICED leaves of the recurrent blocks,
+    and an encoder's norms, whose gradients reach them through the encoder
+    memory's f.  They are a small share of the global norm."""
+    return ((names[-1] in TP_SLICED and "attn" in names)
+            or (names[0] == "encoder" and names[-1] in ("scale", "bias")))
+
+
+def tp_grad_norms(watched: list = None, leaves: list = None):
     """(the grad norms list, the undo): every train step's global gradient
     norm as the step computed it (the launcher's log rounds it to 3
-    places), recorded from ``train_step.adamw_update``'s argument."""
+    places), recorded from ``train_step.adamw_update``'s argument; with
+    ``watched``, the norm of the ``tp_watched`` leaves' gradients is
+    appended to it too, and to ``leaves`` each of those leaves' norm by
+    its path (a stacked leaf's by its path and group)."""
     from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import tree_leaves_with_path
 
     orig, norms = TS.adamw_update, []
 
     def recording(state, grads, opt, grad_norm=None, **kw):
+        if watched is not None:
+            sq = {}  # a stacked leaf's groups apart: "<path>[group]"
+            for p, g in tree_leaves_with_path(grads):
+                names = list(map(str, p))
+                if tp_watched(names):
+                    g = g.float().square()
+                    if names[1:2] == ["stack"]:
+                        sq.update({f"{'|'.join(names)}[{i}]": x.sum() for i, x in enumerate(g)})
+                    else:
+                        sq["|".join(names)] = g.sum()
+            watched.append(float(torch.stack(list(sq.values())).sum().sqrt()) if sq else 0.0)
+            if leaves is not None:
+                leaves.append({k: float(v.sqrt()) for k, v in sq.items()})
         new, metrics = orig(state, grads, opt, grad_norm=grad_norm, **kw)
         norms.append(float(metrics["grad_norm"]))
         return new, metrics
@@ -4627,11 +4698,11 @@ def tp_grad_norms():
 
 
 def tp_train_args(depth: str) -> dict:
-    """``launch.train.run``'s arguments for a phase-40 run: bf16 at full
-    depth, B 4 x 2048, SPATIAL forced; or the flag-free f32 run."""
+    """``launch.train.run``'s arguments for a phase-40 run: bf16 at
+    TP_BF16_LAYERS, B 4 x 2048, SPATIAL forced; or the flag-free f32 run."""
     if depth == "full":
-        return dict(batch=TP_TRAIN_B, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=None,
-                    force_mode="spatial")
+        return dict(batch=TP_TRAIN_B, seq=TRAIN_S, dtype=torch.bfloat16,
+                    n_layers=TP_BF16_LAYERS, force_mode="spatial")
     return dict(batch=TP_F32["B"], seq=TP_F32["S"], dtype=torch.float32,
                 n_layers=TP_F32["n_layers"], force_mode=None)
 
@@ -4657,7 +4728,7 @@ def tp_train_plan(depth: str):
 
 def tp_train_job(job: dict, rank: int) -> dict:
     """A phase-40 rank's job: ``launch.train.run`` with the job's flags
-    (none but ``force_mode`` at full depth), optionally a planted control.
+    (none but ``force_mode`` in bf16), optionally a planted control.
     Returns the losses and grad norms, step ms, the collectives' calls /
     bytes / seconds, launches and peak memory."""
     import contextlib
@@ -4714,8 +4785,8 @@ def tp_serve_setup(arch: str, depth: str, kv: str):
     if arch == MOE_ARCH:  # drop-free capacity, the cut depth
         cfg = dataclasses.replace(cfg, n_layers=TP_MOE_LAYERS,
                                   moe_capacity_factor=cfg.n_experts / cfg.top_k)
-    elif depth == "f32":
-        cfg = dataclasses.replace(cfg, n_layers=4)
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=4 if depth == "f32" else TP_BF16_LAYERS)
     dtype = torch.float32 if depth == "f32" else torch.bfloat16
     plan = derive_plan(cfg, TP_MESH, H100_SXM, batch=TP_SERVE["decode_batch"],
                        seq_len=TP_SERVE["mixed_slab_width"], training=False)
@@ -4855,7 +4926,7 @@ def phase_tp_train():
     """Phase 40: tensor parallelism without SP in training, qwen3-1.7b on two
     ranks sharing the card.  f32 cut to 4 layers through the flag-free
     launch (B 3 x 512: the model axis stays SPATIAL), then bf16 at full
-    width and depth, B 4 x 2048 (SPATIAL forced), each against the one-rank
+    width cut to TP_BF16_LAYERS, B 4 x 2048 (SPATIAL forced), each against the one-rank
     run of the same batch (losses and grad norms within the limits), with
     the controls at both depths; every rank's launches (flash and RMSNorm,
     forward and backward, on its 8 / 4 heads), collective seconds and GB,
@@ -4867,8 +4938,8 @@ def phase_tp_train():
 
     log(f"phase 40: tensor parallelism without SP, {TRAIN_ARCH} on two ranks of the card "
         f"(gloo): f32 at {TP_F32['n_layers']} layers through the flag-free launch (B "
-        f"{TP_F32['B']} x {TP_F32['S']}), then bf16 at full depth (B {TP_TRAIN_B} x {TRAIN_S}, "
-        f"--force-mode spatial), {TP_STEPS} steps")
+        f"{TP_F32['B']} x {TP_F32['S']}), then bf16 at {TP_BF16_LAYERS} layers (B {TP_TRAIN_B} "
+        f"x {TRAIN_S}, --force-mode spatial), {TP_STEPS} steps")
     one = {}
     for depth in ("f32", "full"):
         a = tp_train_args(depth)
@@ -5021,12 +5092,15 @@ def phase_tp_serve(arch: str, phase: int, runs: list, kv: str):
 # the H100 entry folds the model axis into data parallelism
 # (dp_over_model).  Phase 43: phi4-mini-3.8b at full width (d_model 3072,
 # 24 / 8 heads, vocab 200,064, tied), (i) f32 cut to 4 layers, B 8 x 512,
-# with the planted controls, (ii) bf16 at full depth, B 8 x 2048 (remat:
-# each group's gathers repeat in the backward).  No replicated two-rank run
-# is made: two whole states with gradients (~2 x 46 GB) do not fit the
-# card.  Phase 44: rwkv6-1.6b, bf16, 4 layers, B 8 x 2048, no remat (the
-# gathered weights are kept as shards for the backward and gathered again
-# there), the WKV kernels forward and backward on every rank, with the
+# with the planted controls, (ii) bf16 cut to 8 of 32 layers (its
+# full-depth reading, 19.18 GB of state a rank against 38.36, is in
+# PERF.md; the cut keeps the script within its time limit), B 8 x 2048
+# (remat: each group's gathers repeat in the backward).  No replicated
+# two-rank run is made.  Phase 44: rwkv6-1.6b, bf16, 4 layers (at 2 its
+# neighbour's-shard control fell inside the limits: PERF.md), B 8 x
+# 2048, no remat (the gathered weights are kept as shards for the backward
+# and gathered again there), the WKV kernels forward and backward on every
+# rank, with the
 # controls.  Each against the one-rank run of the same arguments.  Limits,
 # set before the first reading (PERF.md): phase 39's loss bounds
 # (MESH_F32_TOL, MESH_BF16_TOL) and phase 40's grad-norm bounds
@@ -5048,8 +5122,8 @@ def phase_tp_serve(arch: str, phase: int, runs: list, kv: str):
 FSDP_STEPS = 2
 FSDP_RUNS = {
     "phi4 f32": ("phi4-mini-3.8b", dict(batch=8, seq=512, dtype=torch.float32, n_layers=4)),
-    "phi4 full": ("phi4-mini-3.8b", dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16,
-                                         n_layers=None)),
+    "phi4 bf16": ("phi4-mini-3.8b", dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16,
+                                         n_layers=8)),
     "rwkv6 bf16": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4)),
     "rwkv6 bf16 dp": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4,
                                       dp=2, force_mode="spatial")),
@@ -5235,6 +5309,348 @@ def phase_fsdp(phase: int, runs: list, controls_on: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- recurrent and enc-dec TP
+# Phases 45-47: tensor parallelism of the RWKV-6 time-mix and channel-mix,
+# the RG-LRU block and whisper-small's encoder and cross-attention, on two
+# ranks sharing the card (phase 39's harness: gloo, every collective staged
+# through host memory), SPATIAL forced at (data 1, model 2), 2 steps, full
+# width, each against the one-rank run of the same batch: rwkv6-1.6b (45;
+# f32 cut to 4 layers, bf16 at full depth), recurrentgemma-9b (46; cut to 3
+# and 6 of 38 layers, its RG-LRU blocks on their shards, its local attention
+# whole: one KV head), whisper-small (47; full depth, 12 + 12 layers, f32
+# and bf16).  rwkv6-1.6b and recurrentgemma-9b train through
+# ``launch.train.run``; whisper-small through ``make_train_step`` on the
+# launcher's plan and layout (``encdec_train``: the launcher's synthetic
+# stream carries no encoder frames, in JAX's launcher too).
+#
+# Batches: two ranks on one card hold two copies of everything a rank does
+# not split, and the two-rank plans drop remat (a rank of a real mesh would
+# hold the whole card), so the bf16 runs use the largest batch whose two
+# ranks fit the one card by the f32 readings (PERF.md): rwkv6-1.6b
+# at TP_RWKV_B x 2048 (phase 35's shape is B 8: ~3 GB of activations a
+# layer and rank), recurrentgemma-9b at TP_RG_B x 4096 (phase 33's one-rank
+# run peaked at 63.45 GiB at B 2).
+#
+# Limits, set before the first reading (PERF.md): the losses within
+# MESH_F32_TOL / MESH_BF16_TOL of the one-rank run; the grad norm each step
+# reports within TP_GNORM_F32 / TP_GNORM_BF16 of it, relative, on the first
+# step only for rwkv6-1.6b (its second step is ill-conditioned at init:
+# phase 44's note above FSDP_STEPS), on both for the others; in f32 also
+# the norm of the gradients of the whole leaves the recurrent blocks read
+# per head or channel and of an encoder's norms (``tp_watched``), within
+# TP_GNORM_F32 at the first step.
+# The controls (1 step, f32): each recurrent arch's whole leaves read as
+# this rank's block with their gradients left as that block, and read from
+# the neighbour's block; whisper's encoder memory without its f.  Each must
+# fall outside one of those limits.
+TP_RWKV_B, TP_RG_B = 2, 1
+TP_ARCH_RUNS = {
+    "rwkv6 f32": (RWKV_ARCH, dict(batch=8, seq=512, dtype=torch.float32, n_layers=4)),
+    "rwkv6 bf16": (RWKV_ARCH, dict(batch=TP_RWKV_B, seq=TRAIN_S, dtype=torch.bfloat16,
+                                   n_layers=None)),
+    "rwkv6 bf16 dp": (RWKV_ARCH, dict(batch=TP_RWKV_B, seq=TRAIN_S, dtype=torch.bfloat16,
+                                      n_layers=None, dp=2)),
+    "recurrentgemma f32": (RG_ARCH, dict(batch=8, seq=512, dtype=torch.float32, n_layers=3)),
+    "recurrentgemma bf16": (RG_ARCH, dict(batch=TP_RG_B, seq=4096, dtype=torch.bfloat16,
+                                          n_layers=6)),
+    "whisper f32": (WHISPER_ARCH, dict(batch=8, seq=448, dtype=torch.float32, n_layers=None)),
+    "whisper bf16": (WHISPER_ARCH, dict(batch=8, seq=448, dtype=torch.bfloat16,
+                                        n_layers=None)),
+}
+TP_ARCH_PHASES = {45: ("rwkv6 f32", "rwkv6 bf16"),
+                  46: ("recurrentgemma f32", "recurrentgemma bf16"),
+                  47: ("whisper f32", "whisper bf16")}
+# a replicated reference (``--dp 2``, the f32 all-reduce, nothing sharded),
+# held to the one-rank run of its tensor-parallel run: whether an unsharded
+# exchange moves rwkv6-1.6b's watched leaves' gradients in bf16 as far as
+# tensor parallelism does (PERF.md).  ``scripts/chip_phases.py 45dp``
+# runs it beside phase 45; the chip script's own run leaves it out (time).
+TP_ARCH_REFERENCE = {"rwkv6 bf16 dp": "rwkv6 bf16"}
+TP_ARCH_CONTROLS = {"rwkv6 f32": ("slice_grad_chunk", "neighbour_slice"),
+                    "recurrentgemma f32": ("slice_grad_chunk", "neighbour_slice"),
+                    "whisper f32": ("skip_memory_f",)}
+# the blocks each arch runs on its shards / whole (Shardings.tp_blocks)
+TP_ARCH_BLOCKS = {RWKV_ARCH: (["RWKV-6 time-mix"], []),
+                  RG_ARCH: (["RG-LRU"], ["local attention"]),
+                  WHISPER_ARCH: (["attention", "encoder attention", "cross-attention"], [])}
+
+
+def encdec_train(arch, *, steps, batch, seq, dtype, n_layers=None, force_mode=None, lr=3e-4,
+                 seed=0):
+    """``launch.train.run``'s recipe for an encoder-decoder, whose
+    synthetic stream carries no encoder frames: the launcher's mesh, plan
+    and layout over the world's ranks (``launch_plan``,
+    ``Shardings.manual_param_shardings``), ``make_train_step`` with the
+    state donated, each step's tokens from ``synthetic_batch`` and its
+    ``enc_seq`` frames drawn on the card from (seed, step); the launcher's
+    log lines.  Returns (losses, this rank's state)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.dist.sharding import Shardings, place
+    from repro_torch.launch.mesh import Mesh, local_device
+    from repro_torch.launch.train import launch_plan
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+
+    dev = local_device("cuda")
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    shape, plan = launch_plan(cfg, world, batch=batch, seq=seq, force_mode=force_mode)
+    mesh = Mesh(shape)
+    full = init_params(cfg, plan, dtype, generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+    shard = Shardings(mesh, plan, cfg).manual_param_shardings(full)
+    state = init_state(place(full, shard), with_residual=False)
+    del full
+    opt = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
+    step_fn = make_train_step(cfg, plan, opt, device=dev, mesh=mesh, grad_shardings=shard,
+                              donate=True)
+    losses = []
+    for i in range(steps):
+        b = synthetic_batch(DataConfig(cfg.vocab_size, seq, batch, seed=seed), i, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
+        b["enc_embeds"] = torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=g,
+                                      device=dev).to(dtype)
+        t0 = time.time()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        print(f"step {i:5d} loss {losses[-1]:.4f} gnorm {float(metrics['grad_norm']):.3f} "
+              f"({(time.time() - t0) * 1e3:.0f} ms)")
+    return losses, state
+
+
+def tp_arch_plan(name: str):
+    """(the config, the two-rank plan) of a phase-45-47 run: the launcher's
+    ``launch_plan`` with SPATIAL forced; tensor-parallel, executed, with
+    TP_ARCH_BLOCKS' blocks on their shards."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Shardings, tensor_parallel, unexecuted_layout
+    from repro_torch.launch.train import launch_plan
+
+    arch, a = TP_ARCH_RUNS[name]
+    cfg = get_config(arch)
+    if a["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=a["n_layers"])
+    shape, plan = launch_plan(cfg, 2, batch=a["batch"], seq=a["seq"], force_mode="spatial",
+                              dp=a.get("dp", 1))
+    if name in TP_ARCH_REFERENCE:  # replicated data parallelism
+        check(shape == {"data": 2, "model": 1} and not tensor_parallel(plan)
+              and not plan.dp_over_model, f"{name}: mesh {shape}, a sharded plan")
+        return cfg, plan
+    blocks = Shardings(SimpleNamespace(shape=shape, coords={k: 0 for k in shape}), plan,
+                       cfg).tp_blocks()
+    check(shape == TP_MESH and tensor_parallel(plan) and unexecuted_layout(plan, cfg) is None
+          and blocks == TP_ARCH_BLOCKS[arch],
+          f"{name}: mesh {shape}, plan tensor-parallel {tensor_parallel(plan)}, blocks {blocks}")
+    return cfg, plan
+
+
+def tp_arch_run(name: str, steps: int, control=None) -> dict:
+    """One run of TP_ARCH_RUNS in this process, SPATIAL forced (on one rank
+    the flag only names the stage modes of an axis of extent 1), optionally
+    with a planted control: losses, grad norms (global and ``tp_watched``'s),
+    step ms, the collectives by kind, launches, peak memory."""
+    import contextlib
+    import io
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import local_device
+    from repro_torch.launch.train import run as train_run
+
+    arch, a = TP_ARCH_RUNS[name]
+    dev = local_device("cuda")
+    undo = tp_controls_plant(control)
+    watched, leaves = [], []
+    gnorms, undo_norms = tp_grad_norms(watched, leaves)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    C.reset_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    kw = dict(steps=steps, lr=3e-4, force_mode="spatial",
+              **{k: v for k, v in a.items() if v is not None})
+    try:
+        with contextlib.redirect_stdout(out):
+            if arch == WHISPER_ARCH:
+                losses, state = encdec_train(arch, **kw)
+            else:
+                losses, state = train_run(arch, log_every=1, device="cuda", **kw)
+    finally:
+        undo()
+        undo_norms()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    res = {"losses": losses, "gnorms": gnorms, "watched_gnorms": watched,
+           "watched_leaves": leaves[0] if leaves else {},
+           "step_ms": [r[2] for r in parse_step_log(out.getvalue())], "log": out.getvalue(),
+           "counts": read_counts(), "calls": dict(C.STATS["calls"]),
+           "bytes": dict(C.STATS["bytes"]), "seconds": dict(C.STATS["seconds"]),
+           "coll_s": float(sum(C.STATS["seconds"].values())), "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_arch_job(job: dict, rank: int) -> dict:
+    """A phase-45-47 rank's job (``mesh_rank`` kind ``"tp_arch"``)."""
+    return tp_arch_run(job["run"], job.get("steps", TP_STEPS), job.get("control"))
+
+
+def rel_dev(got: list, want: list) -> float:
+    return max(abs(a - b) / b for a, b in zip(got, want))
+
+
+def phase_tp_archs(phases, references=()) -> dict:
+    """Phases 45-47 (TP_ARCH_PHASES): the kernels at the ranks' shapes
+    against their plain versions (``tp_arch_kernels``), each run of
+    ``phases`` on one rank, then all of them on two ranks sharing the card
+    (one spawn), with TP_ARCH_CONTROLS and the runs of ``references``
+    (TP_ARCH_REFERENCE); the limits above.  Each rank's launches must be the
+    two-rank plan's (``training_launches``) on both ranks; beside them the
+    one-rank run's.  Returns (the numbers of the unplanted runs, the
+    kernels' largest errors)."""
+    kernel_errs = tp_arch_kernels()
+    one, jobs = {}, []
+    for phase in phases:
+        runs = TP_ARCH_PHASES[phase] + tuple(r for r in references
+                                             if TP_ARCH_REFERENCE[r] in TP_ARCH_PHASES[phase])
+        log(f"phase {phase}: tensor parallelism of {TP_ARCH_RUNS[runs[0]][0]} on two ranks of "
+            "the card (gloo), SPATIAL forced: " + "; ".join(
+                f"{r}: {TP_ARCH_RUNS[r][1]['n_layers'] or 'all'} layers, B "
+                f"{TP_ARCH_RUNS[r][1]['batch']} x {TP_ARCH_RUNS[r][1]['seq']}" for r in runs)
+            + f", {TP_STEPS} steps; one-rank runs")
+        for r in runs:
+            jobs.append({"kind": "tp_arch", "run": r, "phase": phase})
+            if r in TP_ARCH_REFERENCE:
+                continue  # held to the one-rank run of its tensor-parallel run
+            one[r] = tp_arch_run(r, TP_STEPS)
+            log(f"  one rank, {r}: losses {one[r]['losses']}, grad norms {one[r]['gnorms']} "
+                f"(watched leaves: {one[r]['watched_gnorms']}), step ms {one[r]['step_ms']}, "
+                f"peak {one[r]['peak_gib']:.2f} GiB, launches {one[r]['counts']}")
+        jobs += [{"kind": "tp_arch", "run": r, "phase": phase, "control": c, "steps": 1}
+                 for r in runs for c in TP_ARCH_CONTROLS.get(r, ())]
+    t0 = time.time()
+    res = spawn_ranks(jobs, "phase" + "-".join(map(str, phases)))
+    log(f"phases {', '.join(map(str, phases))}: two ranks ran {len(jobs)} jobs in "
+        f"{time.time() - t0:.1f} s")
+    out = {}
+    for i, job in enumerate(jobs):
+        run, control, phase = job["run"], job.get("control"), job["phase"]
+        arch, a = TP_ARCH_RUNS[run]
+        r0, r1 = res[0][i], res[1][i]
+        ref = one[TP_ARCH_REFERENCE.get(run, run)]
+        steps = job.get("steps", TP_STEPS)
+        f32 = a["dtype"] == torch.float32
+        tol, gtol = (MESH_F32_TOL, TP_GNORM_F32) if f32 else (MESH_BF16_TOL, TP_GNORM_BF16)
+        dl = max(abs(x - y) for x, y in zip(r0["losses"], ref["losses"]))
+        held = 1 if arch == RWKV_ARCH else steps
+        dg = rel_dev(r0["gnorms"][:held], ref["gnorms"])
+        ds = rel_dev(r0["watched_gnorms"][:1], ref["watched_gnorms"])
+        cfg, plan = tp_arch_plan(run)
+        want = training_launches(cfg, plan, steps)
+        gb = {k: v / 1e9 / steps for k, v in r0["bytes"].items()}
+        secs = {k: v / steps for k, v in r0["seconds"].items()}
+        tag = f"phase {phase} {run}" + (f" control {control}" if control else "")
+        moved = sorted(r0["watched_leaves"], key=lambda k: -abs(
+            r0["watched_leaves"][k] - ref["watched_leaves"].get(k, 0.0)))[:3]
+        log(f"  {tag}: losses {r0['losses']} (rank 1 {r1['losses']}) vs one rank "
+            f"{ref['losses'][:steps]}: |d| {dl:.3g} (tol {tol:g}); grad norms {r0['gnorms']} vs "
+            f"{ref['gnorms'][:steps]}: rel {dg:.3g} over {held} step(s) (tol {gtol:g}); "
+            f"watched leaves {r0['watched_gnorms']} vs {ref['watched_gnorms'][:steps]} (moved "
+            "most at the first step: " + ", ".join(
+                f"{k} {r0['watched_leaves'][k]:.4g} vs {ref['watched_leaves'].get(k, 0.0):.4g}"
+                for k in moved) + "): rel "
+            f"{ds:.3g} at the first step" + (f" (tol {gtol:g})" if f32 else " (logged)")
+            + f"; step ms {r0['step_ms']} (one rank {ref['step_ms']}); collectives a step a "
+            f"rank: calls {json.dumps(r0['calls'])}, GB {json.dumps(gb)}, s {json.dumps(secs)} "
+            f"({r0['coll_s']:.1f} / {r1['coll_s']:.1f} s of {r0['wall_s']:.1f} s); peak "
+            f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB, summed "
+            f"{r0['peak_gib'] + r1['peak_gib']:.2f} (one rank {ref['peak_gib']:.2f}); launches "
+            f"{r0['counts']} / {r1['counts']} (one rank {ref['counts']})")
+        watched_out = f32 and ds > gtol
+        if control:
+            check(dl > tol or dg > gtol or watched_out, f"{tag}: the planted control passed "
+                  f"(loss {dl:.3g}, grad norm {dg:.3g}, watched leaves {ds:.3g})")
+            continue
+        check(r0["losses"] == r1["losses"], f"{tag}: the ranks' losses differ")
+        check(dl <= tol and dg <= gtol and not watched_out, f"{tag}: loss {dl:.3g} / grad norm "
+              f"{dg:.3g} / watched leaves {ds:.3g} from the one-rank run")
+        check(r0["counts"] == r1["counts"] == want,
+              f"{tag}: launches {r0['counts']} / {r1['counts']}, expected {want}")
+        calls = r0["calls"]
+        if run in TP_ARCH_REFERENCE:
+            check(calls.get("all_reduce", 0) > 0 and "tp_row_sum" not in calls,
+                  f"{tag}: collectives {calls}")
+        else:
+            check(calls.get("tp_row_sum", 0) > 0 and calls.get("tp_grad_sum", 0) > 0
+                  and (calls.get("tp_slice", 0) > 0) == (arch != WHISPER_ARCH)
+                  and (calls.get("tp_gather", 0) > 0) == (arch == RWKV_ARCH),
+                  f"{tag}: collectives {calls}")
+        out[run] = {"losses": r0["losses"], "one_rank_losses": ref["losses"], "loss_dev": dl,
+                    "gnorm_rel_dev": dg, "watched_gnorm_rel_dev": ds, "step_ms": r0["step_ms"],
+                    "one_rank_step_ms": ref["step_ms"], "collective_calls": calls,
+                    "collective_gb_step": gb, "collective_s_step": secs,
+                    "collective_s": [r0["coll_s"], r1["coll_s"]], "wall_s": r0["wall_s"],
+                    "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
+                    "one_rank_peak_gib": ref["peak_gib"], "launches": r0["counts"],
+                    "one_rank_launches": ref["counts"]}
+        for line in r0["log"].splitlines():
+            if not line.startswith("step"):
+                log(f"  | {line}")
+    return out, kernel_errs
+
+
+def tp_arch_kernels() -> dict:
+    """The kernels at the shapes a rank gives them in phases 45-47, against
+    their plain versions (phase 7's, 8's, 29's and 34's checks): the WKV
+    forward and backward on 16 of rwkv6-1.6b's 32 heads at B TP_RWKV_B x
+    2048, bf16 r/k/v (the tensor-core entries) with ``u`` the second rank's
+    block copied out of a whole (32, 64) ``u`` as ``tp_slice`` copies it,
+    and flash forward and backward on 6 of whisper-small's 12 heads at B 8:
+    the encoder's 1,500 frames bidirectional, the decoder's 448 tokens
+    causal and its cross-attention (448 against 1,500), bf16 and f32.
+    Returns the largest errors by kernel."""
+    from repro_torch.configs import get_config
+
+    rw, wh = get_config(RWKV_ARCH), get_config(WHISPER_ARCH)
+    H, D = rw.rnn_heads // 2, rw.d_head
+    log(f"phase 45 (a): the kernels at the ranks' shapes against their plain versions: WKV "
+        f"forward and backward on {H} of {rw.rnn_heads} heads (B {TP_RWKV_B} x {TRAIN_S}, bf16, "
+        f"the rank's block of u), flash forward and backward on {wh.n_heads // 2} of "
+        f"{wh.n_heads} heads (whisper-small's encoder, decoder and cross shapes)")
+    r, k, v, w, u = wkv_inputs(TP_RWKV_B, TRAIN_S, 2 * H, D, dtype=torch.bfloat16, seed=45)
+    args = tuple(t[:, :, H:].contiguous() for t in (r, k, v, w)) + (u[H:].contiguous(),)
+    del r, k, v, w
+    errs = {"wkv": wkv_check(f"WKV rank 1 of 2, {tuple(args[0].shape)}", args, WKV_TOL)[2]}
+    errs["wkv_bwd"] = wkv_bwd_check(f"WKV backward rank 1 of 2, {tuple(args[0].shape)}", args,
+                                    WKV_TOL, seed=45)[3]
+    del args
+    Hl, Dh, F = wh.n_heads // 2, wh.d_head, wh.enc_seq
+    errs["flash"] = errs["flash_bwd"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, S, Sk, causal in (("encoder", F, F, False), ("decoder", 448, 448, True),
+                                    ("cross", 448, F, False)):
+            q, k, v = flash_inputs(8, S, Hl, Hl, Dh, dtype, seed=47, Sk=Sk)
+            tag = f"flash {name} {str(dtype).removeprefix('torch.')} (8, {S}, {Hl}, {Dh}) x {Sk}"
+            errs["flash"] = max(errs["flash"], flash_check(tag, q, k, v, causal=causal)[2])
+            errs["flash_bwd"] = max(errs["flash_bwd"], flash_bwd_check(
+                f"{tag} backward", q, k, v, 47, causal=causal, window=0, prefix=0)[2])
+            del q, k, v
+    torch.cuda.empty_cache()
+    return errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible; this script needs one GPU")
@@ -5354,7 +5770,7 @@ def main() -> None:
         f"{json.dumps(ckpt_run)}; phases 34-37 took {time.time() - t1:.1f} s")
     t2 = time.time()
     nccl_run = phase_mesh_nccl()
-    mesh_run = phase_mesh_ranks(nccl_run["losses"])
+    mesh_run = phase_mesh_ranks()
     log(f"  mesh paths: {json.dumps(mesh_run)}; phases 38-39 took {time.time() - t2:.1f} s")
     t3 = time.time()
     tp_run = phase_tp_train()
@@ -5365,17 +5781,32 @@ def main() -> None:
     ep_served = phase_tp_serve(MOE_ARCH, 42, [("full", True, None)], "int8")
     log(f"  tensor parallelism: {json.dumps(tp_run)}; served: {json.dumps(tp_served)}; "
         f"experts split: {json.dumps(ep_served)}; phases 40-42 took {time.time() - t3:.1f} s")
-    tp_launches = {"phase 40 (a rank, 2 steps)": tp_run["full"]["launches"],
-                   "phase 41 (a rank)": tp_served["full kernel"]["counts"],
-                   "phase 42 (a rank)": ep_served["full kernel"]["counts"]}
+    tp_launches = {f"phase 40, {TP_BF16_LAYERS} layers (a rank, 2 steps)":
+                       tp_run["full"]["launches"],
+                   f"phase 41, {TP_BF16_LAYERS} layers (a rank)":
+                       tp_served["full kernel"]["counts"],
+                   f"phase 42, {TP_MOE_LAYERS} layers (a rank)":
+                       ep_served["full kernel"]["counts"]}
     t4 = time.time()
-    fsdp_phi = phase_fsdp(43, ["phi4 f32", "phi4 full"], ["phi4 f32"])
+    fsdp_phi = phase_fsdp(43, ["phi4 f32", "phi4 bf16"], ["phi4 f32"])
     fsdp_rwkv = phase_fsdp(44, ["rwkv6 bf16 dp", "rwkv6 bf16"], ["rwkv6 bf16"])
     log(f"  FSDP: {json.dumps({**fsdp_phi, **fsdp_rwkv})}; phases 43-44 took "
         f"{time.time() - t4:.1f} s")
-    fsdp_launches = {"phase 39 (a) qwen3-1.7b (a rank, 2 steps)": mesh_run["dp"]["launches"],
-                     "phase 43 phi4-mini-3.8b (a rank, 2 steps)":
-                         fsdp_phi["phi4 full"]["launches"],
+    t5 = time.time()
+    tp_archs, tp_errs = phase_tp_archs(list(TP_ARCH_PHASES))
+    wkv_err, wkv_bwd_err = max(wkv_err, tp_errs["wkv"]), max(wkv_bwd_err, tp_errs["wkv_bwd"])
+    flash_err, bwd_err = max(flash_err, tp_errs["flash"]), max(bwd_err, tp_errs["flash_bwd"])
+    log(f"  TP of the recurrent and encoder-decoder layers: {json.dumps(tp_archs)}; phases 45-47 "
+        f"took {time.time() - t5:.1f} s")
+    for run in ("rwkv6 bf16", "recurrentgemma bf16", "whisper bf16"):
+        phase = next(p for p, runs in TP_ARCH_PHASES.items() if run in runs)
+        arch, a = TP_ARCH_RUNS[run]
+        tp_launches[f"phase {phase} {arch}, {a['n_layers'] or 'all'} layers, B {a['batch']} (a "
+                    f"rank, 2 steps)"] = tp_archs[run]["launches"]
+    fsdp_launches = {"phase 39 (a) qwen3-1.7b, 8 layers (a rank, 2 steps)":
+                         mesh_run["dp"]["launches"],
+                     "phase 43 phi4-mini-3.8b, 8 layers (a rank, 2 steps)":
+                         fsdp_phi["phi4 bf16"]["launches"],
                      "phase 44 rwkv6-1.6b, 4 layers (a rank, 2 steps)":
                          fsdp_rwkv["rwkv6 bf16"]["launches"]}
 
@@ -5400,6 +5831,7 @@ def main() -> None:
         },
         {
             "name": "wkv",
+            "tp_launches_per_rank": per_rank("wkv"),
             "fsdp_launches_per_rank": fsdp_per_rank("wkv"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
@@ -5495,6 +5927,7 @@ def main() -> None:
         },
         {
             "name": "wkv_bwd",
+            "tp_launches_per_rank": per_rank("wkv_bwd"),
             "fsdp_launches_per_rank": fsdp_per_rank("wkv_bwd"),
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv_bwd.cu",

@@ -3,8 +3,12 @@ and WKV kernels (forward and backward) are built first, then each phase
 named on the command line, in order:
 
     39      phase 39 (a): ``--dp 2`` on two ranks (FSDP) and its control
-    43      phase 43: phi4-mini-3.8b FSDP, f32 at 4 layers and bf16 at full depth
+    43      phase 43: phi4-mini-3.8b FSDP, f32 at 4 layers and bf16 at 8
     44      phase 44: rwkv6-1.6b FSDP beside replicated data parallelism
+    45      phase 45: rwkv6-1.6b tensor parallelism, f32 at 4 layers and bf16 at full depth
+    45dp    phase 45 with replicated data parallelism of the bf16 run beside it
+    46      phase 46: recurrentgemma-9b tensor parallelism at 3 and 6 layers
+    47      phase 47: whisper-small tensor parallelism at full depth, f32 and bf16
     gloo    scripts/gloo_transport.py (the two-rank transport's parts)
 
     python3 scripts/chip_phases.py 39 43 44
@@ -40,6 +44,9 @@ def main(which: list) -> None:
                 wk.backward_library):
         lib()
     cs.log(f"built in {time.time() - t0:.1f} s")
+    tp = [int(n[:2]) for n in which if n in ("45", "45dp", "46", "47")]
+    references = ["rwkv6 bf16 dp"] if "45dp" in which else []
+    which = [n for n in which if n not in ("45", "45dp", "46", "47")] + (["tp"] if tp else [])
     for name in which:
         t = time.time()
         if name == "gloo":
@@ -51,9 +58,11 @@ def main(which: list) -> None:
             cs.MESH_CONTROLS = {"skip_grad_sum": cs.MESH_CONTROLS["skip_grad_sum"]}
             r = cs.phase_mesh_ranks()
         elif name == "43":
-            r = cs.phase_fsdp(43, ["phi4 f32", "phi4 full"], ["phi4 f32"])
+            r = cs.phase_fsdp(43, ["phi4 f32", "phi4 bf16"], ["phi4 f32"])
         elif name == "44":
             r = cs.phase_fsdp(44, ["rwkv6 bf16 dp", "rwkv6 bf16"], ["rwkv6 bf16"])
+        elif name == "tp":  # phases 45-47 share one spawn of the two ranks
+            r = cs.phase_tp_archs(tp, references)[0]
         else:
             cs.fail(f"no phase {name}")
         cs.log(f"phase {name}: {json.dumps(r)}; took {time.time() - t:.1f} s")

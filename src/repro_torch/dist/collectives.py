@@ -33,6 +33,12 @@ view a ``shard_map`` body has, and each differentiable one is a
     partial gradients), ``row_sum`` sums a row-parallel block's partial
     outputs (its backward is the identity).  Both are no-ops on a model
     axis of extent 1.
+``tp_gather`` / ``tp_slice``
+    The rest of tensor parallelism's traffic in the recurrent blocks:
+    ``tp_gather`` makes a column-parallel output whole where a replicated
+    product reads it (its backward keeps this rank's block), ``tp_slice``
+    takes this rank's block of a whole leaf read per head or per channel
+    (its backward gathers the blocks' gradients).
 
 Transport: over NCCL the tensors cross as they are.  Over gloo (ranks that
 share a card, or the CPU) a CUDA tensor is copied to pinned host memory,
@@ -48,8 +54,8 @@ every all-reduce by operation and word type (``reduce_ops``, e.g.
 under ``"fsdp_gather"``, ``"fsdp_regather"`` (a saved weight gathered
 again in the backward) and ``"fsdp_scatter"``, the vocab-parallel
 cross-entropy's under ``"vocab_max"`` and ``"vocab_sum"`` and the serving
-logits' under ``"vocab_gather"``, for the
-tests' call counts, the chip script's check
+logits' under ``"vocab_gather"``, ``tp_gather`` and ``tp_slice``'s
+under their names, for the tests' call counts, the chip script's check
 that the int8 wire ran and its collective time.  A staged collective
 first synchronizes the card (its host copy would wait for the queued
 kernels anyway), so its seconds are the copies and the transport, not the
@@ -339,14 +345,14 @@ class _SeqGather(torch.autograd.Function):
     rank's chunk."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
+    def forward(ctx, x, mesh, axis, dim, kind="all_gather"):
         ctx.args = (mesh, axis, dim, x.shape[dim])
-        return all_gather(x, axis, mesh, dim)
+        return all_gather(x, axis, mesh, dim, kind=kind)
 
     @staticmethod
     def backward(ctx, dy):
         mesh, axis, dim, c = ctx.args
-        return dy.narrow(dim, mesh.index(axis) * c, c).contiguous(), None, None, None
+        return dy.narrow(dim, mesh.index(axis) * c, c).contiguous(), None, None, None, None
 
 
 class _SeqChunk(torch.autograd.Function):
@@ -354,16 +360,16 @@ class _SeqChunk(torch.autograd.Function):
     rank's chunk gradient, so the replicated producer gets the whole."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
+    def forward(ctx, x, mesh, axis, dim, kind="all_gather"):
         n = mesh.extent(axis)
         c = x.shape[dim] // n
-        ctx.args = (mesh, axis, dim)
+        ctx.args = (mesh, axis, dim, kind)
         return x.narrow(dim, mesh.index(axis) * c, c).contiguous()
 
     @staticmethod
     def backward(ctx, dy):
-        mesh, axis, dim = ctx.args
-        return all_gather(dy.contiguous(), axis, mesh, dim), None, None, None
+        mesh, axis, dim, kind = ctx.args
+        return all_gather(dy.contiguous(), axis, mesh, dim, kind=kind), None, None, None, None
 
 
 class _Replicated(torch.autograd.Function):
@@ -572,6 +578,23 @@ def seq_gather(x, axis: str, dim: int, *, mesh):
 def seq_chunk(x, axis: str, dim: int, *, mesh):
     """This rank's chunk of ``dim`` of a replicated ``x`` (differentiable)."""
     return _manual(_SeqChunk, x, mesh, axis, dim)
+
+
+def tp_gather(x, dim: int, axis: str = "model", *, mesh):
+    """A column-parallel block's output columns, this rank's ``dim`` block,
+    gathered whole where a replicated product reads them (RWKV-6's
+    channel-mix gate; ``STATS`` kind ``"tp_gather"``).  The backward keeps
+    this rank's block of the (replicated) gradient."""
+    return _manual(_SeqGather, x, mesh, axis, dim % x.ndim, "tp_gather")
+
+
+def tp_slice(x, dim: int, axis: str = "model", *, mesh):
+    """This rank's block of ``dim`` of a whole (replicated) leaf that a
+    sharded block reads in part: the per-head or per-channel leaves of
+    RWKV-6's time-mix and of the RG-LRU.  The backward gathers every rank's
+    block gradient (``STATS`` kind ``"tp_slice"``), so each rank's gradient
+    of the leaf is the whole one."""
+    return _manual(_SeqChunk, x, mesh, axis, dim % x.ndim, "tp_slice")
 
 
 def replicated(x, axis, *, mesh):

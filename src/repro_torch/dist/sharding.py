@@ -30,18 +30,25 @@ The port's manual paths execute ``param_spec``'s layout
   (``dist.collectives.fsdp_gather``, ``gather_spec``) and its gradient
   reduce-scattered in the backward.
 
-Under tensor parallelism a layer's attention runs on this rank's heads only
-where the query and KV heads both divide over ``model``; elsewhere it runs
-replicated (JAX's ``_fit`` cuts mid-head there and GSPMD repairs it).  The
-fused ``wqkv`` is cut head-aligned (``QKVSharding``): each rank holds its
-own heads' q, k and v columns, not GSPMD's contiguous column block; a data
-split of its rows composes with that cut.  Megatron-SP's tail layers and
-the pipeline's data axes run replicated.  ``unexecuted_layout`` names the
-plans whose layout needs GSPMD (tensor parallelism of recurrent or
-encoder-decoder layers, ZeRO weights under the pipeline): those are ROADMAP
-queue 1, item 7b.  ``constrain`` has nothing to do here: there is no
-compiler to hint, each activation already lives where the manual path put
-it.
+Under tensor parallelism each block of a layer, in the decoder and in an
+encoder-decoder's encoder, runs on this rank's shards where its heads
+divide over ``model`` and whole elsewhere (JAX's ``_fit`` cuts mid-head
+there and GSPMD repairs it): attention and cross-attention where the query
+and KV heads both divide (``attention_sharded``), an RWKV-6 time-mix or
+RG-LRU block where its ``rnn_heads`` do (``recurrent_sharded``); the leaf
+names under ``attn`` say which block it is (``block_sharded``).  The
+whole leaves such a block reads per head or per channel (RWKV-6's ``u``,
+``w0``, the group norm, ``lora_b``'s columns; the RG-LRU's conv, gates and
+``lam``) stay whole on every rank, which reads its block of them
+(``dist.collectives.tp_slice``).  The fused ``wqkv`` is cut head-aligned
+(``QKVSharding``): each rank holds its own heads' q, k and v columns, not
+GSPMD's contiguous column block; a data split of its rows composes with
+that cut.  Megatron-SP's tail layers and the pipeline's data axes run
+replicated.  ``unexecuted_layout`` names the plans whose layout needs
+GSPMD (ZeRO weights under the pipeline or under Megatron-SP): those are
+ROADMAP queue 1, item 7b.  ``constrain`` has nothing to do here: there is
+no compiler to hint, each activation already lives where the manual path
+put it.
 """
 from __future__ import annotations
 
@@ -69,6 +76,11 @@ COLUMN_PARALLEL = frozenset(
 ROW_PARALLEL = frozenset({"wo", "w2", "w_out", "w_o"})
 
 ACT_NAMES = ("act_hidden", "act_heads", "act_kv", "act_heads_flat")
+
+# The sharded leaves of the recurrent blocks JAX stores under ``attn`` (the
+# RG-LRU's and RWKV-6's time-mix); attention's are ``wqkv`` / ``wq`` / ``wk``
+# / ``wv`` / ``wo``.
+RECURRENT_SHARDED = frozenset({"w_x", "w_g", "w_out", "w_r", "w_k", "w_v", "w_o"})
 
 
 class PartitionSpec(tuple):
@@ -217,10 +229,12 @@ def tensor_parallel(plan: ExecutionPlan) -> bool:
 def unexecuted_layout(plan: ExecutionPlan, cfg) -> Optional[str]:
     """Why no manual path of the port executes ``plan``'s parameter layout
     for ``cfg``, or None.  The port runs the Megatron-SP stack's model
-    shards, the pipeline's stage slices, tensor parallelism without SP for
-    attention-only, decoder or encoder layers (every arch SP reaches, MoE
-    included) and FSDP over the data-parallel axes (ZeRO, ``dp_over_model``)
-    outside the pipeline.  GSPMD-only layouts are refused."""
+    shards, the pipeline's stage slices, tensor parallelism without SP of
+    every layer kind (attention, RWKV-6, RG-LRU, an encoder-decoder's
+    encoder and cross-attention; MoE included) and FSDP over the
+    data-parallel axes (ZeRO, ``dp_over_model``) outside the pipeline.
+    ZeRO under the pipeline or under Megatron-SP needs GSPMD and is
+    refused."""
     zero = plan.zero_weights and plan.data_axis > 1
     if zero and plan.pod_role == "pipeline" and plan.pod_axis > 1:
         return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under the GPipe "
@@ -228,18 +242,6 @@ def unexecuted_layout(plan: ExecutionPlan, cfg) -> Optional[str]:
     if zero and plan.seq_parallel_acts:
         return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under Megatron-SP "
                 f"need GSPMD ({LAYOUT_ITEM})")
-    if tensor_parallel(plan):
-        spatial = [s for s in ("mha", "ffn") if plan.mode_for(s) == SPATIAL]
-        what = "/".join(spatial) + " SPATIAL" if spatial else f"MoE {plan.moe_mode}"
-        recurrent = sorted({k for k in cfg.layer_pattern if k not in ("attn", "swa", "local")})
-        if recurrent:
-            return (f"tensor parallelism without sequence parallelism (model axis "
-                    f"{plan.model_axis}, {what}) of the recurrent layers ({', '.join(recurrent)}) "
-                    f"of {cfg.name} needs GSPMD ({LAYOUT_ITEM})")
-        if cfg.enc_dec:
-            return (f"tensor parallelism without sequence parallelism (model axis "
-                    f"{plan.model_axis}, {what}) of the encoder-decoder {cfg.name} needs GSPMD "
-                    f"({LAYOUT_ITEM})")
     return None
 
 
@@ -385,6 +387,40 @@ class Shardings:
         return (tensor_parallel(self.plan) and self.plan.mode_for("mha") == SPATIAL
                 and self.cfg.n_heads % n == 0 and self.cfg.n_kv_heads % n == 0)
 
+    def recurrent_sharded(self) -> bool:
+        """Whether tensor parallelism runs the RWKV-6 time-mix and the RG-LRU
+        block on this rank's shards: the MHA stage (whose leaves they are in
+        JAX's tree) SPATIAL and ``rnn_heads`` dividing over ``model``
+        (otherwise they run whole)."""
+        n = self._axis("model")
+        return (tensor_parallel(self.plan) and self.plan.mode_for("mha") == SPATIAL
+                and self.cfg.rnn_heads > 0 and self.cfg.rnn_heads % n == 0)
+
+    def block_sharded(self, names: Sequence[str]) -> bool:
+        """Whether the block holding the leaf at ``names`` (its key path)
+        runs on this rank's shards under tensor parallelism: a recurrent
+        block's leaves by ``recurrent_sharded``, attention's and
+        cross-attention's by ``attention_sharded``, the FFN's always."""
+        if "attn" not in names and "cross" not in names:
+            return True
+        if "attn" in names and names[-1] in RECURRENT_SHARDED:
+            return self.recurrent_sharded()
+        return self.attention_sharded()
+
+    def tp_blocks(self) -> tuple:
+        """(the blocks that run on this rank's shards, those that run whole)
+        under tensor parallelism, by name, for the launcher's log."""
+        kinds = {"rwkv6": ("RWKV-6 time-mix", self.recurrent_sharded()),
+                 "rglru": ("RG-LRU", self.recurrent_sharded())}
+        names = {"attn": "attention", "swa": "sliding-window attention",
+                 "local": "local attention"}
+        blocks = [kinds.get(k, (names.get(k, k), self.attention_sharded()))
+                  for k in dict.fromkeys(self.cfg.layer_pattern)]
+        if self.cfg.enc_dec:
+            blocks += [("encoder attention", self.attention_sharded()),
+                       ("cross-attention", self.attention_sharded())]
+        return ([b for b, on in blocks if on], [b for b, on in blocks if not on])
+
     def model_parallel(self) -> bool:
         """Whether the ``model`` axis splits the compute (tensor parallelism
         without SP, or Megatron-SP) rather than the batch or nothing."""
@@ -402,11 +438,12 @@ class Shardings:
         """The spec the port's manual paths execute: ``param_spec``'s entries
         over the FSDP axes (``fsdp_axes``); in ``blocks.stack``, its model
         shards under Megatron-SP and its pod slice under the pipeline; under
-        tensor parallelism without SP, its model shards in every layer
-        (``blocks``), attention's only where ``attention_sharded``; under
-        both, the embedding's and head's ``vocab`` split.  Every other entry
-        is dropped: the final norm, Megatron-SP's tail layers and attention
-        whose heads do not divide run replicated."""
+        tensor parallelism without SP, its model shards in every layer of
+        the decoder (``blocks``) and of an encoder (``encoder``), each
+        block's only where ``block_sharded``; under both, the embedding's
+        and head's ``vocab`` split.  Every other entry is dropped: the final
+        norm, Megatron-SP's tail layers and blocks whose heads do not divide
+        run replicated."""
         names = _key_names(path)
         spec = self.param_spec(path, leaf)
         keep = set(self.fsdp_axes())
@@ -415,9 +452,9 @@ class Shardings:
                 keep.add("model")
             if self.plan.pod_role == "pipeline" and self._axis("pod") > 1:
                 keep.add("pod")
-        if names[:1] == ["blocks"] and tensor_parallel(self.plan):
-            if "attn" not in names or self.attention_sharded():
-                keep.add("model")
+        if (names[:1] in (["blocks"], ["encoder"]) and tensor_parallel(self.plan)
+                and self.block_sharded(names)):
+            keep.add("model")
         if (names[-1:] in (["embed"], ["lm_head"]) and self.plan.embed_shard == "vocab"
                 and self.model_parallel()):
             keep.add("model")

@@ -17,9 +17,12 @@
         --arch smollm-135m-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
         --pipeline 2 --dp 2
     # Megatron tensor parallelism without SP (column / row shards, MoE's
-    # expert or width split) on the mesh (data 1, model N)
+    # expert or width split; RWKV-6, RG-LRU, an encoder and cross-attention
+    # on their local heads) on the mesh (data 1, model N)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch qwen3-1.7b --steps 4 --batch 4 --seq 2048 --force-mode spatial
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch rwkv6-1.6b --steps 4 --batch 8 --seq 2048 --force-mode spatial
 
 The plan decides, this file executes: ``launch_plan`` maps the flags to
 the host mesh over the world's ranks, and ``derive_plan`` on it sets the stage
@@ -36,9 +39,10 @@ B 4 or 8 on the H100 entry) shards the weights and their AdamW moments
 over the data-parallel axes (FSDP: gathered where a layer reads them), as
 ZeRO's ``zero_weights`` does.  Each rank holds its shards
 (``Shardings.manual_param_shardings``) and prints the layout and its state
-bytes against the replicated figure; a layout no manual path executes
-(tensor parallelism of recurrent or encoder-decoder layers, ZeRO weights
-under the pipeline) is refused with the ROADMAP item that lists it.  Ranks use NCCL when each
+bytes against the replicated figure (and, under tensor parallelism, which
+blocks run on their shards and which whole); a layout no manual path
+executes (ZeRO weights under the pipeline or under Megatron-SP) is refused
+with the ROADMAP item that lists it.  Ranks use NCCL when each
 has a card, gloo when they share one or run on the CPU
 (``launch.mesh.init_distributed``); rank r computes on
 ``cuda:(LOCAL_RANK % device_count)``, and only rank 0 prints.  A per-step
@@ -211,8 +215,10 @@ def run(
         say("seq-parallel requested but infeasible for this (arch, mesh); off")
     sh = Shardings(mesh, plan, cfg)
     if tensor_parallel(plan):
-        say(f"tensor parallelism: model axis {plan.model_axis}, attention on "
-            f"{'local' if sh.attention_sharded() else 'all'} heads, MoE {plan.moe_mode}")
+        on, whole = sh.tp_blocks()
+        say(f"tensor parallelism: model axis {plan.model_axis}, on local heads: "
+            f"{', '.join(on) or 'none'}; whole: {', '.join(whole) or 'none'}; "
+            f"MoE {plan.moe_mode}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     full = init_params(cfg, plan, dtype, generator=gen, device=dev)
     param_sh = sh.manual_param_shardings(full)

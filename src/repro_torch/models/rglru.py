@@ -112,11 +112,28 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor
 
 
 def rglru_block(params: dict, x: torch.Tensor, *, n_heads: int, cache: Optional[dict] = None,
-                collect: bool = False):
+                collect: bool = False, tp=None):
     """The recurrent block. x: (B, S, d).  ``cache`` ({"h", "conv"}) is a
     decode step (S == 1), written in place; ``collect`` (prefill) returns a
     new ``{"h", "conv"}`` of the final states.  Returns (y (B, S, d), entry
-    or None)."""
+    or None).
+
+    ``tp`` (a mesh; no cache): tensor parallelism on this rank's W/n
+    channels and ``n_heads`` gate heads: ``x`` enters through f
+    (``column_input``), ``w_x`` / ``w_g`` are column blocks, the depthwise
+    conv and the scan run per channel as they are, ``w_out`` is a row block
+    whose partial output g (``row_sum``) sums; the whole per-channel and
+    per-head leaves (``conv_w``'s columns, the gates, ``lam``) are read as
+    this rank's block (``tp_slice``, whose backward gathers their
+    gradients)."""
+    if tp is not None:
+        from repro_torch.dist.collectives import column_input, tp_slice
+
+        x = column_input(x, mesh=tp)
+        params = dict(params)
+        for n, dim in (("conv_w", 1), ("w_gate_a", 0), ("b_gate_a", 0), ("w_gate_x", 0),
+                       ("b_gate_x", 0), ("lam", 0)):
+            params[n] = tp_slice(params[n], dim, mesh=tp)
     u = x @ params["w_x"]
     g = F.gelu(x @ params["w_g"], approximate="tanh")
     u, new_conv = causal_conv1d(u, params["conv_w"], None if cache is None else cache["conv"])
@@ -126,6 +143,10 @@ def rglru_block(params: dict, x: torch.Tensor, *, n_heads: int, cache: Optional[
         h1, h_last = rglru_decode_step(params, u[:, 0], cache["h"], n_heads)
         h = h1[:, None]
     y = (h * g) @ params["w_out"]
+    if tp is not None:
+        from repro_torch.dist.collectives import row_sum
+
+        y = row_sum(y, mesh=tp)
     if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(new_conv)

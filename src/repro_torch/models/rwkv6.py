@@ -118,17 +118,43 @@ def _token_shift(x: torch.Tensor, mix: torch.Tensor, x_prev: Optional[torch.Tens
     return x + (shifted - x) * mix.to(x.dtype)
 
 
+def _tp_time_mix(params: dict, x: torch.Tensor, tp):
+    """The time-mix's inputs on this rank's heads (``rwkv6_time_mix``'s
+    ``tp``): ``x`` enters through f (``column_input``) once; the token-shift
+    weights and ``lora_a``, read before the column split, get their partial
+    gradients summed by an f each (a d-vector's or (d, lora)'s all-reduce,
+    not one of each shifted (B, S, d) activation); the whole per-head leaves
+    (``w0``, ``u``, the group norm, ``lora_b``'s columns) are read as this
+    rank's block (``tp_slice``)."""
+    from repro_torch.dist.collectives import column_input, tp_slice
+
+    p = dict(params)
+    for n in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "lora_a"):
+        p[n] = column_input(params[n], mesh=tp)
+    for n, dim in (("w0", 0), ("u", 0), ("gn_scale", 0), ("gn_bias", 0), ("lora_b", 1)):
+        p[n] = tp_slice(params[n], dim, mesh=tp)
+    return p, column_input(x, mesh=tp)
+
+
 def rwkv6_time_mix(params: dict, x: torch.Tensor, *, n_heads: int, d_head: int,
                    cache: Optional[dict] = None, chunk: int = 32, collect: bool = False,
-                   fused: bool = True):
+                   fused: bool = True, tp=None):
     """x: (B, S, d).  cache: {"S": (B,H,D,D), "shift": (B,d)} or None.
     Returns (y (B,S,d), new_cache): with ``cache`` (one decode token) the
     cache is updated in place and returned; with ``collect`` (prefill) a new
     one is built from the pass.  ``fused`` runs the WKV through its kernel
     wrapper (``ops.wkv``); False runs the plain ``wkv_chunked`` on any
-    device, the oracle the kernel path is held to."""
+    device, the oracle the kernel path is held to.
+
+    ``tp`` (a mesh; no cache): tensor parallelism on this rank's ``n_heads``
+    of the whole, the column blocks of ``w_r`` / ``w_k`` / ``w_v`` /
+    ``w_g`` and the row block of ``w_o`` (``_tp_time_mix``); the WKV and the
+    per-head group norm run on those heads, and g (``row_sum``) sums
+    ``w_o``'s partial output."""
     B, S, d = x.shape
     H, D = n_heads, d_head
+    if tp is not None:
+        params, x = _tp_time_mix(params, x, tp)
     shift_state = None if cache is None else cache["shift"]
 
     xr = _token_shift(x, params["mix_r"], shift_state)
@@ -169,17 +195,51 @@ def rwkv6_time_mix(params: dict, x: torch.Tensor, *, n_heads: int, d_head: int,
     o = (o - mu) * torch.rsqrt(var + 1e-5)
     o = o * params["gn_scale"].reshape(H, D) + params["gn_bias"].reshape(H, D)
     o = o.reshape(B, S, H * D).to(x.dtype) * g.to(x.dtype)
-    return o @ params["w_o"], new_cache
+    y = o @ params["w_o"]
+    if tp is not None:
+        from repro_torch.dist.collectives import row_sum
+
+        y = row_sum(y, mesh=tp)
+    return y, new_cache
 
 
 def rwkv6_channel_mix(params: dict, x: torch.Tensor, cache: Optional[torch.Tensor] = None,
-                      collect: bool = False):
+                      collect: bool = False, tp=None, d_ff: int = 0):
     """RWKV channel-mix: relu(xk @ Wk)^2 @ Wv gated by sigmoid(xr @ Wr).
-    ``cache`` is the (B, d) f32 shift row, updated in place."""
-    xk = _token_shift(x, params["mix_k"], cache)
-    xr = _token_shift(x, params["mix_r"], cache)
+    ``cache`` is the (B, d) f32 shift row, updated in place.
+
+    ``tp`` (a mesh; no cache): tensor parallelism.  Where this rank holds
+    column / row blocks of ``w1`` / ``w2`` (narrower than ``d_ff``), g sums
+    their partial product.  Where it holds a column block of the gate
+    ``w_r`` (JAX shards it so), ``sigmoid(xr @ w_r)`` is this rank's d/n
+    columns, gathered whole (``tp_gather``: its backward keeps this rank's
+    block, the gradient after it being replicated) before it multiplies the
+    whole ``h @ w2``.  One f on ``x`` feeds the column-parallel products;
+    the token-shift weight read before each gets its partial gradient
+    summed by its own f."""
+    ffn_split = tp is not None and params["w1"].shape[-1] < d_ff
+    gate_split = tp is not None and params["w_r"].shape[-1] < x.shape[-1]
+    mk, mr, xs = params["mix_k"], params["mix_r"], x
+    if ffn_split or gate_split:
+        from repro_torch.dist.collectives import column_input
+
+        xs = column_input(x, mesh=tp)
+        mk = column_input(mk, mesh=tp) if ffn_split else mk
+        mr = column_input(mr, mesh=tp) if gate_split else mr
+    xk = _token_shift(xs if ffn_split else x, mk, cache)
+    xr = _token_shift(xs if gate_split else x, mr, cache)
     h = torch.square(torch.relu(xk @ params["w1"]))
-    y = torch.sigmoid(xr @ params["w_r"]) * (h @ params["w2"])
+    v = h @ params["w2"]
+    gate = torch.sigmoid(xr @ params["w_r"])
+    if ffn_split:
+        from repro_torch.dist.collectives import row_sum
+
+        v = row_sum(v, mesh=tp)
+    if gate_split:
+        from repro_torch.dist.collectives import tp_gather
+
+        gate = tp_gather(gate, -1, mesh=tp)
+    y = gate * v
     if cache is not None:
         cache.copy_(x[:, -1])
         return y, cache

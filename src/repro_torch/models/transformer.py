@@ -35,10 +35,13 @@ kernels launch again in the backward; the LM head's cross-entropy is taken
 512 positions at a time, each chunk's logits recomputed in the backward.
 
 Tensor parallelism without SP (``forward(mesh=)`` on a plan that
-``dist.sharding.tensor_parallel`` accepts): every layer runs on this rank's
-Megatron shards, with f (``dist.collectives.column_input``) where a
-replicated tensor enters a column-parallel block and g (``row_sum``) after
-the row-parallel product; GSPMD derives the same from JAX's shardings.
+``dist.sharding.tensor_parallel`` accepts): every layer, of the decoder and
+of an encoder, runs on this rank's Megatron shards (attention, RWKV-6's
+time-mix and channel-mix, the RG-LRU block, cross-attention, the FFN), with
+f (``dist.collectives.column_input``) where a replicated tensor enters a
+column-parallel block and g (``row_sum``) after the row-parallel product;
+GSPMD derives the same from JAX's shardings.  The encoder memory enters
+the decoder's sharded cross-attention through one f (``memory_input``).
 Under it and under Megatron-SP an embedding cut over the vocabulary is
 looked up vocab-parallel and the cross-entropy takes its logsumexp and
 target logit across the ranks (``_VocabXentChunk``).  FSDP (ZeRO,
@@ -209,26 +212,58 @@ def attention_stage(
 
 
 def cross_attention_stage(cp: dict, h: torch.Tensor, memory_kv, cfg: ArchConfig,
-                          fused: bool = True) -> torch.Tensor:
+                          fused: bool = True, tp=None) -> torch.Tensor:
     """Decoder -> encoder-memory attention (whisper).  memory_kv: (k, v),
     each (B, Se, KV, Dh).  Through the flash kernel's wrapper with
-    ``causal=False``, or the plain ``plain_cross_attention``."""
+    ``causal=False``, or the plain ``plain_cross_attention``.  ``tp`` (a
+    mesh) with this rank's column / row shards (``local_heads`` < H): the
+    normed decoder input enters through f, q, the memory's K / V and the
+    kernel are this rank's heads, and ``wo``'s partial output is summed by
+    g; with whole weights the stage runs replicated."""
     B, S, _ = h.shape
-    q = (h @ cp["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    H, Dh = local_heads(cp, cfg)[0], cfg.d_head
+    sharded = tp is not None and H < cfg.n_heads
+    if sharded:
+        from repro_torch.dist.collectives import column_input
+
+        h = column_input(h, mesh=tp)
+    q = (h @ cp["wq"]).reshape(B, S, H, Dh)
     mk, mv = memory_kv
     if fused:
         o = flash_ops.flash_attention(q, mk, mv, causal=False)
     else:
         o = L.plain_cross_attention(q, mk, mv)
-    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ cp["wo"]
+    out = o.reshape(B, S, H * Dh) @ cp["wo"]
+    if sharded:
+        from repro_torch.dist.collectives import row_sum
+
+        out = row_sum(out, mesh=tp)
+    return out
 
 
 def cross_kv(cp: dict, memory: torch.Tensor, cfg: ArchConfig):
-    """The encoder memory's K and V for one decoder layer, (B, Se, KV, Dh)."""
+    """The encoder memory's K and V for one decoder layer, (B, Se, KV, Dh),
+    on this rank's KV heads (all of them with whole weights)."""
     B, Se, _ = memory.shape
-    mk = (memory @ cp["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
-    mv = (memory @ cp["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
+    KV = local_heads(cp, cfg)[1]
+    mk = (memory @ cp["wk"]).reshape(B, Se, KV, cfg.d_head)
+    mv = (memory @ cp["wv"]).reshape(B, Se, KV, cfg.d_head)
     return mk, mv
+
+
+def memory_input(params: dict, memory: torch.Tensor, cfg: ArchConfig, tp) -> torch.Tensor:
+    """The encoder memory as the decoder's cross-attention reads it: under
+    tensor parallelism with cross-attention on this rank's heads, through
+    one f (``column_input``).  Every decoder layer projects it on its own
+    heads, autograd sums the layers' partial gradients, and f's backward
+    sums that over the ranks once, not once a layer."""
+    blocks = params["blocks"]
+    lp = blocks["stack"][0] if blocks["stack"] is not None else blocks["tail"][0]
+    if tp is None or local_heads(lp["cross"], cfg)[0] == cfg.n_heads:
+        return memory
+    from repro_torch.dist.collectives import column_input
+
+    return column_input(memory, mesh=tp)
 
 
 def edpu_layer(
@@ -261,27 +296,35 @@ def edpu_layer(
     MoE layer's load-balancing loss (an f32 scalar), 0.0 on other layers.
 
     ``tp`` (a mesh): tensor parallelism without SP on this rank's shards
-    (``attention_stage``; the dense FFN's f, column-parallel ``w1`` /
-    ``w3``, row-parallel ``w2`` and g; MoE's expert or width split,
-    ``moe.moe_ffn``).  A stage whose weights are whole runs replicated.  The
-    residual, the norms and their scales stay replicated, and their
-    gradients are whole on every rank: f sums the partial gradients where a
-    replicated tensor enters a sharded block.  ``dp`` (mesh, the axes that
+    (``attention_stage``; the RWKV-6 time-mix and channel-mix and the
+    RG-LRU block on their local heads or channels, ``models/rwkv6.py``,
+    ``models/rglru.py``; ``cross_attention_stage``; the dense FFN's f,
+    column-parallel ``w1`` / ``w3``, row-parallel ``w2`` and g; MoE's expert
+    or width split, ``moe.moe_ffn``).  A stage whose weights are whole runs
+    replicated; the head counts are read off the shards.  The residual, the
+    norms and their scales stay replicated, and their gradients are whole
+    on every rank: f sums the partial gradients where a replicated tensor
+    enters a sharded block.  ``dp`` (mesh, the axes that
     split the batch): an MoE layer's aux loss covers every rank's tokens
     (``moe.router_topk``)."""
     new_cache: dict = {}
     h = _norm(lp["attn"]["ln"], x, cfg.norm, fused)
     if kind == "rglru":
-        a, nc = G.rglru_block(lp["attn"], h, n_heads=max(cfg.rnn_heads, 1),
-                              cache=None if cache is None else cache["rglru"], collect=collect)
+        heads = max(cfg.rnn_heads, 1)
+        heads = heads * lp["attn"]["w_out"].shape[-2] // (cfg.lru_width or cfg.d_model)
+        a, nc = G.rglru_block(lp["attn"], h, n_heads=heads,
+                              cache=None if cache is None else cache["rglru"], collect=collect,
+                              tp=tp if heads < max(cfg.rnn_heads, 1) else None)
         if cache is not None:
             new_cache = cache
         elif nc is not None:
             new_cache["rglru"] = nc
     elif kind == "rwkv6":
+        heads = lp["attn"]["w_o"].shape[-2] // cfg.d_head
         a, nc = R.rwkv6_time_mix(
-            lp["attn"], h, n_heads=cfg.rnn_heads, d_head=cfg.d_head,
+            lp["attn"], h, n_heads=heads, d_head=cfg.d_head,
             cache=None if cache is None else cache["rwkv"], collect=collect, fused=fused,
+            tp=tp if heads < cfg.rnn_heads else None,
         )
         if nc is not None:
             new_cache["rwkv"] = nc
@@ -305,7 +348,7 @@ def edpu_layer(
             mkv = cache["cross_kv"]
         else:
             mkv = cross_kv(lp["cross"], memory, cfg)
-        x = x + cross_attention_stage(lp["cross"], hc, mkv, cfg, fused)
+        x = x + cross_attention_stage(lp["cross"], hc, mkv, cfg, fused, tp=tp)
         if cache is None and collect:
             new_cache["cross_kv"] = mkv
     h2 = _norm(lp["ffn"]["ln"], x, cfg.norm, fused)
@@ -326,6 +369,7 @@ def edpu_layer(
     elif kind == "rwkv6":
         f, nc = R.rwkv6_channel_mix(
             lp["ffn"], h2, cache=None if cache is None else cache["cmix"], collect=collect,
+            tp=tp, d_ff=cfg.d_ff,
         )
         if nc is not None:
             new_cache["cmix"] = nc
@@ -645,10 +689,11 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig, t, dtype, vocab=No
 
 
 def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: ExecutionPlan,
-            dtype, fused: bool, gathers=None) -> torch.Tensor:
+            dtype, fused: bool, gathers=None, tp=None) -> torch.Tensor:
     """The encoder of an encoder-decoder: sinusoidal positions, the
     ``params["encoder"]`` stack with bidirectional attention, its final
-    norm.  Returns the memory (B, Se, d) and the stack's aux loss."""
+    norm.  Returns the memory (B, Se, d) and the stack's aux loss.  ``tp``:
+    the encoder's layers run on this rank's shards, as the decoder's."""
     enc = enc_embeds.to(dtype)
     Se, dev = enc.shape[1], enc.device
     enc = enc + L.sinusoidal_positions(Se, cfg.d_model, device=dev).to(dtype)[None]
@@ -656,7 +701,7 @@ def _encode(params: dict, enc_embeds: torch.Tensor, cfg: ArchConfig, plan: Execu
 
     def enc_layer_fn(lp, xx, kind, c):
         return edpu_layer(lp, xx, cfg=cfg, plan=plan, kind=kind, positions=positions,
-                          causal_override=False, fused=fused)
+                          causal_override=False, fused=fused, tp=tp)
 
     specs = None if gathers is None else gathers.specs["encoder"]
     enc, _, aux = _run_stack(params["encoder"], enc, enc_layer_fn, ("attn",), remat=plan.remat,
@@ -726,13 +771,6 @@ def forward(
     vocab = _vocab_split(params, cfg, plan, mesh)
     x, positions, prefix_len = _embed_inputs(params, batch, cfg, t, dtype, vocab)
     S = x.shape[1]
-    memory = None
-    if cfg.enc_dec:
-        if cache is not None and "memory" in cache:
-            memory = cache["memory"]
-        else:
-            memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused, gathers)
-    causal_override = False if cfg.encoder_only else None
     tp = None
     if mesh is not None:
         from repro_torch.dist.sharding import tensor_parallel
@@ -742,6 +780,15 @@ def forward(
                 raise ValueError("tensor parallelism runs the no-cache pass and the paged "
                                  "serving step; the dense-cache path runs replicated")
             tp = mesh
+    memory = None
+    if cfg.enc_dec:
+        if cache is not None and "memory" in cache:
+            memory = cache["memory"]
+        else:
+            memory, _ = _encode(params, batch["enc_embeds"], cfg, plan, dtype, fused, gathers,
+                                tp=tp)
+            memory = memory_input(params, memory, cfg, tp)
+    causal_override = False if cfg.encoder_only else None
 
     dp = (mesh, batch_axes) if mesh is not None and batch_axes else None
 

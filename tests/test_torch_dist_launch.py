@@ -118,17 +118,17 @@ def _refusals_rank(rank):
 
 
 def test_refusals_that_remain(tmp_path):
-    """On 4 ranks: the pipeline refuses MoE and encoder-decoder archs, TP of
-    recurrent layers is refused, and so is ZeRO under the pipeline (ZeRO
-    elsewhere now runs as FSDP)."""
+    """On 4 ranks: the pipeline refuses MoE and encoder-decoder archs, and
+    ZeRO under the pipeline is refused (ZeRO elsewhere runs as FSDP); TP of
+    recurrent layers now trains (rwkv6-reduced's 2 heads do not divide over
+    model 4, so its time-mix runs whole beside the sharded channel-mix)."""
     res = run_ranks(_refusals_rank, 4, tmp_path)
     for r in res:
         assert "MoE aux losses do not cross stage boundaries" in r["moe"]
         assert "enc-dec/frontends keep non-stack state" in r["enc_dec"]
-        assert "tensor parallelism without sequence parallelism" in r["tp"]
-        assert "recurrent layers" in r["tp"]
+        assert r["tp"] is None
         assert "ZeRO weights" in r["zero"] and "pipeline" in r["zero"]
-        assert all("item 7b" in r[k] for k in ("tp", "zero"))
+        assert "item 7b" in r["zero"]
 
 
 def test_torchrun_launches_the_cli(tmp_path):

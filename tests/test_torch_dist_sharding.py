@@ -207,8 +207,9 @@ def test_manual_layout_and_refusals():
     the stack, every layer's model shards under tensor parallelism without
     SP, the embedding's and head's vocab split under both, and the FSDP
     shards over the data axes (ZeRO, dp_over_model's fold); the final norm
-    and SP's tail layers are replicated.  TP of recurrent layers is refused,
-    naming the ROADMAP item; ZeRO is not."""
+    and SP's tail layers are replicated.  TP of recurrent layers executes
+    its model shards, the per-head leaves whole; ZeRO under the pipeline is
+    refused, naming the ROADMAP item."""
     _, sh, jplan, plan = _pair("bert-base-reduced", {"data": 1, "model": 2},
                                {"batch": 8, "seq_len": 32, "seq_parallel": True,
                                 "force_mode": "spatial"})
@@ -232,11 +233,17 @@ def test_manual_layout_and_refusals():
         None, "model", None)
     assert sh.manual_param_spec(("embed",), Leaf((512, 64))) == ("model", None)
     assert sh.gather_spec(("model", None)) is None  # computed on vocab-parallel, not gathered
-    # a recurrent arch under TP stays refused
+    # a recurrent arch under TP executes its model shards: the time-mix's
+    # w_r by column and w_o by row, its bonus u whole
     _, sh, _, rec = _pair("rwkv6-1.6b-reduced", {"data": 1, "model": 2},
                           {"batch": 8, "seq_len": 32, "force_mode": "spatial"})
-    why = unexecuted_layout(rec, sh.cfg)
-    assert "without sequence parallelism" in why and "recurrent" in why and LAYOUT_ITEM in why
+    assert unexecuted_layout(rec, sh.cfg) is None and sh.recurrent_sharded()
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "w_r"), Leaf((2, 64, 64))) == (
+        None, None, "model")
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "w_o"), Leaf((2, 64, 64))) == (
+        None, "model", None)
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "u"), Leaf((2, 2, 32))) == (
+        None, None, None)
     # mistral-large-123b's production plan: ZeRO with the model axis folded
     # into data parallelism, now executed as FSDP over (data, model)
     _, sh, _, zero = _pair("mistral-large-123b", {"data": 16, "model": 16},

@@ -3,7 +3,8 @@
 executes (attention on local heads only where the heads divide; the
 embedding and the head cut over the vocabulary, the norms replicated;
 MoE's expert split), the
-pools of each rank's KV heads, what ``unexecuted_layout`` still refuses, a
+pools of each rank's KV heads, the recurrent and encoder-decoder plans that
+``unexecuted_layout`` no longer refuses, a
 checkpoint written under TP restored on one rank and the other way round,
 and the flag-free two-rank launch, which now trains with TP."""
 import contextlib
@@ -16,7 +17,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.plan import derive_plan, derive_serve_plan
-from repro_torch.dist.sharding import (LAYOUT_ITEM, QKVSharding, Shardings, qkv_cut, qkv_join,
+from repro_torch.dist.sharding import (QKVSharding, Shardings, qkv_cut, qkv_join,
                                        tensor_parallel, unexecuted_layout)
 from repro_torch.models.cache import init_paged_cache
 from repro_torch.models.params import init_params
@@ -118,14 +119,19 @@ def test_pools_hold_this_ranks_kv_heads():
     assert one["layers"]["stack"][0]["paged"]["k"].shape[-2] == cfg.n_kv_heads
 
 
-@pytest.mark.parametrize("arch,what", [("rwkv6-1.6b-reduced", "recurrent layers"),
-                                       ("recurrentgemma-9b-reduced", "recurrent layers"),
-                                       ("whisper-small-reduced", "encoder-decoder")])
+@pytest.mark.parametrize("arch,what", [("rwkv6-1.6b-reduced", "RWKV-6 time-mix"),
+                                       ("recurrentgemma-9b-reduced", "RG-LRU"),
+                                       ("whisper-small-reduced", "cross-attention")])
 def test_tp_of_recurrent_and_encoder_decoder_archs_is_refused(arch, what):
+    """No longer refused: their tensor-parallel plans execute, the recurrent
+    blocks and an encoder-decoder's cross-attention on local heads
+    (``tests/test_torch_tp_recurrent.py``, ``_encdec.py`` hold them to
+    JAX); recurrentgemma's local attention (one KV head) runs whole."""
     cfg = get_config(arch)
     plan = derive_plan(cfg, {"data": 1, "model": 2}, batch=8, seq_len=32, force_mode="spatial")
-    why = unexecuted_layout(plan, cfg)
-    assert tensor_parallel(plan) and what in why and LAYOUT_ITEM in why
+    assert tensor_parallel(plan) and unexecuted_layout(plan, cfg) is None
+    on, whole = Shardings(ShapeMesh({"data": 1, "model": 2}), plan, cfg).tp_blocks()
+    assert what in on and whole == (["local attention"] if "recurrentgemma" in arch else [])
 
 
 def _ckpt_rank(rank, arch, replace, ckpt_dir):

@@ -26,6 +26,10 @@ import torch
 
 from torch_tp import B, OPT, S, keyed, port_cfg, v5e
 
+# Each case of argv[2] (a JSON list) on its own (data, model) mesh of the
+# first devices: the launcher's recipe under GSPMD, the case's steps; one
+# JSON line a case (losses, each leaf's shard shape, the plan's fields),
+# the parameters after the steps in "<batches>.params.npz".
 _JAX_STEPS = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=" + sys.argv[1]
@@ -35,38 +39,40 @@ from repro.configs import get_config
 from repro.core.hardware import TPU_V5E
 from repro.core.plan import derive_plan
 from repro.dist.sharding import Shardings, _key_names
-from repro.launch.mesh import make_host_mesh
 from repro.models.params import init_params
 from repro.train.optimizer import OptimizerConfig, init_state
 from repro.train.train_step import make_train_step
-spec = json.loads(sys.argv[2])
-cfg = dataclasses.replace(get_config(spec["arch"]).reduced(), **spec["replace"])
-mesh = make_host_mesh(data=spec["data"])
-plan = derive_plan(cfg, dict(mesh.shape), TPU_V5E, batch=spec["batch"], seq_len=spec["seq"],
-                   training=True, **spec["derive"])
-plan = dataclasses.replace(plan, **spec["plan"])
-sh = Shardings(mesh, plan, cfg)
-params = init_params(jax.random.PRNGKey(0), cfg, plan, dtype=jnp.float32)
-param_sh = sh.param_shardings(params)
 key = lambda p: "|".join(_key_names(p))
-shapes = {key(p): list(s.shard_shape(x.shape)) for (p, x), s in zip(
-    jax.tree_util.tree_flatten_with_path(params)[0], jax.tree_util.tree_leaves(param_sh))}
-params = jax.device_put(params, param_sh)
-step = jax.jit(make_train_step(cfg, plan, OptimizerConfig(**spec["opt"]), shard=sh.constrain,
-                               grad_shardings=param_sh, mesh=mesh))
-state = init_state(params)
-z = np.load(spec["batches"])
-losses = []
-for i in range(spec["steps"]):
-    b = {k: jnp.asarray(z[f"{k}{i}"]) for k in spec["keys"]}
-    state, m = step(state, jax.device_put(b, sh.batch_shardings(b)))
-    losses.append(float(m["loss"]))
-flat = {key(p): np.asarray(x) for p, x in jax.tree_util.tree_flatten_with_path(state.params)[0]}
-np.savez(spec["batches"] + ".params.npz", **flat)
-print(json.dumps({"losses": losses, "shard_shapes": shapes, "remat": plan.remat,
-                  "microbatches": plan.microbatches, "dp_over_model": plan.dp_over_model,
-                  "zero_weights": plan.zero_weights, "embed_shard": plan.embed_shard,
-                  "seq_parallel_acts": plan.seq_parallel_acts}))
+for spec in json.loads(sys.argv[2]):
+    cfg = dataclasses.replace(get_config(spec["arch"]).reduced(), **spec["replace"])
+    shape = (spec["data"], spec["model"])
+    mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2,
+                         devices=jax.devices()[:shape[0] * shape[1]])
+    plan = derive_plan(cfg, dict(mesh.shape), TPU_V5E, batch=spec["batch"],
+                       seq_len=spec["seq"], training=True, **spec["derive"])
+    plan = dataclasses.replace(plan, **spec["plan"])
+    sh = Shardings(mesh, plan, cfg)
+    params = init_params(jax.random.PRNGKey(0), cfg, plan, dtype=jnp.float32)
+    param_sh = sh.param_shardings(params)
+    shapes = {key(p): list(s.shard_shape(x.shape)) for (p, x), s in zip(
+        jax.tree_util.tree_flatten_with_path(params)[0], jax.tree_util.tree_leaves(param_sh))}
+    params = jax.device_put(params, param_sh)
+    step = jax.jit(make_train_step(cfg, plan, OptimizerConfig(**spec["opt"]),
+                                   shard=sh.constrain, grad_shardings=param_sh, mesh=mesh))
+    state = init_state(params)
+    z = np.load(spec["batches"])
+    losses = []
+    for i in range(spec["steps"]):
+        b = {k: jnp.asarray(z[f"{k}{i}"]) for k in spec["keys"]}
+        state, m = step(state, jax.device_put(b, sh.batch_shardings(b)))
+        losses.append(float(m["loss"]))
+    flat = {key(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(state.params)[0]}
+    np.savez(spec["batches"] + ".params.npz", **flat)
+    print(json.dumps({"losses": losses, "shard_shapes": shapes, "remat": plan.remat,
+                      "microbatches": plan.microbatches, "dp_over_model": plan.dp_over_model,
+                      "zero_weights": plan.zero_weights, "embed_shard": plan.embed_shard,
+                      "seq_parallel_acts": plan.seq_parallel_acts}), flush=True)
 """
 
 
@@ -116,26 +122,42 @@ def jax_steps(tmp_path, arch: str, replace: dict, shape: dict, derive: dict, pla
     """Start JAX's GSPMD steps on ``shape``'s fake devices in a subprocess;
     the returned function waits for them and gives (the JSON record, the
     parameters after the steps keyed as ``keyed``)."""
+    done = jax_cases(tmp_path, [(arch, replace, shape, derive, plan, batch_list)])
+    return lambda: done()[0]
+
+
+def jax_cases(tmp_path, cases: list):
+    """``jax_steps`` of every case of ``cases`` (tuples of its arguments) in
+    one subprocess, each on a mesh of the first fake devices; the returned
+    function waits for them and gives each case's (record, parameters)."""
     tmp_path.mkdir(parents=True, exist_ok=True)
-    path = tmp_path / "batches.npz"
-    np.savez(path, **{f"{k}{i}": v for i, b in enumerate(batch_list) for k, v in b.items()})
-    spec = {"arch": arch, "replace": replace, "data": shape["data"], "derive": derive,
-            "plan": plan, "batch": B, "seq": S, "steps": len(batch_list), "opt": OPT,
-            "keys": sorted(batch_list[0]), "batches": str(path)}
-    n = shape["data"] * shape["model"]
-    proc = subprocess.Popen([sys.executable, "-c", _JAX_STEPS, str(n), json.dumps(spec)],
+    specs, paths = [], []
+    for i, (arch, replace, shape, derive, plan, batch_list) in enumerate(cases):
+        path = tmp_path / f"batches{i}.npz"
+        np.savez(path, **{f"{k}{j}": v for j, b in enumerate(batch_list) for k, v in b.items()})
+        paths.append(path)
+        specs.append({"arch": arch, "replace": replace, "data": shape["data"],
+                      "model": shape["model"], "derive": derive, "plan": plan, "batch": B,
+                      "seq": S, "steps": len(batch_list), "opt": OPT,
+                      "keys": sorted(batch_list[0]), "batches": str(path)})
+    n = max(s["data"] * s["model"] for s in specs)
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_STEPS, str(n), json.dumps(specs)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=".",
                             env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    result = []
 
     def finish():
-        try:
-            out, err = proc.communicate(timeout=400)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-        assert proc.returncode == 0, err[-3000:]
-        return (json.loads(out.strip().splitlines()[-1]),
-                dict(np.load(str(path) + ".params.npz")))
+        if not result:
+            try:
+                out, err = proc.communicate(timeout=400)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            assert proc.returncode == 0, err[-3000:]
+            lines = out.strip().splitlines()[-len(cases):]
+            result.extend((json.loads(line), dict(np.load(str(path) + ".params.npz")))
+                          for line, path in zip(lines, paths))
+        return result
 
     return finish
 
@@ -145,8 +167,9 @@ def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None)
     the manual shardings handed to it); returns the losses, the whole
     parameters after them, the collectives' calls, each local leaf's shape
     and the state's bytes on this rank.  ``control`` plants one of
-    ``chip_smoke.fsdp_controls_plant``'s faults."""
-    from chip_smoke import fsdp_controls_plant  # the chip script's own controls
+    ``chip_smoke.fsdp_controls_plant``'s faults, or of
+    ``tp_controls_plant``'s (the chip script's own controls)."""
+    from chip_smoke import FSDP_CONTROLS, fsdp_controls_plant, tp_controls_plant
     from repro_torch.bridge import from_jax
     from repro_torch.dist import collectives as C
     from repro_torch.dist.sharding import Shardings, gather, place
@@ -161,7 +184,8 @@ def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None)
     local = {k: list(v.shape) for k, v in keyed(state.params).items()}
     step = make_train_step(cfg, plan, OptimizerConfig(**OPT), device="cpu", mesh=mesh,
                            grad_shardings=shard)
-    undo = fsdp_controls_plant(control, cfg)
+    undo = (fsdp_controls_plant(control, cfg) if control is None or control in FSDP_CONTROLS
+            else tp_controls_plant(control, mesh))
     C.reset_stats()
     losses = []
     try:
@@ -183,11 +207,17 @@ def fsdp_control_rank(rank, cfg, plan, shape, np_params, batch_list, control):
             for c in (None, control)]
 
 
-def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, seed=80):
+def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, seed=80,
+                      jax_run=None, whole=()):
     """Three steps on the port's ranks and on JAX's fake devices: losses
     within 1e-5, every parameter within 1e-4, every rank's local leaf shapes
-    equal to JAX's shard shapes, and the ranks' losses equal.  Returns the
-    port's rank records and JAX's record."""
+    equal to JAX's shard shapes (but the leaves of ``whole``, which the port
+    does not cut over ``model`` where JAX does: ROADMAP's deliberate
+    divergences),
+    and the ranks' losses equal.  ``jax_run``: JAX's (record, parameters) of
+    this case, from a ``jax_cases`` subprocess started with ``batches(cfg,
+    seed)``; by default a subprocess of its own.  Returns the port's rank
+    records and JAX's record."""
     from test_torch_dist_ranks import run_ranks
 
     cfg = port_cfg(arch, replace)
@@ -196,7 +226,8 @@ def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, se
 
     assert unexecuted_layout(plan, cfg) is None
     batch_list = batches(cfg, seed)
-    done = jax_steps(tmp_path / "jax", arch, replace, shape, derive, plan_fields, batch_list)
+    done = jax_run or jax_steps(tmp_path / "jax", arch, replace, shape, derive, plan_fields,
+                                batch_list)
     world = shape["data"] * shape["model"]
     res = run_ranks(fsdp_train_rank, world, tmp_path, cfg, plan, shape,
                     jax_params(arch, replace, plan.fuse_qkv), batch_list)
@@ -211,7 +242,11 @@ def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, se
         assert r["params"].keys() == jp.keys()
         for k, p in r["params"].items():
             np.testing.assert_allclose(p.numpy(), jp[k], rtol=0, atol=1e-4, err_msg=k)
-        assert r["local_shapes"] == jx["shard_shapes"]
+        for k in whole:  # not cut over model in the port, cut in JAX
+            local, cut = r["local_shapes"][k], jx["shard_shapes"][k]
+            assert np.prod(local) == shape["model"] * np.prod(cut), (k, local, cut)
+        assert ({k: v for k, v in r["local_shapes"].items() if k not in whole}
+                == {k: v for k, v in jx["shard_shapes"].items() if k not in whole})
         assert r["losses"][0] != r["losses"][-1]
     assert all(r["losses"] == res[0]["losses"] for r in res)
     return res, jx
