@@ -175,7 +175,7 @@ whose plan folds the model axis into data parallelism (the weights and
 their AdamW moments sharded, each layer gathering its weights where it
 reads them, the gradients reduce-scattered; phase 39's ``--dp 2`` is such a
 plan too): 43 phi4-mini-3.8b at full width, f32 cut to 4 layers and bf16
-cut to 8, 44 rwkv6-1.6b in bf16 at 4 layers (no remat: the WKV
+cut to 4 (8 before phase 48 came in), 44 rwkv6-1.6b in bf16 at 4 layers (no remat: the WKV
 kernels on every rank), each against the one-rank run (losses, grad
 norms, state and peak a rank), with the embedding's gradient scatter
 skipped and a rank gathering its neighbour's shard as controls; then
@@ -189,7 +189,14 @@ heads a rank, one f on the encoder memory) f32 and bf16 at full depth,
 each against the one-rank run (losses, grad norms, the norm of the
 gradients of the whole leaves read per head or channel and of the
 encoder's norms), with those leaves' gradients left as each rank's block,
-the neighbour's block read and the memory's f left out as controls.  Every
+the neighbour's block read and the memory's f left out as controls; then
+48 the dry run (``launch/dryrun.py``, one rank's step traced on the meta
+device, no card) of phases 31 and 35's cells against their readings in
+this process (kernel calls a step and state bytes exactly; the predicted
+peak and roofline step beside the measured ones), ``launch.serve
+--from-family throughput`` serving qwen3-1.7b in f32 on the plan the
+search picks, through the kernels and through the plain versions (the same
+tokens), and ``launch.dryrun --calibrate``'s drift ratios.  Every
 main path (phases 3-5, 9-11, 18-19, 21-22, 24-28, 31, 33, 35, 38-47) checks the
 exact launch count of every kernel: the paged or eager-prefill kernel once a layer (only the
 local layers on recurrentgemma-9b; whisper-small's cross-attention in
@@ -896,19 +903,19 @@ def wkv_no_carry(r, k, v, w, u, c=32):
                                   u, chunk=c) for i in range(0, S, c)], dim=1)
 
 
-def wkv_bound(r, H, D):
+def wkv_bound(r):
     """Least time for the prefill's WKV on an H100 SXM: r/k/v (their type),
     w and the output (f32), u and the final state (f32), each once, at 3.35
     TB/s, vs the recurrence's ~6 D^2 flops per token and head at the rate of
     the entry r's type selects: bf16 runs them on the tensor cores as 3xTF32
     (three TF32 products each, so a third of the TF32 peak), f32 on the CUDA
     cores.  Returns (bound ms, what bounds it, the byte bound ms, the
-    operation bound ms, the operation bound ms at the f32 CUDA-core peak)."""
-    B, S = r.shape[:2]
-    n = B * S * H * D
-    nbytes = 3 * n * r.element_size() + 4 * n + 4 * n + 4 * H * D + 4 * B * H * D * D
+    operation bound ms, the operation bound ms at the f32 CUDA-core peak).
+    The counts are the wrapper's ``cost``."""
+    from repro_torch.kernels.rwkv6 import ops
+
+    flops, nbytes = ops.cost(r)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    flops = 6 * D * D * B * S * H
     rate = PEAK_FLOPS["tf32"] / 3 if r.dtype == torch.bfloat16 else PEAK_FLOPS["fp32"]
     t_ops, t_f32 = flops / rate * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -985,7 +992,7 @@ def phase_wkv(cfg):
     torch.cuda.empty_cache()
     ms = time_ms(lambda: ops.wkv(*args, return_state=True))
     plain_ms = time_ms(lambda: wkv_chunked(*args, return_state=True), reps=5, warmup=1)
-    b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bound(args[0], H, D)
+    b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bound(args[0])
     log(f"  times at the main shape: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
         f"{b_ms / ms:.1%} of roofline; bytes {b_bytes:.4f} ms, 3xTF32 tensor-core operations "
         f"{b_ops:.4f} ms, the same flops at the f32 CUDA-core peak {b_f32:.4f} ms), "
@@ -1065,25 +1072,14 @@ def flash_single_bf16_p(q, k, v, *, causal=True, window=0, prefix=0):
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
-def visible_pairs(Sq, Sk, causal=True, window=0, prefix=0) -> int:
-    """(query, key) pairs the masks leave visible (query i sits at key i)."""
-    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
-    m = np.ones((Sq, Sk), bool)
-    if causal:
-        m &= (j <= i) | (j < prefix)
-    if window:
-        m &= (i - j) < window
-    return int(m.sum())
-
-
 def flash_bound(q, k, causal=True, window=0, prefix=0):
     """Least time for the attention on an H100 SXM: 4 H D flops per visible
     (query, key) pair at the bf16 tensor-core peak (f32: the CUDA-core
-    peak), vs q, k, v and the output each once at 3.35 TB/s."""
-    B, S, H, D = q.shape
-    pairs = visible_pairs(S, k.shape[1], causal, window, prefix)
-    flops = 4 * H * D * pairs * B
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    peak), vs q, k, v and the output each once at 3.35 TB/s (the wrapper's
+    ``cost``)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    flops, nbytes = ops.cost(q, k, causal=causal, window=window, prefix=prefix)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "fp32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1365,9 +1361,11 @@ def rms_mean_over_d_minus_1(x, s, eps=1e-6):
 
 def rms_bound(x):
     """Least time on an H100 SXM: x read and y written once, and the scale,
-    at 3.35 TB/s (about 4 flops an element, far below the f32 peak)."""
-    nbytes = 2 * x.numel() * x.element_size() + 4 * x.shape[-1]
-    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+    at 3.35 TB/s (about 4 flops an element, far below the f32 peak; the
+    wrapper's ``cost``)."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    return ops.cost(x)[1] / PEAK_BYTES_S * 1e3, "bytes"
 
 
 def rms_times(name, x, s, *, library_on_copy=False):
@@ -1583,13 +1581,13 @@ def phase_mm_pu():
 def mm_bound(x, w, out_dtype):
     """Least time on an H100 SXM: 2 M N K flops at the bf16 tensor-core rate
     (bf16 x with int8 or bf16 w: every operand exact in bf16), or x, w, the
-    scale and the output once at 3.35 TB/s, whichever is larger."""
-    M, K = x.shape
-    N = w.shape[1]
-    out_size = torch.finfo(out_dtype).bits // 8
-    nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * N + M * N * out_size
+    scale and the output once at 3.35 TB/s, whichever is larger (the
+    wrapper's ``cost``)."""
+    from repro_torch.kernels.mm_pu import ops
+
+    flops, nbytes = ops.cost(x, w, out_dtype)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = 2 * M * N * K / PEAK_FLOPS["bf16" if x.dtype == torch.bfloat16 else "fp32"] * 1e3
+    t_ops = flops / PEAK_FLOPS["bf16" if x.dtype == torch.bfloat16 else "fp32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2798,10 +2796,11 @@ def planted_grads(name, control, want, tol):
 def flash_bwd_bound(q, k, causal=True, window=0, prefix=0):
     """Least time for the backward on an H100 SXM: 10 H D flops a visible
     pair at the bf16 peak (f32: the CUDA-core peak), vs q, k, v, o, dO and
-    lse read and dq, dk, dv written once at 3.35 TB/s."""
-    B, S, H, D = q.shape
-    flops = 10 * H * D * B * visible_pairs(S, k.shape[1], causal, window, prefix)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * S
+    lse read and dq, dk, dv written once at 3.35 TB/s (the wrapper's
+    ``backward_cost``)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    flops, nbytes = ops.backward_cost(q, k, causal=causal, window=window, prefix=prefix)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "fp32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2970,7 +2969,7 @@ def flash_bwd_times(q, k, v, out, lse, do, *, causal=True, window=0, prefix=0):
     fwd_ms = time_ms(fwd, reps=10, warmup=2)
     both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot), reps=10, warmup=2)
     b_ms, b_by = flash_bwd_bound(q, k, **kw)
-    flops = 10 * H * D * B * visible_pairs(S, k.shape[1], **kw)
+    flops = ops.backward_cost(q, k, **kw)[0]
     log(f"  backward times at B={B} S={S} H={H} KH={k.shape[2]} D={D} bf16 prefix={prefix}: "
         f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s of least work), bound {b_ms:.4f} "
         f"ms ({b_by}, {b_ms / ms:.1%} of roofline), plain {plain_ms:.2f} ms, SDPA ({how}) "
@@ -3021,7 +3020,7 @@ def rms_bwd_times(name, x, s, dy):
     y = F.rms_norm(xl, (d,), wl, 1e-6)
     lib_ms = time_ms(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))
     del y, xl, wl
-    b_ms = (3 * x.numel() * x.element_size() + 8 * d) / PEAK_BYTES_S * 1e3
+    b_ms = ops.backward_cost(x)[1] / PEAK_BYTES_S * 1e3
     log(f"  backward times {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms (bytes, "
         f"{b_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, F.rms_norm autograd backward "
         f"{lib_ms:.4f} ms")
@@ -3205,6 +3204,7 @@ def phase_train():
            "run_wall_s": wall, "losses": losses}
     log(f"  step ms {step_ms} (steady median {steady:.0f}), {res['tokens_per_s']:.0f} tokens/s, "
         f"peak {peak:.2f} GiB, run() wall {wall:.1f} s (init included)")
+    res["state_bytes"] = state_bytes(state)  # phase 48 holds the dry run to it
     del state
     torch.cuda.empty_cache()
 
@@ -3256,6 +3256,17 @@ def phase_train():
     del state, batch
     torch.cuda.empty_cache()
     return counts, res
+
+
+def state_bytes(tree) -> int:
+    """Bytes the card holds for a train state: every leaf's storage, each
+    storage once."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
 
 
 def tree_paths(tree):
@@ -3606,7 +3617,7 @@ def wkv_bwd_control(name, control, want, tol):
     check(rejected, f"the tolerance accepts the planted WKV backward control ({name})")
 
 
-def wkv_bwd_bound(r, H, D):
+def wkv_bwd_bound(r):
     """Least time for the backward on an H100 SXM: r/k/v read and dr/dk/dv
     written in r's type, w and dO read and d(log w) written in f32, u and du
     once, at 3.35 TB/s, vs the four D x D products a token and head (S dO,
@@ -3615,11 +3626,11 @@ def wkv_bwd_bound(r, H, D):
     (f32-accumulated products the tensor cores can run as 3xTF32), the f32
     CUDA-core peak for f32.  Returns (bound ms, what bounds it, the byte
     bound ms, the operation bound ms, the operation bound ms at the f32
-    CUDA-core peak)."""
-    B, S = r.shape[:2]
-    n = B * S * H * D
-    t_bytes = (6 * n * r.element_size() + 12 * n + 8 * H * D) / PEAK_BYTES_S * 1e3
-    flops = 8 * D * n  # n counts D: 8 D^2 a token and head
+    CUDA-core peak).  The counts are the wrapper's ``backward_cost``."""
+    from repro_torch.kernels.rwkv6 import ops
+
+    flops, nbytes = ops.backward_cost(r)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
     rate = PEAK_FLOPS["tf32"] / 3 if r.dtype == torch.bfloat16 else PEAK_FLOPS["fp32"]
     t_ops, t_f32 = flops / rate * 1e3, flops / PEAK_FLOPS["fp32"] * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3692,7 +3703,7 @@ def phase_wkv_backward():
     (a1, a2), (c1, c2) = ab_times(lambda: ops.backward(*args, do, chunk=32), core)
     ms, core_ms = min(a1, a2), min(c1, c2)
     plain_ms = time_ms(lambda: wkv_backward_ref(*args, do, chunk=32), reps=3, warmup=1)
-    b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bwd_bound(args[0], H, D)
+    b_ms, b_by, b_bytes, b_ops, b_f32 = wkv_bwd_bound(args[0])
     log(f"  times at the training shape (A B B A): {entry} {ms:.3f} ms ({a1:.3f} / {a2:.3f}), "
         f"the CUDA-core entry (wkv_backward) on the same bf16 inputs {core_ms:.3f} ms ({c1:.3f} "
         f"/ {c2:.3f}; {ms / core_ms:.2f} of it), bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} "
@@ -3770,6 +3781,7 @@ def phase_train_rwkv():
            "run_wall_s": wall, "losses": losses}
     log(f"  step ms {step_ms} (steady median {steady:.0f}), {res['tokens_per_s']:.0f} tokens/s, "
         f"peak {peak:.2f} GiB, run() wall {wall:.1f} s (init included)")
+    res["state_bytes"] = state_bytes(state)  # phase 48 holds the dry run to it
     del state
     torch.cuda.empty_cache()
 
@@ -5123,7 +5135,7 @@ FSDP_STEPS = 2
 FSDP_RUNS = {
     "phi4 f32": ("phi4-mini-3.8b", dict(batch=8, seq=512, dtype=torch.float32, n_layers=4)),
     "phi4 bf16": ("phi4-mini-3.8b", dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16,
-                                         n_layers=8)),
+                                         n_layers=4)),
     "rwkv6 bf16": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4)),
     "rwkv6 bf16 dp": (RWKV_ARCH, dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16, n_layers=4,
                                       dp=2, force_mode="spatial")),
@@ -5651,6 +5663,107 @@ def tp_arch_kernels() -> dict:
     return errs
 
 
+# Phase 48's serving stream for --from-family, in f32 (kernels and plain
+# versions then give the same greedy tokens): the search picks 256 slots at
+# every max_seq, and every slot row is computed (4.0 s an f32 dispatch at
+# max_seq 2048's 256 x 256 slab on the H100, PERF.md), so the stream is short and
+# max_seq 128 halves the slab.
+FAMILY_ARGS = ["--arch", SERVE_ARCH, "--from-family", "throughput", "--dtype", "fp32",
+               "--max-seq", "128", "--requests", "4", "--prompt-len", "16", "--gen", "4",
+               "--stagger", "0"]
+
+
+def phase_dryrun(train_counts, train_run, rwkv_counts, rwkv_run) -> dict:
+    """Phase 48: the dry run (``launch/dryrun.py``, traced on the meta
+    device, no card involved) against what the card measured in this
+    process.  (a) phase 31's cell, qwen3-1.7b bf16 B 8 x S 2048 on the H100
+    plan at 1 x 1: kernel calls a step equal to phase 31's launches over its
+    steps, exactly; state bytes equal to the state phase 31 allocated,
+    exactly; the predicted peak (arguments + temporaries) and the roofline
+    step beside the measured peak and steady step, with their ratios.  (b)
+    the same for rwkv6-1.6b against phase 35.  (c) ``launch.serve
+    --from-family throughput`` serves qwen3-1.7b in f32 on the plan the
+    search picks, through the kernels, and the plain versions at the same
+    plan give the same tokens.  (d) ``launch.dryrun --calibrate`` exits 0
+    and prints its drift ratios.  No second training run."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch.mesh import DryRunMesh
+
+    log("phase 48: the dry run (meta device, no card) against phases 31 and 35; "
+        "launch.serve --from-family; launch.dryrun --calibrate")
+    res = {}
+    shape = ShapeSpec(f"train B{TRAIN_B} S{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    for tag, arch, counts, run, steps in (("a", TRAIN_ARCH, train_counts, train_run,
+                                           TRAIN_STEPS),
+                                          ("b", RWKV_ARCH, rwkv_counts, rwkv_run,
+                                           RWKV_TRAIN_STEPS)):
+        cell = dryrun.trace_cell(get_config(arch), shape, DryRunMesh(MESH1), hw=H100_SXM,
+                                 mesh_name="1x1")
+        rep = cell["report"]
+        per_step = {k: v // steps for k, v in counts.items() if v}
+        calls = {k: rep.kernel_calls.get(k, 0) for k in counts}
+        peak = (rep.arg_bytes + rep.temp_bytes) / 2**30
+        step_ms = rep.step_time_s * 1e3
+        row = {"trace_s": round(cell["trace_s"], 2), "kernel_calls": rep.kernel_calls,
+               "card_launches_a_step": per_step, "state_bytes": cell["state_bytes"],
+               "card_state_bytes": run["state_bytes"], "predicted_peak_gib": peak,
+               "card_peak_gib": run["peak_gib"], "peak_ratio": peak / run["peak_gib"],
+               "roofline_step_ms": step_ms, "card_step_ms": run["steady_step_ms"],
+               "step_ratio": step_ms / run["steady_step_ms"], "bottleneck": rep.bottleneck,
+               "compute_ms": rep.compute_s * 1e3, "memory_floor_ms": rep.memory_floor_s * 1e3,
+               "memory_ms": rep.memory_s * 1e3, "flops": rep.flops_per_device,
+               "bytes": rep.bytes_per_device}
+        log(f"  ({tag}) {arch}: {json.dumps(row)}")
+        check(counts == {k: steps * c for k, c in calls.items()},
+              f"{arch}: the dry run's kernel calls a step {calls} against the card's "
+              f"{counts} over {steps} steps")
+        check(cell["state_bytes"] == run["state_bytes"],
+              f"{arch}: the dry run's state {cell['state_bytes']} B, the card's "
+              f"{run['state_bytes']} B")
+        res[arch] = row
+
+    runs = {}
+    for name, extra in (("kernels", []), ("plain", ["--no-fused"])):
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            summary = serve_launcher.main(FAMILY_ARGS + extra)
+        runs[name] = (summary, read_counts())
+        pick = next((ln for ln in out.getvalue().splitlines() if ln.startswith("family pick")),
+                    "no pick line")
+        log(f"  (c) {name}: {pick}; {summary['serve_plan'].describe()}; "
+            f"{summary['generated_tokens']} tokens, mean dispatch "
+            f"{summary['mean_dispatch_ms']:.1f} ms, launches {runs[name][1]}")
+    (fused, fc), (plain, pc) = runs["kernels"], runs["plain"]
+    check(fused["serve_plan"] == dataclasses.replace(plain["serve_plan"], fused_attention=True),
+          "the two runs picked different plans")
+    check(fc["paged_attention"] > 0 and fc["rmsnorm"] > 0 and not any(pc.values()),
+          f"launches: kernels {fc}, plain {pc}")
+    check(fused["requests"]["finished"] == 4 and fused["outputs"] == plain["outputs"],
+          "--from-family: the kernels' tokens differ from the plain versions'")
+    log("  (c) tokens identical to the plain versions' at the picked plan: True")
+    res["from_family"] = {"plan": fused["serve_plan"].to_record(),
+                          "mean_dispatch_ms": fused["mean_dispatch_ms"],
+                          "plain_mean_dispatch_ms": plain["mean_dispatch_ms"],
+                          "launches": fc}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun.main(["--calibrate"])  # raises on any failure
+    lines = out.getvalue().splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith("planner drift calibration"))
+    for ln in lines[at:]:
+        log(f"  (d) {ln}")
+    res["calibrate"] = lines[at:]
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible; this script needs one GPU")
@@ -5803,9 +5916,12 @@ def main() -> None:
         arch, a = TP_ARCH_RUNS[run]
         tp_launches[f"phase {phase} {arch}, {a['n_layers'] or 'all'} layers, B {a['batch']} (a "
                     f"rank, 2 steps)"] = tp_archs[run]["launches"]
+    t6 = time.time()
+    dry = phase_dryrun(train_counts, train_run, rwkv_train_counts, rwkv_train_run)
+    log(f"  dry run: {json.dumps(dry, default=str)}; phase 48 took {time.time() - t6:.1f} s")
     fsdp_launches = {"phase 39 (a) qwen3-1.7b, 8 layers (a rank, 2 steps)":
                          mesh_run["dp"]["launches"],
-                     "phase 43 phi4-mini-3.8b, 8 layers (a rank, 2 steps)":
+                     "phase 43 phi4-mini-3.8b, 4 layers (a rank, 2 steps)":
                          fsdp_phi["phi4 bf16"]["launches"],
                      "phase 44 rwkv6-1.6b, 4 layers (a rank, 2 steps)":
                          fsdp_rwkv["rwkv6 bf16"]["launches"]}

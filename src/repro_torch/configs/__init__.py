@@ -6,6 +6,16 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ShapeSpec,
+    applicable,
+    cells,
+)
 
 _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
@@ -37,4 +47,17 @@ def get_config(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
-__all__ = ["ArchConfig", "get_config", "ASSIGNED_ARCHS", "ALL_ARCHS"]
+__all__ = [
+    "ArchConfig",
+    "ShapeSpec",
+    "ALL_SHAPES",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
+    "applicable",
+    "cells",
+    "get_config",
+    "ASSIGNED_ARCHS",
+    "ALL_ARCHS",
+]

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional
 
-from repro_torch.core.hardware import DEFAULT_HARDWARE, HardwareSpec
+from repro_torch.core.hardware import DEFAULT_HARDWARE, VCK5000, HardwareSpec
 from repro_torch.core.pu import derive_pu_family
 
 # Paper constant: EDPU pipeline has at most 4 PRGs in flight per stage.
@@ -39,7 +39,7 @@ GRAD_COMPRESSION = ("none", "bf16", "int8")
 # kernel (kernels/mm_pu/csrc/mm_pu.cu), by hardware name: Factor1's
 # one-shot engine MM on that card.
 H100_MM_CTA_TILE = (128, 128, 64)
-ONE_SHOT_MM_TILES = {"h100": H100_MM_CTA_TILE}
+ONE_SHOT_MM_TILES = {"h100": H100_MM_CTA_TILE, "h100-nvlink": H100_MM_CTA_TILE}
 
 MESH1 = {"data": 1, "model": 1}
 
@@ -760,3 +760,40 @@ def derive_serve_plan(
         kv_bytes_per_token=int(kv_tok),
         hbm_kv_budget_bytes=kv_budget,
     )
+
+
+# ---------------------------------------------------------------------------
+# Paper §V.B design case, on the paper's own hardware numbers (a copy of
+# JAX's).
+# ---------------------------------------------------------------------------
+def design_case_vck5000(seq_len: int = 256, d_model: int = 768, d_ff: int = 3072,
+                        n_heads: int = 12) -> dict:
+    """Reproduce the BERT-Base walk-through: Factor1 ~= 1.5, Factor2 ~= 7.56 MB,
+    P_ATB = 4, fully-pipelined mode selected (paper §V.B)."""
+    plio_aie, mmsz, total_aie = 4, 64, 400
+    engine = (total_aie // plio_aie**2) * (plio_aie * mmsz) ** 3
+    factor1 = 4 * seq_len * d_model**2 / engine
+    d_head = d_model // n_heads
+    buf = (
+        seq_len * 256 * 3  # QKV LB output cache (int8 paper accounting)
+        + seq_len * d_head * 4 * 4  # ATB in/out cache
+        + 128 * seq_len * 4  # ATB attention cache
+        + seq_len * 256 * 4  # ATB KV cache
+        + seq_len * d_model + seq_len * 256  # Proj LB in/out
+        + d_model * d_model * 4 + d_model * d_ff * 2  # weight cache
+    )
+    p_atb = 256 // d_head  # QKV LB emits 256-wide tiles; one head needs d_head
+    mode = (
+        SPATIAL
+        if factor1 < PRG_MAX_PIPELINE_DEPTH and buf <= VCK5000.vmem_bytes
+        else TEMPORAL
+    )
+    return {
+        "factor1": factor1,
+        "factor2_bytes": buf,
+        "factor2_mb": buf / 2**20,
+        "p_atb": p_atb,
+        "mode": mode,
+        "prg_max_pipeline_depth": PRG_MAX_PIPELINE_DEPTH,
+        "buffer_budget_mb": VCK5000.vmem_bytes / 2**20,
+    }

@@ -60,6 +60,15 @@ that the int8 wire ran and its collective time.  A staged collective
 first synchronizes the card (its host copy would wait for the queued
 kernels anyway), so its seconds are the copies and the transport, not the
 compute queued before it; over NCCL they are the host's enqueue time.
+
+Dry run: over a ``launch.mesh.DryRunMesh`` (its ``group`` is ``DRY_RUN``)
+every collective records itself on the active ``core/op_cost`` recorder,
+with JAX's op name (all-reduce, all-gather, reduce-scatter,
+collective-permute), its operand bytes on this rank and its group size,
+and returns an empty tensor of its result's shape (an all-gather
+concatenates the group's copies, a reduce-scatter keeps one chunk).  It
+stages nothing and calls no ``torch.distributed`` function; ``STATS``
+counts only collectives that moved data.
 """
 from __future__ import annotations
 
@@ -73,6 +82,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.op_cost import record_collective, tensor_bytes
+from repro_torch.launch.mesh import DRY_RUN
 from repro_torch.train.compression import quantize
 
 STATS = {"calls": Counter(), "bytes": Counter(), "seconds": Counter(), "reduce_ops": Counter()}
@@ -158,8 +169,12 @@ def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum",
                kind: str = "all_reduce") -> torch.Tensor:
     """Sum (or max) of ``x`` over the ranks of ``axes``; a new tensor,
     counted in ``STATS`` under ``kind``."""
-    if mesh.group(axes) is None:
+    group = mesh.group(axes)
+    if group is None:
         return x.clone()
+    if group is DRY_RUN:
+        record_collective("all-reduce", tensor_bytes(x), mesh.extent(axes))
+        return torch.empty_like(x)
     t0 = _start(mesh, x)
     y = _staged(mesh, x, copy=True)
     _sum_in_place(y, _lanes(mesh, axes, y),
@@ -173,9 +188,15 @@ def all_reduce(x: torch.Tensor, axes, mesh, op: str = "sum",
 def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0,
                kind: str = "all_gather") -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group order."""
-    if mesh.group(axes) is None:
+    group = mesh.group(axes)
+    if group is None:
         return x.clone()
     n = mesh.extent(axes)
+    if group is DRY_RUN:
+        record_collective("all-gather", tensor_bytes(x), n)
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
     t0 = _start(mesh, x)
     src = _staged(mesh, x.movedim(dim, 0).contiguous())
     lanes = _lanes(mesh, axes, src)
@@ -201,9 +222,15 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0,
     """The ranks' ``x`` summed, this rank's chunk of ``dim`` returned.  A
     large one over gloo sums the whole in place over the slice's groups and
     keeps this rank's chunk (gloo's all-reduce outruns its reduce-scatter)."""
-    if mesh.group(axes) is None:
+    group = mesh.group(axes)
+    if group is None:
         return x.clone()
     n = mesh.extent(axes)
+    if group is DRY_RUN:
+        record_collective("reduce-scatter", tensor_bytes(x), n)
+        shape = list(x.shape)
+        shape[dim] //= n
+        return x.new_empty(shape)
     t0 = _start(mesh, x)
     src = _staged(mesh, x.movedim(dim, 0).contiguous(), copy=True)
     lanes = _lanes(mesh, axes, src)
@@ -227,6 +254,11 @@ class _Exchange:
     def __init__(self, mesh, axes, x: torch.Tensor, dst, src):
         self.mesh, self.like, self.t0 = mesh, x, _start(mesh, x)
         g = mesh.group(axes)
+        self.dry = g is DRY_RUN
+        if self.dry:  # the pair's send, one collective-permute of the axis
+            record_collective("collective-permute", tensor_bytes(x), mesh.extent(axes))
+            self.recv = torch.empty_like(x) if src is not None else None
+            return
         self.out = _staged(mesh, x)
         send = self.out
         self.recv = torch.zeros_like(send) if src is not None else None
@@ -239,6 +271,8 @@ class _Exchange:
         self.seconds = time.perf_counter() - self.t0
 
     def wait(self):
+        if self.dry:
+            return self.recv
         t0 = _start(self.mesh, self.like)  # the compute queued since the start is not counted
         for r in self.reqs:
             r.wait()
@@ -475,6 +509,12 @@ def fsdp_gather(w: torch.Tensor, spec: Optional[tuple], mesh, summed=()) -> torc
     return _FSDPGather.apply(w, tuple(spec), mesh, frozenset(summed))
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its views share it); not its data
+    pointer, which is 0 for every meta tensor."""
+    return t.untyped_storage()._cdata
+
+
 class FSDPGathers:
     """FSDP's gathers for one pass of the model (``models.transformer``):
     ``specs`` is shaped like the parameters, each leaf's gather spec
@@ -501,7 +541,7 @@ class FSDPGathers:
                 return w
             whole = fsdp_gather(w, spec, self.mesh, self.summed)
             if self._live is not None and whole is not w:
-                self._live[whole.untyped_storage().data_ptr()] = (w, spec)
+                self._live[_storage_key(whole)] = (w, spec)
             return whole
 
         return tree if specs is None else tree_map(one, tree, specs)
@@ -520,7 +560,7 @@ class FSDPGathers:
         live = self._live = {}
 
         def pack(t):
-            src = live.get(t.untyped_storage().data_ptr()) if t.numel() else None
+            src = live.get(_storage_key(t)) if t.numel() else None
             if src is None:
                 return t
             return _Regather(*src, t.size(), t.stride(), t.storage_offset())

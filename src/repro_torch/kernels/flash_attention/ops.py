@@ -25,14 +25,23 @@ logsumexp and returns contiguous dq, dk and dv (dk and dv summed over each
 kv head's G query heads).  The backward takes the forward's head dims, 32,
 64, 128 and 256 (``BWD_HEAD_DIMS``), and picks its kernel by dtype as the
 forward does: bf16 on tensor cores, f32 on CUDA cores.
+
+The dry run (``launch/dryrun.py``) traces on the ``meta`` device: there the
+forward and backward entries check their operands as a launch does, return
+empty outputs of the right shapes (and the logsumexp) and record one call
+with ``cost()`` / ``backward_cost()`` (``core/op_cost.record_kernel``).
+They compute nothing and count no launch: the meta route is not a
+fallback.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.op_cost import record_kernel
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.models.layers import blocked_attention
@@ -98,7 +107,7 @@ def flash_attention(
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=plain_chunk(q.shape[1]), k_chunk=plain_chunk(k.shape[1]),
                                  prefix_len=prefix)
-    _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    _require(q.is_cuda or q.is_meta, f"q must be a CUDA, CPU or meta tensor, got {q.device}")
     if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, prefix)
     return forward_with_lse(q, k, v, causal=causal, window=window, prefix=prefix)[0]
@@ -136,6 +145,11 @@ def forward_with_lse(q, k, v, *, causal: bool, window: int, prefix: int,
     if with_lse:
         lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
                           device=q.device)
+    if q.is_meta:
+        B, Sq, _, H, _, D = _check(q, k, v, (32, 64, 128, 256))
+        record_kernel("flash_attention", *cost(q, k, causal=causal, window=window,
+                                               prefix=prefix))
+        return torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device), lse
     out = launch(kernel.library(), q, k, v, causal=causal, window=window, prefix=prefix,
                  stream=torch.cuda.current_stream(q.device).cuda_stream, lse=lse)
     global LAUNCHES
@@ -145,12 +159,47 @@ def forward_with_lse(q, k, v, *, causal: bool, window: int, prefix: int,
 
 def backward(q, k, v, out, lse, dout, *, causal: bool, window: int, prefix: int):
     """One backward launch on the card: (dq, dk, dv)."""
+    if q.is_meta:
+        _check(q, k, v, BWD_HEAD_DIMS)
+        record_kernel("flash_attention_bwd", *backward_cost(q, k, causal=causal, window=window,
+                                                            prefix=prefix))
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty(k.shape, dtype=q.dtype, device=q.device),
+                torch.empty(k.shape, dtype=q.dtype, device=q.device))
     grads = launch_backward(kernel.backward_library(), q, k, v, out, lse, dout, causal=causal,
                             window=window, prefix=prefix,
                             stream=torch.cuda.current_stream(q.device).cuda_stream)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return grads
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool = True, window: int = 0,
+                  prefix: int = 0) -> int:
+    """(query, key) pairs the masks leave visible (query i sits at key i):
+    query i sees keys from ``i - window + 1`` (0 without a window) up to i,
+    or up to the prefix's end, or every key without the causal mask."""
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(Sk, np.maximum(i + 1, prefix)) if causal else np.full_like(i, Sk)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def cost(q, k, *, causal: bool = True, window: int = 0, prefix: int = 0) -> tuple:
+    """(flops, bytes) of one forward call, as ``PERF.md``'s bound counts
+    them: 4 H D flops a visible (query, key) pair, q, k, v and the output
+    each once."""
+    B, Sq, H, D = q.shape
+    flops = 4 * H * D * B * visible_pairs(Sq, k.shape[1], causal, window, prefix)
+    return flops, (2 * q.numel() + 2 * k.numel()) * q.element_size()
+
+
+def backward_cost(q, k, *, causal: bool = True, window: int = 0, prefix: int = 0) -> tuple:
+    """(flops, bytes) of one backward call: 10 H D flops a visible pair;
+    q, k, v, o, dO and the logsumexp read, dq, dk, dv written once."""
+    B, Sq, H, D = q.shape
+    flops = 10 * H * D * B * visible_pairs(Sq, k.shape[1], causal, window, prefix)
+    return flops, (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * Sq
 
 
 def _check(q, k, v, head_dims) -> tuple:

@@ -13,7 +13,9 @@ bf16 x runs on tensor cores (bf16 or int8 w, K split across CTAs on narrow
 grids: ``launch_plan``), f32 x on CUDA cores (its 1e-5 tolerance rules out
 TF32).  CPU tensors go to the plain version (``ref.mm_pu_ref``); CUDA
 tensors launch the kernel their dtype selects or raise: there is no
-fallback.
+fallback.  On the ``meta`` device (the dry run's trace) it returns an
+empty (M, N) output and records one call with ``cost()``: no computation,
+no launch counted.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.op_cost import record_kernel
 from repro_torch.core.pu import MMTileSpec
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mm_pu import kernel
@@ -99,14 +102,28 @@ def mm_pu(
     if x.device.type == "cpu":
         return mm_pu_ref(x, w, bias=bias, residual=residual, w_scale=w_scale,
                          activation=activation, out_dtype=out_dtype)
-    _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    _require(x.is_cuda or x.is_meta, f"x must be a CUDA, CPU or meta tensor, got {x.device}")
     refuse_grad("mm_pu", "no training path calls it, as in JAX", x, w, bias, residual, w_scale)
+    if x.is_meta:
+        out_dtype = out_dtype or x.dtype
+        record_kernel("mm_pu", *cost(x, w, out_dtype))
+        return torch.empty((x.shape[0], w.shape[1]), dtype=out_dtype, device=x.device)
     out = launch(kernel.library(), x, w, bias=bias, residual=residual, w_scale=w_scale,
                  activation=activation, out_dtype=out_dtype,
                  stream=torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def cost(x, w, out_dtype) -> tuple:
+    """(flops, bytes) of one call, as ``PERF.md``'s bound counts them: 2 M N
+    K flops; x, w, the per-column scale and the output each once."""
+    M, K = x.shape
+    N = w.shape[1]
+    out_size = torch.finfo(out_dtype).bits // 8
+    return (2 * M * N * K,
+            x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * N + M * N * out_size)
 
 
 def launch(lib, x, w, *, bias, residual, w_scale, activation, out_dtype, stream) -> torch.Tensor:

@@ -12,7 +12,10 @@ pass); f32 q with any pages, and bf16 q with f32 pages, on CUDA cores
 (``paged_attention_forward``: f32's 2e-5 tolerance rules out rounding them
 to bf16 or TF32).  CPU tensors
 go to the plain version in ``ref.py``; CUDA tensors launch the kernel
-their dtypes select or raise: there is no fallback.
+their dtypes select or raise: there is no fallback.  On the ``meta``
+device (the dry run's trace) it checks the operands as a launch does,
+returns an empty output and records one call with ``cost()``: no
+computation, no launch counted.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.core.op_cost import record_kernel
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention import kernel
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -66,9 +70,13 @@ def paged_attention(
         return paged_attention_ref(
             q, entry, table, lens, q_lens, block_size=block_size, window=window
         )
-    lib = kernel.library()
-    _require(q.is_cuda, f"q must be a CUDA or CPU tensor, got {q.device}")
+    _require(q.is_cuda or q.is_meta, f"q must be a CUDA, CPU or meta tensor, got {q.device}")
     refuse_grad("paged_attention", "serving only, as in JAX", q, entry["k"], entry["v"])
+    if q.is_meta:
+        _check(q, entry, table, lens, q_lens, block_size)
+        record_kernel("paged_attention", *cost(q, entry, table, block_size=block_size))
+        return torch.empty_like(q)
+    lib = kernel.library()
     out = launch(lib, q, entry, table, lens, q_lens, block_size=block_size, window=window,
                  rows_per_cta=rows_per_cta, stream=torch.cuda.current_stream(q.device).cuda_stream)
     global LAUNCHES
@@ -76,13 +84,24 @@ def paged_attention(
     return out
 
 
-def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
-           rows_per_cta: int, stream, split: int = SPLIT) -> torch.Tensor:
-    """Check the operands, allocate the output (and the tensor-core entry's
-    work list and split partials) and call ``lib``'s entry point for the
-    (q, page) dtypes (``ENTRIES``) on ``stream``, with int8 pages' scale
-    pointers (null otherwise); raises on what the kernels do not take or a
-    failed launch."""
+def cost(q, entry, table, *, block_size: int) -> tuple:
+    """(flops, bytes) of one call, as ``PERF.md``'s bound counts them: the
+    live pages' K and V (with int8 pages' scales), the q rows and the
+    output once, the block table's lengths; 4 H D flops a (row, key) pair.
+    A meta table has no values to read, so every entry of it counts as a
+    live page and every row sees all of its slot's keys (the dry run's
+    decode slots are full)."""
+    B, W, H, D = q.shape
+    KH = entry["k"].shape[2]
+    kv_bytes = entry["k"].element_size() + (4 / D if "k_scale" in entry else 0)
+    keys = B * table.shape[1] * block_size
+    nbytes = keys * KH * D * 2 * kv_bytes + 2 * q.numel() * q.element_size() + 3 * B * 4
+    return 4 * D * H * W * keys, int(nbytes)
+
+
+def _check(q, entry, table, lens, q_lens, block_size: int) -> tuple:
+    """The operands' checks (a launch's and the meta route's): returns
+    (B, W, H, D, KH, MB)."""
     k, v = entry["k"], entry["v"]
     ks, vs = entry.get("k_scale"), entry.get("v_scale")
     B, W, H, D = q.shape
@@ -102,6 +121,21 @@ def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
     MB = table.shape[1]
     _require(table.shape == (B, MB) and lens.shape == (B,) and q_lens.shape == (B,),
              "table (B, MB), lens and q_lens (B,)")
+    return B, W, H, D, KH, MB
+
+
+def launch(lib, q, entry, table, lens, q_lens, *, block_size: int, window: int,
+           rows_per_cta: int, stream, split: int = SPLIT) -> torch.Tensor:
+    """Check the operands, allocate the output (and the tensor-core entry's
+    work list and split partials) and call ``lib``'s entry point for the
+    (q, page) dtypes (``ENTRIES``) on ``stream``, with int8 pages' scale
+    pointers (null otherwise); raises on what the kernels do not take or a
+    failed launch."""
+    B, W, H, D, KH, MB = _check(q, entry, table, lens, q_lens, block_size)
+    k, v = entry["k"], entry["v"]
+    ks, vs = entry.get("k_scale"), entry.get("v_scale")
+    bs = block_size
+    quant = k.dtype == torch.int8
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     q_lens = q_lens.to(device=q.device, dtype=torch.int32).contiguous()

@@ -19,6 +19,10 @@ and writes dx (and d(residual), the same tensor) contiguous in x's dtype,
 on ``backward_launch_plan``'s schedule; d(scale) in f32 from per-lane
 column sums, one partial row a CTA summed in a fixed order (no atomics:
 every rerun gives the same bits).
+
+On the ``meta`` device (the dry run's trace) the forward and backward
+entries return empty outputs of the right shapes and record one call with
+``cost()`` / ``backward_cost()``: no computation, no launch counted.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.op_cost import record_kernel
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -119,7 +124,7 @@ def rmsnorm(
     version by autograd, the kernel through ``RMSNorm``."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, residual, eps)
-    _require(x.is_cuda, f"x must be a CUDA or CPU tensor, got {x.device}")
+    _require(x.is_cuda or x.is_meta, f"x must be a CUDA, CPU or meta tensor, got {x.device}")
     if needs_grad(x, scale, residual):
         return RMSNorm.apply(x, scale, residual, eps)
     return _forward(x, scale, residual, eps)
@@ -143,7 +148,23 @@ class RMSNorm(torch.autograd.Function):
         return dx, dscale, None if residual is None else dx, None
 
 
+def cost(x, residual=None) -> tuple:
+    """(flops, bytes) of one forward call, as ``PERF.md``'s bound counts
+    them: x (and a residual) read and y written once, and the scale; no
+    matrix product."""
+    return 0, (2 + (residual is not None)) * x.numel() * x.element_size() + 4 * x.shape[-1]
+
+
+def backward_cost(x) -> tuple:
+    """(flops, bytes) of one backward call: x and dy read and dx written
+    once, the scale read and d(scale) written."""
+    return 0, 3 * x.numel() * x.element_size() + 8 * x.shape[-1]
+
+
 def _forward(x, scale, residual, eps: float) -> torch.Tensor:
+    if x.is_meta:
+        record_kernel("rmsnorm", *cost(x, residual))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     out = launch(kernel.library(), x, scale, residual, eps=eps,
                  stream=torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
@@ -153,6 +174,10 @@ def _forward(x, scale, residual, eps: float) -> torch.Tensor:
 
 def backward(x, scale, dy, residual=None, *, eps: float = 1e-6):
     """One backward launch on the card: (dx, d(scale))."""
+    if x.is_meta:
+        record_kernel("rmsnorm_bwd", *backward_cost(x))
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty(scale.shape, dtype=torch.float32, device=x.device))
     grads = launch_backward(kernel.backward_library(), x, scale, dy, residual, eps=eps,
                             stream=torch.cuda.current_stream(x.device).cuda_stream)
     global BWD_LAUNCHES

@@ -23,6 +23,11 @@ dr, dk, dv, d(log w), du and d(state).  On
 the CPU the same Function runs the plain versions (``wkv_chunked``, then
 ``ref.wkv_backward_ref``).  d(w) follows from d(log w) as JAX's
 ``log(maximum(w, 1e-12))`` gives it (``dw_from_dlogw``).
+
+On the ``meta`` device (the dry run's trace) the forward and backward
+entries check their operands as a launch does, return empty outputs of the
+right shapes and record one call with ``cost()`` / ``backward_cost()``: no
+computation, no launch counted.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.op_cost import record_kernel
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.rwkv6 import kernel
 from repro_torch.kernels.rwkv6.ref import BWD_MMA_CHUNK, wkv_backward_ref
@@ -81,7 +87,7 @@ def wkv(
     (outputs agree to rounding across chunks).  Differentiable on every
     device, through ``WKV``."""
     if r.device.type != "cpu":
-        _require(r.is_cuda, f"r must be a CUDA or CPU tensor, got {r.device}")
+        _require(r.is_cuda or r.is_meta, f"r must be a CUDA, CPU or meta tensor, got {r.device}")
     if needs_grad(r, k, v, w, u, state):
         return WKV.apply(r, k, v, w, u, state, chunk, return_state)
     return _forward(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
@@ -94,6 +100,12 @@ def _forward(r, k, v, w, u, *, chunk: int, state, return_state: bool):
         from repro_torch.models.rwkv6 import wkv_chunked
 
         return wkv_chunked(r, k, v, w, u, chunk=chunk, state=state, return_state=return_state)
+    if r.is_meta:
+        B, S, H, D = _check(r, k, v, w, u, chunk, state)
+        record_kernel("wkv", *cost(r))
+        out = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
+        s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+        return (out, s_out) if return_state else out
     res = launch(kernel.library(), r, k, v, w, u, chunk=chunk, state=state,
                  return_state=return_state, stream=torch.cuda.current_stream(r.device).cuda_stream)
     global LAUNCHES
@@ -140,12 +152,38 @@ class WKV(torch.autograd.Function):
 def backward(r, k, v, w, u, dout, *, chunk: int, state=None, dstate=None):
     """One backward launch on the card: (dr, dk, dv, d(log w), du,
     d(state) or None)."""
+    if r.is_meta:
+        B, S, H, D = _check(r, k, v, w, u, chunk, state)
+        record_kernel("wkv_bwd", *backward_cost(r))
+        grads = [torch.empty(r.shape, dtype=r.dtype, device=r.device) for _ in range(3)]
+        grads += [torch.empty(r.shape, dtype=torch.float32, device=r.device),
+                  torch.empty((H, D), dtype=torch.float32, device=r.device),
+                  None if state is None else torch.empty_like(state)]
+        return tuple(grads)
     res = launch_backward(kernel.backward_library(), r, k, v, w, u, dout, chunk=chunk,
                           state=state, dstate=dstate,
                           stream=torch.cuda.current_stream(r.device).cuda_stream)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return res
+
+
+def cost(r) -> tuple:
+    """(flops, bytes) of one forward call, as ``PERF.md``'s bound counts
+    them: ~6 D^2 flops a token and head; r/k/v in their type, w and the
+    output in f32, u and the final state each once."""
+    B, S, H, D = r.shape
+    n = B * S * H * D
+    return 6 * D * n, 3 * n * r.element_size() + 8 * n + 4 * H * D + 4 * B * H * D * D
+
+
+def backward_cost(r) -> tuple:
+    """(flops, bytes) of one backward call: the four D x D products a token
+    and head (8 D^2 flops); r/k/v read and dr/dk/dv written in r's type, w
+    and dO read and d(log w) written in f32, u and du once."""
+    B, S, H, D = r.shape
+    n = B * S * H * D
+    return 8 * D * n, 6 * n * r.element_size() + 12 * n + 8 * H * D
 
 
 def _check(r, k, v, w, u, chunk: int, state) -> tuple:

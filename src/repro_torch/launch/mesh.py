@@ -9,7 +9,11 @@ subset of the axes that spans more than one rank has a process group per
 slice (``group``; over gloo ``GLOO_LANES`` of them, ``lanes``), made at
 construction by every rank in the same order.
 Without a process group the mesh has one rank and every collective over it
-is the identity.
+is the identity.  ``DryRunMesh`` is a mesh of any shape seen from one rank
+with no process group at all (the dry run's counterpart of JAX's 512
+placeholder devices): its ``group`` is the marker ``DRY_RUN``, on which
+every collective of ``dist.collectives`` records itself and returns a meta
+tensor of its result's shape.
 
 ``init_distributed`` starts the process group from ``torchrun``'s
 environment: NCCL when each rank has a card of its own, gloo on the CPU or
@@ -119,6 +123,43 @@ class Mesh:
         for a in self._key(axes):
             i = i * self.shape[a] + self.coords[a]
         return i
+
+
+# The group a ``DryRunMesh`` hands the collectives: they record themselves
+# (``core/op_cost``) instead of moving data.
+DRY_RUN = "dry-run"
+
+
+class DryRunMesh(Mesh):
+    """A mesh of ``shape`` (the production (data 16, model 16) or (pod 2,
+    data 16, model 16), or any other) seen from the rank at ``coords``
+    (default the first), with no process group: ``group`` returns
+    ``DRY_RUN`` for axes wider than one rank, and nothing here or in the
+    collectives touches ``torch.distributed``."""
+
+    backend = None
+
+    def __init__(self, shape: dict, coords: Optional[dict] = None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.coords = {a: 0 for a in self.axis_names}
+        self.coords.update(coords or {})
+        if any(not 0 <= self.coords[a] < self.shape[a] for a in self.axis_names):
+            raise ValueError(f"coords {self.coords} outside mesh {self.shape}")
+        self.rank = self._rank_at(self.coords)
+        self._groups = {}
+
+    def group(self, axes):
+        return DRY_RUN if self.extent(axes) > 1 else None
+
+    def lanes(self, axes) -> list:
+        return [DRY_RUN] if self.extent(axes) > 1 else []
+
+    def ranks(self, axes) -> list:
+        key = self._key(axes)
+        return [self._rank_at({**self.coords, **dict(zip(key, c))})
+                for c in itertools.product(*(range(self.shape[a]) for a in key))]
 
 
 def local_device(device="cuda") -> torch.device:

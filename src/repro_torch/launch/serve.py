@@ -33,11 +33,15 @@
         --batch 8 --prompt-len 64 --gen 32
 
 The flags are those of ``repro.launch.serve.ServeArgs`` but
-``--pages-per-tile`` (the CUDA kernels have no page-tile schedule),
-``--from-family`` and the deprecated ``--trace``, plus ``--device`` and
-``--dtype``.  ``plan_overrides``
-maps them onto ``derive_serve_plan`` keywords as ``ServeArgs.
-plan_overrides`` does.  An arch that ``serve_feasible`` refuses (RWKV-6,
+``--pages-per-tile`` (the CUDA kernels have no page-tile schedule) and the
+deprecated ``--trace``, plus ``--device`` and ``--dtype``.
+``plan_overrides`` maps them onto ``derive_serve_plan`` keywords as
+``ServeArgs.plan_overrides`` does.  ``--from-family throughput|cost|energy``
+takes the serve plan off the design-space search's Pareto frontier instead
+(``pick_from_family``: the search at the launcher's model degree, the
+criterion's optimal point); a point that speculates brings its draft source
+unless ``--draft`` names one, and ``--no-fused`` then runs the picked plan
+on the plain versions.  An arch that ``serve_feasible`` refuses (RWKV-6,
 RG-LRU, prefix-LM, encoder-decoder, learned positions) falls back to
 ``--engine eager``, which draws a frontend's prefix embeddings and an
 encoder-decoder's frames as JAX's ``run_eager`` does; a classifier
@@ -61,6 +65,7 @@ replicated, as JAX's ``run_eager`` places no shardings.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional
@@ -164,7 +169,13 @@ def build_parser() -> argparse.ArgumentParser:
                          " tracing is on only when this is set")
     ap.add_argument("--trace-buffer", type=int, default=65536,
                     help="trace ring-buffer capacity in events (oldest dropped first)")
-    ap.add_argument("--hardware", default="h100")
+    ap.add_argument("--hardware", default="h100",
+                    help="registered HardwareSpec name the plans derive from (variants: "
+                         "repro_torch.core.hardware.HARDWARE_VARIANTS)")
+    ap.add_argument("--from-family", default=None, choices=["throughput", "cost", "energy"],
+                    help="pick the serving plan off the design-space Pareto frontier "
+                         "(core/search.py) instead of deriving one; the criterion chooses "
+                         "the frontier point")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bf16", choices=sorted(_DTYPES))
     ap.add_argument("--seed", type=int, default=0)
@@ -221,6 +232,34 @@ def request_stream(a: argparse.Namespace, cfg) -> list:
     return random_stream(cfg, a.requests, a.prompt_len, a.gen, a.stagger, seed=1)
 
 
+def pick_from_family(a: argparse.Namespace, cfg, mesh: dict, hw):
+    """The ServePlan from the Pareto frontier (``--from-family``, JAX's
+    ``pick_from_family``): the search restricted to the launcher's
+    model-axis degree (``mesh``: its extents), so the plan runs on this
+    mesh; the criterion picks the frontier's throughput-, cost- or
+    energy-optimal point."""
+    from repro_torch.core.search import default_space, search_family
+
+    ma = dict(mesh).get("model", 1)
+    space = dataclasses.replace(default_space(hw, max_seq_len=a.max_seq), mesh_models=(ma,))
+    result = search_family(cfg, hw, space)
+    if not result.frontier:
+        raise SystemExit(f"empty family frontier for {cfg.name} on {hw.name}")
+    key = {
+        "throughput": lambda p: -p.tokens_per_s,
+        "cost": lambda p: p.usd_per_mtok,
+        "energy": lambda p: p.mj_per_tok,
+    }[a.from_family]
+    point = min(result.frontier, key=key)
+    print(
+        f"family pick ({a.from_family}-optimal of {len(result.frontier)} "
+        f"frontier points on {hw.name}): {point.tokens_per_s:.0f} tok/s, "
+        f"${point.usd_per_mtok:.3f}/Mtok, {point.mj_per_tok:.2f} mJ/tok, "
+        f"tile {point.tile}"
+    )
+    return point.plan
+
+
 def run(a: argparse.Namespace) -> dict:
     """The batched engine over the request stream; under ``torchrun``, on
     the host mesh of the world's ranks with each rank's tensor-parallel
@@ -242,7 +281,12 @@ def run(a: argparse.Namespace) -> dict:
         reason = unexecuted_layout(plan, cfg)
         if reason:
             raise ValueError(f"mesh {shape}: {reason}")
-    serve = derive_serve_plan(cfg, shape, hw, **plan_overrides(a))
+    if a.from_family:
+        serve = pick_from_family(a, cfg, shape, hw)
+        if a.no_fused:
+            serve = dataclasses.replace(serve, fused_attention=False)
+    else:
+        serve = derive_serve_plan(cfg, shape, hw, **plan_overrides(a))
     say(plan)
     say(serve.describe())
     gen = torch.Generator(device=device).manual_seed(a.seed)
@@ -254,11 +298,14 @@ def run(a: argparse.Namespace) -> dict:
         say(f"distributed: {world} ranks, backend {backend}, mesh {shape}, tensor-parallel "
             f"shards (attention on {'local' if sh.attention_sharded() else 'all'} heads)")
     draft = None
-    if a.draft and serve.spec_len == 0:
+    draft_name = a.draft
+    if a.from_family and not draft_name and serve.spec_len > 0:
+        draft_name = serve.draft  # the frontier point decided to speculate
+    if draft_name and serve.spec_len == 0:
         say("roofline slack leaves no free verification rows at this decode batch:"
             " speculation stays off (gamma = 0)")
-    elif a.draft:
-        draft = make_draft_source(a.draft, cfg, serve, hw=hw, seed=2, device=device,
+    elif draft_name:
+        draft = make_draft_source(draft_name, cfg, serve, hw=hw, seed=2, device=device,
                                   dtype=_DTYPES[a.dtype])
     injector = make_injector(a)
     if injector is not None:
@@ -288,6 +335,7 @@ def run(a: argparse.Namespace) -> dict:
     if cal.get("overall_ratio"):
         say(f"planner calibration: {cal['note']}")
     say(json.dumps(summary, indent=1, default=str))
+    summary["serve_plan"], summary["outputs"] = serve, out  # for callers; not printed
     return summary
 
 

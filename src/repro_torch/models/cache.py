@@ -225,8 +225,12 @@ def _cache_slots(cfg, kind: str, cache_len: int) -> int:
     return min(window, cache_len) if window else cache_len
 
 
-def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, device) -> dict:
-    KV, Dh, d = cfg.n_kv_heads, cfg.d_head, cfg.d_model
+def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, device,
+                 split: tuple = (1, 1)) -> dict:
+    """One layer's dense cache; ``split`` (attention heads' divisor,
+    recurrent heads' and channels' divisor) gives this rank's share under
+    tensor parallelism."""
+    KV, Dh, d = cfg.n_kv_heads // split[0], cfg.d_head, cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
     entry: dict = {}
     if kind in ("attn", "swa", "local"):
@@ -238,11 +242,11 @@ def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, dev
             "t": torch.zeros(lead, dtype=torch.int32),
         }
     elif kind == "rglru":
-        W = cfg.lru_width or d
+        W = (cfg.lru_width or d) // split[1]
         entry["rglru"] = {"h": torch.zeros(lead + (B, W), **f32),
                           "conv": torch.zeros(lead + (B, cfg.conv_width - 1, W), **f32)}
     elif kind == "rwkv6":
-        H = cfg.rnn_heads
+        H = cfg.rnn_heads // split[1]
         entry["rwkv"] = {"S": torch.zeros(lead + (B, H, Dh, Dh), **f32),
                          "shift": torch.zeros(lead + (B, d), **f32)}
         entry["cmix"] = torch.zeros(lead + (B, d), **f32)
@@ -256,21 +260,30 @@ def _layer_cache(cfg, kind: str, lead: tuple, B: int, cache_len: int, dtype, dev
 
 
 def init_cache(cfg, plan, batch_size: int, cache_len: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", shardings=None) -> dict:
     """Zero dense caches mirroring the layer tree; ``"t"`` is the Python int
     count of positions cached (0); an encoder-decoder adds a zero
-    ``"memory"``.  ``device`` defaults to the card."""
+    ``"memory"``.  ``device`` defaults to the card.  ``shardings``
+    (``dist.sharding.Shardings``) under tensor parallelism: this rank's
+    heads, n_kv_heads / n where attention runs on local heads, rnn_heads /
+    n and lru_width / n where the recurrent blocks do (``batch_size`` is
+    the caller's: this rank's rows)."""
     device = resolve_device(device)
+    split = (1, 1)
+    if shardings is not None:
+        n = shardings.axis_sizes.get("model", 1)
+        split = (n if shardings.attention_sharded() else 1,
+                 n if shardings.recurrent_sharded() else 1)
     pattern = cfg.layer_pattern
     n_full, rem = divmod(cfg.n_layers, len(pattern))
     stack = (
-        tuple(_layer_cache(cfg, kind, (n_full,), batch_size, cache_len, dtype, device)
+        tuple(_layer_cache(cfg, kind, (n_full,), batch_size, cache_len, dtype, device, split)
               for kind in pattern)
         if n_full
         else None
     )
     tail = tuple(
-        _layer_cache(cfg, pattern[i], (), batch_size, cache_len, dtype, device)
+        _layer_cache(cfg, pattern[i], (), batch_size, cache_len, dtype, device, split)
         for i in range(rem)
     )
     cache = {"layers": {"stack": stack, "tail": tail}, "t": 0}

@@ -74,7 +74,13 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int, dp=None):
     # Switch-style load-balance aux loss
     E = w_router.shape[-1]
     me = probs.mean(dim=0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    # each expert's count of choices, by an index_add of ones: exact integers,
+    # and a static shape (bincount's depends on the values; the dry run traces
+    # on the meta device)
+    flat = idx.reshape(-1)
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
+    ce = torch.zeros(E, dtype=torch.float32, device=flat.device).index_add_(0, flat, ones)
+    ce = ce / idx.numel()
     if dp is not None:
         from repro_torch.dist.collectives import batch_mean
 
@@ -133,9 +139,13 @@ def gshard_route(x: torch.Tensor, w_router: torch.Tensor, st: MoESettings):
     dev = x.device
     tok = torch.arange(G * g, device=dev).reshape(G, g, 1)
     flat = (tok * E + idxg) * cap + pos  # (G, g, K) into the flattened combine
-    combine = torch.zeros(G * g * E * cap, dtype=torch.float32, device=dev)
-    combine[flat[in_cap]] = gates.reshape(G, g, K)[in_cap]
-    return combine.reshape(G, g, E, cap), aux
+    n = G * g * E * cap
+    # a dropped choice writes the drop bin (entry n, never read): a static
+    # shape where a boolean mask's would depend on the values
+    slot = torch.where(in_cap, flat, n).reshape(-1)
+    combine = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+    combine[slot] = gates.reshape(-1).to(torch.float32)
+    return combine[:n].reshape(G, g, E, cap), aux
 
 
 def gshard_dispatch(combine: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

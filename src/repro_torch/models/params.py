@@ -175,9 +175,10 @@ def init_params(
     device="cuda",
 ) -> dict:
     """Random weights with the JAX tree and scales, drawn from ``generator``
-    (a fresh one seeded 0 on ``device`` when omitted)."""
+    (a fresh one seeded 0 on ``device`` when omitted).  On ``"meta"`` the
+    leaves are shapes without storage and nothing is drawn."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     init = _Init(generator, dtype, dev)
     pattern = cfg.layer_pattern

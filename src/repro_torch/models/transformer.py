@@ -756,8 +756,10 @@ def forward(
     the final norm and what follows run replicated on every rank of the
     model axis.  Under tensor parallelism without SP
     (``dist.sharding.tensor_parallel``) every layer runs on this rank's
-    shards (``edpu_layer``'s ``tp``), with no cache or over the paged pools
-    of this rank's KV heads; the final norm runs replicated.  Under both,
+    shards (``edpu_layer``'s ``tp``), with no cache, over the paged pools
+    of this rank's KV heads, or over a dense cache of this rank's heads
+    (``cache.init_cache(shardings=)``; ``collect_cache`` harvests this
+    rank's heads); the final norm runs replicated.  Under both,
     an embedding cut over ``vocab`` is looked up vocab-parallel
     (``_vocab_split``).  ``batch`` is this rank's rows (``lm_loss`` cuts
     them).  ``gathers`` (``dist.collectives.FSDPGathers``): the layer
@@ -776,9 +778,6 @@ def forward(
         from repro_torch.dist.sharding import tensor_parallel
 
         if tensor_parallel(plan):
-            if collect_cache or (cache is not None and page_state is None):
-                raise ValueError("tensor parallelism runs the no-cache pass and the paged "
-                                 "serving step; the dense-cache path runs replicated")
             tp = mesh
     memory = None
     if cfg.enc_dec:

@@ -75,32 +75,63 @@ from repro_torch.serve.faults import (
 from repro_torch.serve.scheduler import DONE, WAITING, Request, Scheduler
 
 
-def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
+def _serving_gathers(cfg: ArchConfig, plan: ExecutionPlan, mesh, shardings):
+    """FSDP's gathers of a serving step on a mesh (``dist.collectives.
+    FSDPGathers``, no batch axes to sum over), or None where no leaf of
+    ``shardings`` is cut over the data-parallel axes."""
+    if mesh is None or shardings is None:
+        return None
+    from repro_torch.dist.collectives import FSDPGathers
+    from repro_torch.dist.sharding import Shardings
+    from repro_torch.train.optimizer import tree_leaves
+
+    specs = Shardings(mesh, plan, cfg).gather_specs(shardings)
+    return FSDPGathers(mesh, specs) if any(s is not None for s in tree_leaves(specs)) else None
+
+
+def make_prefill_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True,
+                      mesh=None, shardings=None):
     """``prefill(params, batch) -> (logits (B, 1, V) of the last position,
     prefill cache)``: one pass over the whole prompt (``batch["tokens"]``,
     with any ``prefix_embeds`` and ``enc_embeds``) with
     ``collect_cache=True``.  ``fused=False`` runs the kernels' plain
-    versions on any device (the oracle)."""
+    versions on any device (the oracle).
+
+    With a ``mesh`` (JAX's ``shard``): ``params`` are this rank's shards
+    (``shardings``, the parameters' manual shardings) and ``batch`` its
+    rows; the pass runs ``forward(mesh=)`` (tensor parallelism where the
+    plan has it: the harvest holds this rank's heads), FSDP leaves are
+    gathered where read, and logits cut over the vocabulary are gathered."""
+    gathers = _serving_gathers(cfg, plan, mesh, shardings)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, pc = forward(params, batch, cfg=cfg, plan=plan, collect_cache=True, fused=fused)
-        return logits_fn(params, x[:, -1:], cfg), pc
+        if gathers is not None:
+            params = gathers.top(params)
+        x, pc = forward(params, batch, cfg=cfg, plan=plan, collect_cache=True, fused=fused,
+                        mesh=mesh, gathers=gathers)
+        return logits_fn(params, x[:, -1:], cfg, mesh=mesh), pc
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True):
+def make_decode_step(cfg: ArchConfig, plan: ExecutionPlan, *, fused: bool = True,
+                     mesh=None, shardings=None):
     """``decode(params, token (B, 1), cache) -> (logits (B, 1, V), cache)``:
     one token over the dense cache, which is updated in place (it carries
     an encoder-decoder's memory: a step takes tokens only, as in JAX).
-    ``fused=False`` runs the kernels' plain versions on any device."""
+    ``fused=False`` runs the kernels' plain versions on any device.  With a
+    ``mesh``, as ``make_prefill_step``: this rank's shards, rows and cache
+    (``cache.init_cache(shardings=)``)."""
+    gathers = _serving_gathers(cfg, plan, mesh, shardings)
 
     @torch.no_grad()
     def decode_step(params, token, cache):
+        if gathers is not None:
+            params = gathers.top(params)
         x, cache = forward(params, {"tokens": token}, cfg=cfg, plan=plan, cache=cache,
-                           fused=fused)
-        return logits_fn(params, x, cfg), cache
+                           fused=fused, mesh=mesh, gathers=gathers)
+        return logits_fn(params, x, cfg, mesh=mesh), cache
 
     return decode_step
 

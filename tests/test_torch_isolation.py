@@ -46,6 +46,8 @@ def test_importing_the_port_pulls_in_neither():
         "import repro_torch.models.rwkv6\n"
         "import repro_torch.launch.train, repro_torch.train.train_step\n"
         "import repro_torch.train.compression, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.dryrun, repro_torch.core.search, repro_torch.core.autotune\n"
+        "import repro_torch.core.roofline, repro_torch.core.op_cost, repro_torch.configs.shapes\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -74,6 +76,32 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "smollm-135m-reduced", "--requests", "1"])
     assert resolve_device("cpu").type == "cpu"
+    # the dry run needs no card; its --calibrate serves on one and raises
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--calibrate"])
+    assert resolve_device("meta").type == "meta"
+
+
+def test_dry_run_needs_no_card(tmp_path):
+    """``launch.dryrun`` traces a production cell on the meta device with no
+    card and no process group, in a process that never imports JAX."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import dryrun\n"
+        f"dryrun.main(['--arch', 'smollm-135m', '--shape', 'decode_32k', '--mesh', 'single',"
+        f" '--out-dir', {str(tmp_path)!r}])\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"status": "ok"' in (tmp_path / "single" / "smollm-135m__decode_32k.json").read_text()
 
 
 def test_device_defaults_raise_without_cuda():

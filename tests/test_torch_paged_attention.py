@@ -131,9 +131,12 @@ def test_swa_ignores_pages_below_window():
 
 def test_non_cpu_tensors_raise_without_a_built_kernel(monkeypatch):
     """The wrapper takes the plain version only for CPU tensors.  A tensor
-    anywhere else goes to the kernel: with no built kernel (no nvcc here;
-    PyTorch here has no CUDA, so a meta tensor stands in) the call raises
-    and the plain version is never called."""
+    anywhere else goes to the kernel, whose build raises here (no nvcc;
+    PyTorch here has no CUDA), or, on the meta device, to the dry run's
+    meta route, which records one call and computes nothing; the plain
+    version is never called and no launch is counted."""
+    from repro_torch.core.op_cost import OpRecorder
+
     def refuse(*a, **k):
         raise AssertionError("fell back to the plain version")
 
@@ -144,7 +147,11 @@ def test_non_cpu_tensors_raise_without_a_built_kernel(monkeypatch):
     meta = {k: x.to("meta") for k, x in entry.items()}
     before = ops.LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
-        ops.paged_attention(q.to("meta"), meta, table, lens, q_lens, block_size=4)
+        ops.kernel.library()
+    with OpRecorder() as rec:
+        out = ops.paged_attention(q.to("meta"), meta, table, lens, q_lens, block_size=4)
+    assert out.is_meta and out.shape == q.shape
+    assert rec.cost.kernel_calls() == {"paged_attention": 1}
     assert ops.LAUNCHES == before
 
 

@@ -219,16 +219,34 @@ def test_wrapper_routes_by_dtype(dtype):
         ops.launch(lib, r, k, v, w, u, chunk=48, state=None, return_state=False, stream=0)
 
 
-def test_wrappers_never_fall_back():
+def test_wrappers_never_fall_back(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel or raises: here,
-    with no CUDA toolkit or card, it raises instead of computing."""
+    with no CUDA toolkit or card, the kernels' builds raise instead of
+    computing.  On the meta device the wrappers take the dry run's route,
+    which records one call and computes nothing; the plain versions are
+    never called and no launch is counted."""
+    from repro_torch.core.op_cost import OpRecorder
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import layers
 
+    def refuse(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(R, "wkv_chunked", refuse)
+    monkeypatch.setattr(layers, "blocked_attention", refuse)
+    monkeypatch.setattr(flash_ops, "blocked_attention", refuse)
+    monkeypatch.setattr(ops.kernel, "_lib", None)
+    monkeypatch.setattr(flash_ops.kernel, "_lib", None)
+    for build in (ops.kernel.library, flash_ops.kernel.library):
+        with pytest.raises(RuntimeError):
+            build()
     m = torch.empty((1, 32, 2, 32), device="meta")
-    with pytest.raises((RuntimeError, ValueError)):
-        ops.wkv(m, m, m, m, torch.empty((2, 32), device="meta"))
-    with pytest.raises((RuntimeError, ValueError)):
-        flash_ops.flash_attention(m, m, m)
+    launches = (ops.LAUNCHES, flash_ops.LAUNCHES)
+    with OpRecorder() as rec:
+        assert ops.wkv(m, m, m, m, torch.empty((2, 32), device="meta")).shape == m.shape
+        assert flash_ops.flash_attention(m, m, m).shape == m.shape
+    assert rec.cost.kernel_calls() == {"wkv": 1, "flash_attention": 1}
+    assert (ops.LAUNCHES, flash_ops.LAUNCHES) == launches
 
 
 def _group0(tree):
