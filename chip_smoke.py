@@ -4294,7 +4294,7 @@ def mesh_rank(spec_file: str) -> None:
 
     spec = json.loads(Path(spec_file).read_text())
     rank = int(os.environ["RANK"])
-    backend = init_distributed("cuda")  # torchrun's environment: gloo, two ranks a card
+    backend = init_distributed("cuda")  # torchrun's environment: gloo, ranks sharing the card
     check(backend == "gloo", f"rank {rank}: backend {backend}")
     kinds = {"mesh": mesh_job, "tp_train": tp_train_job, "tp_serve": tp_serve_job,
              "fsdp": fsdp_job, "tp_arch": tp_arch_job}
@@ -4351,8 +4351,8 @@ def phase_mesh_nccl():
     return {"losses": lb, "counts": cb}
 
 
-def spawn_ranks(jobs: list, tag: str) -> list:
-    """Two ranks of this script on the card (``--mesh-rank``), with
+def spawn_ranks(jobs: list, tag: str, world: int = 2) -> list:
+    """``world`` ranks of this script on the card (``--mesh-rank``), with
     torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_PORT) and
     expandable segments; joined within MESH_TIMEOUT_S, killed after it.
     Returns each rank's job results."""
@@ -4362,10 +4362,11 @@ def spawn_ranks(jobs: list, tag: str) -> list:
     spec.write_text(json.dumps({"jobs": jobs, "out": str(work / f"{tag}.rank{{rank}}.json")}))
     port = free_port()
     procs, logs = [], []
-    for r in range(2):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
-                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", OMP_NUM_THREADS="4")
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+                   OMP_NUM_THREADS=str(8 // world))
         f = open(work / f"{tag}.rank{r}.log", "w")
         logs.append(f)
         procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
@@ -4390,7 +4391,7 @@ def spawn_ranks(jobs: list, tag: str) -> list:
             for line in text.splitlines()[-30:]:
                 log(f"  rank {r} | {line}")
         check(p.returncode == 0, f"{tag}: rank {r} exited with {p.returncode}")
-    return [json.loads((work / f"{tag}.rank{r}.json").read_text()) for r in range(2)]
+    return [json.loads((work / f"{tag}.rank{r}.json").read_text()) for r in range(world)]
 
 
 def phase_mesh_ranks():
@@ -4623,19 +4624,24 @@ def fsdp_controls_plant(control, cfg):
     """Plant one of the FSDP controls in this rank (training ``cfg``);
     returns the undo.  ``skip_scatter``: the embedding's gradient scatter
     (its FSDP gather's backward) leaves each rank its own partial chunk,
-    unsummed; ``neighbour_shard``: rank 0 gathers its neighbour's shard in
-    place of its own for every gathered weight.
-    ``tests/test_torch_fsdp_train.py`` plants the same on the CPU."""
+    unsummed; ``skip_stage_scatter``: so does every stacked leaf's (under
+    the pipeline, the stage slice's gradients); ``neighbour_shard``: rank 0
+    gathers its neighbour's shard in place of its own for every gathered
+    weight.  ``tests/test_torch_fsdp_train.py`` and
+    ``tests/test_torch_pipeline_zero.py`` plant the same on the CPU."""
     from repro_torch.dist import collectives as C
 
     if control is None:
         return lambda: None
-    if control == "skip_scatter":
+    if control in ("skip_scatter", "skip_stage_scatter"):
         orig = C.reduce_scatter
         embed = cfg.vocab_size * cfg.d_model
 
+        def skipped(x):
+            return x.numel() == embed if control == "skip_scatter" else x.ndim >= 3
+
         def keeping(x, axes, mesh_, dim=0, kind="reduce_scatter"):
-            if kind != "fsdp_scatter" or x.numel() != embed:
+            if kind != "fsdp_scatter" or not skipped(x):
                 return orig(x, axes, mesh_, dim, kind)
             n = mesh_.extent(axes)
             c = x.shape[dim] // n
@@ -4675,13 +4681,14 @@ def tp_watched(names: list) -> bool:
             or (names[0] == "encoder" and names[-1] in ("scale", "bias")))
 
 
-def tp_grad_norms(watched: list = None, leaves: list = None):
+def tp_grad_norms(watched: list = None, leaves: list = None, watch=tp_watched):
     """(the grad norms list, the undo): every train step's global gradient
     norm as the step computed it (the launcher's log rounds it to 3
     places), recorded from ``train_step.adamw_update``'s argument; with
-    ``watched``, the norm of the ``tp_watched`` leaves' gradients is
-    appended to it too, and to ``leaves`` each of those leaves' norm by
-    its path (a stacked leaf's by its path and group)."""
+    ``watched``, the norm of the ``watch`` leaves' gradients (by default
+    ``tp_watched``'s; this rank's shards of them) is appended to it too,
+    and to ``leaves`` each of those leaves' norm by its path (a stacked
+    leaf's by its path and group)."""
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import tree_leaves_with_path
 
@@ -4692,12 +4699,12 @@ def tp_grad_norms(watched: list = None, leaves: list = None):
             sq = {}  # a stacked leaf's groups apart: "<path>[group]"
             for p, g in tree_leaves_with_path(grads):
                 names = list(map(str, p))
-                if tp_watched(names):
-                    g = g.float().square()
-                    if names[1:2] == ["stack"]:
-                        sq.update({f"{'|'.join(names)}[{i}]": x.sum() for i, x in enumerate(g)})
+                if watch(names):
+                    if names[1:2] == ["stack"]:  # a group at a time: no f32 copy of the leaf
+                        sq.update({f"{'|'.join(names)}[{i}]": x.float().square().sum()
+                                   for i, x in enumerate(g)})
                     else:
-                        sq["|".join(names)] = g.sum()
+                        sq["|".join(names)] = g.float().square().sum()
             watched.append(float(torch.stack(list(sq.values())).sum().sqrt()) if sq else 0.0)
             if leaves is not None:
                 leaves.append({k: float(v.sqrt()) for k, v in sq.items()})
@@ -4707,6 +4714,15 @@ def tp_grad_norms(watched: list = None, leaves: list = None):
 
     TS.adamw_update = recording
     return norms, lambda: setattr(TS, "adamw_update", orig)
+
+
+def pz_watched(names: list) -> bool:
+    """The stacked projections (the leaves ZeRO shards): their gradients
+    are phase 49's stage gradients, each rank's shards disjoint over pod x
+    data."""
+    from repro_torch.dist.sharding import COLUMN_PARALLEL, ROW_PARALLEL
+
+    return names[:2] == ["blocks", "stack"] and names[-1] in COLUMN_PARALLEL | ROW_PARALLEL
 
 
 def tp_train_args(depth: str) -> dict:
@@ -5142,6 +5158,11 @@ FSDP_RUNS = {
 }
 FSDP_REFERENCE = {"rwkv6 bf16": "rwkv6 bf16 dp"}
 FSDP_CONTROLS = ("skip_scatter", "neighbour_shard")
+# Phase 49's run and controls (its note is above PZ_WORLD).
+FSDP_RUNS["phi4 pipeline"] = ("phi4-mini-3.8b", dict(batch=8, seq=TRAIN_S, dtype=torch.bfloat16,
+                                                    n_layers=20, pipeline=2))
+PZ_CONTROLS = ("skip_stage_scatter", "neighbour_shard")
+MESH_FLAGS = ("pipeline", "dp", "force_mode")
 FSDP_STATE_SHARE = 0.55
 FSDP_DP_MARGIN = 2.0
 
@@ -5168,11 +5189,14 @@ def fsdp_plan(run: str):
     return cfg, plan
 
 
-def fsdp_run(run: str, steps: int, control=None) -> dict:
-    """One ``launch.train.run`` of a phase-43 / 44 run in this process (one
-    rank, or a rank of the spawned pair), optionally with a planted
+def fsdp_run(run: str, steps: int, control=None, one_rank: bool = False) -> dict:
+    """One ``launch.train.run`` of a phase-43 / 44 / 49 run in this process
+    (one rank, or a rank of the spawned ones), optionally with a planted
     control: losses, grad norms, step ms, the collectives by kind, launches,
-    peak memory and the state's bytes (weights and AdamW moments)."""
+    peak memory and the state's bytes (weights and AdamW moments).
+    ``one_rank``: the run's mesh flags dropped (its one-process baseline).
+    Also the norm of the stage's projections' gradients, this rank's shards
+    of them (``pz_watched``)."""
     import contextlib
     import io
 
@@ -5184,9 +5208,13 @@ def fsdp_run(run: str, steps: int, control=None) -> dict:
     from repro_torch.configs import get_config
 
     arch, a = FSDP_RUNS[run]
+    watch_stage = bool(a.get("pipeline"))
+    if one_rank:
+        a = {k: v for k, v in a.items() if k not in MESH_FLAGS}
     dev = local_device("cuda")
     undo = fsdp_controls_plant(control, get_config(arch))
-    gnorms, undo_norms = tp_grad_norms()
+    stage_norms = [] if watch_stage else None
+    gnorms, undo_norms = tp_grad_norms(stage_norms, watch=pz_watched)
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5205,7 +5233,7 @@ def fsdp_run(run: str, steps: int, control=None) -> dict:
     wall = time.perf_counter() - t0
     state_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves((state.params, state.m, state.v)))
-    res = {"losses": losses, "gnorms": gnorms,
+    res = {"losses": losses, "gnorms": gnorms, "stage_norms": stage_norms,
            "step_ms": [r[2] for r in parse_step_log(out.getvalue())], "log": out.getvalue(),
            "counts": read_counts(), "calls": dict(C.STATS["calls"]),
            "bytes": dict(C.STATS["bytes"]), "seconds": dict(C.STATS["seconds"]),
@@ -5315,6 +5343,175 @@ def phase_fsdp(phase: int, runs: list, controls_on: list) -> dict:
                     "one_rank_state_gb": ref["state_gb"],
                     "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
                     "one_rank_peak_gib": ref["peak_gib"], "launches": r0["counts"]}
+        for line in r0["log"].splitlines():
+            if not line.startswith("step"):
+                log(f"  | {line}")
+    return out
+
+
+# ---------------------------------------------------------------- pipeline + ZeRO
+# Phase 49: ZeRO weights under the GPipe pipeline.  phi4-mini-3.8b at full
+# width (d_model 3072, 24 / 8 heads, vocab 200,064, tied) through
+# ``launch.train.run(..., pipeline=2)`` on PZ_WORLD gloo ranks sharing the
+# card (phase 39's harness): the mesh (pod 2, data 2, model 1), each
+# stage's slice of the stack sharded over ``data`` on its ZeRO dim,
+# gathered once a step at the stage's entry, its gradient reduce-scattered.
+# Depth cut to 20 of 32 layers (10 a stage): every rank holds the whole
+# embedding with its AdamW moments beside its quarter of the stack's state,
+# the gathered stage and its gradient, so four ranks at full depth do not
+# fit the one card; the launcher's own plan on the H100 entry picks
+# ``zero_weights`` from 18 layers, with no flag or override forcing it.
+# bf16, B 8 x 2048, remat and microbatches as the plan says, PZ_STEPS
+# steps, against the one-process run of the same arguments (no mesh flags).
+# Limits, set before the first reading (phases 39 and 43's): the losses
+# within MESH_BF16_TOL; each step's global grad norm within TP_GNORM_BF16
+# (relative), and so the norm of the stage's projections' gradients (the
+# ranks' disjoint shards' squares summed, ``pz_watched``); each rank's state
+# (weights and AdamW moments) at most its share of the one-process run's,
+# the share its local leaves' parameter counts give (``pz_layout``); each
+# rank's kernel launches equal to ``mesh_launches(..., "pipeline")``.  The
+# controls (PZ_CONTROLS, 1 step): every stage gradient's scatter skipped
+# (each data rank keeps its own partial), rank 0 gathering its neighbour's
+# shard; each must fall outside one of the limits.
+PZ_WORLD = 4
+PZ_STEPS = 2
+PZ_RUN = "phi4 pipeline"
+PZ_MESH = {"pod": 2, "data": 2, "model": 1}
+
+
+def pz_plan():
+    """(the config cut to its depth, the mesh extents, the plan) of phase
+    49's run: the launcher's own ``launch_plan`` on PZ_WORLD ranks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import launch_plan
+
+    arch, a = FSDP_RUNS[PZ_RUN]
+    cfg = dataclasses.replace(get_config(arch), n_layers=a["n_layers"])
+    shape, plan = launch_plan(cfg, PZ_WORLD, batch=a["batch"], seq=a["seq"],
+                              pipeline=a["pipeline"])
+    return cfg, shape, plan
+
+
+def pz_layout(cfg, plan, shape) -> dict:
+    """What a rank of ``plan``'s layout holds, from the parameter counts (a
+    meta tree): its parameters, its share of the train state's bytes (each
+    element its weight's bytes and two f32 moments: the f32 norm scales
+    weigh more than the bf16 matrices ZeRO cuts), and the bytes of the
+    stage's slice once gathered over the data axes (the sharded leaves made
+    whole, the others as held)."""
+    import math
+    from types import SimpleNamespace
+
+    from repro_torch.dist.sharding import Shardings
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import tree_leaves, tree_leaves_with_path
+
+    mesh = SimpleNamespace(shape=dict(shape), coords={a: 0 for a in shape})
+    sh = Shardings(mesh, plan, cfg)
+    whole = init_params(cfg, plan, torch.bfloat16, device="meta")
+    local = total = mine = state = gathered = 0
+    for (p, x), s in zip(tree_leaves_with_path(whole),
+                         tree_leaves(sh.manual_param_shardings(whole))):
+        n, per = s.local(x).numel(), x.element_size() + 8  # the weight, m and v
+        local, total = local + n, total + x.numel()
+        mine, state = mine + n * per, state + x.numel() * per
+        if list(map(str, p))[:2] == ["blocks", "stack"]:
+            g = sh.gather_spec(s.spec) or ()
+            wide = math.prod(shape[a] for e in g if e is not None
+                             for a in (e if isinstance(e, tuple) else (e,)))
+            gathered += n * wide * x.element_size()
+    return {"share": mine / state, "local_params": local, "params": total,
+            "gathered_stage_bytes": gathered}
+
+
+def phase_pipeline_zero() -> dict:
+    """Phase 49: ZeRO weights under the pipeline on PZ_WORLD ranks of the
+    card, with its one-process baseline and controls; checks and readings
+    as the note above PZ_WORLD says.  Returns the numbers."""
+    import math
+
+    from repro_torch.dist.sharding import unexecuted_layout
+
+    cfg, shape, plan = pz_plan()
+    arch, a = FSDP_RUNS[PZ_RUN]
+    check(shape == PZ_MESH and plan.pod_role == "pipeline" and plan.zero_weights
+          and unexecuted_layout(plan, cfg) is None,
+          f"phase 49: mesh {shape}, pipeline {plan.pod_role}, zero_weights {plan.zero_weights}")
+    lay = pz_layout(cfg, plan, shape)
+    from repro_torch.configs import get_config
+
+    log(f"phase 49: ZeRO weights under the GPipe pipeline on {PZ_WORLD} ranks of the card "
+        f"(gloo): {arch}, {cfg.n_layers} of {get_config(arch).n_layers} layers, B {a['batch']} "
+        f"x {a['seq']}, {str(a['dtype']).removeprefix('torch.')}, "
+        f"mesh {shape}, {plan.microbatches} microbatches, remat {plan.remat}, {PZ_STEPS} "
+        f"steps; a rank holds {lay['local_params'] / 1e9:.4f} of {lay['params'] / 1e9:.4f} B "
+        f"parameters (its share of the state's bytes {lay['share']:.6f}); the gathered stage "
+        f"{lay['gathered_stage_bytes'] / 1e9:.3f} GB")
+    one = fsdp_run(PZ_RUN, PZ_STEPS, one_rank=True)
+    log(f"  one process: losses {one['losses']}, grad norms {one['gnorms']}, stage grad norms "
+        f"{one['stage_norms']}, step ms {one['step_ms']}, state {one['state_gb']:.3f} GB, peak "
+        f"{one['peak_gib']:.2f} GiB")
+    jobs = [{"kind": "fsdp", "run": PZ_RUN}]
+    jobs += [{"kind": "fsdp", "run": PZ_RUN, "control": c, "steps": 1} for c in PZ_CONTROLS]
+    t0 = time.time()
+    res = spawn_ranks(jobs, "phase49", world=PZ_WORLD)
+    log(f"  {PZ_WORLD} ranks ran {len(jobs)} jobs in {time.time() - t0:.1f} s")
+    out = {}
+    for i, job in enumerate(jobs):
+        control, steps = job.get("control"), job.get("steps", PZ_STEPS)
+        rs = [res[r][i] for r in range(PZ_WORLD)]
+        r0 = rs[0]
+        dl = max(abs(x - y) for x, y in zip(r0["losses"], one["losses"]))
+        dg = max(abs(x - y) / y for x, y in zip(r0["gnorms"], one["gnorms"]))
+        stage = [math.sqrt(sum(r["stage_norms"][k] ** 2 for r in rs)) for k in range(steps)]
+        ds = max(abs(x - y) / y for x, y in zip(stage, one["stage_norms"]))
+        gb = {k: v / 1e9 / steps for k, v in r0["bytes"].items()}
+        secs = {k: v / steps for k, v in r0["seconds"].items()}
+        tag = "phase 49" + (f" control {control}" if control else "")
+        log(f"  {tag}: losses {r0['losses']} vs one process {one['losses'][:steps]}: |d| "
+            f"{dl:.3g} (tol {MESH_BF16_TOL:g}); grad norms {r0['gnorms']} vs "
+            f"{one['gnorms'][:steps]}: rel {dg:.3g}; stage grad norms {stage} vs "
+            f"{one['stage_norms'][:steps]}: rel {ds:.3g} (tol {TP_GNORM_BF16:g}); step ms "
+            f"{r0['step_ms']} (one process {one['step_ms']}); collectives a step, "
+            f"rank 0: GB {json.dumps(gb)}, s {json.dumps(secs)} (each rank "
+            f"{[round(r['coll_s'], 2) for r in rs]} s of {r0['wall_s']:.1f} s); state "
+            f"{[round(r['state_gb'], 6) for r in rs]} GB a rank (one process "
+            f"{one['state_gb']:.6f}; share {lay['share']:.6f}); peak "
+            f"{[round(r['peak_gib'], 2) for r in rs]} GiB, summed "
+            f"{sum(r['peak_gib'] for r in rs):.2f} (one process {one['peak_gib']:.2f}); "
+            f"launches {[r['counts'] for r in rs]}")
+        if control:
+            check(dl > MESH_BF16_TOL or dg > TP_GNORM_BF16 or ds > TP_GNORM_BF16,
+                  f"{tag}: the planted control passed (loss {dl:.3g}, grad norm {dg:.3g}, stage "
+                  f"grad norm {ds:.3g})")
+            out[control] = {"loss_dev": dl, "gnorm_rel_dev": dg, "stage_gnorm_rel_dev": ds}
+            continue
+        check(all(r["losses"] == r0["losses"] for r in rs), f"{tag}: the ranks' losses differ")
+        check(dl <= MESH_BF16_TOL and dg <= TP_GNORM_BF16 and ds <= TP_GNORM_BF16,
+              f"{tag}: loss {dl:.3g} / grad norm {dg:.3g} / stage grad norm {ds:.3g} from the "
+              "one-process run")
+        want = mesh_launches(cfg, plan, steps, "pipeline")
+        check(all(r["counts"] == want for r in rs),
+              f"{tag}: launches {[r['counts'] for r in rs]}, expected {want}")
+        calls = r0["calls"]
+        check(calls.get("fsdp_gather", 0) > 0 and calls.get("fsdp_scatter", 0) > 0
+              and calls.get("permute", 0) > 0, f"{tag}: collectives {calls}")
+        check(max(r["state_gb"] for r in rs) <= lay["share"] * one["state_gb"] * (1 + 1e-6),
+              f"{tag}: state {[r['state_gb'] for r in rs]} GB a rank against the share "
+              f"{lay['share']:.6f} of {one['state_gb']:.6f}")
+        out["run"] = {"losses": r0["losses"], "one_process_losses": one["losses"],
+                      "loss_dev": dl, "gnorm_rel_dev": dg, "stage_gnorm_rel_dev": ds,
+                      "step_ms": r0["step_ms"], "one_process_step_ms": one["step_ms"],
+                      "collective_gb_step": gb, "collective_s_step": secs,
+                      "collective_s": [r["coll_s"] for r in rs], "collective_calls": calls,
+                      "wall_s": r0["wall_s"], "state_gb": [r["state_gb"] for r in rs],
+                      "one_process_state_gb": one["state_gb"], "share": lay["share"],
+                      "gathered_stage_gb": lay["gathered_stage_bytes"] / 1e9,
+                      "peak_gib": [r["peak_gib"] for r in rs],
+                      "one_process_peak_gib": one["peak_gib"], "launches": r0["counts"],
+                      "microbatches": plan.microbatches, "remat": plan.remat}
         for line in r0["log"].splitlines():
             if not line.startswith("step"):
                 log(f"  | {line}")
@@ -5919,6 +6116,9 @@ def main() -> None:
     t6 = time.time()
     dry = phase_dryrun(train_counts, train_run, rwkv_train_counts, rwkv_train_run)
     log(f"  dry run: {json.dumps(dry, default=str)}; phase 48 took {time.time() - t6:.1f} s")
+    t7 = time.time()
+    pz = phase_pipeline_zero()
+    log(f"  pipeline + ZeRO: {json.dumps(pz)}; phase 49 took {time.time() - t7:.1f} s")
     fsdp_launches = {"phase 39 (a) qwen3-1.7b, 8 layers (a rank, 2 steps)":
                          mesh_run["dp"]["launches"],
                      "phase 43 phi4-mini-3.8b, 4 layers (a rank, 2 steps)":
@@ -5960,6 +6160,7 @@ def main() -> None:
             "name": "flash_attention",
             "tp_launches_per_rank": per_rank("flash_attention"),
             "fsdp_launches_per_rank": fsdp_per_rank("flash_attention"),
+            "pipeline_zero_launches_per_rank": pz["run"]["launches"]["flash_attention"],
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
@@ -5971,6 +6172,7 @@ def main() -> None:
             "name": "rmsnorm",
             "tp_launches_per_rank": per_rank("rmsnorm"),
             "fsdp_launches_per_rank": fsdp_per_rank("rmsnorm"),
+            "pipeline_zero_launches_per_rank": pz["run"]["launches"]["rmsnorm"],
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",
@@ -6021,6 +6223,7 @@ def main() -> None:
             "name": "flash_attention_bwd",
             "tp_launches_per_rank": per_rank("flash_attention_bwd"),
             "fsdp_launches_per_rank": fsdp_per_rank("flash_attention_bwd"),
+            "pipeline_zero_launches_per_rank": pz["run"]["launches"]["flash_attention_bwd"],
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/backward.py:69",
@@ -6032,6 +6235,7 @@ def main() -> None:
             "name": "rmsnorm_bwd",
             "tp_launches_per_rank": per_rank("rmsnorm_bwd"),
             "fsdp_launches_per_rank": fsdp_per_rank("rmsnorm_bwd"),
+            "pipeline_zero_launches_per_rank": pz["run"]["launches"]["rmsnorm_bwd"],
             "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:19",

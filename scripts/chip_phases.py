@@ -12,6 +12,8 @@ named on the command line, in order:
     48      phases 31 and 35 (qwen3-1.7b and rwkv6-1.6b training), then phase 48:
             the dry run against their readings, launch.serve --from-family,
             launch.dryrun --calibrate (the paged-attention kernel built too)
+    49      phase 49: phi4-mini-3.8b at 20 layers, ZeRO weights under the pipeline on
+            four ranks, beside its one-process run, with its two controls
     gloo    scripts/gloo_transport.py (the two-rank transport's parts)
 
     python3 scripts/chip_phases.py 39 43 44
@@ -68,6 +70,8 @@ def main(which: list) -> None:
             r = cs.phase_fsdp(44, ["rwkv6 bf16 dp", "rwkv6 bf16"], ["rwkv6 bf16"])
         elif name == "tp":  # phases 45-47 share one spawn of the two ranks
             r = cs.phase_tp_archs(tp, references)[0]
+        elif name == "49":
+            r = cs.phase_pipeline_zero()
         elif name == "48":  # phase 48 reads phases 31 and 35
             train = cs.phase_train()
             rwkv = cs.phase_train_rwkv()

@@ -21,7 +21,11 @@ JAX differentiates the ``lax.scan`` of ticks; here the schedule is one
 last stage seeds each written microbatch's gradient, every stage sends the
 gradient of what it received back to the previous stage (the inverse
 permute), and the microbatches' gradient, found on stage 0, is summed over
-the axis like the forward's result.
+the axis like the forward's result.  The stage's weights enter its compute
+group by group (each group's leaves are views of the stacked slice), so
+each tick's weight gradients are added into the stage's gradient where
+autograd finishes a group, one group in flight: no tick holds a second
+stage-sized gradient.
 """
 from __future__ import annotations
 
@@ -55,29 +59,38 @@ class _Pipeline(torch.autograd.Function):
         recv = torch.zeros_like(micro[0])
         ticks = []
         with torch.set_grad_enabled(record):
-            wl = [w.detach().requires_grad_(w.requires_grad) for w in w_leaves]
-            wt = tree_unflatten(w_tree, wl)
+            # each group's leaves: views of the stacked slice, leaves of
+            # their own for autograd
+            n_groups = w_leaves[0].shape[0] if w_leaves else 0
+            parts = [[w[g].detach().requires_grad_(w.requires_grad) for w in w_leaves]
+                     for g in range(n_groups)]
+            groups = [tree_unflatten(w_tree, p) for p in parts]
             for t in range(n_micro + n_stage - 1):
                 x_in = micro[min(t, n_micro - 1)] if stage == 0 else recv
                 x_in = x_in.detach().requires_grad_(record)
-                y = stage_fn(wt, x_in)
+                y = stage_fn(groups, x_in)
                 ticks.append((x_in, y))
                 m = t - (n_stage - 1)
                 if stage == n_stage - 1 and m >= 0:
                     out[m] = y.detach()
                 if n_stage > 1:
                     recv = permute(y.detach(), axis, mesh, nxt, prv)
-        ctx.state = (mesh, axis, ticks, wl, micro.shape, micro.dtype)
+        ctx.state = (mesh, axis, ticks, parts, w_leaves, micro.shape, micro.dtype)
         return all_reduce(out, axis, mesh)
 
     @staticmethod
     def backward(ctx, dout):
-        mesh, axis, ticks, wl, mshape, mdtype = ctx.state
+        mesh, axis, ticks, parts, w_leaves, mshape, mdtype = ctx.state
         stage, n_stage, nxt, prv = _peers(mesh, axis)
         n_micro = mshape[0]
         dmicro = torch.zeros(mshape, dtype=mdtype, device=dout.device)
-        dw = [torch.zeros_like(w) for w in wl]
-        live = [i for i, w in enumerate(wl) if w.requires_grad]
+        dw = [torch.zeros_like(w) if w.requires_grad else None for w in w_leaves]
+        live = []
+        for g, group in enumerate(parts):
+            for i, w in enumerate(group):
+                if w.requires_grad:
+                    w.grad = dw[i][g]  # autograd adds each tick's group gradient here
+                    live.append(w)
         dx_next = None  # gradient of the input consumed at tick t + 1
         for t in reversed(range(len(ticks))):
             x_in, y = ticks[t]
@@ -90,25 +103,22 @@ class _Pipeline(torch.autograd.Function):
             m = t - (n_stage - 1)
             if stage == n_stage - 1 and m >= 0:
                 dy = dy + dout[m]
-            grads = torch.autograd.grad(y, [x_in] + [wl[i] for i in live], dy,
-                                        allow_unused=True)
-            dx_next = torch.zeros_like(x_in) if grads[0] is None else grads[0]
-            for i, g in zip(live, grads[1:]):
-                if g is not None:
-                    dw[i] += g
+            torch.autograd.backward(y, dy, inputs=[x_in] + live)
+            dx_next = torch.zeros_like(x_in) if x_in.grad is None else x_in.grad
             if stage == 0:
                 dmicro[min(t, n_micro - 1)] += dx_next
         ctx.state = None
         dmicro = all_reduce(dmicro, axis, mesh)
-        return (None, None, None, None, None, dmicro,
-                *(dw[i] if wl[i].requires_grad else None for i in range(len(wl))))
+        return (None, None, None, None, None, dmicro, *dw)
 
 
 def pipeline_forward(stage_fn, mesh, axis: str = "pod", batch_axes: tuple = ()):
     """Build a pipelined forward over ``axis``.
 
-    ``stage_fn(w_stage, x) -> x`` is one stage's compute.  The returned
-    callable takes ``w``, this stage's slice of the weights (leaves
+    ``stage_fn(groups, x) -> x`` is one stage's compute, ``groups`` the
+    stage's layer-groups in order, each a tree shaped like ``w`` with one
+    group's leaves (JAX's stage scans over the stacked leaves).  The
+    returned callable takes ``w``, this stage's slice of the weights (leaves
     ``(n_groups / n_stage, ...)``, the block ``Shardings.param_spec`` gives
     a stage by putting ``pod`` on the stacked leading dim), and ``micro``
     ``(n_micro, mb, ...)``, this rank's microbatches: ``batch_axes`` name

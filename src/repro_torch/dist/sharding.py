@@ -22,13 +22,15 @@ The port's manual paths execute ``param_spec``'s layout
   ``dist.collectives.column_input`` / ``row_sum``) and, under both, the
   embedding's and LM head's ``vocab`` split (a vocab-parallel lookup and
   cross-entropy, ``models/transformer.py``); the pipeline's per-stage
-  slices of the stack;
+  slices of the stack (``pod`` on its leading dim, never gathered);
 * shards over the data-parallel axes (``fsdp_axes``: ZeRO's ``data`` on the
   complementary dim, TEMPORAL's dp axes on the last dim, the embedding and
   head over ``model`` where ``dp_over_model`` folds it into data
   parallelism): FSDP, each gathered where a layer reads it
   (``dist.collectives.fsdp_gather``, ``gather_spec``) and its gradient
-  reduce-scattered in the backward.
+  reduce-scattered in the backward.  Under the pipeline a stage's slice
+  carries both: ``pod`` on the group dim and the data split on its ZeRO
+  dim, made whole over the data axes at the stage's entry.
 
 Under tensor parallelism each block of a layer, in the decoder and in an
 encoder-decoder's encoder, runs on this rank's shards where its heads
@@ -43,12 +45,11 @@ whole leaves such a block reads per head or per channel (RWKV-6's ``u``,
 (``dist.collectives.tp_slice``).  The fused ``wqkv`` is cut head-aligned
 (``QKVSharding``): each rank holds its own heads' q, k and v columns, not
 GSPMD's contiguous column block; a data split of its rows composes with
-that cut.  Megatron-SP's tail layers and the pipeline's data axes run
-replicated.  ``unexecuted_layout`` names the plans whose layout needs
-GSPMD (ZeRO weights under the pipeline or under Megatron-SP): those are
-ROADMAP queue 1, item 7b.  ``constrain`` has nothing to do here: there is
-no compiler to hint, each activation already lives where the manual path
-put it.
+that cut.  Megatron-SP's tail layers run replicated.  ``unexecuted_layout``
+names the one plan no manual path runs, ZeRO weights under Megatron-SP,
+which the reference cannot run either.  ``constrain`` has nothing to do
+here: there is no compiler to hint, each activation already lives where
+the manual path put it.
 """
 from __future__ import annotations
 
@@ -64,8 +65,6 @@ from repro_torch.train.optimizer import tree_map, tree_map_with_path
 Tree = Any
 
 logger = logging.getLogger(__name__)
-
-LAYOUT_ITEM = "ROADMAP queue 1, item 7b"
 
 # Megatron orientation by leaf name.  Column-parallel weights shard their
 # output (last) dim; row-parallel weights shard their input (second-to-last)
@@ -232,16 +231,17 @@ def unexecuted_layout(plan: ExecutionPlan, cfg) -> Optional[str]:
     shards, the pipeline's stage slices, tensor parallelism without SP of
     every layer kind (attention, RWKV-6, RG-LRU, an encoder-decoder's
     encoder and cross-attention; MoE included) and FSDP over the
-    data-parallel axes (ZeRO, ``dp_over_model``) outside the pipeline.
-    ZeRO under the pipeline or under Megatron-SP needs GSPMD and is
-    refused."""
-    zero = plan.zero_weights and plan.data_axis > 1
-    if zero and plan.pod_role == "pipeline" and plan.pod_axis > 1:
-        return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under the GPipe "
-                f"pipeline need GSPMD ({LAYOUT_ITEM})")
-    if zero and plan.seq_parallel_acts:
-        return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under Megatron-SP "
-                f"need GSPMD ({LAYOUT_ITEM})")
+    data-parallel axes (ZeRO, ``dp_over_model``), under the pipeline too.
+    ZeRO weights under Megatron-SP are refused: ``derive_plan`` never makes
+    that plan (``sp_feasible`` needs ``not zero_weights``, in both
+    packages), and the reference's SP stack cannot run it when it is built
+    by hand (its ``shard_map`` is handed the ZeRO'd specs, so each shard
+    reads half the weight rows)."""
+    if plan.zero_weights and plan.data_axis > 1 and plan.seq_parallel_acts:
+        return (f"ZeRO weights (sharded over data axis {plan.data_axis}) under Megatron-SP: "
+                "derive_plan never makes this plan (sp_feasible requires not zero_weights), "
+                "and the reference's SP stack cannot run it either (its shard_map reads the "
+                "ZeRO'd weight rows as whole ones)")
     return None
 
 
@@ -428,10 +428,9 @@ class Shardings:
 
     def fsdp_axes(self) -> tuple:
         """The data-parallel axes the weights are sharded over and gathered
-        where used (FSDP); none under the pipeline, whose stages hold their
-        slices whole over the data axes (ROADMAP, deliberate divergences)."""
-        if self.plan.pod_role == "pipeline" and self._axis("pod") > 1:
-            return ()
+        where used (FSDP): ZeRO's ``data`` and ``dp_over_model``'s dp axes,
+        under the pipeline too (``pod`` is then a stage axis, not a data
+        one)."""
         return self._dp_axes()
 
     def manual_param_spec(self, path: Sequence, leaf) -> tuple:

@@ -35,10 +35,10 @@ which the loss cuts this rank's rows, the state donated), prefill and
 decode through ``serve.engine``'s steps on this rank's shards, rows and
 dense cache, the decode cache full to the cell's depth (one new token
 against ``seq_len`` cached positions; learned positions up to their
-table's length).  A cell the port refuses (e.g. ZeRO weights under the
-pipeline, ROADMAP queue 1, item 7b) records ``status: "error"`` with the
-refusal's text, as JAX's does for a failing cell, and ``--all`` then exits
-1.
+table's length).  A cell that cannot run records ``status: "error"`` with
+the reason's text, as JAX's does for a failing cell (e.g. the multi-pod
+pipeline cells: ``check_pipeline_supported`` refuses their model axis of
+16, as JAX's does), and ``--all`` then exits 1.
 
 Results go to runs/dryrun/<mesh>/<arch>__<shape>.json (incremental:
 existing cells are skipped unless --force); --family reports go to
@@ -154,7 +154,8 @@ def build_cell(cfg, shape, mesh, *, plan_overrides=None, hw=None):
     """Returns (step, this rank's meta arguments, plan) for one cell: the
     step runs on ``mesh`` (a ``DryRunMesh``) from the rank at its
     coordinates.  ``hw`` (default ``DRYRUN_HARDWARE``) is what the plan
-    derives on.  Raises where the port refuses the plan's layout."""
+    derives on.  Raises where the port refuses the plan's layout (ZeRO
+    under Megatron-SP, a plan no ``derive_plan`` makes)."""
     hw = hw or get_hardware(DRYRUN_HARDWARE)
     axes = mesh_axes_dict(mesh)
     plan = derive_plan(cfg, axes, hw, batch=shape.global_batch, seq_len=shape.seq_len,

@@ -16,6 +16,10 @@
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-135m-reduced --device cpu --steps 6 --batch 8 --seq 32 \\
         --pipeline 2 --dp 2
+    # the pipeline with ZeRO weights: the plan picks them for phi4-mini-3.8b
+    # at 18 or more layers on four ranks (each stage's slice sharded over data)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch phi4-mini-3.8b --steps 4 --batch 8 --seq 2048 --pipeline 2
     # Megatron tensor parallelism without SP (column / row shards, MoE's
     # expert or width split; RWKV-6, RG-LRU, an encoder and cross-attention
     # on their local heads) on the mesh (data 1, model N)
@@ -37,12 +41,13 @@ take runs Megatron tensor parallelism, and one that ``derive_plan`` folds
 into data parallelism (``dp_over_model``: qwen3-1.7b and phi4-mini-3.8b at
 B 4 or 8 on the H100 entry) shards the weights and their AdamW moments
 over the data-parallel axes (FSDP: gathered where a layer reads them), as
-ZeRO's ``zero_weights`` does.  Each rank holds its shards
-(``Shardings.manual_param_shardings``) and prints the layout and its state
-bytes against the replicated figure (and, under tensor parallelism, which
-blocks run on their shards and which whole); a layout no manual path
-executes (ZeRO weights under the pipeline or under Megatron-SP) is refused
-with the ROADMAP item that lists it.  Ranks use NCCL when each
+ZeRO's ``zero_weights`` does, under the pipeline too (each stage's slice
+over the data axes, gathered at the stage's entry).  Each rank holds its
+shards (``Shardings.manual_param_shardings``) and prints the layout and its
+state bytes against the replicated figure (and, under tensor parallelism,
+which blocks run on their shards and which whole); ZeRO weights under
+Megatron-SP, a plan no ``derive_plan`` makes and the reference cannot run,
+is refused with that reason (``unexecuted_layout``).  Ranks use NCCL when each
 has a card, gloo when they share one or run on the CPU
 (``launch.mesh.init_distributed``); rank r computes on
 ``cuda:(LOCAL_RANK % device_count)``, and only rank 0 prints.  A per-step
@@ -125,24 +130,27 @@ def launch_plan(cfg, world: int, *, batch: int, seq: int, pipeline: int = 0, dp:
 
 
 def layout_line(sh: Shardings, param_sh, state: TrainState) -> str:
-    """Which axes shard the weights (FSDP, gathered where used; model shards
-    a layer computes on), and the train state's bytes a rank against the
-    replicated figure."""
+    """Which axes shard the weights (FSDP, gathered where used; the
+    pipeline's stage slices over ``pod``; model shards a layer computes
+    on), and the train state's bytes a rank against the replicated
+    figure."""
     def axes(spec):
         return {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))
                 if sh.mesh.extent(a) > 1}
 
-    fsdp, model, mine, whole = set(), set(), 0, 0
+    fsdp, stage, model, mine, whole = set(), set(), set(), 0, 0
     for (p, m, v), s in zip(zip(*(tree_leaves(t) for t in (state.params, state.m, state.v))),
                             tree_leaves(param_sh)):
-        g = sh.gather_spec(s.spec)
-        fsdp |= axes(g or ())
-        model |= axes(s.spec) - axes(g or ())
+        g = axes(sh.gather_spec(s.spec) or ())
+        fsdp |= g
+        stage |= (axes(s.spec) - g) & {"pod"}
+        model |= axes(s.spec) - g - {"pod"}
         per = p.element_size() + m.element_size() + v.element_size()
         mine += p.numel() * per
         whole += p.numel() * sh.mesh.extent(tuple(axes(s.spec))) * per
-    return (f"weights: FSDP over {sorted(fsdp) or 'none'} (gathered where used), model shards "
-            f"over {sorted(model) or 'none'}; state (weights + AdamW moments) "
+    return (f"weights: FSDP over {sorted(fsdp) or 'none'} (gathered where used), "
+            + (f"stage slices over {sorted(stage)}, " if stage else "")
+            + f"model shards over {sorted(model) or 'none'}; state (weights + AdamW moments) "
             f"{mine / 1e9:.3g} GB a rank, {whole / 1e9:.3g} GB replicated")
 
 

@@ -32,7 +32,8 @@ the flash and RMSNorm wrappers go through their ``torch.autograd.Function``s
 it; with ``plan.remat`` every stacked pattern-group runs under
 ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint(group_body)``), so its
 kernels launch again in the backward; the LM head's cross-entropy is taken
-512 positions at a time, each chunk's logits recomputed in the backward.
+512 positions at a time, each chunk's logits recomputed in the backward
+(``_XentChunk``).
 
 Tensor parallelism without SP (``forward(mesh=)`` on a plan that
 ``dist.sharding.tensor_parallel`` accepts): every layer, of the decoder and
@@ -48,7 +49,9 @@ target logit across the ranks (``_VocabXentChunk``).  FSDP (ZeRO,
 ``dp_over_model``: ``lm_loss(shardings=)``): each stacked group gathers
 its weights at its entry and the embedding and head are gathered before
 the pass (``dist.collectives.FSDPGathers``); their gradients are
-reduce-scattered in the backward.
+reduce-scattered in the backward.  Under the GPipe pipeline
+(``pipeline_lm_loss(shardings=)``) a stage gathers its whole slice once a
+step, at its entry.
 
 The JAX package scans the stacked pattern-groups with ``lax.scan``; here
 that is a Python loop over their leading dimension, then the tail layers.
@@ -430,8 +433,10 @@ def _run_stack(
 ):
     """The stacked pattern-groups in order, then the tail layers.
     ``layer_fn(lp, x, kind, cache) -> (x, new_cache, aux)``; ``caches``
-    mirrors ``blocks``.  Returns ``(x, new_caches, aux)``: with ``caches``,
-    the same tree (the layers write it in place); without, the layers' new
+    mirrors ``blocks``; ``blocks["stack"]`` may also be a list of per-group
+    trees (a pipeline stage's groups, ``dist.pipeline``).  Returns ``(x,
+    new_caches, aux)``: with ``caches``, the same tree (the layers write it
+    in place); without, the layers' new
     caches with the stacked groups' entries stacked (the prefill's collect),
     or None leaves; ``aux`` the layers' aux losses summed.  With ``remat``
     (no caches, grad enabled) each stacked group runs under
@@ -461,8 +466,10 @@ def _run_stack(
         return gathers.saved_as_shards() if fsdp else contextlib.nullcontext()
 
     if stack is not None:
-        n = stack[0]["attn"]["ln"]["scale"].shape[0]
-        groups = _unbind(stack, n)
+        # a list: the groups already apart (a pipeline stage's, one leaf each)
+        groups = stack if isinstance(stack, list) else _unbind(
+            stack, stack[0]["attn"]["ln"]["scale"].shape[0])
+        n = len(groups)
         per_group = []
         for g in range(n):
             gp = groups[g]
@@ -858,12 +865,43 @@ def logits_fn(params: dict, x: torch.Tensor, cfg: ArchConfig, mesh=None) -> torc
 # Losses
 # ---------------------------------------------------------------------------
 def _xent_chunk(xc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor,
-                mc: torch.Tensor) -> torch.Tensor:
-    """Summed masked cross-entropy of one chunk: f32 logits (B, c, V)."""
+                mc: torch.Tensor) -> tuple:
+    """(summed masked cross-entropy of one chunk, its f32 logsumexp): f32
+    logits (B, c, V)."""
     logits = (xc @ w).float()
     lse = torch.logsumexp(logits, dim=-1)
     tl = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
-    return ((lse - tl) * mc).sum()
+    return ((lse - tl) * mc).sum(), lse
+
+
+class _XentChunk(torch.autograd.Function):
+    """``_xent_chunk`` with its f32 logits recomputed in the backward (as a
+    checkpoint of it would), where the gradient of the logits is formed in
+    their own buffer: one f32 (B, c, V) tensor live, not autograd's several
+    (B 4 x 512 x 200,064 f32 is 1.6 GB each).  The same operations in the
+    same order as autograd's, so the same values."""
+
+    @staticmethod
+    def forward(ctx, xc, w, tc, mc):
+        loss, lse = _xent_chunk(xc, w, tc, mc)
+        ctx.save_for_backward(xc, w, tc, mc, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dl):
+        xc, w, tc, mc, lse = ctx.saved_tensors
+        d = dl * mc
+        p = (xc @ w).float()
+        p.sub_(lse[..., None]).exp_().mul_(d[..., None])
+        p.scatter_add_(-1, tc.long()[..., None], -d[..., None])
+        g = p.to(xc.dtype)
+        del p
+        dx = g @ w.T
+        x2, g2 = xc.reshape(-1, xc.shape[-1]), g.reshape(-1, g.shape[-1])
+        # autograd's product for a column-major w (a tied head, embed.T) is
+        # taken transposed, as here
+        dw = (g2.T @ x2).T if w.stride() == (1, w.shape[0]) else x2.T @ g2
+        return dx, dw, None, None
 
 
 class _VocabXentChunk(torch.autograd.Function):
@@ -871,7 +909,7 @@ class _VocabXentChunk(torch.autograd.Function):
     logsumexp from the ranks' maxima (one all-reduce max) and sums of
     exponentials, and the target logit from the rank that holds it (one
     all-reduce sum of both).  The f32 logits are recomputed in the backward,
-    as the plain chunk's checkpoint recomputes them; ``dx`` is this rank's
+    as ``_XentChunk`` recomputes them; ``dx`` is this rank's
     partial (f's backward on x sums it over the ranks), ``dw`` this rank's
     columns' whole gradient."""
 
@@ -920,9 +958,9 @@ def chunked_softmax_xent(
     x: (B, S, d); w: (d, V); targets: (B, S) int.  Returns (summed loss,
     number of tokens, at least 1), both f32 scalars.  The sequence is cut
     into chunks of ``chunk`` positions (halved until it divides S, as in
-    JAX); with autograd recording, each chunk runs under
-    ``torch.utils.checkpoint``, so its f32 logits are recomputed in the
-    backward instead of saved (B 8 x 512 x 151,936 f32 is 2.5 GB a chunk).
+    JAX); with autograd recording, each chunk's f32 logits are recomputed in
+    the backward instead of saved (B 8 x 512 x 151,936 f32 is 2.5 GB a
+    chunk; ``_XentChunk``).
     ``vocab`` (``_vocab_split``): ``w`` holds this rank's vocab columns and
     each chunk runs vocab-parallel (``_VocabXentChunk``)."""
     B, S, _ = x.shape
@@ -931,15 +969,11 @@ def chunked_softmax_xent(
         c //= 2
     mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if loss_mask is None
             else loss_mask.float())
-    remat = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, c):
         args = (x[:, i:i + c], w, targets[:, i:i + c], mask[:, i:i + c])
-        if vocab is not None:
-            total = total + _VocabXentChunk.apply(*args, *vocab)
-        else:
-            total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
-                             else _xent_chunk(*args))
+        total = total + (_XentChunk.apply(*args) if vocab is None
+                         else _VocabXentChunk.apply(*args, *vocab))
     return total, torch.clamp(mask.sum(), min=1.0)
 
 
@@ -969,6 +1003,27 @@ def _head_loss(params: dict, x: torch.Tensor, batch: dict, cfg: ArchConfig, aux,
     return total / n + 0.01 * aux
 
 
+def _fsdp_gathers(params: dict, sh, shardings, batch_axes) -> tuple:
+    """(``params`` with the embedding and head gathered, the pass's
+    ``FSDPGathers``) where ``shardings`` (the manual shardings) name FSDP
+    shards over the data axes, else (``params``, None); raises for a plan
+    that shards the weights over the data axes without them."""
+    from repro_torch.dist.collectives import FSDPGathers
+    from repro_torch.train.optimizer import tree_leaves
+
+    if shardings is None:
+        if ((sh.plan.zero_weights or sh.plan.dp_over_model)
+                and sh.mesh.extent(sh.fsdp_axes()) > 1):
+            raise ValueError("this plan shards the weights over the data axes (FSDP): pass "
+                             "shardings= (Shardings.manual_param_shardings)")
+        return params, None
+    specs = sh.gather_specs(shardings)
+    if all(s is None for s in tree_leaves(specs)):
+        return params, None
+    gathers = FSDPGathers(sh.mesh, specs, batch_axes)
+    return gathers.top(params), gathers
+
+
 def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
             fused: bool = True, mesh=None, shardings=None) -> torch.Tensor:
     """The training loss (the port's ``repro.models.transformer.lm_loss``):
@@ -988,23 +1043,13 @@ def lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
     if mesh is None:
         x, _, aux = forward(params, batch, cfg=cfg, plan=plan, fused=fused, with_aux=True)
         return _head_loss(params, x, batch, cfg, aux)
-    from repro_torch.dist.collectives import FSDPGathers, mean_over
+    from repro_torch.dist.collectives import mean_over
     from repro_torch.dist.sharding import Shardings
-    from repro_torch.train.optimizer import tree_leaves
 
     sh = Shardings(mesh, plan, cfg)
     axes = sh.batch_axes_for(next(iter(batch.values())).shape[0])
     local = sh.local_batch(batch)
-    gathers = None
-    if shardings is not None:
-        specs = sh.gather_specs(shardings)
-        if any(s is not None for s in tree_leaves(specs)):
-            gathers = FSDPGathers(mesh, specs, axes)
-            params = gathers.top(params)
-    elif ((plan.zero_weights or plan.dp_over_model) and sh.fsdp_axes()
-          and mesh.extent(sh.fsdp_axes()) > 1):
-        raise ValueError("this plan shards the weights over the data axes (FSDP): pass "
-                         "shardings= (Shardings.manual_param_shardings)")
+    params, gathers = _fsdp_gathers(params, sh, shardings, axes)
     x, _, aux = forward(params, local, cfg=cfg, plan=plan, fused=fused, with_aux=True, mesh=mesh,
                         gathers=gathers, batch_axes=axes or ())
     loss = _head_loss(params, x, local, cfg, aux, _vocab_split(params, cfg, plan, mesh))
@@ -1046,7 +1091,7 @@ def check_pipeline_supported(cfg: ArchConfig, plan: ExecutionPlan, batch: int):
 
 
 def pipeline_lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: ExecutionPlan,
-                     mesh, fused: bool = True) -> torch.Tensor:
+                     mesh, fused: bool = True, shardings=None) -> torch.Tensor:
     """LM loss with the stacked layer-groups run as pipeline stages over the
     ``pod`` axis (``dist.pipeline.pipeline_forward``).
 
@@ -1057,17 +1102,32 @@ def pipeline_lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: Execut
     split).  The embedding, tail layers, final norm and loss head run on
     every stage, on the same tokens, so the result is the data-parallel
     loss: only the schedule changes.  Returns the loss averaged over the
-    data axes, as ``lm_loss``."""
+    data axes, as ``lm_loss``.
+
+    ``shardings`` (the manual shardings, as ``lm_loss`` takes them) names
+    the FSDP shards over the data axes (ZeRO, ``dp_over_model``).  The
+    stage's slice is gathered whole over them once a step, here at the
+    stage's entry, where GSPMD reshards JAX's slice to the ``shard_map``'s
+    ``P("pod", ...)`` in-spec: every tick and remat's recompute read that
+    one copy, and its gradient, summed over the ticks by the schedule's
+    backward, is reduce-scattered over the data axes by the gather's
+    backward.  The tail layers gather where they are read, the embedding
+    and head before the pass.  The pod axis carries the ticks' permutes and
+    the data axes the gathers and scatters: every rank issues the same
+    calls in the same order."""
     from repro_torch.dist.collectives import mean_over
     from repro_torch.dist.pipeline import pipeline_forward
     from repro_torch.dist.sharding import Shardings, local_shard
 
     B = next(iter(batch.values())).shape[0]
     n_stage, n_micro = check_pipeline_supported(cfg, plan, B)
-    stack = params["blocks"]["stack"]
     sh = Shardings(mesh, plan, cfg)
     batch_axes = sh.batch_axes_for(B // n_micro) or ()
     entry = sh._entry(batch_axes)
+    params, gathers = _fsdp_gathers(params, sh, shardings, batch_axes)
+    stack = params["blocks"]["stack"]
+    if gathers is not None:
+        stack = gathers.tree(stack, gathers.specs["blocks"]["stack"])
 
     def rows(v):
         m = v.reshape(n_micro, B // n_micro, *v.shape[1:])
@@ -1092,6 +1152,7 @@ def pipeline_lm_loss(params: dict, batch: dict, *, cfg: ArchConfig, plan: Execut
     pp = pipeline_forward(stage_fn, mesh, axis="pod", batch_axes=tuple(batch_axes))
     x = pp(stack, micro).reshape(Bl, S, D)
     x, _, aux = _run_stack({"stack": None, "tail": params["blocks"]["tail"]}, x, layer_fn,
-                           pattern, remat=plan.remat)
+                           pattern, remat=plan.remat, gathers=gathers,
+                           specs=None if gathers is None else gathers.specs["blocks"])
     x = _norm(params["final_norm"], x, cfg.norm, fused)
     return mean_over(_head_loss(params, x, local, cfg, aux), batch_axes, mesh=mesh)

@@ -16,6 +16,9 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+# Elements of a leaf AdamW updates at once (its f32 temporaries: 256 MB each).
+UPDATE_SLICE = 1 << 26
+
 Tree = Any
 
 
@@ -149,17 +152,27 @@ def adamw_update(state: TrainState, grads: Tree, opt: OptimizerConfig,
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
 
-    def upd(p, g, m, v):
+    def part(p, g, m, v, matrix: bool):  # one slice of a leaf
         g = g.float() * scale
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * g.square()
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + opt.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
+        if matrix:  # decoupled weight decay on matrices only
             delta = delta + opt.weight_decay * p.float()
-        new = (p.float() - lr * delta).to(p.dtype)
-        if donate:
-            return p.copy_(new), m.copy_(m_new), v.copy_(v_new)
-        return new, m_new, v_new
+        return (p.float() - lr * delta).to(p.dtype), m_new, v_new
+
+    def upd(p, g, m, v):
+        # elementwise, so a leaf is updated a slice at a time: its f32
+        # temporaries stay a slice's, not the leaf's (a 200k-row embedding's
+        # ~15 GB); the values are the same to the bit
+        out = (p, m, v) if donate else tuple(
+            torch.empty_like(x, memory_format=torch.contiguous_format) for x in (p, m, v))
+        flat = [x.reshape(-1) for x in (p, g, m, v)]
+        dest = [x.view(-1) for x in out]  # a donated leaf is updated in its own storage
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            for d, x in zip(dest, part(*(f[i:i + UPDATE_SLICE] for f in flat), p.dim() >= 2)):
+                d[i:i + UPDATE_SLICE].copy_(x)
+        return out
 
     out = [upd(*leaf) for leaf in zip(tree_leaves(state.params), tree_leaves(grads),
                                        tree_leaves(state.m), tree_leaves(state.v))]

@@ -16,7 +16,8 @@ the control plane, as in JAX:
 * ``plan.pod_role == "pipeline"`` routes the loss through
   ``models.transformer.pipeline_lm_loss`` (the stacked groups as pipeline
   stages over ``pod``), which does its own microbatching: no outer
-  accumulation.
+  accumulation.  A stage's FSDP shards (ZeRO, ``dp_over_model``) are
+  gathered at its entry and their gradients scattered back, as below.
 * ``plan.grad_compression`` picks the gradient wire format.  On a pure
   data-parallel mesh (``wire_compression_axes``) the step computes each
   rank's loss and gradients on its rows and sums them with
@@ -72,7 +73,8 @@ def make_loss_fn(cfg: ArchConfig, plan: ExecutionPlan, fused: bool = True,
                              "pass mesh= to make_train_step")
 
         def loss_fn(params, batch):
-            return pipeline_lm_loss(params, batch, cfg=cfg, plan=plan, mesh=mesh, fused=fused)
+            return pipeline_lm_loss(params, batch, cfg=cfg, plan=plan, mesh=mesh, fused=fused,
+                                    shardings=shardings)
 
         return loss_fn
 

@@ -156,8 +156,8 @@ def _stage_weights():
 
 
 def _stage_fn(wl, x):
-    for i in range(wl.shape[0]):
-        x = torch.tanh(x @ wl[i])
+    for wi in wl:  # the stage's groups: a list of them, or the stacked weights
+        x = torch.tanh(x @ wi)
     return x
 
 

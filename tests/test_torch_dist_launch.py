@@ -95,40 +95,57 @@ def test_gradient_exchange_takes_its_route(tmp_path, flags, route):
 
 
 def _refusals_rank(rank):
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import unexecuted_layout
-    from repro_torch.launch.train import launch_plan, run
+    from repro_torch.launch import train as LT
+    from repro_torch.models.transformer import check_pipeline_supported
 
     out = {}
     for name, arch, kw in [("moe", "qwen3-moe-30b-a3b-reduced", {"pipeline": 2}),
                            ("enc_dec", "whisper-small-reduced", {"pipeline": 2}),
                            ("tp", "rwkv6-1.6b-reduced", {"force_mode": "spatial"}),
-                           ("zero", "mistral-large-123b", {"pipeline": 2, "dp": 2})]:
-        if name == "zero":  # a full-size arch: only ever run into its refusal
-            _, plan = launch_plan(get_config(arch), 4, batch=8, seq=32, **kw)
-            if unexecuted_layout(plan, get_config(arch)) is None:
-                out[name] = "not refused"
-                continue
+                           ("sp_zero", "bert-base-reduced",
+                            {"dp": 2, "seq_parallel": True, "force_mode": "spatial"})]:
+        orig = plan_for = LT.launch_plan
+        if name == "sp_zero":  # the SP plan with ZeRO set by hand: no planner makes it
+            def plan_for(*a, **k):
+                shape, plan = orig(*a, **k)
+                assert plan.seq_parallel_acts and not plan.zero_weights
+                return shape, dataclasses.replace(plan, zero_weights=True)
+        LT.launch_plan = plan_for
         try:
-            run(arch, steps=1, batch=8, seq=32, device="cpu", log_every=0, **kw)
+            LT.run(arch, steps=1, batch=8, seq=32, device="cpu", log_every=0, **kw)
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
+        finally:
+            LT.launch_plan = orig
+    # the launcher's ZeRO pipeline plan of a full-size arch (only planned:
+    # too large to run here) is executed, not refused
+    cfg = get_config("mistral-large-123b")
+    _, plan = LT.launch_plan(cfg, 4, batch=8, seq=32, pipeline=2, dp=2)
+    check_pipeline_supported(cfg, plan, 8)
+    out["zero"] = (plan.zero_weights, unexecuted_layout(plan, cfg))
     return out
 
 
 def test_refusals_that_remain(tmp_path):
-    """On 4 ranks: the pipeline refuses MoE and encoder-decoder archs, and
-    ZeRO under the pipeline is refused (ZeRO elsewhere runs as FSDP); TP of
-    recurrent layers now trains (rwkv6-reduced's 2 heads do not divide over
-    model 4, so its time-mix runs whole beside the sharded channel-mix)."""
+    """On 4 ranks: the pipeline refuses MoE and encoder-decoder archs; ZeRO
+    under the pipeline is a plan the launcher executes (ZeRO elsewhere runs
+    as FSDP); ZeRO under Megatron-SP, a plan built by hand, is refused with
+    the reference's own reason; TP of recurrent layers trains (rwkv6-reduced's
+    2 heads do not divide over model 4, so its time-mix runs whole beside
+    the sharded channel-mix)."""
     res = run_ranks(_refusals_rank, 4, tmp_path)
     for r in res:
         assert "MoE aux losses do not cross stage boundaries" in r["moe"]
         assert "enc-dec/frontends keep non-stack state" in r["enc_dec"]
         assert r["tp"] is None
-        assert "ZeRO weights" in r["zero"] and "pipeline" in r["zero"]
-        assert "item 7b" in r["zero"]
+        assert r["zero"] == (True, None)
+        assert "ZeRO weights" in r["sp_zero"] and "Megatron-SP" in r["sp_zero"]
+        assert "sp_feasible" in r["sp_zero"] and "ROADMAP" not in r["sp_zero"]
 
 
 def test_torchrun_launches_the_cli(tmp_path):

@@ -25,8 +25,8 @@ from repro_torch.bridge import from_jax
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.hardware import H100_SXM, HardwareSpec
 from repro_torch.core.plan import derive_plan
-from repro_torch.dist.sharding import (ACT_NAMES, LAYOUT_ITEM, NamedSharding, Shardings,
-                                       gather_shard, local_shard, unexecuted_layout)
+from repro_torch.dist.sharding import (ACT_NAMES, NamedSharding, Shardings, gather_shard,
+                                       local_shard, unexecuted_layout)
 from repro_torch.train.optimizer import tree_leaves_with_path
 from test_torch_dist_ranks import ShapeMesh
 
@@ -208,8 +208,9 @@ def test_manual_layout_and_refusals():
     SP, the embedding's and head's vocab split under both, and the FSDP
     shards over the data axes (ZeRO, dp_over_model's fold); the final norm
     and SP's tail layers are replicated.  TP of recurrent layers executes
-    its model shards, the per-head leaves whole; ZeRO under the pipeline is
-    refused, naming the ROADMAP item."""
+    its model shards, the per-head leaves whole; ZeRO under the pipeline
+    executes, the stage slice sharded over pod and data; ZeRO under
+    Megatron-SP is refused with the reference's own reason."""
     _, sh, jplan, plan = _pair("bert-base-reduced", {"data": 1, "model": 2},
                                {"batch": 8, "seq_len": 32, "seq_parallel": True,
                                 "force_mode": "spatial"})
@@ -262,12 +263,29 @@ def test_manual_layout_and_refusals():
     assert w1 == (None, "data", "model") and sh.gather_spec(w1) == (None, "data", None)
     wo = sh.manual_param_spec(("blocks", "stack", 0, "attn", "wo"), Leaf((88, 12288, 12288)))
     assert wo == (None, None, "data")
-    # under the pipeline ZeRO stays refused
+    # under the pipeline ZeRO executes: the stage slice over pod on the
+    # group dim and over the data axes on the ZeRO dim, only the data entry
+    # gathered (pod is a stage axis, never gathered)
     _, sh, _, pz = _pair("mistral-large-123b", {"pod": 2, "data": 16, "model": 1},
                          {"batch": 256, "seq_len": 4096, "pod_role": "pipeline"})
-    if pz.zero_weights:
-        assert "pipeline" in unexecuted_layout(pz, sh.cfg) and LAYOUT_ITEM in unexecuted_layout(
-            pz, sh.cfg)
+    assert pz.zero_weights and pz.pod_role == "pipeline" and unexecuted_layout(pz, sh.cfg) is None
+    assert sh.fsdp_axes() == ("data", "model")
+    for name, leaf in (("wq", (88, 12288, 12288)), ("wo", (88, 12288, 12288))):
+        spec = sh.manual_param_spec(("blocks", "stack", 0, "attn", name), Leaf(leaf))
+        assert spec == sh.param_spec(("blocks", "stack", 0, "attn", name), Leaf(leaf)) == (
+            "pod", None, ("data", "model"))
+        assert sh.gather_spec(spec) == (None, None, ("data", "model"))
+    assert sh.manual_param_spec(("blocks", "stack", 0, "attn", "ln", "scale"),
+                                Leaf((88, 12288))) == ("pod", None)
+    # ZeRO under Megatron-SP is the one layout refused, with the reference's
+    # own reason (no derive_plan makes it; JAX's SP stack cannot run it)
+    _, sh, _, sp = _pair("bert-base-reduced", {"data": 2, "model": 2},
+                         {"batch": 8, "seq_len": 32, "seq_parallel": True,
+                          "force_mode": "spatial"})
+    assert sp.seq_parallel_acts and not sp.zero_weights and unexecuted_layout(sp, sh.cfg) is None
+    why = unexecuted_layout(dataclasses.replace(sp, zero_weights=True), sh.cfg)
+    assert "Megatron-SP" in why and "sp_feasible" in why and "reference" in why
+    assert "ROADMAP" not in why
     # on the H100 entry qwen3-1.7b's --dp 2 plan folds the model axis into
     # data parallelism: the weights are FSDP shards over the data axes
     cfg = get_config("qwen3-1.7b")

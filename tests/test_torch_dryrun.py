@@ -14,8 +14,10 @@
   products: within 5% at S 64 (-4.0% prefill, +2.9% train).
 * On a ``DryRunMesh`` (data 2, model 4) each rank's local leaves have JAX's
   shard shapes, collectives are recorded and ``torch.distributed`` is
-  never initialized; a multi-pod cell the port refuses records the
-  refusal.
+  never initialized.  The multi-pod pipeline cells record the reason the
+  reference's ``check_pipeline_supported`` gives; a ZeRO pipeline cell on
+  (pod 2, data 16, model 1) traces with its data-axis gathers and
+  scatters.
 * The roofline helpers equal JAX's for every arch x shape; the kernels'
   meta routes and the collectives' dry-run route record what they stand
   for.
@@ -48,7 +50,7 @@ from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.roofline import (RooflineReport, _ring_seconds, analytic_memory_floor,
                                        model_flops_for)
 from repro_torch.dist import collectives as C
-from repro_torch.dist.sharding import LAYOUT_ITEM, Shardings, tensor_parallel
+from repro_torch.dist.sharding import Shardings, tensor_parallel
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import DryRunMesh
 from repro_torch.train.optimizer import OptimizerConfig, tree_leaves_with_path
@@ -197,13 +199,52 @@ def test_dry_run_mesh_shards_equal_jax(arch, kw):
     assert not torch.distributed.is_initialized()
 
 
-def test_multi_pod_refusal_cell_records_the_item(tmp_path):
-    rec = dryrun.run_cell("mistral-large-123b", TRAIN_4K, multi_pod=True, out_dir=tmp_path,
+@pytest.mark.parametrize("arch", ["mistral-large-123b", "mixtral-8x7b"])
+def test_multi_pod_refusal_cell_records_the_item(tmp_path, arch):
+    """The multi-pod pipeline cells (pod 2, data 16, model 16) record the
+    reason the reference's own ``check_pipeline_supported`` gives for its
+    plan on that mesh (a model axis the pipeline does not compose with;
+    mixtral is MoE too), not a refusal of their ZeRO weights."""
+    from repro.models.transformer import check_pipeline_supported as jax_check
+
+    rec = dryrun.run_cell(arch, TRAIN_4K, multi_pod=True, out_dir=tmp_path,
                           plan_overrides={"pod_role": "pipeline"}, tag="__pipeline")
-    assert rec["status"] == "error" and LAYOUT_ITEM in rec["error"]
-    assert "GPipe pipeline" in rec["error"]
-    assert json.loads((tmp_path / "multi" / "mistral-large-123b__train_4k__pipeline.json")
+    assert rec["status"] == "error" and "ZeRO" not in rec["error"]
+    jplan = jax_derive_plan(jax_get_config(arch), dryrun.MULTI_POD, jax_hw.TPU_V5E,
+                            batch=TRAIN_4K.global_batch, seq_len=TRAIN_4K.seq_len,
+                            training=True, pod_role="pipeline")
+    with pytest.raises(ValueError) as jax_err:
+        jax_check(jax_get_config(arch), jplan, TRAIN_4K.global_batch)
+    reasons = ["model axis 16 > 1 (pipeline composes with DP, not TP; put the spare devices "
+               "on 'data')"] + (["MoE aux losses do not cross stage boundaries yet"]
+                                if arch == "mixtral-8x7b" else [])
+    for reason in reasons:
+        assert reason in rec["error"] and reason in str(jax_err.value), rec["error"]
+    assert json.loads((tmp_path / "multi" / f"{arch}__train_4k__pipeline.json")
                       .read_text())["status"] == "error"
+
+
+def test_zero_pipeline_cell_traces_with_its_data_collectives():
+    """A ZeRO pipeline cell on a model-1 mesh (pod 2, data 16, model 1):
+    phi4-mini-3.8b ``train_4k``, whose plan there picks ZeRO (mistral-large-
+    123b's does too and traces the same way, in ~40 s on the CPU).  Each
+    rank's stage slice of the stack is cut over pod and data as JAX's
+    shards are; the step records the stage's all-gathers and the gradients'
+    reduce-scatters over the 16 data ranks, the ticks' permutes over the 2
+    stages, under JAX's op names."""
+    arch, mesh_shape = "phi4-mini-3.8b", {"pod": 2, "data": 16, "model": 1}
+    cfg = get_config(arch)
+    mesh = DryRunMesh(mesh_shape, {"pod": 1, "data": 15, "model": 0})
+    fn, (state, batch), plan = dryrun.build_cell(cfg, TRAIN_4K, mesh,
+                                                 plan_overrides={"pod_role": "pipeline"})
+    assert plan.zero_weights and plan.pod_role == "pipeline" and plan.model_axis == 1
+    wq = state.params["blocks"]["stack"][0]["attn"]["wqkv" if plan.fuse_qkv else "wq"]
+    width = (cfg.n_heads + (2 * cfg.n_kv_heads if plan.fuse_qkv else 0)) * cfg.d_head
+    assert tuple(wq.shape) == (cfg.n_layers // 2, cfg.d_model, width // 16)
+    _, cost, _ = op_cost.analyze_step(fn, state, batch)
+    groups = {(op, g) for op, _, g, _ in cost.collectives}
+    assert {("all-gather", 16), ("reduce-scatter", 16), ("collective-permute", 2)} <= groups
+    assert not torch.distributed.is_initialized()
 
 
 PLAN_FIELDS = ("mha_mode", "ffn_mode", "mha_factor1", "ffn_factor1", "fuse_qkv", "p_atb",

@@ -147,6 +147,65 @@ def test_chunked_softmax_xent_matches_jax(Bx, Sx, V, chunk, masked):
     assert float(tn) == float(jn)
 
 
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_chunk_function_equals_its_checkpoint(dtype, tied):
+    """The cross-entropy chunk's autograd Function (its logits' gradient
+    formed in one f32 buffer) gives the loss and gradients of
+    ``torch.utils.checkpoint`` of the plain chunk, bit for bit, the chunks'
+    ``w`` gradients summed as autograd sums them; a tied head's ``w`` is
+    the embedding's transpose, a column-major view."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 64, 48, generator=g).to(dtype)
+    w = (torch.randn(48, 1000, generator=g) * 0.2).to(dtype)
+    t = torch.randint(0, 1000, (3, 64), generator=g)
+    m = (torch.rand(3, 64, generator=g) > 0.2).float()
+    out = []
+    for route in ("function", "checkpoint"):
+        xx = x.clone().requires_grad_()
+        embed = w.T.contiguous().requires_grad_()
+        ww = embed.T if tied else w.clone().requires_grad_()
+        total = 0
+        for i in range(0, 64, 16):
+            a = (xx[:, i:i + 16], ww, t[:, i:i + 16], m[:, i:i + 16])
+            total = total + (T._XentChunk.apply(*a) if route == "function"
+                             else checkpoint(lambda *c: T._xent_chunk(*c)[0], *a,
+                                             use_reentrant=False))
+        leaf = embed if tied else ww
+        out.append((total.detach(), *torch.autograd.grad(total * 0.37, [xx, leaf])))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_adamw_slices_are_bit_identical(monkeypatch, donate):
+    """AdamW's update of a leaf a slice at a time (``UPDATE_SLICE``
+    elements; here 7, so every matrix and vector is cut, unevenly) equals
+    the whole-leaf update bit for bit, donated or not, bf16 weights with f32
+    moments, weight decay on matrices only."""
+    from repro_torch.train import optimizer as O
+
+    g = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn(5, 9, generator=g).to(torch.bfloat16),
+              "b": torch.randn(11, generator=g), "s": torch.randn((), generator=g)}
+    grads = O.tree_map(lambda p: torch.randn(p.shape, generator=g).to(p.dtype), params)
+    moments = [O.tree_map(lambda p: torch.rand(p.shape, generator=g), params) for _ in "mv"]
+    opt = O.OptimizerConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+    out = {}
+    for slice_ in (1 << 26, 7):
+        monkeypatch.setattr(O, "UPDATE_SLICE", slice_)
+        m, v = (O.tree_map(torch.clone, t) for t in moments)
+        state = O.init_state(O.tree_map(torch.clone, params))._replace(m=m, v=v)
+        for _ in range(2):
+            state, _ = O.adamw_update(state, grads, opt, donate=donate)
+        out[slice_] = state
+    for a, b in zip(O.tree_leaves(out[1 << 26]), O.tree_leaves(out[7])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 STEP_CASES = [
     # (arch, microbatches, remat, compression)
     ("qwen3-1.7b", 1, False, "none"),

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 
@@ -27,7 +28,8 @@ import torch
 from torch_tp import B, OPT, S, keyed, port_cfg, v5e
 
 # Each case of argv[2] (a JSON list) on its own (data, model) mesh of the
-# first devices: the launcher's recipe under GSPMD, the case's steps; one
+# first devices, or (pod, data, model) where the case has a pod axis: the
+# launcher's recipe under GSPMD, the case's steps; one
 # JSON line a case (losses, each leaf's shard shape, the plan's fields),
 # the parameters after the steps in "<batches>.params.npz".
 _JAX_STEPS = """
@@ -45,9 +47,10 @@ from repro.train.train_step import make_train_step
 key = lambda p: "|".join(_key_names(p))
 for spec in json.loads(sys.argv[2]):
     cfg = dataclasses.replace(get_config(spec["arch"]).reduced(), **spec["replace"])
-    shape = (spec["data"], spec["model"])
-    mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2,
-                         devices=jax.devices()[:shape[0] * shape[1]])
+    names = ("pod", "data", "model") if spec["pod"] > 1 else ("data", "model")
+    shape = tuple(spec[a] for a in names)
+    mesh = jax.make_mesh(shape, names, axis_types=(jax.sharding.AxisType.Auto,) * len(names),
+                         devices=jax.devices()[:int(np.prod(shape))])
     plan = derive_plan(cfg, dict(mesh.shape), TPU_V5E, batch=spec["batch"],
                        seq_len=spec["seq"], training=True, **spec["derive"])
     plan = dataclasses.replace(plan, **spec["plan"])
@@ -136,11 +139,12 @@ def jax_cases(tmp_path, cases: list):
         path = tmp_path / f"batches{i}.npz"
         np.savez(path, **{f"{k}{j}": v for j, b in enumerate(batch_list) for k, v in b.items()})
         paths.append(path)
-        specs.append({"arch": arch, "replace": replace, "data": shape["data"],
-                      "model": shape["model"], "derive": derive, "plan": plan, "batch": B,
+        specs.append({"arch": arch, "replace": replace, "pod": shape.get("pod", 1),
+                      "data": shape["data"], "model": shape["model"], "derive": derive,
+                      "plan": plan, "batch": B,
                       "seq": S, "steps": len(batch_list), "opt": OPT,
                       "keys": sorted(batch_list[0]), "batches": str(path)})
-    n = max(s["data"] * s["model"] for s in specs)
+    n = max(s["pod"] * s["data"] * s["model"] for s in specs)
     proc = subprocess.Popen([sys.executable, "-c", _JAX_STEPS, str(n), json.dumps(specs)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=".",
                             env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
@@ -162,14 +166,18 @@ def jax_cases(tmp_path, cases: list):
     return finish
 
 
-def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None):
+def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None,
+                    keep_state=False):
     """This rank's steps on its shards (``make_train_step`` over the mesh,
     the manual shardings handed to it); returns the losses, the whole
     parameters after them, the collectives' calls, each local leaf's shape
     and the state's bytes on this rank.  ``control`` plants one of
     ``chip_smoke.fsdp_controls_plant``'s faults, or of
-    ``tp_controls_plant``'s (the chip script's own controls)."""
-    from chip_smoke import FSDP_CONTROLS, fsdp_controls_plant, tp_controls_plant
+    ``tp_controls_plant``'s (the chip script's own controls).
+    ``keep_state``: the record also holds the trained state, the parameters'
+    shardings and the mesh (for a caller in the same rank; they do not
+    cross a process)."""
+    from chip_smoke import FSDP_CONTROLS, PZ_CONTROLS, fsdp_controls_plant, tp_controls_plant
     from repro_torch.bridge import from_jax
     from repro_torch.dist import collectives as C
     from repro_torch.dist.sharding import Shardings, gather, place
@@ -184,7 +192,8 @@ def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None)
     local = {k: list(v.shape) for k, v in keyed(state.params).items()}
     step = make_train_step(cfg, plan, OptimizerConfig(**OPT), device="cpu", mesh=mesh,
                            grad_shardings=shard)
-    undo = (fsdp_controls_plant(control, cfg) if control is None or control in FSDP_CONTROLS
+    undo = (fsdp_controls_plant(control, cfg)
+            if control is None or control in FSDP_CONTROLS + PZ_CONTROLS
             else tp_controls_plant(control, mesh))
     C.reset_stats()
     losses = []
@@ -196,8 +205,11 @@ def fsdp_train_rank(rank, cfg, plan, shape, np_params, batch_list, control=None)
         undo()
     state_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves((state.params, state.m, state.v)))
-    return {"losses": losses, "params": keyed(gather(state.params, shard)),
-            "calls": dict(C.STATS["calls"]), "local_shapes": local, "state_bytes": state_bytes}
+    out = {"losses": losses, "params": keyed(gather(state.params, shard)),
+           "calls": dict(C.STATS["calls"]), "local_shapes": local, "state_bytes": state_bytes}
+    if keep_state:
+        out.update(state=state, shard=shard, mesh=mesh, full=full)
+    return out
 
 
 def fsdp_control_rank(rank, cfg, plan, shape, np_params, batch_list, control):
@@ -208,7 +220,7 @@ def fsdp_control_rank(rank, cfg, plan, shape, np_params, batch_list, control):
 
 
 def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, seed=80,
-                      jax_run=None, whole=()):
+                      jax_run=None, whole=(), rank_fn=None, rank_args=()):
     """Three steps on the port's ranks and on JAX's fake devices: losses
     within 1e-5, every parameter within 1e-4, every rank's local leaf shapes
     equal to JAX's shard shapes (but the leaves of ``whole``, which the port
@@ -216,8 +228,10 @@ def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, se
     divergences),
     and the ranks' losses equal.  ``jax_run``: JAX's (record, parameters) of
     this case, from a ``jax_cases`` subprocess started with ``batches(cfg,
-    seed)``; by default a subprocess of its own.  Returns the port's rank
-    records and JAX's record."""
+    seed)``; by default a subprocess of its own.  ``rank_fn`` (default
+    ``fsdp_train_rank``) runs each rank, with ``rank_args`` after
+    ``fsdp_train_rank``'s.  Returns the port's rank records and JAX's
+    record."""
     from test_torch_dist_ranks import run_ranks
 
     cfg = port_cfg(arch, replace)
@@ -228,9 +242,9 @@ def check_against_jax(tmp_path, arch, replace, shape, derive, plan_fields, *, se
     batch_list = batches(cfg, seed)
     done = jax_run or jax_steps(tmp_path / "jax", arch, replace, shape, derive, plan_fields,
                                 batch_list)
-    world = shape["data"] * shape["model"]
-    res = run_ranks(fsdp_train_rank, world, tmp_path, cfg, plan, shape,
-                    jax_params(arch, replace, plan.fuse_qkv), batch_list)
+    world = math.prod(shape.values())
+    res = run_ranks(rank_fn or fsdp_train_rank, world, tmp_path, cfg, plan, shape,
+                    jax_params(arch, replace, plan.fuse_qkv), batch_list, *rank_args)
     jx, jp = done()
     assert (jx["remat"], jx["microbatches"], jx["dp_over_model"], jx["zero_weights"],
             jx["embed_shard"], jx["seq_parallel_acts"]) == (
